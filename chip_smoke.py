@@ -1,0 +1,613 @@
+#!/usr/bin/env python3
+"""Smoke run of kalign_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+  1. device and build: the card's name and power limit, then the CUDA
+     kernels and the native tree library built from this checkout;
+  2. edge cases: every hand-written kernel held against its plain
+     PyTorch version on the same CUDA tensors (bitwise / exact), with
+     la = 0 and lb = 0 problems, short and odd-sized inputs;
+  3. the main path: a 2,000-sequence protein family (270-330 residues,
+     made from a seed) aligned with kalign_tpu_torch.align(mode="fast")
+     on the card; the output is checked and every kernel must have
+     launched;
+  4. the same main path once more under torch.profiler: device time by
+     kernel and the device's idle share;
+  5. main-path shapes: every kernel held bitwise against its plain
+     version again, at the shapes and problem lengths the main path gave
+     it (its largest launch, and for the row kernel also its widest),
+     and timed there beside its plain version and its bound;
+  6. the same package on the card and on the CPU, on tests/data/BB30014
+     and a 150-sequence family: identical FASTA, or equal per-merge
+     scores where a near-tie resolved differently;
+  7. one JSON line with every kernel's numbers, the nvidia-smi line, and
+     the last line {"ok": true, "device": {...}}.
+Without a card, or outside a checkout of the repository, it prints no
+result and exits non-zero.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s device memory; 67 TFLOP/s
+# fp32 counts a fused multiply-add as two operations, so plain fp32
+# add/max/compare ops run at 33.5e12/s; integer ALU lanes are half the
+# fp32 lanes (64 per SM): 16.7e12 int32 ops/s, a 64-bit logic op or add
+# costing two of them.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 33.5e12
+INT32_OPS_PER_S = 16.7e12
+# fp32 operations per DP cell of the Gotoh kernels (bias 3, diagonal
+# candidates 4, A 1, GB 4, GA 3, decision compares 4)
+GOTOH_OPS_PER_CELL = 19
+# 64-bit operations per (pair, text symbol, live block) of the BPM kernel
+BPM_OPS_PER_BLOCK_STEP = 17
+
+PROTEIN = "ARNDCQEGHILKMFPSTWYV"
+
+KERNELS = {
+    "gotoh_row": ("kalign_tpu_torch/csrc/gotoh_row.cu",
+                  "kalign_tpu/tpu/gotoh_pallas.py:272 (_kernel :112)"),
+    "gotoh_lanewise": ("kalign_tpu_torch/csrc/gotoh_lanewise.cu",
+                       "kalign_tpu/tpu/gotoh_lanewise.py:357 (_kernel :132)"),
+    "bpm": ("kalign_tpu_torch/csrc/bpm.cu",
+            "kalign_tpu/tpu/bpm_pallas.py:213 (_kernel :80)"),
+    "traceback": ("kalign_tpu_torch/csrc/traceback.cu",
+                  "kalign_tpu/tpu/traceback.py:32 (_walk; XLA, not Pallas)"),
+    "prefix_sum": ("kalign_tpu_torch/csrc/scan.cu",
+                   "kalign_tpu/tpu/gotoh_pallas.py:309 (cumsum feeding "
+                   "_kernel; XLA, not Pallas)"),
+}
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def cuda_time_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean device time of fn() over reps launches (CUDA events)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def timed_once(fn):
+    """(fn(), wall ms) of one call, the card drained before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def family(n: int, seed: int, root_len: int = 300, lo: int = 270,
+           hi: int = 330, clades: int = 16):
+    """A protein family from a seed: a root sequence, clade ancestors with
+    ~12% substitutions and short indels, members with ~8% more; lengths
+    kept within [lo, hi]."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(PROTEIN.encode(), np.uint8)
+
+    def mutate(seq, sub, n_indel):
+        seq = seq.copy()
+        mask = rng.random(len(seq)) < sub
+        seq[mask] = alpha[rng.integers(0, 20, int(mask.sum()))]
+        for _ in range(n_indel):
+            k = int(rng.integers(1, 5))
+            pos = int(rng.integers(0, len(seq)))
+            if rng.random() < 0.5 and len(seq) - k >= lo:
+                seq = np.delete(seq, slice(pos, pos + k))
+            elif len(seq) + k <= hi:
+                seq = np.insert(seq, pos, alpha[rng.integers(0, 20, k)])
+        return seq
+
+    root = alpha[rng.integers(0, 20, root_len)]
+    anc = [mutate(root, 0.12, int(rng.poisson(3))) for _ in range(clades)]
+    out = []
+    for i in range(n):
+        s = mutate(anc[i % clades], 0.08, int(rng.poisson(2)))
+        out.append(s.tobytes().decode())
+    return out
+
+
+# ---------------------------------------------------------------------------
+def phase_device_and_build():
+    import torch
+    smi = nvidia_smi_line()
+    emit({"phase": "device", "nvidia_smi": smi,
+          "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    from kalign_tpu_torch import native
+    from kalign_tpu_torch.gpu import _cuda
+    from kalign_tpu_torch.utils.build import build_log
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        f_cuda = ex.submit(_cuda.library_path)
+        f_tree = ex.submit(native.library_path)
+        cuda_path, tree_path = f_cuda.result(), f_tree.result()
+    secs = time.perf_counter() - t0
+    _cuda.lib()
+    native.lib()
+    ptxas = [ln.strip() for ln in build_log(cuda_path).splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    emit({"phase": "build", "seconds": round(secs, 3),
+          "cuda_lib": os.path.relpath(cuda_path, HERE),
+          "tree_lib": os.path.relpath(tree_path, HERE), "ptxas": ptxas})
+    return smi
+
+
+def dp_problem(rng, L1p, L2p, la, lb, dev):
+    """Random match scores and dyadic penalties for problems of lengths
+    (la, lb) padded to L1p x L2p, centering bias on (eps 1e-3)."""
+    import torch
+    B = len(la)
+    match = rng.standard_normal((B, L1p, L2p), dtype=np.float32) * 3
+    pc = (-rng.integers(16, 96, size=(B, 3, L2p + 1)) / 32).astype(np.float32)
+    pr = (-rng.integers(16, 96, size=(B, 3, L1p + 1)) / 32).astype(np.float32)
+    la = np.asarray(la, np.int32)
+    lb = np.asarray(lb, np.int32)
+    slope = (lb / np.maximum(la, 1)).astype(np.float32)
+    eps = np.full(B, 1e-3, np.float32)
+    t = lambda x: torch.from_numpy(x).to(dev)
+    return dict(match=t(match), pc=t(pc), pr=t(pr), la=t(la), lb=t(lb),
+                slope=t(slope), eps=t(eps), L1p=L1p, L2p=L2p)
+
+
+def dp_args(p):
+    return (p["match"], p["pc"], p["pr"], p["la"], p["lb"], p["slope"],
+            p["eps"])
+
+
+def valid_region_equal(dec_a, dec_b, la, lb):
+    """Decisions equal on every problem's rows < la, columns < lb."""
+    import torch
+    B, L1p, L2p = dec_a.shape
+    rows = torch.arange(L1p, device=dec_a.device)[None, :, None]
+    cols = torch.arange(L2p, device=dec_a.device)[None, None, :]
+    mask = (rows < la[:, None, None]) & (cols < lb[:, None, None])
+    return bool(torch.equal(dec_a[mask], dec_b[mask]))
+
+
+def dec_cells(lanewise, dec, L2p):
+    from kalign_tpu_torch.gpu import gotoh_lanewise
+    return gotoh_lanewise.unpack_dec(dec, L2p) if lanewise else dec
+
+
+# largest |kernel - plain| seen per kernel over every comparison
+MAX_ABS_ERR = {}
+
+
+def hold(name: str, ok: bool, err: float, what: str):
+    """Record a comparison; raise unless the kernel matched."""
+    MAX_ABS_ERR[name] = max(MAX_ABS_ERR.get(name, 0.0), err)
+    if not ok:
+        raise AssertionError(f"{name} {what}: the kernel disagrees with "
+                             f"its plain version (max abs err {err})")
+
+
+def abs_err(a, b) -> float:
+    import torch
+    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+
+def hold_dp_outputs(name, lanewise, a, b, p, what):
+    """Bitwise scores, equal end states and valid-region decisions."""
+    import torch
+    (da, sa, sta), (db, sb, stb) = a, b
+    ok = (torch.equal(sa.view(torch.int32), sb.view(torch.int32))
+          and torch.equal(sta, stb)
+          and valid_region_equal(dec_cells(lanewise, da, p["L2p"]),
+                                 dec_cells(lanewise, db, p["L2p"]),
+                                 p["la"], p["lb"]))
+    hold(name, ok, abs_err(sa, sb), what)
+
+
+def hold_walks(a, b, la, lb, what):
+    """Identical steps and counts; each walk consumes la rows, lb cols."""
+    import torch
+    (sa, na), (sb, nb) = a, b
+    ok = (torch.equal(sa, sb) and torch.equal(na, nb)
+          and torch.equal(((sa == 0) | (sa == 2)).sum(1).int(), la)
+          and torch.equal(((sa == 0) | (sa == 1)).sum(1).int(), lb))
+    hold("traceback", ok, max(abs_err(sa, sb), abs_err(na, nb)), what)
+
+
+def hold_equal(name, a, b, what):
+    import torch
+    hold(name, torch.equal(a, b), abs_err(a, b), what)
+
+
+def phase_edge_cases(dev):
+    """Each kernel against its plain version on small and degenerate
+    inputs (the wrappers' full function, lb == 0 fix-up included)."""
+    import torch
+    from kalign_tpu_torch.gpu import bpm, distances, gotoh_lanewise, \
+        gotoh_row, scan
+    from kalign_tpu_torch.gpu import traceback as tb
+    rng = np.random.default_rng(0)
+
+    # row Gotoh: B=64 at 384 x 384, with la=0 and lb=0 problems
+    la = rng.integers(1, 385, size=64)
+    lb = rng.integers(1, 385, size=64)
+    la[[0, 2]] = 0
+    lb[[1, 2]] = 0
+    p = dp_problem(rng, 384, 384, la, lb, dev)
+    row_k = gotoh_row.forward(*dp_args(p))
+    hold_dp_outputs("gotoh_row", False, row_k,
+                    gotoh_row.forward_plain(*dp_args(p)), p,
+                    "64x384x384 with la=0/lb=0")
+
+    # lanewise Gotoh: B=1024 at 128 x 128, lengths 1..128 and 0
+    la = rng.integers(1, 129, size=1024)
+    lb = rng.integers(1, 129, size=1024)
+    la[[3, 5]] = 0
+    lb[[4, 5]] = 0
+    q = dp_problem(rng, 128, 128, la, lb, dev)
+    lw_k = gotoh_lanewise.forward(*dp_args(q))
+    hold_dp_outputs("gotoh_lanewise", True, lw_k,
+                    gotoh_lanewise.forward_plain(*dp_args(q)), q,
+                    "1024x128x128 with la=0/lb=0")
+
+    # traceback over both decision layouts
+    for walk, plain, r, (dec, _, st) in (
+            (tb.walk_rows, tb.plain_rows, p, row_k),
+            (tb.walk_lanewise, tb.plain_lanewise, q, lw_k)):
+        args = (dec, r["la"], r["lb"], st, r["L1p"] + r["L2p"] + 2)
+        hold_walks(walk(*args), plain(*args), r["la"], r["lb"],
+                   f"{walk.__name__} {tuple(dec.shape)}")
+
+    # prefix sums: strided views, one column, rows past one block
+    x = torch.from_numpy(rng.standard_normal((515, 3, 130),
+                                             dtype=np.float32)).to(dev)
+    for v in (x[:, 1, 1:], x[:, 2, :1], x[:3, 0, :]):
+        hold_equal("prefix_sum", scan.prefix_sum_f32(v), scan.plain(v),
+                   str(tuple(v.shape)))
+
+    # BPM: 2,048 sequences x 32 anchors, lengths 60-1,100 (patterns of
+    # 1-16 blocks, texts longer than 1,024)
+    N = 2048
+    lens = rng.integers(60, 1101, size=N).astype(np.int32)
+    tokens = np.zeros((N, int(lens.max())), np.uint8)
+    for i in range(N):
+        tokens[i, :lens[i]] = rng.integers(0, 13, size=lens[i])
+    anchors = list(range(0, N, N // 32))
+    pairs = distances.PairBatch(tokens, lens, anchors, dev)
+    inp = pairs.inputs(0, pairs.n_pairs)
+    hold_equal("bpm", bpm.bpm_batch(*inp), bpm.plain(*inp),
+               "2048x32, lengths 60-1100")
+    emit({"phase": "edge_cases", "ok": True})
+
+
+# ---------------------------------------------------------------------------
+def counters():
+    from kalign_tpu_torch.gpu import bpm, gotoh_lanewise, gotoh_row, scan
+    from kalign_tpu_torch.gpu import traceback as tb
+    return {"gotoh_row": gotoh_row, "gotoh_lanewise": gotoh_lanewise,
+            "bpm": bpm, "traceback": tb, "prefix_sum": scan}
+
+
+def check_alignment(rows, seqs):
+    if len(rows) != len(seqs):
+        raise AssertionError("row count differs from the input")
+    widths = {len(r) for r in rows}
+    if len(widths) != 1:
+        raise AssertionError(f"rows of unequal width: {sorted(widths)[:5]}")
+    for i, (r, s) in enumerate(zip(rows, seqs)):
+        if r.replace("-", "") != s:
+            raise AssertionError(f"row {i} de-gapped differs from its input")
+    return widths.pop()
+
+
+def phase_main_path():
+    import torch
+    import kalign_tpu_torch
+    seqs = family(2000, seed=0)
+    mods = counters()
+    for m in mods.values():
+        m.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    msa = kalign_tpu_torch.align_msa(seqs, mode="fast")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: m.launches for k, m in mods.items()}
+    rows = msa.aligned_rows()
+    width = check_alignment(rows, seqs)
+    stats = msa.engine_stats
+    emit({"phase": "main_path", "sequences": len(seqs),
+          "lengths": [min(map(len, seqs)), max(map(len, seqs))],
+          "width": width, "wall_s": round(wall, 3),
+          "phase_s": {k: round(v, 3) for k, v in msa.phase_times.items()},
+          "mean_seq_distance": float(np.mean(msa.seq_distances)),
+          "row_merges": stats["row_merges"],
+          "lanewise_merges": stats["lanewise_merges"],
+          "launches": launches, "levels": stats["levels"]})
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing}; buckets per level: "
+                             f"{stats['levels']}")
+    return launches, stats, seqs
+
+
+def phase_profile(seqs):
+    """The main path once more under torch.profiler: device time by
+    kernel, and the device's busy share of the run's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import kalign_tpu_torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kalign_tpu_torch.align_msa(seqs, mode="fast")
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # device-side entries only (kernels and copies): an operator's
+    # device time is also listed under the kernels it launched
+    rows = sorted(((e.key, dev_us(e), e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                  key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in rows)
+    if busy_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    emit({"phase": "profile", "wall_s": round(wall_us / 1e6, 3),
+          "device_busy_s": round(busy_us / 1e6, 4),
+          "device_idle_share": round(1.0 - busy_us / wall_us, 4),
+          "top": [{"name": k[:80], "device_ms": round(us / 1e3, 3),
+                   "calls": c} for k, us, c in rows[:12]]})
+
+
+def bound(bytes_, ops, ops_per_s):
+    """(bound ms, what bounds it) of a function moving bytes_ and doing
+    ops operations at ops_per_s."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gotoh_bound(p, dec_bytes_per_cell):
+    """The cells this run's problems need (la x lb each): a match read and
+    a decision write per cell, the penalties of their rows and columns,
+    and GOTOH_OPS_PER_CELL fp32 operations per cell."""
+    la = p["la"].cpu().numpy().astype(np.int64)
+    lb = p["lb"].cpu().numpy().astype(np.int64)
+    cells = float(np.sum(la * lb))
+    bytes_ = (cells * (4 + dec_bytes_per_cell) + float(np.sum(la + lb)) * 12
+              + len(la) * 8)
+    return bound(bytes_, cells * GOTOH_OPS_PER_CELL, FP32_OPS_PER_S)
+
+
+def hold_dp(name, mod, lanewise, p, reps):
+    """Kernel vs plain DP on the same prepared inputs: bitwise, then the
+    kernel timed over reps launches and the plain version once."""
+    prep = mod.prepare(p["pc"], p["pr"], p["la"], p["lb"], p["slope"],
+                       p["eps"])
+    args = (p["match"], prep, p["la"], p["lb"])
+    out = mod.launch(*args)
+    ref, plain_ms = timed_once(lambda: mod.plain(*args))
+    hold_dp_outputs(name, lanewise, out, ref, p,
+                    f"{len(p['la'])}x{p['L1p']}x{p['L2p']}")
+    ms = cuda_time_ms(lambda: mod.launch(*args), reps=reps)
+    return out, ms, plain_ms
+
+
+def phase_main_shapes(dev, stats, seqs):
+    """Each kernel at the shapes and lengths the main path gave it."""
+    import torch
+    from kalign_tpu_torch import engine as E
+    from kalign_tpu_torch.core import alphabet as alpha
+    from kalign_tpu_torch.core.msa import Msa
+    from kalign_tpu_torch.gpu import bpm, distances, gotoh_lanewise, \
+        gotoh_row, scan
+    from kalign_tpu_torch.gpu import traceback as tb
+    rng = np.random.default_rng(1)
+    out = {}
+
+    def batch(lanewise, key):
+        cands = [b for b in stats["batches"] if b["lanewise"] == lanewise]
+        return max(cands, key=key)
+
+    def cells(b):
+        return int(np.sum(b["la"].astype(np.int64) * b["lb"]))
+
+    def problem(b):
+        return dp_problem(rng, b["L1p"], b["L2p"], b["la"], b["lb"], dev)
+
+    # row kernel: its largest launch (by the cells its lengths need),
+    # timed; its widest launch, held only
+    p = problem(batch(False, cells))
+    row_out, ms, plain_ms = hold_dp("gotoh_row", gotoh_row, False, p, 20)
+    out["gotoh_row"] = dict(ms=ms, plain_ms=plain_ms,
+                            shape=f"{len(p['la'])}x{p['L1p']}x{p['L2p']}")
+    out["gotoh_row"]["bound_ms"], out["gotoh_row"]["bound_by"] = \
+        gotoh_bound(p, 1)
+    wide = batch(False, lambda b: (b["L2p"], b["L1p"]))
+    pw = problem(wide)
+    hold_dp("gotoh_row", gotoh_row, False, pw, 1)
+    out["gotoh_row"]["also_held"] = \
+        f"{len(pw['la'])}x{pw['L1p']}x{pw['L2p']}"
+    emit({"phase": "main_shape", "kernel": "gotoh_row", **out["gotoh_row"]})
+
+    # lanewise kernel: the main path's 1,024-problem leaf bucket
+    q = problem(batch(True, cells))
+    lw_out, ms, plain_ms = hold_dp("gotoh_lanewise", gotoh_lanewise, True,
+                                   q, 10)
+    out["gotoh_lanewise"] = dict(
+        ms=ms, plain_ms=plain_ms,
+        shape=f"{len(q['la'])}x{q['L1p']}x{q['L2p']}")
+    out["gotoh_lanewise"]["bound_ms"], out["gotoh_lanewise"]["bound_by"] = \
+        gotoh_bound(q, 0.5)
+    emit({"phase": "main_shape", "kernel": "gotoh_lanewise",
+          **out["gotoh_lanewise"]})
+
+    # traceback: walks of the two buckets' decisions
+    ms = plain_ms = bytes_ = 0.0
+    for walk, plain, r, (dec, _, st) in (
+            (tb.walk_rows, tb.plain_rows, p, row_out),
+            (tb.walk_lanewise, tb.plain_lanewise, q, lw_out)):
+        args = (dec, r["la"], r["lb"], st, r["L1p"] + r["L2p"] + 2)
+        got = walk(*args)
+        ref, t_plain = timed_once(lambda: plain(*args))
+        hold_walks(got, ref, r["la"], r["lb"],
+                   f"{walk.__name__} at the main path's shape")
+        ms += cuda_time_ms(lambda: walk(*args), reps=20)
+        plain_ms += t_plain
+        # one decision byte read per step, the step rows written, and
+        # la, lb, the end state and n
+        bytes_ += int(got[1].sum()) + got[0].numel() + len(r["la"]) * 16
+    b_ms, b_by = bound(bytes_, 0, FP32_OPS_PER_S)
+    out["traceback"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by,
+                            shape=f"{out['gotoh_row']['shape']} rows + "
+                                  f"{out['gotoh_lanewise']['shape']} "
+                                  "lanewise")
+    emit({"phase": "main_shape", "kernel": "traceback", **out["traceback"]})
+
+    # prefix sums: the row-side terminal-gap run of the leaf bucket, as
+    # gotoh_lanewise.prepare takes it (a strided view)
+    x = q["pr"][:, 2, 1:]
+    got = scan.prefix_sum_f32(x)
+    ref, plain_ms = timed_once(lambda: scan.plain(x))
+    hold_equal("prefix_sum", got, ref, "at the main path's shape")
+    ms = cuda_time_ms(lambda: scan.launch(x), reps=50)
+    lib_ms = cuda_time_ms(lambda: torch.cumsum(x, dim=1), reps=50)
+    b_ms, b_by = bound(x.numel() * 8, x.numel(), FP32_OPS_PER_S)
+    out["prefix_sum"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             shape=f"{x.shape[0]}x{x.shape[1]}")
+    emit({"phase": "main_shape", "kernel": "prefix_sum",
+          **out["prefix_sum"]})
+
+    # BPM at the main path's N x 32 pairs
+    msa = Msa.from_sequences(list(seqs))
+    msa.quiet = True
+    msa.sort_len_name()
+    msa.encode(alpha.ALPHA_REDUCED_PROTEIN)
+    anchors = E.pick_anchors(msa)
+    codes = [sq.s for sq in msa.sequences]
+    lens = np.array([len(c) for c in codes], np.int32)
+    tokens = np.zeros((len(codes), int(lens.max())), np.uint8)
+    for i, c in enumerate(codes):
+        tokens[i, :len(c)] = c
+    pairs = distances.PairBatch(tokens, lens, anchors, dev)
+    inp = pairs.inputs(0, pairs.n_pairs)
+    got = bpm.launch(*inp)
+    (ref, work), plain_ms = timed_once(
+        lambda: bpm.plain(*inp, count_work=True))
+    hold_equal("bpm", got, ref, "at the main path's pairs")
+    ms = cuda_time_ms(lambda: bpm.launch(*inp), reps=20)
+    b_ms, b_by = bound(int(lens.sum()) + inp[3].numel() * 8
+                       + len(inp[1]) * 16,
+                       work * BPM_OPS_PER_BLOCK_STEP * 2, INT32_OPS_PER_S)
+    out["bpm"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                      shape=f"{len(codes)}x{len(anchors)} pairs")
+    emit({"phase": "main_shape", "kernel": "bpm", **out["bpm"]})
+    return out
+
+
+def phase_gpu_vs_cpu():
+    from kalign_tpu_torch import engine as E
+    from kalign_tpu_torch.core import io as kio
+    from kalign_tpu_torch.core.msa import Msa
+    cases = [("BB30014", lambda: kio.read_alignment(
+        os.path.join(HERE, "tests", "data", "BB30014.tfa"))),
+             ("family150", lambda: Msa.from_sequences(family(150, seed=1)))]
+    for name, make in cases:
+        outs = {}
+        for d in ("cuda", "cpu"):
+            msa = make()
+            msa.quiet = True
+            msa = E.align_msa(msa, consistency_anchors=0, device=d)
+            outs[d] = (kio.format_alignment(msa, "fasta"),
+                       np.asarray(msa.task_confidence, np.float64))
+        same = outs["cuda"][0] == outs["cpu"][0]
+        c_gpu, c_cpu = outs["cuda"][1], outs["cpu"][1]
+        rel = np.abs(c_gpu - c_cpu) / np.maximum(1.0, np.abs(c_cpu))
+        emit({"phase": "gpu_vs_cpu", "case": name, "identical_fasta": same,
+              "merges": int(len(c_cpu)),
+              "merges_with_other_score": int((c_gpu != c_cpu).sum()),
+              "max_rel_score_diff": float(rel.max()) if len(rel) else 0.0})
+        if not same and rel.max() > 1e-5:
+            raise AssertionError(f"{name}: GPU and CPU alignments differ "
+                                 "with unequal merge scores")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    if not os.path.exists(os.path.join(HERE, "kalign_tpu_torch",
+                                       "__init__.py")):
+        print("chip_smoke: run from a checkout of the repository "
+              "(kalign_tpu_torch/ not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    smi = phase_device_and_build()
+    phase_edge_cases(dev)
+    launches, stats, seqs = phase_main_path()
+    phase_profile(seqs)
+    shapes = phase_main_shapes(dev, stats, seqs)
+    phase_gpu_vs_cpu()
+    kernels = []
+    for name, (src, replaces) in KERNELS.items():
+        t = shapes[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": MAX_ABS_ERR[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms"), "shape": t["shape"]})
+    print(json.dumps({"kernels": kernels}))
+    print(f"total_s {time.perf_counter() - t_start:.1f}", file=sys.stderr)
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

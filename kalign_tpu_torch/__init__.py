@@ -1,0 +1,17 @@
+"""kalign_tpu_torch — the PyTorch/CUDA port of kalign_tpu.
+
+Progressive multiple sequence alignment (Kalign 3 semantics) with its
+hot path on an NVIDIA Hopper GPU: anchor distances through a
+hand-written bit-parallel (Myers) kernel, the native guide-tree builder,
+and level-batched Gotoh merges through hand-written row and
+problem-per-lane kernels with the traceback walked on the card.
+
+This release runs ``--fast`` mode (no consistency, no refinement).  It
+imports nothing of JAX or of kalign_tpu: kalign_tpu stays the reference
+its tests compare against.
+"""
+
+from kalign_tpu_torch.version import __version__
+from kalign_tpu_torch.api import align, align_msa
+
+__all__ = ["__version__", "align", "align_msa"]

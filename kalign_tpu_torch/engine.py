@@ -1,0 +1,165 @@
+"""Pipeline driver: ties the data model to the GPU engine.
+
+Counterpart of kalign_tpu/engine.py (align_msa :281-434) for the
+``--fast`` mode of the reference's kalign_run_seeded
+(lib/src/aln_wrap.c:133-537):
+
+  input check -> dealign -> sort len/name -> encode reduced -> anchors
+  -> anchor distances -> guide tree -> encode full -> params
+  -> progressive align -> finalise -> restore rank order
+
+Engine "gpu-fast" (gpu/engine.py): hand-written CUDA kernels on the
+card, level-batched merges; score-optimal per merge, may differ from the
+reference's Hirschberg midpoints on near-ties.  The entry points run on
+``cuda`` unless the caller passes ``device="cpu"``, which runs every
+kernel's plain PyTorch version instead; without a card they raise.
+"""
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from kalign_tpu_torch.core import alphabet as alpha
+from kalign_tpu_torch.core import params as P
+from kalign_tpu_torch.core.msa import (ALN_STATUS_ALIGNED, BIOTYPE_DNA,
+                                       BIOTYPE_PROTEIN, Msa)
+from kalign_tpu_torch.utils.logging import PhaseTimes, log, timer
+from kalign_tpu_torch.utils.sorting import glibc_msort
+
+ENGINES = ("gpu-fast",)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` by default; a CUDA device without a card raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: kalign_tpu_torch runs on "
+                           "a GPU (pass device='cpu' to run the plain "
+                           "PyTorch versions of its kernels)")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def pick_anchors(msa: Msa) -> List[int]:
+    """Length-stride anchor selection (``pick_anchor.c:17-72``): sort ids
+    by length descending (glibc qsort tie behavior), take every
+    numseq/num_anchor-th."""
+    n = msa.numseq
+    num_anchor = min(32, n)
+    order = glibc_msort(list(range(n)),
+                        lambda x, y: -1 if msa.sequences[x].len >
+                        msa.sequences[y].len else 1)
+    stride = n // num_anchor
+    return [order[i * stride] for i in range(num_anchor)]
+
+
+def get_engine(name: str = "gpu-fast", device=None):
+    if name not in ENGINES:
+        raise ValueError(f"unknown engine {name!r} (have {ENGINES})")
+    from kalign_tpu_torch.gpu.engine import GpuEngine
+    return GpuEngine(resolve_device(device))
+
+
+def _encoded(msa: Msa, kind: int):
+    msa.encode(kind)
+    return [sq.s for sq in msa.sequences]
+
+
+def resolve_params(msa: Msa, type_: int, gpo: float, gpe: float,
+                   tgpe: float, n_threads: int) -> P.AlnParam:
+    type_ = P.resolve_pfasum_auto(type_, msa.biotype,
+                                  [sq.len for sq in msa.sequences])
+    return P.aln_param_init(msa.biotype, type_, gpo, gpe, tgpe, n_threads)
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not available in kalign_tpu_torch "
+                              "yet (only --fast mode is)")
+
+
+def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
+              gpo: float = -1.0, gpe: float = -1.0, tgpe: float = -1.0,
+              refine: int = P.REFINE_NONE, adaptive_budget: int = 0,
+              tree_seed: int = 0, tree_noise: float = 0.0,
+              dist_scale: float = 0.0, vsm_amax: float = -1.0,
+              use_seq_weights: float = -1.0,
+              consistency_anchors: int = 0, consistency_weight: float = 2.0,
+              realign: int = 0,
+              engine: str = "gpu-fast",
+              save_checkpoint: Optional[str] = None,
+              resume_checkpoint: Optional[str] = None,
+              device=None) -> Msa:
+    """Full --fast alignment pipeline.  Options of the reference pipeline
+    that this package does not run yet raise NotImplementedError."""
+    if consistency_anchors > 0:
+        _not_ported("anchor consistency (default mode)")
+    if refine != P.REFINE_NONE:
+        _not_ported("refinement")
+    if realign > 0:
+        _not_ported("realignment")
+    if save_checkpoint is not None or resume_checkpoint is not None:
+        _not_ported("checkpointing")
+    if tree_noise > 0.0:
+        _not_ported("guide-tree noise")
+    eng = get_engine(engine, device)
+    quiet = msa.quiet
+
+    msa.essential_input_check()
+    if msa.aligned != 1:  # ALN_STATUS_UNALIGNED
+        msa.dealign()
+    msa.sort_len_name()
+
+    if msa.biotype == BIOTYPE_DNA:
+        log("Detected DNA sequences.", quiet)
+        _encoded(msa, alpha.ALPHA_DEFAULT_DNA)
+    elif msa.biotype == BIOTYPE_PROTEIN:
+        log("Detected protein sequences.", quiet)
+        _encoded(msa, alpha.ALPHA_REDUCED_PROTEIN)
+    else:
+        raise ValueError("Unable to determine what alphabet to use.")
+
+    phases = PhaseTimes()
+    log("Calculating pairwise distances", quiet)
+    with timer("Distances + guide tree", quiet):
+        anchors = pick_anchors(msa)
+        codes = [sq.s for sq in msa.sequences]
+        with phases.phase("distances"):
+            dm = eng.anchor_distances(codes, anchors)
+        with phases.phase("tree"):
+            tasks, seq_dist = eng.build_tree(codes, dm, len(anchors))
+    msa.seq_distances = seq_dist
+    # the JAX engine routes divergent families to its bit-exact engine;
+    # that engine has no counterpart here yet
+    mean_sd = float(np.mean(np.asarray(seq_dist, np.float64)))
+    if mean_sd > 0.5:
+        log(f"Divergent family (mean distance {mean_sd:.2f}): the exact "
+            "engine is not available, aligning with gpu-fast", quiet)
+
+    if msa.biotype == BIOTYPE_PROTEIN:
+        _encoded(msa, alpha.ALPHA_AMBIGUOUS_PROTEIN)
+
+    ap = resolve_params(msa, type_, gpo, gpe, tgpe, n_threads)
+    ap.adaptive_budget = adaptive_budget
+    if use_seq_weights >= 0.0:
+        ap.use_seq_weights = use_seq_weights
+    if dist_scale > 0.0:
+        ap.dist_scale = dist_scale
+    if vsm_amax >= 0.0:
+        ap.vsm_amax = vsm_amax
+
+    codes = [sq.s for sq in msa.sequences]
+    log("Aligning", quiet)
+    with timer("Alignment", quiet), phases.phase("progressive"):
+        gaps, conf = eng.align(codes, tasks, ap, msa.seq_distances)
+    for sq, g in zip(msa.sequences, gaps):
+        sq.gaps = g
+    msa.aligned = ALN_STATUS_ALIGNED
+
+    msa.finalise()
+    msa.sort_rank()
+    msa.task_confidence = conf
+    msa.engine_stats = eng.stats
+    msa.phase_times = dict(phases)
+    return msa

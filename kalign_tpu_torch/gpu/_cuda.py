@@ -1,0 +1,103 @@
+"""Build and bind the package's CUDA kernels (kalign_tpu_torch/csrc).
+
+The kernels compile with nvcc for Hopper (sm_90a) into one shared
+library with a plain C interface, loaded with ctypes: every entry point
+takes raw device pointers and the current stream and returns
+cudaGetLastError(), which ``check`` turns into an exception.  The build
+happens at the first launch, never at import (the CPU test suite imports
+every module), under the lock of utils/build.py.
+
+-fmad=false is part of the float contract: no multiply feeding an add
+may contract into an FMA, or the kernels would round differently from
+their plain PyTorch versions.
+"""
+
+import ctypes
+import os
+import shutil
+from functools import lru_cache
+
+import torch
+
+from kalign_tpu_torch.utils.build import build_library
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "csrc")
+SOURCES = [os.path.join(CSRC, f) for f in
+           ("gotoh_row.cu", "gotoh_lanewise.cu", "traceback.cu", "bpm.cu",
+            "scan.cu", "errors.cu")]
+HEADERS = [os.path.join(CSRC, "kt_cuda.h")]
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_p = ctypes.c_void_p
+_i = ctypes.c_int
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the kalign_tpu_torch CUDA kernels")
+
+
+def library_path() -> str:
+    cc = nvcc()
+    return build_library(
+        "libkt_cuda", SOURCES, HEADERS,
+        compile_cmd=lambda src, obj: [cc, *NVCC_FLAGS, "-I", CSRC, "-c",
+                                      "-o", obj, src],
+        link_cmd=lambda objs, out: [cc, "-shared", "-gencode",
+                                    "arch=compute_90a,code=sm_90a", "-o",
+                                    out, *objs],
+        flags=[cc, *NVCC_FLAGS])
+
+
+@lru_cache(maxsize=1)
+def lib() -> ctypes.CDLL:
+    L = ctypes.CDLL(library_path())
+    L.kt_cuda_error_string.restype = ctypes.c_char_p
+    L.kt_cuda_error_string.argtypes = [_i]
+    L.kt_gotoh_row_smem_bytes.restype = ctypes.c_size_t
+    L.kt_gotoh_row_smem_bytes.argtypes = [_i]
+    L.kt_gotoh_row_forward.restype = _i
+    L.kt_gotoh_row_forward.argtypes = [_p] * 8 + [_i] * 3 + [_p] * 4
+    L.kt_gotoh_lanewise_forward.restype = _i
+    L.kt_gotoh_lanewise_forward.argtypes = [_p] * 9 + [_i] * 3 + [_p] * 5
+    L.kt_traceback.restype = _i
+    L.kt_traceback.argtypes = [_i] + [_p] * 4 + [_i] * 4 + [_p] * 3
+    L.kt_bpm_batch.restype = _i
+    L.kt_bpm_batch.argtypes = [_p, ctypes.c_int64, _p, _p, _p, _p, _i, _i,
+                               _p, _p]
+    L.kt_prefix_sum_f32.restype = _i
+    L.kt_prefix_sum_f32.argtypes = [_p, ctypes.c_longlong, _i, _i, _p, _p]
+    return L
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib().kt_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Kernel inputs must be contiguous tensors on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or not t.is_cuda:
+            raise ValueError(f"{name}: all inputs must be on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")

@@ -1,0 +1,228 @@
+"""Row Gotoh forward: the batched affine-gap DP, one DP row per step.
+
+Kernel: csrc/gotoh_row.cu (replaces the TPU kernel
+kalign_tpu/tpu/gotoh_pallas.py::_kernel, gotoh_forward_pallas:272).  The
+note at the top of the CUDA source gives its design and what bounds it.
+
+``forward`` launches the kernel for CUDA tensors and runs ``plain`` — the
+same arithmetic in PyTorch, one row at a time — for CPU tensors.  Both
+take the row-invariant vectors from one function, ``prepare``: the
+prefix sums of the scan transform are computed once, left to right in
+float32 (``scan.prefix_sum_f32``, on the tensors' device), so kernel and
+plain version, on any device, see identical vectors and agree bitwise (a
+prefix max is exact in any order).
+
+Layouts follow gotoh_forward_pallas: match [B, L1p, L2p] f32 (L1p, L2p
+multiples of 128), pens_cols [B, 3, L2p+1], pens_rows [B, 3, L1p+1]
+(go/ge/tge, 1-based, negative), la/lb [B] int32, slope/bias_eps [B] f32
+(centering bias |j*eps - i*(slope*eps)| subtracted from match[i-1, j-1]).
+Returns dec [B, L1p, L2p] int8 (row r = DP row r+1, column c = DP column
+c+1; only rows < la are written by the kernel), score [B] f32 and end
+state [B] int32.
+"""
+
+import torch
+
+from kalign_tpu_torch.gpu import _cuda
+from kalign_tpu_torch.gpu.scan import prefix_sum_f32
+
+NEG = -3.0e38
+SMEM_LIMIT = 232448        # dynamic shared memory a Hopper block may use
+COL_QUANTUM = 128          # L2p must be a multiple of the block's threads
+
+launches = 0
+
+
+def prepare(pens_cols, pens_rows, la, lb, slope, bias_eps):
+    """Row-invariant vectors (gotoh_pallas.py:302-344) for the kernel and
+    its plain version."""
+    B = pens_cols.shape[0]
+    W = pens_cols.shape[2] - 1
+    L1p = pens_rows.shape[2] - 1
+    dev = pens_cols.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    goB = pens_cols[:, 0, 1:]
+    geB = pens_cols[:, 1, 1:]
+    tgeB = pens_cols[:, 2, 1:]
+    C_norm = prefix_sum_f32(geB)
+    C_term = prefix_sum_f32(tgeB)
+    pad1 = torch.zeros((B, 1), **f32)
+    goB_next = torch.cat([goB[:, 1:], pad1], dim=1)        # goB[j+1]
+    tgeB_next = torch.cat([tgeB[:, 1:], pad1], dim=1)
+    cols = torch.arange(1, W + 1, device=dev)[None, :]
+    ga0 = torch.where(cols <= lb[:, None], C_term,
+                      torch.full((), NEG, **f32)).contiguous()
+    goB_s = torch.cat([pad1, goB[:, :W - 1]], dim=1)       # goB[j-1]
+    C_norm_next = torch.cat([C_norm[:, 1:], pad1], dim=1)
+    C_term_next = torch.cat([C_term[:, 1:], pad1], dim=1)
+    gnC_norm = goB_next - C_norm_next
+    gnC_term = tgeB_next - C_term_next
+    colpen = torch.stack([C_norm, C_term, gnC_norm, gnC_term, goB_s],
+                         dim=0).contiguous()               # [5, B, W]
+
+    goA = pens_rows[:, 0, :]
+    geA = pens_rows[:, 1, :]
+    tgeA = pens_rows[:, 2, :]
+    cum_tgeA = prefix_sum_f32(tgeA[:, 1:])            # [B, L1p]
+    gb0 = torch.cat([torch.full((B, 1), NEG, **f32), cum_tgeA[:, :L1p - 1]],
+                    dim=1)                                 # GB[row-1, 0]
+    rowpen = torch.stack([goA[:, 1:], geA[:, 1:], tgeA[:, 1:],
+                          goA[:, :L1p], gb0], dim=2).contiguous()  # [B, L1p, 5]
+
+    slope_eps = slope * bias_eps
+    cols_eps = (cols.to(torch.float32) * bias_eps[:, None]).contiguous()
+    rows_f = torch.arange(1, L1p + 1, device=dev).to(torch.float32)
+    row_term = (rows_f[None, :] * slope_eps[:, None]).contiguous()
+    lb0_score = torch.cat([torch.zeros((B, 1), **f32), cum_tgeA],
+                          dim=1).gather(1, la[:, None].long())[:, 0]
+    return dict(colpen=colpen, ga0=ga0, rowpen=rowpen, cols_eps=cols_eps,
+                row_term=row_term, lb0_score=lb0_score)
+
+
+def plain(match, prep, la, lb):
+    """The kernel's arithmetic in PyTorch, vectorised over [B, L2p]."""
+    B, L1p, W = match.shape
+    dev = match.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    C_norm, C_term, gnC_norm, gnC_term, goB_s = prep["colpen"]
+    rowpen = prep["rowpen"]
+    cols = torch.arange(1, W + 1, device=dev)[None, :]
+    is_term_col = cols == lb[:, None]
+    can_open = cols < lb[:, None]
+    neg = torch.full((), NEG, **f32)
+    negc = torch.full((B, 1), NEG, **f32)
+    A = torch.full((B, W), NEG, **f32)
+    GA = prep["ga0"].clone()
+    GB = torch.full((B, W), NEG, **f32)
+    dec = torch.zeros((B, L1p, W), dtype=torch.int8, device=dev)
+    for r in range(L1p):
+        row = r + 1
+        goA_i = rowpen[:, r, 0:1]
+        geA_i = rowpen[:, r, 1:2]
+        tgeA_i = rowpen[:, r, 2:3]
+        goA_prev = rowpen[:, r, 3:4]
+        gb0_prev = rowpen[:, r, 4:5]
+        m = match[:, r, :]
+        m = m - torch.abs(prep["cols_eps"] - prep["row_term"][:, r:r + 1])
+        a0 = torch.full((B, 1), 0.0 if row == 1 else NEG, **f32)
+        diagA = torch.cat([a0, A[:, :-1]], dim=1)
+        diagGA = torch.cat([negc, GA[:, :-1]], dim=1) + goB_s
+        diagGB = torch.cat([gb0_prev, GB[:, :-1]], dim=1) + goA_prev
+        best01 = torch.maximum(diagA, diagGA)
+        A_row = torch.maximum(best01, diagGB) + m
+
+        ge_eff = torch.where(is_term_col, tgeA_i, geA_i)
+        go_eff = torch.where(is_term_col, tgeA_i, goA_i)
+        gb_e = GB + ge_eff
+        gb_o = A + go_eff
+        GB_row = torch.maximum(gb_e, gb_o)
+
+        last = (la == row)[:, None]
+        C = torch.where(last, C_term, C_norm)
+        gnC = torch.where(last, gnC_term, gnC_norm)
+        u = torch.where(can_open, A_row + gnC, neg)
+        cm = torch.cummax(u, dim=1).values
+        cm_s = torch.cat([negc, cm[:, :-1]], dim=1)
+        u_s = torch.cat([negc, u[:, :-1]], dim=1)
+        GA_row = cm_s + C
+
+        d = torch.where(diagGB >= best01, 2, torch.where(diagGA >= diagA, 1, 0))
+        d = d | torch.where(cm_s > u_s, 4, 0) | torch.where(gb_e > gb_o, 8, 0)
+        dec[:, r, :] = d.to(torch.int8)
+
+        valid = (row <= la)[:, None]
+        A = torch.where(valid, A_row, A)
+        GA = torch.where(valid, GA_row, GA)
+        GB = torch.where(valid, GB_row, GB)
+
+    idx = (lb.long() - 1).clamp(min=0, max=W - 1)[:, None]
+    in_range = (lb >= 1) & (lb <= W)
+
+    def pick(x):
+        return torch.where(in_range,
+                           torch.maximum(x.gather(1, idx)[:, 0], neg), neg)
+
+    ea, ega, egb = pick(A), pick(GA), pick(GB)
+    score = torch.maximum(torch.maximum(ea, ega), egb)
+    state = torch.where(ega > ea, torch.where(egb > ega, 2, 1),
+                        torch.where(egb > ea, 2, 0)).to(torch.int32)
+    return dec, score, state
+
+
+def launch(match, prep, la, lb):
+    """Launch csrc/gotoh_row.cu on CUDA tensors."""
+    global launches
+    match = match.contiguous()
+    B, L1p, W = match.shape
+    if W % COL_QUANTUM:
+        raise ValueError(f"row Gotoh kernel: L2p={W} is not a multiple of "
+                         f"{COL_QUANTUM}")
+    lib = _cuda.lib()
+    smem = lib.kt_gotoh_row_smem_bytes(W)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"row Gotoh kernel: L2p={W} needs {smem} bytes of "
+                         f"shared memory, above the {SMEM_LIMIT} a block "
+                         "may use")
+    _cuda.require_cuda("gotoh_row", match, prep["colpen"], prep["ga0"],
+                       prep["rowpen"], prep["cols_eps"], prep["row_term"],
+                       la, lb)
+    dev = match.device
+    dec = torch.empty((B, L1p, W), dtype=torch.int8, device=dev)
+    score = torch.empty(B, dtype=torch.float32, device=dev)
+    state = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return dec, score, state
+    rc = lib.kt_gotoh_row_forward(
+        match.data_ptr(), *(prep[k].data_ptr() for k in (
+            "colpen", "ga0", "rowpen", "cols_eps", "row_term")),
+        la.data_ptr(), lb.data_ptr(), B, L1p, W, dec.data_ptr(),
+        score.data_ptr(), state.data_ptr(), _cuda.stream())
+    _cuda.check(rc, "gotoh_row")
+    launches += 1
+    return dec, score, state
+
+
+def default_bias(la, slope, bias_eps):
+    zeros = torch.zeros(la.shape[0], dtype=torch.float32, device=la.device)
+    return (zeros if slope is None else slope,
+            zeros if bias_eps is None else bias_eps)
+
+
+def fix_lb0(score, state, prep, lb):
+    """Degenerate lb == 0: the path is one terminal column-0 gap run."""
+    is_lb0 = lb == 0
+    score = torch.where(is_lb0, prep["lb0_score"], score)
+    state = torch.where(is_lb0, torch.full_like(state, 2), state)
+    return score, state
+
+
+def run_dp(prepare_fn, dp_fn, match, pens_cols, pens_rows, la, lb, slope,
+           bias_eps):
+    """prepare -> DP (kernel or plain version) -> lb == 0 fix-up."""
+    slope, bias_eps = default_bias(la, slope, bias_eps)
+    prep = prepare_fn(pens_cols, pens_rows, la, lb, slope, bias_eps)
+    dec, score, state = dp_fn(match, prep, la, lb)
+    score, state = fix_lb0(score, state, prep, lb)
+    return dec, score, state
+
+
+def pick_dp(name, match, launch_fn, plain_fn):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if match.is_cuda:
+        return launch_fn
+    if match.device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"{name}: unsupported device {match.device}")
+
+
+def forward(match, pens_cols, pens_rows, la, lb, slope=None, bias_eps=None):
+    """Kernel on CUDA tensors, plain version on CPU tensors."""
+    return run_dp(prepare, pick_dp("gotoh_row", match, launch, plain), match,
+                  pens_cols, pens_rows, la, lb, slope, bias_eps)
+
+
+def forward_plain(match, pens_cols, pens_rows, la, lb, slope=None,
+                  bias_eps=None):
+    """The plain version on any device (kernel comparisons on the card)."""
+    return run_dp(prepare, plain, match, pens_cols, pens_rows, la, lb, slope,
+                  bias_eps)

@@ -1,0 +1,138 @@
+"""Traceback walk over the forward kernels' decision matrices.
+
+Kernel: csrc/traceback.cu (replaces the device walk of
+kalign_tpu/tpu/traceback.py: _walk :32, traceback_batch :114,
+traceback_lanewise :128, which is XLA there, not Pallas).  Walking on the
+card keeps a level's decision matrices in device memory; only the step
+lists come back.
+
+``walk_rows`` reads the row kernel's int8 [B, L1p, L2p] layout,
+``walk_lanewise`` the lanewise kernel's [L1p, L2p/8, B] nibble words.
+Both return steps [B, max_steps] int8 in forward order padded with 3
+(0 = match, 1 = gap in the rows, 2 = gap in the columns) and n [B] int32.
+CUDA tensors launch the kernel; CPU tensors run ``plain``, the same walk
+vectorised over the batch in PyTorch.
+"""
+
+import torch
+
+from kalign_tpu_torch.gpu import _cuda
+
+DEC_A_MASK = 3
+DEC_GA_EXT = 4
+DEC_GB_EXT = 8
+STEP_PAD = 3
+PACK = 8
+
+launches = 0
+
+
+def _fetch_rows(dec):
+    bidx = torch.arange(dec.shape[0], device=dec.device)
+
+    def fetch(r, c):
+        return dec[bidx, r, c].to(torch.int64) & 0xFF
+    return fetch
+
+
+def _fetch_lanewise(dec):
+    bidx = torch.arange(dec.shape[2], device=dec.device)
+
+    def fetch(r, c):
+        w = dec[r, c // PACK, bidx].to(torch.int64) & 0xFFFFFFFF
+        return (w >> (4 * (c % PACK))) & 0xF
+    return fetch
+
+
+def plain(fetch, la, lb, st, max_steps: int):
+    """_walk (kalign_tpu/tpu/traceback.py:32-110) vectorised over the
+    batch: the degenerate guards and the DP-column-0 rule included."""
+    dev = la.device
+    B = la.shape[0]
+    i = la.to(torch.int64)
+    j = lb.to(torch.int64)
+    s = st.to(torch.int64)
+    n = torch.zeros(B, dtype=torch.int64, device=dev)
+    rev = torch.full((B, max_steps), STEP_PAD, dtype=torch.int64, device=dev)
+    bidx = torch.arange(B, device=dev)
+    for _ in range(max_steps):
+        active = ((i > 0) | (j > 0)) & (n < max_steps)
+        if not bool(active.any()):
+            break
+        d = fetch(torch.clamp(i - 1, min=0), torch.clamp(j - 1, min=0))
+        d = torch.where(j > 0, d, torch.where(i > 1, DEC_GB_EXT, 0))
+        s = torch.where((s == 0) & ((i == 0) | (j == 0)),
+                        torch.where(j > 0, 1, 2), s)
+        s = torch.where((s == 1) & (j == 0), 2, s)
+        s = torch.where((s == 2) & (i == 0), 1, s)
+        rev[bidx[active], n[active]] = s[active]
+        in_a = s == 0
+        in_ga = s == 1
+        in_gb = s == 2
+        ni = torch.where(in_a | in_gb, i - 1, i)
+        nj = torch.where(in_a | in_ga, j - 1, j)
+        ns = torch.where(in_a, d & DEC_A_MASK,
+                         torch.where(in_ga,
+                                     torch.where((d & DEC_GA_EXT) != 0, 1, 0),
+                                     torch.where((d & DEC_GB_EXT) != 0, 2, 0)))
+        i = torch.where(active, ni, i)
+        j = torch.where(active, nj, j)
+        s = torch.where(active, ns, s)
+        n = n + active.to(torch.int64)
+    idx = n[:, None] - 1 - torch.arange(max_steps, device=dev)[None, :]
+    steps = torch.where(idx >= 0, rev.gather(1, idx.clamp(min=0)),
+                        torch.full_like(rev, STEP_PAD))
+    return steps.to(torch.int8), n.to(torch.int32)
+
+
+def launch(lanewise: bool, dec, la, lb, st, max_steps: int, L1p: int,
+           L2p: int):
+    """Launch csrc/traceback.cu on CUDA tensors."""
+    global launches
+    B = la.shape[0]
+    _cuda.require_cuda("traceback", dec, la, lb, st)
+    steps = torch.empty((B, max_steps), dtype=torch.int8, device=la.device)
+    n = torch.empty(B, dtype=torch.int32, device=la.device)
+    if B == 0:
+        return steps, n
+    rc = _cuda.lib().kt_traceback(
+        int(lanewise), dec.data_ptr(), la.data_ptr(), lb.data_ptr(),
+        st.data_ptr(), B, L1p, L2p, max_steps, steps.data_ptr(),
+        n.data_ptr(), _cuda.stream())
+    _cuda.check(rc, "traceback")
+    launches += 1
+    return steps, n
+
+
+def _walk(lanewise, dec, la, lb, st, max_steps, L1p, L2p, fetch):
+    st = st.to(torch.int32)
+    if dec.is_cuda:
+        return launch(lanewise, dec.contiguous(), la, lb, st.contiguous(),
+                      max_steps, L1p, L2p)
+    if dec.device.type == "cpu":
+        return plain(fetch, la, lb, st, max_steps)
+    raise ValueError(f"traceback: unsupported device {dec.device}")
+
+
+def walk_rows(dec, la, lb, st, max_steps: int):
+    """dec [B, L1p, L2p] int8 (row r = DP row r+1, col c = DP col c+1)."""
+    _, L1p, L2p = dec.shape
+    return _walk(False, dec, la, lb, st, max_steps, L1p, L2p,
+                 _fetch_rows(dec))
+
+
+def walk_lanewise(dec, la, lb, st, max_steps: int):
+    """dec [L1p, L2p/8, B] int32 nibble words (gotoh_lanewise layout)."""
+    L1p, W8, _ = dec.shape
+    return _walk(True, dec, la, lb, st, max_steps, L1p, W8 * PACK,
+                 _fetch_lanewise(dec))
+
+
+def plain_rows(dec, la, lb, st, max_steps: int):
+    """The plain walk of walk_rows on any device."""
+    return plain(_fetch_rows(dec), la, lb, st.to(torch.int32), max_steps)
+
+
+def plain_lanewise(dec, la, lb, st, max_steps: int):
+    """The plain walk of walk_lanewise on any device."""
+    return plain(_fetch_lanewise(dec), la, lb, st.to(torch.int32), max_steps)

@@ -1,0 +1,105 @@
+"""kalign_tpu_torch stands alone: it imports neither JAX nor kalign_tpu,
+and its entry points run on the card unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "kalign_tpu_torch")
+
+
+def _forbidden(name: str) -> bool:
+    return name in ("jax", "kalign_tpu") or name.startswith(
+        ("jax.", "kalign_tpu."))
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def test_import_leaves_jax_and_kalign_tpu_unloaded():
+    code = ("import sys\n"
+            "import kalign_tpu_torch, kalign_tpu_torch.cli, "
+            "kalign_tpu_torch.gpu.engine, kalign_tpu_torch.gpu.distances\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'kalign_tpu') "
+            "or m.startswith(('jax.', 'kalign_tpu.'))]\n"
+            "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == ""
+
+
+def test_no_jax_or_kalign_tpu_import_in_port_sources():
+    files = _port_files()
+    assert len(files) > 15
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert not _forbidden(name), (path, node.lineno, name)
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    import kalign_tpu_torch
+    from kalign_tpu_torch import engine as E
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seqs = ["MKVLAAGIVGLLLAA", "MKVLSAGIVGLLAA", "MKILAAGVVGLLLA"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        kalign_tpu_torch.align(seqs)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        E.resolve_device("cuda")
+    rows = kalign_tpu_torch.align(seqs, device="cpu")
+    assert [r.replace("-", "") for r in rows] == seqs
+    assert len({len(r) for r in rows}) == 1
+
+
+def test_unported_options_raise():
+    import kalign_tpu_torch
+    from kalign_tpu_torch import engine as E
+    from kalign_tpu_torch.core.msa import Msa
+    seqs = ["MKVLAAGIVGLLLAA", "MKVLSAGIVGLLAA"]
+    with pytest.raises(NotImplementedError):
+        kalign_tpu_torch.align(seqs, mode="default", device="cpu")
+    for kw in (dict(consistency_anchors=5), dict(refine=1), dict(realign=1),
+               dict(save_checkpoint="x"), dict(tree_seed=3, tree_noise=0.1)):
+        with pytest.raises(NotImplementedError):
+            E.align_msa(Msa.from_sequences(seqs), device="cpu", **kw)
+
+
+def test_wrappers_take_plain_versions_on_cpu_without_launching():
+    """A CPU tensor runs the plain version; the launch counters count
+    kernel launches only."""
+    import numpy as np
+    from kalign_tpu_torch.gpu import bpm, gotoh_lanewise, gotoh_row, scan
+    from kalign_tpu_torch.gpu import traceback as tb
+    mods = (bpm, gotoh_lanewise, gotoh_row, scan, tb)
+    before = [m.launches for m in mods]
+    rng = np.random.default_rng(0)
+    B, L1p, L2p = 4, 8, 8
+    match = torch.from_numpy(rng.normal(size=(B, L1p, L2p)).astype(np.float32))
+    pc = torch.full((B, 3, L2p + 1), -1.0)
+    pr = torch.full((B, 3, L1p + 1), -1.0)
+    la = torch.tensor([8, 3, 5, 1], dtype=torch.int32)
+    lb = torch.tensor([8, 7, 2, 4], dtype=torch.int32)
+    dec, score, st = gotoh_row.forward(match, pc, pr, la, lb)
+    tb.walk_rows(dec, la, lb, st, L1p + L2p + 2)
+    dec, score, st = gotoh_lanewise.forward(match, pc, pr, la, lb)
+    tb.walk_lanewise(dec, la, lb, st, L1p + L2p + 2)
+    assert [m.launches for m in mods] == before
