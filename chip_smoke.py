@@ -9,20 +9,29 @@ Phases (any failure raises and the script exits non-zero):
   2. edge cases: every hand-written kernel held against its plain
      PyTorch version on the same CUDA tensors (bitwise / exact), with
      la = 0 and lb = 0 problems, short and odd-sized inputs;
-  3. the main path: a 2,000-sequence protein family (270-330 residues,
-     made from a seed) aligned with kalign_tpu_torch.align(mode="fast")
-     on the card; the output is checked and every kernel must have
-     launched;
-  4. the same main path once more under torch.profiler: device time by
-     kernel and the device's idle share;
-  5. main-path shapes: every kernel held bitwise against its plain
-     version again, at the shapes and problem lengths the main path gave
-     it (its largest launch, and for the row kernel also its widest),
-     and timed there beside its plain version and its bound;
-  6. the same package on the card and on the CPU, on tests/data/BB30014
-     and a 150-sequence family: identical FASTA, or equal per-merge
-     scores where a near-tie resolved differently;
-  7. one JSON line with every kernel's numbers, the nvidia-smi line, and
+  3. the fast path: a 2,000-sequence protein family (270-330 residues,
+     made from a seed) aligned with kalign_tpu_torch.align_msa(mode=
+     "fast") on the card; the output is checked and every kernel of the
+     path must have launched;
+  4. the default path: a 2,000-sequence 16S-V4-like DNA family (240-270
+     nt, made from a seed) aligned with align_msa(mode="default"), anchor
+     consistency with 5 anchors: ~10,000 map DPs on the fused kernel,
+     then the progressive pass with the consistency bonus; checked the
+     same way, all six kernels must have launched;
+  5. both paths once more under torch.profiler: device time by kernel
+     and the device's idle share;
+  6. main-path shapes: every kernel held bitwise against its plain
+     version again, at the shapes and problem lengths the paths gave it
+     (its largest launch, and for the row kernel also its widest), and
+     timed there beside its plain version and its bound; the fused
+     kernel also beside the materialised route (torch.bmm + lanewise
+     kernel) on the same inputs;
+  7. the same package on the card and on the CPU: BB30014 and a
+     150-sequence protein family in --fast mode, BB30014 and a
+     250-sequence DNA family (one 2,048-problem fused launch) in default
+     mode: identical FASTA, or equal per-merge scores where a near-tie
+     resolved differently;
+  8. one JSON line with every kernel's numbers, the nvidia-smi line, and
      the last line {"ok": true, "device": {...}}.
 Without a card, or outside a checkout of the repository, it prints no
 result and exits non-zero.
@@ -48,12 +57,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 33.5e12
 INT32_OPS_PER_S = 16.7e12
 # fp32 operations per DP cell of the Gotoh kernels (bias 3, diagonal
-# candidates 4, A 1, GB 4, GA 3, decision compares 4)
+# candidates 4, A 1, GB 4, GA 3, decision compares 4); the fused kernel
+# adds nc multiplies and nc - 1 adds for the match
 GOTOH_OPS_PER_CELL = 19
 # 64-bit operations per (pair, text symbol, live block) of the BPM kernel
 BPM_OPS_PER_BLOCK_STEP = 17
 
 PROTEIN = "ARNDCQEGHILKMFPSTWYV"
+DNA = "ACGT"
 
 KERNELS = {
     "gotoh_row": ("kalign_tpu_torch/csrc/gotoh_row.cu",
@@ -67,7 +78,13 @@ KERNELS = {
     "prefix_sum": ("kalign_tpu_torch/csrc/scan.cu",
                    "kalign_tpu/tpu/gotoh_pallas.py:309 (cumsum feeding "
                    "_kernel; XLA, not Pallas)"),
+    "gotoh_fused": ("kalign_tpu_torch/csrc/gotoh_lanewise.cu",
+                    "kalign_tpu/tpu/gotoh_lanewise.py:692 "
+                    "(_fused_kernel :525)"),
 }
+# the kernels each path must launch
+PATH_KERNELS = {"fast": [k for k in KERNELS if k != "gotoh_fused"],
+                "default": list(KERNELS)}
 
 
 def emit(obj):
@@ -109,33 +126,44 @@ def timed_once(fn):
 
 
 def family(n: int, seed: int, root_len: int = 300, lo: int = 270,
-           hi: int = 330, clades: int = 16):
-    """A protein family from a seed: a root sequence, clade ancestors with
-    ~12% substitutions and short indels, members with ~8% more; lengths
-    kept within [lo, hi]."""
+           hi: int = 330, clades: int = 16, letters: str = PROTEIN,
+           subs=(0.12, 0.08), max_indel: int = 4, p_del: float = 0.5):
+    """A family from a seed: a root sequence, clade ancestors with
+    subs[0] substitutions and short indels (1..max_indel, a deletion with
+    probability p_del), members with subs[1] more; lengths kept within
+    [lo, hi].  The defaults give the protein family."""
     rng = np.random.default_rng(seed)
-    alpha = np.frombuffer(PROTEIN.encode(), np.uint8)
+    alpha = np.frombuffer(letters.encode(), np.uint8)
+    na = len(alpha)
 
     def mutate(seq, sub, n_indel):
         seq = seq.copy()
         mask = rng.random(len(seq)) < sub
-        seq[mask] = alpha[rng.integers(0, 20, int(mask.sum()))]
+        seq[mask] = alpha[rng.integers(0, na, int(mask.sum()))]
         for _ in range(n_indel):
-            k = int(rng.integers(1, 5))
+            k = int(rng.integers(1, max_indel + 1))
             pos = int(rng.integers(0, len(seq)))
-            if rng.random() < 0.5 and len(seq) - k >= lo:
+            if rng.random() < p_del and len(seq) - k >= lo:
                 seq = np.delete(seq, slice(pos, pos + k))
             elif len(seq) + k <= hi:
-                seq = np.insert(seq, pos, alpha[rng.integers(0, 20, k)])
+                seq = np.insert(seq, pos, alpha[rng.integers(0, na, k)])
         return seq
 
-    root = alpha[rng.integers(0, 20, root_len)]
-    anc = [mutate(root, 0.12, int(rng.poisson(3))) for _ in range(clades)]
+    root = alpha[rng.integers(0, na, root_len)]
+    anc = [mutate(root, subs[0], int(rng.poisson(3))) for _ in range(clades)]
     out = []
     for i in range(n):
-        s = mutate(anc[i % clades], 0.08, int(rng.poisson(2)))
+        s = mutate(anc[i % clades], subs[1], int(rng.poisson(2)))
         out.append(s.tobytes().decode())
     return out
+
+
+def v4_family(n: int, seed: int):
+    """16S rRNA V4-like amplicon variants (the 515F/806R region, ~253 nt):
+    a 253-nt root, 16 clades at 8 % substitutions, members at 4 % more,
+    indels of 1-3 nt biased to deletions; lengths 240-270."""
+    return family(n, seed, root_len=253, lo=240, hi=270, letters=DNA,
+                  subs=(0.08, 0.04), max_indel=3, p_del=0.6)
 
 
 # ---------------------------------------------------------------------------
@@ -250,8 +278,8 @@ def phase_edge_cases(dev):
     """Each kernel against its plain version on small and degenerate
     inputs (the wrappers' full function, lb == 0 fix-up included)."""
     import torch
-    from kalign_tpu_torch.gpu import bpm, distances, gotoh_lanewise, \
-        gotoh_row, scan
+    from kalign_tpu_torch.gpu import bpm, distances, gotoh_fused, \
+        gotoh_lanewise, gotoh_row, scan
     from kalign_tpu_torch.gpu import traceback as tb
     rng = np.random.default_rng(0)
 
@@ -276,6 +304,22 @@ def phase_edge_cases(dev):
     hold_dp_outputs("gotoh_lanewise", True, lw_k,
                     gotoh_lanewise.forward_plain(*dp_args(q)), q,
                     "1024x128x128 with la=0/lb=0")
+
+    # fused Gotoh: B=1024 with la=0/lb=0 problems, operands of any float
+    # value (the chain's order is the plain version's), nc=5 at 128 x 128
+    # and nc=23 at 64 x 64
+    for nc, L in ((5, 128), (23, 64)):
+        la = rng.integers(1, L + 1, size=1024)
+        lb = rng.integers(1, L + 1, size=1024)
+        la[[3, 5]] = 0
+        lb[[4, 5]] = 0
+        f = dp_problem(rng, L, L, la, lb, dev)
+        ops = [torch.from_numpy(rng.standard_normal(
+            (1024, L, nc), dtype=np.float32)).to(dev) for _ in range(2)]
+        args = (*ops, *dp_args(f)[1:])
+        hold_dp_outputs("gotoh_fused", True, gotoh_fused.forward(*args),
+                        gotoh_fused.forward_plain(*args), f,
+                        f"1024x{L}x{L} nc={nc} with la=0/lb=0")
 
     # traceback over both decision layouts
     for walk, plain, r, (dec, _, st) in (
@@ -309,10 +353,12 @@ def phase_edge_cases(dev):
 
 # ---------------------------------------------------------------------------
 def counters():
-    from kalign_tpu_torch.gpu import bpm, gotoh_lanewise, gotoh_row, scan
+    from kalign_tpu_torch.gpu import bpm, gotoh_fused, gotoh_lanewise, \
+        gotoh_row, scan
     from kalign_tpu_torch.gpu import traceback as tb
     return {"gotoh_row": gotoh_row, "gotoh_lanewise": gotoh_lanewise,
-            "bpm": bpm, "traceback": tb, "prefix_sum": scan}
+            "bpm": bpm, "traceback": tb, "prefix_sum": scan,
+            "gotoh_fused": gotoh_fused}
 
 
 def check_alignment(rows, seqs):
@@ -327,41 +373,50 @@ def check_alignment(rows, seqs):
     return widths.pop()
 
 
-def phase_main_path():
+def phase_path(path: str, seqs):
+    """One alignment of seqs in mode ``path`` on the card, every launch
+    count set to 0 just before it and read just after."""
     import torch
     import kalign_tpu_torch
-    seqs = family(2000, seed=0)
     mods = counters()
     for m in mods.values():
         m.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    msa = kalign_tpu_torch.align_msa(seqs, mode="fast")
+    msa = kalign_tpu_torch.align_msa(seqs, mode=path)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: m.launches for k, m in mods.items()}
     rows = msa.aligned_rows()
     width = check_alignment(rows, seqs)
     stats = msa.engine_stats
-    emit({"phase": "main_path", "sequences": len(seqs),
+    routes = {}
+    for b in stats["batches"]:
+        key = f"{'maps' if b['maps'] else 'merges'} {b['route']}"
+        routes.setdefault(key, []).append(
+            f"{len(b['la'])}x{b['L1p']}x{b['L2p']}")
+    emit({"phase": "path", "path": path, "sequences": len(seqs),
           "lengths": [min(map(len, seqs)), max(map(len, seqs))],
           "width": width, "wall_s": round(wall, 3),
           "phase_s": {k: round(v, 3) for k, v in msa.phase_times.items()},
           "mean_seq_distance": float(np.mean(msa.seq_distances)),
+          "map_pairs": stats["map_pairs"],
           "row_merges": stats["row_merges"],
           "lanewise_merges": stats["lanewise_merges"],
-          "launches": launches, "levels": stats["levels"]})
-    missing = [k for k, v in launches.items() if v == 0]
+          "fused_merges": stats["fused_merges"],
+          "launches": launches, "launch_batches": routes,
+          "levels": stats["levels"]})
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
+        raise AssertionError(f"kernels not launched on the {path} path: "
                              f"{missing}; buckets per level: "
                              f"{stats['levels']}")
-    return launches, stats, seqs
+    return launches, stats
 
 
-def phase_profile(seqs):
-    """The main path once more under torch.profiler: device time by
-    kernel, and the device's busy share of the run's wall time."""
+def phase_profile(path: str, seqs):
+    """A path once more under torch.profiler: device time by kernel, and
+    the device's busy share of the run's wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -370,7 +425,7 @@ def phase_profile(seqs):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        kalign_tpu_torch.align_msa(seqs, mode="fast")
+        kalign_tpu_torch.align_msa(seqs, mode=path)
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -387,7 +442,8 @@ def phase_profile(seqs):
     busy_us = sum(r[1] for r in rows)
     if busy_us <= 0:
         raise AssertionError("the profiler saw no device time")
-    emit({"phase": "profile", "wall_s": round(wall_us / 1e6, 3),
+    emit({"phase": "profile", "path": path,
+          "wall_s": round(wall_us / 1e6, 3),
           "device_busy_s": round(busy_us / 1e6, 4),
           "device_idle_share": round(1.0 - busy_us / wall_us, 4),
           "top": [{"name": k[:80], "device_ms": round(us / 1e3, 3),
@@ -402,16 +458,20 @@ def bound(bytes_, ops, ops_per_s):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def gotoh_bound(p, dec_bytes_per_cell):
-    """The cells this run's problems need (la x lb each): a match read and
-    a decision write per cell, the penalties of their rows and columns,
-    and GOTOH_OPS_PER_CELL fp32 operations per cell."""
+def gotoh_bound(p, dec_bytes_per_cell, nc=0):
+    """The cells this run's problems need (la x lb each): a match read (or,
+    with nc operands per row and column, those read once instead) and a
+    decision write per cell, the penalties of their rows and columns, and
+    GOTOH_OPS_PER_CELL fp32 operations per cell, 2 * nc - 1 more to
+    compute the match."""
     la = p["la"].cpu().numpy().astype(np.int64)
     lb = p["lb"].cpu().numpy().astype(np.int64)
     cells = float(np.sum(la * lb))
-    bytes_ = (cells * (4 + dec_bytes_per_cell) + float(np.sum(la + lb)) * 12
-              + len(la) * 8)
-    return bound(bytes_, cells * GOTOH_OPS_PER_CELL, FP32_OPS_PER_S)
+    match_bytes = 0 if nc else 4
+    bytes_ = (cells * (match_bytes + dec_bytes_per_cell)
+              + float(np.sum(la + lb)) * (12 + 4 * nc) + len(la) * 8)
+    ops = GOTOH_OPS_PER_CELL + (2 * nc - 1 if nc else 0)
+    return bound(bytes_, cells * ops, FP32_OPS_PER_S)
 
 
 def hold_dp(name, mod, lanewise, p, reps):
@@ -428,21 +488,26 @@ def hold_dp(name, mod, lanewise, p, reps):
     return out, ms, plain_ms
 
 
-def phase_main_shapes(dev, stats, seqs):
-    """Each kernel at the shapes and lengths the main path gave it."""
+def phase_main_shapes(dev, stats, stats_default, seqs):
+    """Each kernel at the shapes and lengths a path gave it: the row,
+    lanewise, traceback, prefix-sum and BPM kernels at the fast path's,
+    the fused kernel at the default path's."""
     import torch
     from kalign_tpu_torch import engine as E
     from kalign_tpu_torch.core import alphabet as alpha
+    from kalign_tpu_torch.core import params as P
     from kalign_tpu_torch.core.msa import Msa
-    from kalign_tpu_torch.gpu import bpm, distances, gotoh_lanewise, \
-        gotoh_row, scan
+    from kalign_tpu_torch.gpu import bpm, distances, gotoh_fused, \
+        gotoh_lanewise, gotoh_row, scan
     from kalign_tpu_torch.gpu import traceback as tb
+    from kalign_tpu_torch.gpu.engine import leaf_operands
     rng = np.random.default_rng(1)
     out = {}
 
-    def batch(lanewise, key):
-        cands = [b for b in stats["batches"] if b["lanewise"] == lanewise]
-        return max(cands, key=key)
+    def batch(lanewise, key, st=stats, route=None):
+        route = route or ("lanewise" if lanewise else "row")
+        return max((b for b in st["batches"] if b["route"] == route),
+                   key=key)
 
     def cells(b):
         return int(np.sum(b["la"].astype(np.int64) * b["lb"]))
@@ -539,6 +604,53 @@ def phase_main_shapes(dev, stats, seqs):
     out["bpm"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                       shape=f"{len(codes)}x{len(anchors)} pairs")
     emit({"phase": "main_shape", "kernel": "bpm", **out["bpm"]})
+
+    # fused kernel: the default path's largest fused launch (map DPs),
+    # its real lengths, the engine's own operands (one-hot rows against
+    # rows of the DNA substitution matrix, integer-valued) from random
+    # nucleotide codes, the map DPs' penalties and eps = 0
+    fb = batch(True, cells, stats_default, "fused")
+    B, L1p, L2p = len(fb["la"]), fb["L1p"], fb["L2p"]
+    ap = P.aln_param_init(P.BIOTYPE_DNA, 0)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    la_d, lb_d = t(fb["la"]), t(fb["lb"])
+    tok = t(rng.integers(0, 4, size=(2 * B, max(L1p, L2p))).astype(np.uint8))
+    lhs, rhs, pc, pr = leaf_operands(
+        tok, t(np.asarray(ap.subm, np.float32)),
+        t(np.array([-ap.gpo, -ap.gpe, -ap.tgpe], np.float32)),
+        t(np.arange(B, dtype=np.int32)), t(np.arange(B, 2 * B,
+                                                     dtype=np.int32)),
+        la_d, lb_d, L1p, L2p)
+    nc = 5
+    x, y = lhs[:, :, :nc].contiguous(), rhs[:, :, :nc].contiguous()
+    slope = lb_d.float() / torch.clamp(la_d.float(), min=1.0)
+    prep = gotoh_fused.prepare(pc, pr, la_d, lb_d, slope,
+                               torch.zeros(B, device=dev))
+    f = dict(la=la_d, lb=lb_d, L1p=L1p, L2p=L2p)
+    got = gotoh_fused.launch(x, y, prep, la_d, lb_d)
+    ref, plain_ms = timed_once(
+        lambda: gotoh_fused.plain(x, y, prep, la_d, lb_d))
+    shape = f"{B}x{L1p}x{L2p}"
+    hold_dp_outputs("gotoh_fused", True, got, ref, f, shape)
+    del ref
+    ms = cuda_time_ms(lambda: gotoh_fused.launch(x, y, prep, la_d, lb_d),
+                      reps=10)
+
+    # the materialised route on the same inputs: the 23-wide match
+    # product, then the match-stream lanewise kernel; integer operands
+    # make the product exact, so it gives the fused route's bits
+    def materialised():
+        match = torch.bmm(lhs, rhs.transpose(1, 2))
+        return gotoh_lanewise.launch(match, prep, la_d, lb_d)
+    hold_dp_outputs("gotoh_fused", True, got, materialised(), f,
+                    f"{shape} fused vs bmm + lanewise")
+    mat_ms = cuda_time_ms(materialised, reps=10)
+    out["gotoh_fused"] = dict(ms=ms, plain_ms=plain_ms, shape=shape,
+                              materialised_ms=mat_ms)
+    out["gotoh_fused"]["bound_ms"], out["gotoh_fused"]["bound_by"] = \
+        gotoh_bound(f, 0.5, nc)
+    emit({"phase": "main_shape", "kernel": "gotoh_fused",
+          **out["gotoh_fused"]})
     return out
 
 
@@ -546,22 +658,41 @@ def phase_gpu_vs_cpu():
     from kalign_tpu_torch import engine as E
     from kalign_tpu_torch.core import io as kio
     from kalign_tpu_torch.core.msa import Msa
-    cases = [("BB30014", lambda: kio.read_alignment(
-        os.path.join(HERE, "tests", "data", "BB30014.tfa"))),
-             ("family150", lambda: Msa.from_sequences(family(150, seed=1)))]
-    for name, make in cases:
+
+    def bb30014():
+        return kio.read_alignment(os.path.join(HERE, "tests", "data",
+                                               "BB30014.tfa"))
+
+    def dna250():
+        # 100-128 nt: its 1,245 map DPs fill one 2,048-problem launch of
+        # the fused route at 128 x 128, on the card and on the CPU
+        return Msa.from_sequences(family(
+            250, seed=3, root_len=114, lo=100, hi=128, letters=DNA,
+            subs=(0.08, 0.04), max_indel=3, p_del=0.6))
+
+    cases = [("BB30014", bb30014, 0),
+             ("family150", lambda: Msa.from_sequences(family(150, seed=1)),
+              0),
+             ("BB30014-default", bb30014, 5),
+             ("dna250-default", dna250, 5)]
+    for name, make, consistency in cases:
         outs = {}
         for d in ("cuda", "cpu"):
             msa = make()
             msa.quiet = True
-            msa = E.align_msa(msa, consistency_anchors=0, device=d)
+            msa = E.align_msa(msa, consistency_anchors=consistency, device=d)
             outs[d] = (kio.format_alignment(msa, "fasta"),
                        np.asarray(msa.task_confidence, np.float64))
+            fused = [len(b["la"]) for b in msa.engine_stats["batches"]
+                     if b["route"] == "fused"]
+            if name.startswith("dna") and fused != [2048]:
+                raise AssertionError(f"{name} on {d}: fused launches "
+                                     f"{fused}, not one of 2,048")
         same = outs["cuda"][0] == outs["cpu"][0]
         c_gpu, c_cpu = outs["cuda"][1], outs["cpu"][1]
         rel = np.abs(c_gpu - c_cpu) / np.maximum(1.0, np.abs(c_cpu))
         emit({"phase": "gpu_vs_cpu", "case": name, "identical_fasta": same,
-              "merges": int(len(c_cpu)),
+              "consistency": consistency, "merges": int(len(c_cpu)),
               "merges_with_other_score": int((c_gpu != c_cpu).sum()),
               "max_rel_score_diff": float(rel.max()) if len(rel) else 0.0})
         if not same and rel.max() > 1e-5:
@@ -587,21 +718,32 @@ def main():
 
     smi = phase_device_and_build()
     phase_edge_cases(dev)
-    launches, stats, seqs = phase_main_path()
-    phase_profile(seqs)
-    shapes = phase_main_shapes(dev, stats, seqs)
+    seqs = {"fast": family(2000, seed=0), "default": v4_family(2000, seed=2)}
+    launches, stats = {}, {}
+    for path in ("fast", "default"):
+        launches[path], stats[path] = phase_path(path, seqs[path])
+    for path in ("fast", "default"):
+        phase_profile(path, seqs[path])
+    shapes = phase_main_shapes(dev, stats["fast"], stats["default"],
+                               seqs["fast"])
     phase_gpu_vs_cpu()
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = shapes[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": MAX_ABS_ERR[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t.get("library_ms"), "shape": t["shape"]})
+            "replaces": replaces, "launches": launches["default"][name],
+            "launches_by_path": {p: launches[p][name] for p in launches},
+            "max_abs_err": MAX_ABS_ERR[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
+            "shape": t["shape"],
+            **({"materialised_ms": t["materialised_ms"]}
+               if "materialised_ms" in t else {})})
+    total_s = time.perf_counter() - t_start
+    emit({"phase": "total", "total_s": round(total_s, 1)})
     print(json.dumps({"kernels": kernels}))
-    print(f"total_s {time.perf_counter() - t_start:.1f}", file=sys.stderr)
+    print(f"total_s {total_s:.1f}", file=sys.stderr)
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

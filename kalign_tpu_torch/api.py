@@ -1,14 +1,29 @@
-"""Public Python API of the PyTorch/CUDA port (--fast mode).
+"""Public Python API of the PyTorch/CUDA port.
 
-Mirrors kalign_tpu/api.py's ``align`` for the mode this package runs,
-with the default scoring model.  ``device`` defaults to ``cuda``;
-``device="cpu"`` runs every kernel's plain PyTorch version.
+Mirrors kalign_tpu/api.py's ``align`` for the modes this package runs
+(default: anchor consistency with 5 anchors; fast: none), with the
+default scoring model.  ``device`` defaults to ``cuda``; ``device="cpu"``
+runs every kernel's plain PyTorch version.
 """
 
 from typing import Optional, Sequence
 
 from kalign_tpu_torch import engine as _engine
 from kalign_tpu_torch.core.msa import Msa
+
+
+def _resolve_mode(mode: Optional[str], consistency: Optional[int]) -> int:
+    """Anchor-consistency count of a mode preset (kalign_tpu/api.py:62-75,
+    run_kalign.c:370-383): default -> 5, fast -> 0."""
+    if mode not in (None, "default", "fast", "precise"):
+        raise ValueError(f"Unknown mode {mode!r}")
+    if mode == "precise":
+        raise NotImplementedError(
+            "mode 'precise' (ensemble + realign) is not available in "
+            "kalign_tpu_torch yet (modes None/'default' and 'fast' are)")
+    if consistency is None:
+        consistency = 0 if mode == "fast" else 5
+    return consistency
 
 
 def _validate_sequences(sequences):
@@ -29,22 +44,26 @@ def _validate_sequences(sequences):
 
 
 def align_msa(sequences: Sequence[str],
-              names: Optional[Sequence[str]] = None, mode: str = "fast",
-              device=None) -> Msa:
+              names: Optional[Sequence[str]] = None,
+              mode: Optional[str] = None, device=None,
+              consistency: Optional[int] = None,
+              consistency_weight: float = 2.0) -> Msa:
     """Align and return the finalised Msa (input order restored)."""
-    if mode != "fast":
-        raise NotImplementedError(
-            f"mode {mode!r} is not available in kalign_tpu_torch yet "
-            "(only mode='fast' is)")
+    consistency = _resolve_mode(mode, consistency)
     _validate_sequences(sequences)
     msa = Msa.from_sequences(list(sequences),
                              list(names) if names else None)
     msa.quiet = True
-    return _engine.align_msa(msa, consistency_anchors=0, device=device)
+    return _engine.align_msa(msa, consistency_anchors=consistency,
+                             consistency_weight=consistency_weight,
+                             device=device)
 
 
-def align(sequences: Sequence[str], mode: str = "fast",
-          names: Optional[Sequence[str]] = None, device=None):
+def align(sequences: Sequence[str], mode: Optional[str] = None,
+          names: Optional[Sequence[str]] = None, device=None,
+          consistency: Optional[int] = None,
+          consistency_weight: float = 2.0):
     """Align sequences; returns the aligned rows in input order."""
-    return align_msa(sequences, names=names, mode=mode,
-                     device=device).aligned_rows()
+    return align_msa(sequences, names=names, mode=mode, device=device,
+                     consistency=consistency,
+                     consistency_weight=consistency_weight).aligned_rows()

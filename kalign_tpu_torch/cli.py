@@ -1,10 +1,11 @@
 """Command line of the PyTorch/CUDA port:
 
-    python -m kalign_tpu_torch.cli -i IN -o OUT [-f fasta|msf|clu] --fast
+    python -m kalign_tpu_torch.cli -i IN -o OUT [-f fasta|msf|clu] [--fast]
+        [--consistency K] [--consistency-weight W] [--device cuda|cpu]
 
 The flags are kalign_tpu/cli.py's (and so the reference binary's,
-src/run_kalign.c) for what this package runs; without --fast the
-reference's default mode (consistency) is asked for, which raises.
+src/run_kalign.c) for what this package runs: the default mode (anchor
+consistency with K = 5 anchors) or, with --fast, none.
 """
 
 import argparse
@@ -14,10 +15,6 @@ from kalign_tpu_torch import engine as E
 from kalign_tpu_torch.core import io as kio
 from kalign_tpu_torch.version import KALIGN_COMPAT_VERSION, __version__
 
-# the reference's default anchor-consistency count (run_kalign.c)
-DEFAULT_CONSISTENCY = 5
-
-
 def build_parser():
     p = argparse.ArgumentParser(prog="kalign-tpu-torch")
     p.add_argument("-i", "--input", "--infile", "--in", dest="infile",
@@ -25,6 +22,8 @@ def build_parser():
     p.add_argument("-o", "--output", "--outfile", "--out", dest="outfile",
                    default=None)
     p.add_argument("-f", "--format", dest="format", default=None)
+    p.add_argument("--consistency", type=int, default=5)
+    p.add_argument("--consistency-weight", type=float, default=2.0)
     p.add_argument("--fast", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
@@ -50,9 +49,14 @@ def main(argv=None):
     infiles = [None if f == "-" else f for f in infiles]
     msa = kio.read_inputs(infiles)
     msa.quiet = args.quiet
-    msa = E.align_msa(
-        msa, consistency_anchors=0 if args.fast else DEFAULT_CONSISTENCY,
-        device=args.device)
+    # mode preset (run_kalign.c:370-383): --fast turns the default
+    # consistency off
+    consistency = args.consistency
+    if args.fast and consistency == 5:
+        consistency = 0
+    msa = E.align_msa(msa, consistency_anchors=consistency,
+                      consistency_weight=args.consistency_weight,
+                      device=args.device)
     kio.write_alignment_file(msa, args.outfile, args.format)
     return 0
 

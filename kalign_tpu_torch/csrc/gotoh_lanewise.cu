@@ -1,16 +1,25 @@
 /* Gotoh forward for large merge batches: one warp per problem.
  *
- * Replaces kalign_tpu/tpu/gotoh_lanewise.py::_kernel
- * (gotoh_forward_lanewise): the same affine-gap DP with the in-row gap
- * state computed directly as a loop carry,
+ * Replaces two TPU kernels with one DP body, templated on where the
+ * match score of a cell comes from:
+ *   - kalign_tpu/tpu/gotoh_lanewise.py::_kernel (gotoh_forward_lanewise)
+ *     reads it from a materialised [B, L1p, L2p] match array
+ *     (MatchStream);
+ *   - kalign_tpu/tpu/gotoh_lanewise.py::_fused_kernel
+ *     (gotoh_forward_fused) computes it in the kernel from the nc-wide
+ *     operands, m(i, j) = X[i, 0] * Y[j, 0] + X[i, 1] * Y[j, 1] + ...,
+ *     multiplied and added in ascending c, each operation rounded on its
+ *     own (FusedOperands).  No match array exists on that route.
+ * The DP is the affine-gap recurrence with the in-row gap state computed
+ * directly as a loop carry,
  *     GA[i][j] = max(GA[i][j-1] + ge[j], A[i][j-1] + go[j]),
  * so no scan.  The per-cell float op order is gotoh_forward_direct_np's,
  * including the precomputed cols_eps (j * eps) and row_term
  * (i * slope * eps), so that no multiply feeds the bias subtraction, and
  * the lb == 0 fix-up (applied by the wrapper).
  *
- * Design: the TPU kernel puts 1,024 problems on the lanes of one vector
- * tile and walks each problem's cells in order.  On the card one thread
+ * Design: the TPU kernels put 1,024 problems on the lanes of one vector
+ * tile and walk each problem's cells in order.  On the card one thread
  * per problem leaves most of it idle, so here a warp owns a problem and
  * sweeps it in strips of 32 rows: lane r holds row i0 + r and, at step t,
  * computes column j = t - r + 1 (an anti-diagonal wavefront skewed by one
@@ -20,14 +29,19 @@
  * memory to the next strip.  Every cell runs the same operations in the
  * same order as the sequential oracle, so results are bitwise equal.
  * All inputs are in the callers' problem-major layout ([B, L1p, L2p]
- * match, [B, 3, L*+1] penalties), so no relayout pass is needed.
- * Decisions pack eight 4-bit cells per int32: [L1p, L2p/8, B].
+ * match or [B, L1p, nc] / [B, L2p, nc] operands, [B, 3, L*+1]
+ * penalties), so no relayout pass is needed.  Decisions pack eight 4-bit
+ * cells per int32: [L1p, L2p/8, B].
  *
- * Bound: device-memory bytes — a 4-byte match read and half a decision
- * byte per cell.  Each lane reads its own match row, so a warp's loads
- * touch 32 rows; each 32-byte sector is reused by the lane over eight
- * steps from L1.  Rows past a problem's length are skipped (their
- * decisions are never read).
+ * Bound: device-memory bytes.  The match-stream route reads 4 bytes of
+ * match and writes half a decision byte per cell; each lane reads its
+ * own match row, so a warp's loads touch 32 rows and each 32-byte sector
+ * is reused by the lane over eight steps from L1.  The fused route keeps
+ * its row's nc operands in registers for the whole strip and reads the
+ * column's nc operands per step (the 32 lanes read 32 neighbouring
+ * columns, L1-resident), so it moves only the decisions per cell and
+ * adds 2 * nc - 1 fp32 operations.  Rows past a problem's length are
+ * skipped (their decisions are never read).
  */
 #include "kt_cuda.h"
 
@@ -36,8 +50,56 @@ namespace {
 constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
+// match source of gotoh_forward_lanewise: row i of the match array
+struct MatchStream {
+  struct Args {
+    const float* match;  // [B, L1p, L2p]
+  };
+  const float* mprob;
+  const float* mrow;
+  int L2p;
+  __device__ MatchStream(const Args& a, int b, int L1p, int L2p_)
+      : mprob(a.match + (size_t)b * L1p * L2p_), mrow(nullptr), L2p(L2p_) {}
+  __device__ void row(int i, bool) { mrow = mprob + (size_t)(i - 1) * L2p; }
+  __device__ float at(int j) const { return mrow[j - 1]; }
+};
+
+// match source of gotoh_forward_fused: X[i, :nc] . Y[j, :nc], an
+// ascending-c chain of separately rounded multiplies and adds; the row's
+// operands sit in registers for the strip (kMaxNC bounds nc at compile
+// time so that the unrolled chain indexes registers, not local memory)
+template <int kMaxNC>
+struct FusedOperands {
+  struct Args {
+    const float* x;  // [B, L1p, nc]
+    const float* y;  // [B, L2p, nc]
+    int nc;
+  };
+  const float* xprob;
+  const float* yprob;
+  int nc;
+  float xr[kMaxNC];
+  __device__ FusedOperands(const Args& a, int b, int L1p, int L2p)
+      : xprob(a.x + (size_t)b * L1p * a.nc),
+        yprob(a.y + (size_t)b * L2p * a.nc), nc(a.nc) {}
+  __device__ void row(int i, bool row_ok) {
+#pragma unroll
+    for (int c = 0; c < kMaxNC; c++)
+      xr[c] = (row_ok && c < nc) ? xprob[(size_t)(i - 1) * nc + c] : 0.0f;
+  }
+  __device__ float at(int j) const {
+    const float* y = yprob + (size_t)(j - 1) * nc;
+    float m = xr[0] * y[0];
+#pragma unroll
+    for (int c = 1; c < kMaxNC; c++)
+      if (c < nc) m = m + xr[c] * y[c];
+    return m;
+  }
+};
+
+template <class Src>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-gotoh_lanewise_kernel(const float* __restrict__ match,     // [B, L1p, L2p]
+gotoh_lanewise_kernel(typename Src::Args src_args,
                       const float* __restrict__ colpen,    // [B, 3, L2p+1]
                       const float* __restrict__ cols_eps,  // [B, L2p]
                       const float* __restrict__ rowpen,    // [B, 3, L1p+1]
@@ -65,7 +127,7 @@ gotoh_lanewise_kernel(const float* __restrict__ match,     // [B, L1p, L2p]
   const float* geA = goA + (L1p + 1);
   const float* tgeA = geA + (L1p + 1);
   const float* ceps = cols_eps + (size_t)b * L2p;
-  const float* mprob = match + (size_t)b * L1p * L2p;
+  Src src(src_args, b, L1p, L2p);
   float* bA = bound + (size_t)b * 3 * L2p;   // row above the strip
   float* bGA = bA + L2p;
   float* bGB = bGA + L2p;
@@ -94,7 +156,7 @@ gotoh_lanewise_kernel(const float* __restrict__ match,     // [B, L1p, L2p]
       rterm = row_term[(size_t)b * L1p + i - 1];
       gb_col0 = gb0[(size_t)b * (L1p + 1) + i - 1];
     }
-    const float* mrow = mprob + (size_t)(i - 1) * L2p;
+    src.row(i, row_ok);
     int32_t* drow = dec + (size_t)(i - 1) * W8 * B + b;
     // diagonal (row i-1, column j-1) and left (row i, column j-1)
     float A_pm1 = (i == 1) ? 0.0f : KT_NEG;
@@ -120,7 +182,7 @@ gotoh_lanewise_kernel(const float* __restrict__ match,     // [B, L1p, L2p]
         GA_p = sGA;
         GB_p = sGB;
       }
-      float m = mrow[j - 1];
+      float m = src.at(j);
       m = m - fabsf(ceps[j - 1] - rterm);
       const float goB_j = goB[j];
       const float geB_j = geB[j];
@@ -193,6 +255,20 @@ gotoh_lanewise_kernel(const float* __restrict__ match,     // [B, L1p, L2p]
   }
 }
 
+template <class Src>
+int launch(const typename Src::Args& src, const float* colpen,
+           const float* cols_eps, const float* rowpen, const float* row_term,
+           const float* gb0, const float* ga0, const int32_t* la,
+           const int32_t* lb, int B, int L1p, int L2p, float* bound,
+           int32_t* dec, float* score, int32_t* st, void* stream) {
+  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  gotoh_lanewise_kernel<Src><<<blocks, kWarpsPerBlock * 32, 0,
+                               (cudaStream_t)stream>>>(
+      src, colpen, cols_eps, rowpen, row_term, gb0, ga0, la, lb, B, L1p,
+      L2p, bound, dec, score, st);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 KT_EXPORT int kt_gotoh_lanewise_forward(
@@ -201,10 +277,24 @@ KT_EXPORT int kt_gotoh_lanewise_forward(
     const float* ga0, const int32_t* la, const int32_t* lb, int B, int L1p,
     int L2p, float* bound, int32_t* dec, float* score, int32_t* st,
     void* stream) {
-  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  gotoh_lanewise_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                          (cudaStream_t)stream>>>(
-      match, colpen, cols_eps, rowpen, row_term, gb0, ga0, la, lb, B, L1p,
-      L2p, bound, dec, score, st);
-  return (int)cudaGetLastError();
+  return launch<MatchStream>({match}, colpen, cols_eps, rowpen, row_term,
+                             gb0, ga0, la, lb, B, L1p, L2p, bound, dec,
+                             score, st, stream);
+}
+
+/* x [B, L1p, nc], y [B, L2p, nc], 1 <= nc <= 32. */
+KT_EXPORT int kt_gotoh_fused_forward(
+    const float* x, const float* y, int nc, const float* colpen,
+    const float* cols_eps, const float* rowpen, const float* row_term,
+    const float* gb0, const float* ga0, const int32_t* la, const int32_t* lb,
+    int B, int L1p, int L2p, float* bound, int32_t* dec, float* score,
+    int32_t* st, void* stream) {
+  if (nc < 1 || nc > 32) return (int)cudaErrorInvalidValue;
+  if (nc <= 8)
+    return launch<FusedOperands<8>>({x, y, nc}, colpen, cols_eps, rowpen,
+                                    row_term, gb0, ga0, la, lb, B, L1p, L2p,
+                                    bound, dec, score, st, stream);
+  return launch<FusedOperands<32>>({x, y, nc}, colpen, cols_eps, rowpen,
+                                   row_term, gb0, ga0, la, lb, B, L1p, L2p,
+                                   bound, dec, score, st, stream);
 }

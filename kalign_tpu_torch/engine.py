@@ -1,18 +1,20 @@
 """Pipeline driver: ties the data model to the GPU engine.
 
 Counterpart of kalign_tpu/engine.py (align_msa :281-434) for the
-``--fast`` mode of the reference's kalign_run_seeded
-(lib/src/aln_wrap.c:133-537):
+default (anchor consistency) and ``--fast`` modes of the reference's
+kalign_run_seeded (lib/src/aln_wrap.c:133-537):
 
   input check -> dealign -> sort len/name -> encode reduced -> anchors
   -> anchor distances -> guide tree -> encode full -> params
-  -> progressive align -> finalise -> restore rank order
+  -> consistency maps (default mode) -> progressive align -> finalise
+  -> restore rank order
 
 Engine "gpu-fast" (gpu/engine.py): hand-written CUDA kernels on the
-card, level-batched merges; score-optimal per merge, may differ from the
-reference's Hirschberg midpoints on near-ties.  The entry points run on
-``cuda`` unless the caller passes ``device="cpu"``, which runs every
-kernel's plain PyTorch version instead; without a card they raise.
+card, level-batched merges and map DPs; score-optimal per merge, may
+differ from the reference's Hirschberg midpoints on near-ties.  The
+entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
+which runs every kernel's plain PyTorch version instead; without a card
+they raise.
 """
 
 from typing import List, Optional
@@ -24,6 +26,7 @@ from kalign_tpu_torch.core import alphabet as alpha
 from kalign_tpu_torch.core import params as P
 from kalign_tpu_torch.core.msa import (ALN_STATUS_ALIGNED, BIOTYPE_DNA,
                                        BIOTYPE_PROTEIN, Msa)
+from kalign_tpu_torch.gpu.consistency import ConsistencyTable
 from kalign_tpu_torch.utils.logging import PhaseTimes, log, timer
 from kalign_tpu_torch.utils.sorting import glibc_msort
 
@@ -76,7 +79,7 @@ def resolve_params(msa: Msa, type_: int, gpo: float, gpe: float,
 
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not available in kalign_tpu_torch "
-                              "yet (only --fast mode is)")
+                              "yet (default and --fast modes are)")
 
 
 def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
@@ -91,10 +94,10 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
               save_checkpoint: Optional[str] = None,
               resume_checkpoint: Optional[str] = None,
               device=None) -> Msa:
-    """Full --fast alignment pipeline.  Options of the reference pipeline
-    that this package does not run yet raise NotImplementedError."""
-    if consistency_anchors > 0:
-        _not_ported("anchor consistency (default mode)")
+    """Full alignment pipeline: default mode with consistency_anchors > 0
+    (the reference's default is 5), --fast mode with 0.  Options of the
+    reference pipeline that this package does not run yet raise
+    NotImplementedError."""
     if refine != P.REFINE_NONE:
         _not_ported("refinement")
     if realign > 0:
@@ -148,11 +151,22 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
         ap.dist_scale = dist_scale
     if vsm_amax >= 0.0:
         ap.vsm_amax = vsm_amax
+    if consistency_anchors > 0:
+        ap.consistency_anchors = consistency_anchors
+        ap.consistency_weight = consistency_weight
 
     codes = [sq.s for sq in msa.sequences]
+    eng.set_alphabet(codes, ap.subm)
+    ct = None
+    if ap.consistency_anchors > 0:
+        # the anchors of the consistency maps come from the BPM distances
+        with phases.phase("consistency"):
+            ct = ConsistencyTable.build(eng, codes, ap, msa.seq_distances,
+                                        ap.consistency_anchors,
+                                        ap.consistency_weight)
     log("Aligning", quiet)
     with timer("Alignment", quiet), phases.phase("progressive"):
-        gaps, conf = eng.align(codes, tasks, ap, msa.seq_distances)
+        gaps, conf = eng.align(codes, tasks, ap, msa.seq_distances, ct)
     for sq, g in zip(msa.sequences, gaps):
         sq.gaps = g
     msa.aligned = ALN_STATUS_ALIGNED

@@ -73,6 +73,9 @@ def lib() -> ctypes.CDLL:
     L.kt_gotoh_row_forward.argtypes = [_p] * 8 + [_i] * 3 + [_p] * 4
     L.kt_gotoh_lanewise_forward.restype = _i
     L.kt_gotoh_lanewise_forward.argtypes = [_p] * 9 + [_i] * 3 + [_p] * 5
+    L.kt_gotoh_fused_forward.restype = _i
+    L.kt_gotoh_fused_forward.argtypes = ([_p, _p, _i] + [_p] * 8 + [_i] * 3
+                                         + [_p] * 5)
     L.kt_traceback.restype = _i
     L.kt_traceback.argtypes = [_i] + [_p] * 4 + [_i] * 4 + [_p] * 3
     L.kt_bpm_batch.restype = _i

@@ -5,12 +5,18 @@ single-device form (the ``KALIGN_TPU_NO_RESIDENT=1`` configuration):
 
   * anchor distances: the BPM kernel (gpu/distances.py);
   * guide tree: the native builder (native/);
+  * consistency maps (default mode): N x K leaf-against-anchor DPs whose
+    operands are assembled on the card from a token table uploaded once
+    (``dp_leaf_batch``); only index vectors travel per launch;
   * progressive pass: level-synchronous — all merges of one guide-tree
     level are independent, so they are bucketed by padded shape and each
-    bucket runs as one batch: an fp32 ``torch.bmm`` for the match scores,
-    the row Gotoh kernel (or, for buckets padding to k * 1024 problems,
-    the problem-per-lane kernel), and the traceback walk on the card;
-    only step lists come back.  Profile merge and gap weave stay numpy
+    bucket runs as one batch: an fp32 ``torch.bmm`` for the match scores
+    (plus the consistency bonus, built on the card from compact arrays),
+    the row Gotoh kernel, or for buckets of k * 1024 problems the
+    problem-per-lane kernel, and the traceback walk on the card; only
+    step lists come back.  Bonus-free batches over a narrow alphabet
+    (DNA) skip the match product: the fused kernel computes the match
+    from the operands.  Profile merge and gap weave stay numpy
     (gpu/profile.py).
 
 Every kernel wrapper runs its plain PyTorch version when the engine's
@@ -27,7 +33,8 @@ import torch
 
 from kalign_tpu_torch import native
 from kalign_tpu_torch.core import params as P
-from kalign_tpu_torch.gpu import distances, gotoh_lanewise, gotoh_row
+from kalign_tpu_torch.gpu import (distances, gotoh_fused, gotoh_lanewise,
+                                  gotoh_row)
 from kalign_tpu_torch.gpu import traceback as tb
 from kalign_tpu_torch.gpu.profile import (Profile, leaf_profile,
                                           merge_profiles, weave_steps)
@@ -60,21 +67,150 @@ def terminal_mask(steps: np.ndarray) -> np.ndarray:
     return term
 
 
+# ---------------------------------------------------------------------------
+# Routing rules, copied from the JAX engine for near-tie parity: the
+# lanewise and fused DPs round the in-row gap state otherwise than the row
+# kernel's scan transform, so a bucket must take the DP that kalign_tpu
+# gives it, or near-tie paths differ.  The arithmetic is the TPU kernels'
+# VMEM plan (lanewise_vmem_bytes, lanewise_plan, fused_vmem_bytes,
+# fused_plan, kalign_tpu/tpu/gotoh_lanewise.py:78-129,474-522): a rule of
+# the reference, not a limit of this card.
+_VMEM_BUDGET = 11 * 2 ** 20
+_TILE_BYTES = 8 * 128 * 4           # one [8, 128] float32 vector tile
+_TPU_PACK = 4                       # the TPU kernels' decisions per int32
+
+
+def _stream_tiles(L2p: int, R: int, L2t: int, ncp: int = 4) -> int:
+    """Tiles of the streams both plans share (state, penalties, ga0,
+    decisions, row penalties, boundary and pads)."""
+    return (3 * L2p + 2 * ncp * L2t + 2 * L2t + 2 * R * (L2t // _TPU_PACK)
+            + 2 * R * 7 + (3 * (R + 1) + 1) + 8)
+
+
+def lanewise_vmem_bytes(L2p: int, R: int, L2t: int) -> int:
+    return (_stream_tiles(L2p, R, L2t) + 2 * R * L2t) * _TILE_BYTES
+
+
+def fused_vmem_bytes(L2p: int, nc: int, R: int, L2t: int) -> int:
+    return (_stream_tiles(L2p, R, L2t) + 2 * R * nc
+            + 2 * nc * L2t) * _TILE_BYTES
+
+
+def _plan_fits(B: int, L1p: int, L2p: int, rows, vmem) -> bool:
+    """A (rows per step, column tile) plan exists within the budget."""
+    if B % gotoh_lanewise.BT or B < gotoh_lanewise.BT or L2p % _TPU_PACK:
+        return False
+    tiles = [L2p // ct for ct in range(1, 9)
+             if L2p % ct == 0 and (L2p // ct) % _TPU_PACK == 0]
+    return any(vmem(R, L2t) <= _VMEM_BUDGET
+               for R in rows if L1p % R == 0 for L2t in tiles)
+
+
+def lanewise_feasible(B: int, L1p: int, L2p: int) -> bool:
+    return _plan_fits(B, L1p, L2p, (4, 8, 2, 1),
+                      lambda R, L2t: lanewise_vmem_bytes(L2p, R, L2t))
+
+
+def fused_feasible(B: int, L1p: int, L2p: int, nc: int) -> bool:
+    return _plan_fits(B, L1p, L2p, (8, 4, 16, 2, 1),
+                      lambda R, L2t: fused_vmem_bytes(L2p, nc, R, L2t))
+
+
+# ---------------------------------------------------------------------------
+def bonus_match(match, la, lb, bias_eps, bonus):
+    """Centering bias and consistency bonus added to a bucket's match on
+    its device, in the float order of kalign_tpu's _prepare_match
+    (tpu/engine.py:71-100): the bias in the form |j - i*slope| * eps, then
+    the bonus accumulated anchor by anchor into zeros and added once.
+    bonus = (per_w, apos_r [B, K, L1p], conf_r, apos_c [B, K, L2p], conf_c)
+    with per_w a float32 scalar tensor."""
+    B, L1p, L2p = match.shape
+    dev = match.device
+    slope = lb.to(torch.float32) / torch.clamp(la.to(torch.float32), min=1.0)
+    ii = torch.arange(1, L1p + 1, device=dev).to(torch.float32)[None, :, None]
+    jj = torch.arange(1, L2p + 1, device=dev).to(torch.float32)[None, None, :]
+    dev_ = torch.abs(jj - ii * slope[:, None, None])
+    match = match - dev_ * bias_eps[:, None, None]
+    per_w, apr, cfr, apc, cfc = bonus
+    acc = torch.zeros_like(match)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    for k in range(apr.shape[1]):
+        eq = (apr[:, k, :, None] == apc[:, k, None, :]) & \
+            (apr[:, k, :, None] >= 0)
+        term = (per_w * cfr[:, k, :, None]) * cfc[:, k, None, :]
+        acc = acc + torch.where(eq, term, zero)
+    return match + acc
+
+
+def leaf_operands(tok, subm, penv, rows, cols, la, lb, L1p: int, L2p: int):
+    """Leaf-against-leaf operands assembled on the tensors' device from
+    the token table (kalign_tpu/tpu/engine.py::_leaf_assemble :182-211):
+    one-hot counts on the rows, substitution rows on the columns, and the
+    constant penalties masked to each problem's lengths."""
+    B = rows.shape[0]
+    dev = tok.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    Lt = tok.shape[1]
+    Lr, Lc = min(L1p, Lt), min(L2p, Lt)
+    rt = tok[rows.long()][:, :Lr]
+    ct = tok[cols.long()][:, :Lc]
+    valid_r = (torch.arange(Lr, device=dev)[None, :] < la[:, None])[:, :, None]
+    valid_c = (torch.arange(Lc, device=dev)[None, :] < lb[:, None])[:, :, None]
+    alpha = torch.arange(23, device=dev).to(tok.dtype)
+    lhs = torch.zeros((B, L1p, 23), **f32)
+    lhs[:, :Lr] = ((rt[:, :, None] == alpha[None, None, :])
+                   & valid_r).to(torch.float32)
+    rhs = torch.zeros((B, L2p, 23), **f32)
+    rhs[:, :Lc] = subm[ct.long()] * valid_c.to(torch.float32)
+    one, zero = torch.ones((), **f32), torch.zeros((), **f32)
+    colsv = torch.arange(L2p + 1, device=dev)[None, :]
+    pc = torch.where((colsv >= 1) & (colsv <= lb[:, None]), one,
+                     zero)[:, None, :] * penv[None, :, None]
+    rowsv = torch.arange(L1p + 1, device=dev)[None, :]
+    pr = torch.where((rowsv >= 1) & (rowsv <= la[:, None]), one,
+                     zero)[:, None, :] * penv[None, :, None]
+    return lhs, rhs, pc.contiguous(), pr.contiguous()
+
+
+def maps_from_steps(steps, swapped, Lmax: int):
+    """Residue -> anchor position maps of a chunk of step lists
+    (kalign_tpu/tpu/engine.py::_maps_from_steps_batch :999-1015): steps
+    [B, S] int8 padded with traceback.STEP_PAD, swapped [B] bool.
+    Returns maps [B, Lmax] int64, -1 where a residue is unmapped."""
+    B, S = steps.shape
+    valid = steps != tb.STEP_PAD
+    gap_i = np.where(swapped, 2, 1).astype(np.int8)[:, None]
+    gap_k = np.where(swapped, 1, 2).astype(np.int8)[:, None]
+    pos_i = np.cumsum(steps != gap_i, axis=1) - 1
+    pos_k = np.cumsum(steps != gap_k, axis=1) - 1
+    sel = (steps == 0) & valid
+    maps = np.full((B, Lmax), -1, dtype=np.int64)
+    maps[np.nonzero(sel)[0], pos_i[sel]] = pos_k[sel]
+    return maps
+
+
 class GpuEngine:
     # cap on the [B, L1p, L2p] match bytes of one launch; bigger buckets
     # split into chunked launches
     MAX_MATCH_BYTES = 1 << 30
-    # centering-bias strength of --fast merges (tpu/engine.py:686)
+    # centering-bias strength of the progressive merges (tpu/engine.py:686)
     EPS = 1e-3
+    # centering-bias strength of the consistency-map DPs
+    # (tpu/engine.py:987-996)
+    MAP_EPS = 0.0
 
     def __init__(self, device):
         self.device = torch.device(device)
         # the match product is a full-fp32 bmm (the JAX engine leaves it
         # to XLA at f32): TF32 would round the scores to ~3 digits
         torch.backends.cuda.matmul.allow_tf32 = False
-        # per-run routing counts: merges per kernel, bucket sizes per
-        # level, and each launch batch's shape and lengths (la, lb)
-        self.stats = {"row_merges": 0, "lanewise_merges": 0, "levels": [],
+        # live alphabet width for the fused kernel (set_alphabet)
+        self.nc = 0
+        # per-run routing counts: problems (merges and map DPs, padding
+        # included) per route, map DPs, bucket sizes per level, and each
+        # launch batch's route, shape and lengths
+        self.stats = {"row_merges": 0, "lanewise_merges": 0,
+                      "fused_merges": 0, "map_pairs": 0, "levels": [],
                       "batches": []}
 
     # ------------------------------------------------------------------
@@ -86,8 +222,32 @@ class GpuEngine:
 
     # ------------------------------------------------------------------
     @staticmethod
-    def lanewise_ok(Bp: int) -> bool:
-        return Bp % gotoh_lanewise.BT == 0 and Bp >= gotoh_lanewise.BT
+    def live_nc(subm, max_code: int) -> int:
+        """Live alphabet width for the fused kernel (tpu/engine.py:247-262
+        at its default): 5 when the substitution matrix is zero outside
+        the 5 x 5 nucleotide block and every token code is below 5 (then
+        slicing the operands to 5 columns is exact), else 0 (no fused
+        route)."""
+        s = np.asarray(subm)
+        if (max_code < 5 and s.shape[0] >= 5
+                and not np.any(s[5:, :]) and not np.any(s[:, 5:])):
+            return 5
+        return 0
+
+    def set_alphabet(self, codes, subm) -> None:
+        max_code = max((int(np.max(c)) for c in codes if len(c)), default=0)
+        self.nc = self.live_nc(subm, max_code)
+
+    @staticmethod
+    def lanewise_ok(Bp: int, L1p: int, L2p: int) -> bool:
+        """The problem-per-lane kernel takes batches of k * 1024 problems
+        that kalign_tpu's lanewise plan accepts (tpu/engine.py:264-273)."""
+        return lanewise_feasible(Bp, L1p, L2p)
+
+    @staticmethod
+    def fused_ok(Bp: int, L1p: int, L2p: int, nc: int) -> bool:
+        """The fused route's shape rule (tpu/engine.py:165-168)."""
+        return nc > 0 and fused_feasible(Bp, L1p, L2p, nc)
 
     def max_launch(self, L1p: int, L2p: int) -> int:
         cap = max(8, self.MAX_MATCH_BYTES // (L1p * L2p * 4))
@@ -96,51 +256,82 @@ class GpuEngine:
             p *= 2
         return p
 
-    def dispatch_bucket(self, lhs, rhs, pc, pr, la, lb, eps):
-        """Queue match product + forward + walk for one bucket on the
-        device (nothing is fetched).  The bucket arrives padded to a power
-        of two (``align``), so every chunk is one too.  Returns a handle
-        for collect_bucket."""
+    def put(self, x):
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type != "cuda":
+            return t
+        # pinned and asynchronous: a pageable copy would wait for the
+        # stream, and the level's buckets could not queue behind one
+        # another
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def dispatch_bucket(self, lhs, rhs, pc, pr, la, lb, eps, bonus=None):
+        """Queue one bucket of host arrays on the device (nothing is
+        fetched): chunks of at most max_launch problems, each uploaded and
+        launched.  The bucket arrives padded to a power of two (``align``),
+        so every chunk is one too.  bonus is None or the compact tuple
+        (per_w, apos_r, conf_r, apos_c, conf_c).  Returns a handle for
+        collect_bucket."""
         B = lhs.shape[0]
-        L1p, L2p = lhs.shape[1], rhs.shape[1]
-        cap = self.max_launch(L1p, L2p)
+        cap = self.max_launch(lhs.shape[1], rhs.shape[1])
         if B > cap:
+            def part(x, lo):
+                if x is None:
+                    return None
+                if isinstance(x, tuple):
+                    return (x[0],) + tuple(a[lo:lo + cap] for a in x[1:])
+                return x[lo:lo + cap]
             return ("multi", [
-                self.dispatch_bucket(lhs[lo:lo + cap], rhs[lo:lo + cap],
-                                     pc[lo:lo + cap], pr[lo:lo + cap],
-                                     la[lo:lo + cap], lb[lo:lo + cap],
-                                     eps[lo:lo + cap])
+                self.dispatch_bucket(*(part(x, lo) for x in (
+                    lhs, rhs, pc, pr, la, lb, eps, bonus)))
                 for lo in range(0, B, cap)])
-        dev = self.device
+        bonus_d = None
+        if bonus is not None:
+            bonus_d = (torch.tensor(np.float32(bonus[0])).to(self.device),) \
+                + tuple(self.put(a) for a in bonus[1:])
+        return self.launch_bucket(
+            *(self.put(x) for x in (lhs, rhs, pc, pr, la, lb, eps)),
+            bonus_d, la, lb)
 
-        def put(x):
-            t = torch.from_numpy(np.ascontiguousarray(x))
-            if dev.type != "cuda":
-                return t
-            # pinned and asynchronous: a pageable copy would wait for the
-            # stream, and the level's buckets could not queue behind one
-            # another
-            return t.pin_memory().to(dev, non_blocking=True)
-
-        lhs_d, rhs_d, pc_d, pr_d = put(lhs), put(rhs), put(pc), put(pr)
-        la_d, lb_d, eps_d = put(la), put(lb), put(eps)
-        match = torch.bmm(lhs_d, rhs_d.transpose(1, 2))       # fp32
-        slope = lb_d.to(torch.float32) / torch.clamp(
-            la_d.to(torch.float32), min=1.0)
+    def launch_bucket(self, lhs, rhs, pc, pr, la, lb, eps, bonus, la_h, lb_h,
+                      maps=False):
+        """Forward + walk of one launch batch of tensors on the engine's
+        device (tpu/engine.py:441-491 with _fused_forward_lanewise
+        :141-179): the fused kernel for bonus-free batches over a narrow
+        alphabet that its rule accepts, else the match product (plus bias
+        and bonus) and the lanewise or the row kernel.  la_h / lb_h are
+        the host lengths, kept in stats."""
+        B, L1p, _ = lhs.shape
+        L2p = rhs.shape[1]
         max_steps = L1p + L2p + 2
+        lanewise = self.lanewise_ok(B, L1p, L2p)
+        fused = (lanewise and bonus is None
+                 and self.fused_ok(B, L1p, L2p, self.nc))
+        route = "fused" if fused else "lanewise" if lanewise else "row"
         self.stats["batches"].append(
-            {"lanewise": self.lanewise_ok(B), "L1p": L1p, "L2p": L2p,
-             "la": la.copy(), "lb": lb.copy()})
-        if self.lanewise_ok(B):
-            dec, score, st = gotoh_lanewise.forward(
-                match, pc_d, pr_d, la_d, lb_d, slope, eps_d)
-            steps, n = tb.walk_lanewise(dec, la_d, lb_d, st, max_steps)
-            self.stats["lanewise_merges"] += B
+            {"route": route, "maps": maps, "L1p": L1p, "L2p": L2p,
+             "la": np.array(la_h), "lb": np.array(lb_h)})
+        slope = lb.to(torch.float32) / torch.clamp(la.to(torch.float32),
+                                                   min=1.0)
+        if fused:
+            nc = self.nc
+            dec, score, st = gotoh_fused.forward(
+                lhs[:, :, :nc].contiguous(), rhs[:, :, :nc].contiguous(),
+                pc, pr, la, lb, slope, eps)
         else:
-            dec, score, st = gotoh_row.forward(
-                match, pc_d, pr_d, la_d, lb_d, slope, eps_d)
-            steps, n = tb.walk_rows(dec, la_d, lb_d, st, max_steps)
-            self.stats["row_merges"] += B
+            match = torch.bmm(lhs, rhs.transpose(1, 2))       # fp32
+            if bonus is not None:
+                # bias and bonus are in the match: the kernel adds none
+                match = bonus_match(match, la, lb, eps, bonus)
+                slope = torch.zeros_like(slope)
+                eps = torch.zeros_like(eps)
+            dp = gotoh_lanewise if lanewise else gotoh_row
+            dec, score, st = dp.forward(match, pc, pr, la, lb, slope, eps)
+        if lanewise:
+            steps, n = tb.walk_lanewise(dec, la, lb, st, max_steps)
+        else:
+            steps, n = tb.walk_rows(dec, la, lb, st, max_steps)
+        self.stats[route + "_merges"] += B
         return ("walked", steps, n, score, B)
 
     def collect_bucket(self, handle):
@@ -160,10 +351,74 @@ class GpuEngine:
                 score.astype(np.float64))
 
     # ------------------------------------------------------------------
-    def align(self, codes, tasks, ap: P.AlnParam, seq_distances):
-        """One bottom-up --fast progressive pass (tpu/engine.py:731-901).
-        Returns (gaps per sequence, per-merge scores indexed like the
-        tasks sorted by parent id)."""
+    def dp_leaf_batch(self, codes, pairs, ap: P.AlnParam, maps_spec):
+        """Batched leaf-against-leaf DPs over (rows_seq, cols_seq) index
+        pairs (the consistency map workload; tpu/engine.py
+        _dp_leaf_batch_device :1098-1187).  The token table goes to the
+        device once; per launch only index vectors travel and the
+        operands are assembled there (leaf_operands).  Buckets by padded
+        shape, in sorted order, chunked by max_launch; each chunk pads to
+        a power of two with 8 x 8 problems on sequence 0.  Every chunk is
+        launched before any is fetched; each chunk's step lists come back
+        in one fetch and go straight into the map extraction.
+
+        maps_spec[p] = (length of the mapped sequence, swapped) for pair
+        p.  Returns the residue -> anchor position map of every pair."""
+        lens = np.array([len(c) for c in codes], np.int32)
+        pad = np.zeros((len(codes), int(lens.max())), np.uint8)
+        for i, c in enumerate(codes):
+            pad[i, :len(c)] = c
+        tok = self.put(pad)
+        subm = self.put(np.asarray(ap.subm, np.float32))
+        penv = self.put(np.array([-ap.gpo, -ap.gpe, -ap.tgpe], np.float32))
+        buckets = {}
+        for idx, (ri, ci) in enumerate(pairs):
+            key = (_bucket(lens[ri]), _bucket(lens[ci]))
+            buckets.setdefault(key, []).append((idx, ri, ci))
+        self.stats["map_pairs"] += len(pairs)
+
+        dispatched = []
+        for (L1p, L2p), items in sorted(buckets.items()):
+            cap = self.max_launch(L1p, L2p)
+            for lo in range(0, len(items), cap):
+                chunk = items[lo:lo + cap]
+                Bp = _pow2_batch(len(chunk))
+                rows = np.zeros(Bp, np.int32)
+                cols = np.zeros(Bp, np.int32)
+                rows[:len(chunk)] = [ri for _, ri, _ in chunk]
+                cols[:len(chunk)] = [ci for _, _, ci in chunk]
+                la = np.full(Bp, 8, np.int32)
+                lb = np.full(Bp, 8, np.int32)
+                la[:len(chunk)] = lens[rows[:len(chunk)]]
+                lb[:len(chunk)] = lens[cols[:len(chunk)]]
+                la_d, lb_d = self.put(la), self.put(lb)
+                lhs, rhs, pc, pr = leaf_operands(
+                    tok, subm, penv, self.put(rows), self.put(cols), la_d,
+                    lb_d, L1p, L2p)
+                eps = torch.full((Bp,), self.MAP_EPS, dtype=torch.float32,
+                                 device=self.device)
+                handle = self.launch_bucket(lhs, rhs, pc, pr, la_d, lb_d,
+                                            eps, None, la, lb, maps=True)
+                dispatched.append((chunk, handle[1]))
+
+        out: List[Optional[np.ndarray]] = [None] * len(pairs)
+        for chunk, steps in dispatched:
+            steps = steps[:len(chunk)].cpu().numpy()
+            li = np.array([maps_spec[idx][0] for idx, _, _ in chunk],
+                          np.int64)
+            sw = np.array([maps_spec[idx][1] for idx, _, _ in chunk], bool)
+            maps = maps_from_steps(steps, sw, int(li.max()))
+            for k, (idx, _, _) in enumerate(chunk):
+                out[idx] = maps[k, :li[k]]
+        return out
+
+    # ------------------------------------------------------------------
+    def align(self, codes, tasks, ap: P.AlnParam, seq_distances, ct=None):
+        """One bottom-up progressive pass (tpu/engine.py:731-901), with
+        the consistency bonus of table ct when given; the fused route
+        takes the alphabet width of the last set_alphabet.  Returns (gaps
+        per sequence, per-merge scores indexed like the tasks sorted by
+        parent id)."""
         sd = None if seq_distances is None else np.asarray(seq_distances)
         n = len(codes)
         nprof = 2 * n - 1
@@ -230,6 +485,15 @@ class GpuEngine:
                 lb = np.full(Ba, 8, np.int32)
                 lhs = np.zeros((Ba, L1p, 23), np.float32)
                 rhs = np.zeros((Ba, L2p, 23), np.float32)
+                bonus = None
+                if ct is not None:
+                    # compact per-anchor positions and confidences; the
+                    # bonus matrix is built on the device
+                    bonus = (ct.per_weight,
+                             np.full((Ba, ct.K, L1p), -1, np.int32),
+                             np.zeros((Ba, ct.K, L1p), np.float32),
+                             np.full((Ba, ct.K, L2p), -1, np.int32),
+                             np.zeros((Ba, ct.K, L2p), np.float32))
                 for k, (c, a, b, rn, cn, prof_r, prof_c, cif) in \
                         enumerate(items):
                     la[k] = prof_r.length
@@ -240,6 +504,14 @@ class GpuEngine:
                     else:
                         lhs[k, :la[k]] = prof_r.counts
                         rhs[k, :lb[k]] = prof_c.subrows
+                    if ct is not None:
+                        apr, cfr, apc, cfc = ct.bonus_arrays(
+                            rn, prof_r.length, cn, prof_c.length, sip, nsip,
+                            gaps, lens)
+                        bonus[1][k, :, :la[k]] = apr
+                        bonus[2][k, :, :la[k]] = cfr
+                        bonus[3][k, :, :lb[k]] = apc
+                        bonus[4][k, :, :lb[k]] = cfc
                     pc[k, :, 1:lb[k] + 1] = (prof_c.pen[1:-1] *
                                              np.float32(nsip[rn])).T
                     pr[k, :, 1:la[k] + 1] = (prof_r.pen[1:-1] *
@@ -251,7 +523,7 @@ class GpuEngine:
                     pr[B:] = pr[B - 1]
                 eps = np.full(Ba, self.EPS, np.float32)
                 dispatched.append((items, self.dispatch_bucket(
-                    lhs, rhs, pc, pr, la, lb, eps)))
+                    lhs, rhs, pc, pr, la, lb, eps, bonus)))
 
             for items, handle in dispatched:
                 steps_list, scores = self.collect_bucket(handle)

@@ -1,9 +1,10 @@
 """The port end to end on the CPU (every kernel's plain version) against
 kalign_tpu's throughput engine: ``engine="tpu-fast"`` in its
 host-assembled form (KALIGN_TPU_NO_RESIDENT=1) without the divergent-
-family autoroute (KALIGN_TPU_NO_AUTOROUTE=1), which is what the port's
---fast slice reproduces.  Also the scoring model, the anchors, the
-distances and the native guide tree, piece by piece."""
+family autoroute (KALIGN_TPU_NO_AUTOROUTE=1), which is what the port
+reproduces, in --fast mode and in default mode (anchor consistency).
+Also the scoring model, the anchors, the distances and the native guide
+tree, piece by piece."""
 
 import os
 
@@ -24,25 +25,34 @@ DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 CASES = ["BB11001", "BB12006", "BB30014"]
 
 
-def _jax_fast(path, monkeypatch):
+def _jax_fast(path, monkeypatch, consistency=0):
     monkeypatch.setenv("KALIGN_TPU_NO_RESIDENT", "1")
     monkeypatch.setenv("KALIGN_TPU_NO_AUTOROUTE", "1")
     m = jio.read_alignment(path)
     m.quiet = True
-    return JE.align_msa(m, consistency_anchors=0, engine="tpu-fast")
+    return JE.align_msa(m, consistency_anchors=consistency,
+                        engine="tpu-fast")
 
 
-@pytest.mark.parametrize("case", [c + ".tfa" for c in CASES] + ["small.fa"])
-def test_fast_alignment_matches_tpu_fast(case, monkeypatch):
+FILES = [c + ".tfa" for c in CASES] + ["small.fa"]
+
+
+@pytest.mark.parametrize(
+    "case,consistency",
+    [(f, 0) for f in FILES] + [(f, 5) for f in FILES],
+    ids=FILES + [f + "-default" for f in FILES])
+def test_fast_alignment_matches_tpu_fast(case, consistency, monkeypatch):
     """Byte-identical FASTA and bitwise-equal per-merge scores, on the
-    protein sets and on a tie-heavy DNA set.  (A case where a near-tie
-    resolves differently would instead have to show equal per-merge
-    scores and be listed in ROADMAP.md section 3, as big_dna.fa is.)"""
+    protein sets and on a tie-heavy DNA set, in --fast mode
+    (consistency 0) and in default mode (consistency 5).  (A case where a
+    near-tie resolves differently would instead have to show equal
+    per-merge scores and be listed in ROADMAP.md section 3, as
+    big_dna.fa is.)"""
     path = os.path.join(DATA, case)
-    ref = _jax_fast(path, monkeypatch)
+    ref = _jax_fast(path, monkeypatch, consistency)
     m = tio.read_alignment(path)
     m.quiet = True
-    out = TE.align_msa(m, consistency_anchors=0, device="cpu")
+    out = TE.align_msa(m, consistency_anchors=consistency, device="cpu")
     assert tio.format_alignment(out, "fasta") == \
         jio.format_alignment(ref, "fasta")
     assert np.array_equal(np.asarray(out.task_confidence),
@@ -57,12 +67,19 @@ def test_cli_writes_the_api_alignment(tmp_path):
     assert cli.main(["-i", path, "-o", str(out), "--fast", "--device", "cpu",
                      "-q"]) == 0
     msa = tio.read_alignment(path)
-    ref = kalign_tpu_torch.align_msa([s.seq for s in msa.sequences],
-                                     names=[s.name for s in msa.sequences],
+    seqs = [s.seq for s in msa.sequences]
+    names = [s.name for s in msa.sequences]
+    ref = kalign_tpu_torch.align_msa(seqs, names=names, mode="fast",
                                      device="cpu")
     assert out.read_text() == tio.format_alignment(ref, "fasta")
-    with pytest.raises(NotImplementedError):
-        cli.main(["-i", path, "-o", str(out), "--device", "cpu", "-q"])
+    # without --fast: the default mode (anchor consistency, K = 5)
+    assert cli.main(["-i", path, "-o", str(out), "--device", "cpu",
+                     "-q"]) == 0
+    ref = kalign_tpu_torch.align_msa(seqs, names=names, device="cpu")
+    assert out.read_text() == tio.format_alignment(ref, "fasta")
+    fast = kalign_tpu_torch.align_msa(seqs, names=names, mode="fast",
+                                      device="cpu")
+    assert out.read_text() != tio.format_alignment(fast, "fasta")
 
 
 def _param_fields(ap):

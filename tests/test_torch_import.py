@@ -76,8 +76,10 @@ def test_unported_options_raise():
     from kalign_tpu_torch.core.msa import Msa
     seqs = ["MKVLAAGIVGLLLAA", "MKVLSAGIVGLLAA"]
     with pytest.raises(NotImplementedError):
-        kalign_tpu_torch.align(seqs, mode="default", device="cpu")
-    for kw in (dict(consistency_anchors=5), dict(refine=1), dict(realign=1),
+        kalign_tpu_torch.align(seqs, mode="precise", device="cpu")
+    with pytest.raises(ValueError):
+        kalign_tpu_torch.align(seqs, mode="quick", device="cpu")
+    for kw in (dict(refine=1), dict(realign=1),
                dict(save_checkpoint="x"), dict(tree_seed=3, tree_noise=0.1)):
         with pytest.raises(NotImplementedError):
             E.align_msa(Msa.from_sequences(seqs), device="cpu", **kw)
@@ -89,7 +91,8 @@ def test_wrappers_take_plain_versions_on_cpu_without_launching():
     import numpy as np
     from kalign_tpu_torch.gpu import bpm, gotoh_lanewise, gotoh_row, scan
     from kalign_tpu_torch.gpu import traceback as tb
-    mods = (bpm, gotoh_lanewise, gotoh_row, scan, tb)
+    from kalign_tpu_torch.gpu import gotoh_fused
+    mods = (bpm, gotoh_fused, gotoh_lanewise, gotoh_row, scan, tb)
     before = [m.launches for m in mods]
     rng = np.random.default_rng(0)
     B, L1p, L2p = 4, 8, 8
@@ -102,4 +105,6 @@ def test_wrappers_take_plain_versions_on_cpu_without_launching():
     tb.walk_rows(dec, la, lb, st, L1p + L2p + 2)
     dec, score, st = gotoh_lanewise.forward(match, pc, pr, la, lb)
     tb.walk_lanewise(dec, la, lb, st, L1p + L2p + 2)
+    ops = torch.from_numpy(rng.normal(size=(B, L1p, 5)).astype(np.float32))
+    gotoh_fused.forward(ops, ops, pc, pr, la, lb)
     assert [m.launches for m in mods] == before

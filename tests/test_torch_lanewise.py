@@ -84,8 +84,12 @@ def test_lanewise_plain_degenerate_lb0():
 
 def test_lanewise_routing_rule():
     """Buckets whose power-of-two launch batch is k * 1024 take the
-    problem-per-lane kernel (kalign_tpu/tpu/engine.py:264-273)."""
-    assert GpuEngine.lanewise_ok(1024)
-    assert GpuEngine.lanewise_ok(4096)
-    assert not GpuEngine.lanewise_ok(512)
-    assert not GpuEngine.lanewise_ok(1536)
+    problem-per-lane kernel where kalign_tpu's lanewise plan is feasible
+    (kalign_tpu/tpu/engine.py:264-273)."""
+    assert GpuEngine.lanewise_ok(1024, 384, 384)
+    assert GpuEngine.lanewise_ok(4096, 256, 256)
+    assert not GpuEngine.lanewise_ok(512, 256, 256)
+    assert not GpuEngine.lanewise_ok(1536, 256, 256)
+    # 1,024 problems but no feasible plan: the row kernel, as in JAX
+    assert not GpuEngine.lanewise_ok(1024, 256, 1024)
+    assert not GpuEngine.lanewise_ok(1024, 128, 2048)
