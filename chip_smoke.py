@@ -18,14 +18,17 @@ Phases (any failure raises and the script exits non-zero):
      consistency with 5 anchors: ~10,000 map DPs on the fused kernel,
      then the progressive pass with the consistency bonus; checked the
      same way, all six kernels must have launched;
-  5. both paths once more under torch.profiler: device time by kernel
-     and the device's idle share;
+  5. both paths once more under torch.profiler: device time by kernel,
+     each of the six kernels' total device time and launches, and the
+     device's idle share;
   6. main-path shapes: every kernel held bitwise against its plain
      version again, at the shapes and problem lengths the paths gave it
-     (its largest launch, and for the row kernel also its widest), and
-     timed there beside its plain version and its bound; the fused
-     kernel also beside the materialised route (torch.bmm + lanewise
-     kernel) on the same inputs;
+     (its largest launch; for the row kernel also its widest and the
+     default path's largest launch of few problems, each under every
+     block size that fits; for the prefix sums also the widest row
+     launch's [B, L2p]), and timed there beside its plain version and its
+     bound; the fused kernel also beside the materialised route
+     (torch.bmm + lanewise kernel) on the same inputs;
   7. the same package on the card and on the CPU: BB30014 and a
      150-sequence protein family in --fast mode, BB30014 and a
      250-sequence DNA family (one 2,048-problem fused launch) in default
@@ -82,6 +85,11 @@ KERNELS = {
                     "kalign_tpu/tpu/gotoh_lanewise.py:692 "
                     "(_fused_kernel :525)"),
 }
+# a substring of each kernel's name in a torch.profiler trace
+PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
+                 "gotoh_lanewise": "MatchStream", "bpm": "bpm_kernel",
+                 "traceback": "walk_kernel", "prefix_sum": "prefix_sum_kernel",
+                 "gotoh_fused": "FusedOperands"}
 # the kernels each path must launch
 PATH_KERNELS = {"fast": [k for k in KERNELS if k != "gotoh_fused"],
                 "default": list(KERNELS)}
@@ -113,6 +121,36 @@ def cuda_time_ms(fn, reps: int, warm: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def dev_us(e):
+    """Device time of a torch.profiler key_averages() entry, in us."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, reps: int, name=None) -> float:
+    """Device time per call of fn() from torch.profiler over reps calls:
+    the mean duration of each kernel whose name holds `name` (of every
+    kernel if None), summed over those kernels.  Means, not totals over
+    reps: the trace may lack some of the launches.  Unlike
+    cuda_time_ms it leaves out the host's time to launch them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [(dev_us(e), e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+            and (name is None or name in e.key)]
+    if not hits:
+        raise AssertionError("the profiler saw no device time")
+    return sum(us / count for us, count in hits) / 1e3
 
 
 def timed_once(fn):
@@ -283,16 +321,32 @@ def phase_edge_cases(dev):
     from kalign_tpu_torch.gpu import traceback as tb
     rng = np.random.default_rng(0)
 
-    # row Gotoh: B=64 at 384 x 384, with la=0 and lb=0 problems
+    # row Gotoh: B=64 at 384 x 384, with la=0, lb=0 and lb=L2p problems,
+    # under every block size (2, 4 and 8 columns per thread); B=4 at
+    # 256 x 2176, whose last block columns lie past L2p
     la = rng.integers(1, 385, size=64)
     lb = rng.integers(1, 385, size=64)
     la[[0, 2]] = 0
     lb[[1, 2]] = 0
+    lb[3] = 384
     p = dp_problem(rng, 384, 384, la, lb, dev)
     row_k = gotoh_row.forward(*dp_args(p))
-    hold_dp_outputs("gotoh_row", False, row_k,
-                    gotoh_row.forward_plain(*dp_args(p)), p,
+    row_ref = gotoh_row.forward_plain(*dp_args(p))
+    hold_dp_outputs("gotoh_row", False, row_k, row_ref, p,
                     "64x384x384 with la=0/lb=0")
+    for ch in gotoh_row.CHUNKS:
+        cfg = gotoh_row.config_for(384, ch)
+        hold_dp_outputs("gotoh_row", False, gotoh_row.run_dp(
+            gotoh_row.prepare,
+            lambda *a: gotoh_row.launch(*a, config=cfg), *dp_args(p)),
+            row_ref, p, f"64x384x384 under {cfg}")
+    la = rng.integers(1, 257, size=4)
+    lb = rng.integers(1, 2177, size=4)
+    la[0], lb[1], lb[2] = 0, 0, 2176
+    w = dp_problem(rng, 256, 2176, la, lb, dev)
+    hold_dp_outputs("gotoh_row", False, gotoh_row.forward(*dp_args(w)),
+                    gotoh_row.forward_plain(*dp_args(w)), w,
+                    f"4x256x2176 under {gotoh_row.launch_config(4, 2176)}")
 
     # lanewise Gotoh: B=1024 at 128 x 128, lengths 1..128 and 0
     la = rng.integers(1, 129, size=1024)
@@ -329,12 +383,20 @@ def phase_edge_cases(dev):
         hold_walks(walk(*args), plain(*args), r["la"], r["lb"],
                    f"{walk.__name__} {tuple(dec.shape)}")
 
-    # prefix sums: strided views, one column, rows past one block
-    x = torch.from_numpy(rng.standard_normal((515, 3, 130),
+    # prefix sums: strided views of R = 1, 33, 1000 rows (not multiples
+    # of a block's rows) and W = 1, 129, 1408 columns (one column, past a
+    # column tile), one at a time and three sets in one launch
+    x = torch.from_numpy(rng.standard_normal((1000, 3, 1409),
                                              dtype=np.float32)).to(dev)
-    for v in (x[:, 1, 1:], x[:, 2, :1], x[:3, 0, :]):
+    views = [x[:R, k % 3, 1:W + 1] for k, (R, W) in enumerate(
+        (R, W) for R in (1, 33, 1000) for W in (1, 129, 1408))]
+    for v in views + [x[:3, 0, :]]:
         hold_equal("prefix_sum", scan.prefix_sum_f32(v), scan.plain(v),
                    str(tuple(v.shape)))
+    sets = (views[8], views[4], views[0])
+    for got, v in zip(scan.prefix_sums_f32(*sets), sets):
+        hold_equal("prefix_sum", got, scan.plain(v),
+                   f"{tuple(v.shape)} of three sets in one launch")
 
     # BPM: 2,048 sequences x 32 anchors, lengths 60-1,100 (patterns of
     # 1-16 blocks, texts longer than 1,024)
@@ -429,10 +491,6 @@ def phase_profile(path: str, seqs):
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     # device-side entries only (kernels and copies): an operator's
     # device time is also listed under the kernels it launched
     rows = sorted(((e.key, dev_us(e), e.count)
@@ -442,10 +500,16 @@ def phase_profile(path: str, seqs):
     busy_us = sum(r[1] for r in rows)
     if busy_us <= 0:
         raise AssertionError("the profiler saw no device time")
+    totals = {}
+    for name, sub in PROFILE_NAMES.items():
+        hit = [(us, c) for k, us, c in rows if sub in k]
+        totals[name] = {"device_ms": round(sum(h[0] for h in hit) / 1e3, 3),
+                        "launches": sum(h[1] for h in hit)}
     emit({"phase": "profile", "path": path,
           "wall_s": round(wall_us / 1e6, 3),
           "device_busy_s": round(busy_us / 1e6, 4),
           "device_idle_share": round(1.0 - busy_us / wall_us, 4),
+          "kernels": totals,
           "top": [{"name": k[:80], "device_ms": round(us / 1e3, 3),
                    "calls": c} for k, us, c in rows[:12]]})
 
@@ -488,6 +552,41 @@ def hold_dp(name, mod, lanewise, p, reps):
     return out, ms, plain_ms
 
 
+def shape_of(p):
+    return f"{len(p['la'])}x{p['L1p']}x{p['L2p']}"
+
+
+def row_device_ms(p, reps=5):
+    """The row kernel's device time on p under launch_config's block."""
+    from kalign_tpu_torch.gpu import gotoh_row
+    prep = gotoh_row.prepare(p["pc"], p["pr"], p["la"], p["lb"], p["slope"],
+                             p["eps"])
+    return device_ms(lambda: gotoh_row.launch(p["match"], prep, p["la"],
+                                              p["lb"]),
+                     reps, PROFILE_NAMES["gotoh_row"])
+
+
+def row_blocks(p, reps):
+    """The row kernel under every block size that fits p's width, each held
+    bitwise against the plain version: {columns per thread: (threads,
+    ms)}."""
+    from kalign_tpu_torch.gpu import gotoh_row
+    prep = gotoh_row.prepare(p["pc"], p["pr"], p["la"], p["lb"], p["slope"],
+                             p["eps"])
+    args = (p["match"], prep, p["la"], p["lb"])
+    ref = gotoh_row.launch(*args)
+    out = {}
+    for ch in gotoh_row.CHUNKS:
+        cfg = gotoh_row.config_for(p["L2p"], ch)
+        if cfg is None:
+            continue
+        run = lambda: gotoh_row.launch(*args, config=cfg)
+        hold_dp_outputs("gotoh_row", False, run(), ref, p,
+                        f"{shape_of(p)} under {cfg}")
+        out[ch] = (cfg.threads, cuda_time_ms(run, reps=reps))
+    return out
+
+
 def phase_main_shapes(dev, stats, stats_default, seqs):
     """Each kernel at the shapes and lengths a path gave it: the row,
     lanewise, traceback, prefix-sum and BPM kernels at the fast path's,
@@ -515,19 +614,34 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
     def problem(b):
         return dp_problem(rng, b["L1p"], b["L2p"], b["la"], b["lb"], dev)
 
-    # row kernel: its largest launch (by the cells its lengths need),
-    # timed; its widest launch, held only
+    # row kernel: its largest launch (by the cells its lengths need), its
+    # widest, and the default path's largest launch of few problems (an
+    # upper tree level); each timed under launch_config's block and under
+    # every other block that fits
     p = problem(batch(False, cells))
     row_out, ms, plain_ms = hold_dp("gotoh_row", gotoh_row, False, p, 20)
-    out["gotoh_row"] = dict(ms=ms, plain_ms=plain_ms,
-                            shape=f"{len(p['la'])}x{p['L1p']}x{p['L2p']}")
+    out["gotoh_row"] = dict(ms=ms, plain_ms=plain_ms, shape=shape_of(p),
+                            device_ms=row_device_ms(p),
+                            block=gotoh_row.launch_config(
+                                len(p["la"]), p["L2p"])._asdict(),
+                            by_block=row_blocks(p, 20))
     out["gotoh_row"]["bound_ms"], out["gotoh_row"]["bound_by"] = \
         gotoh_bound(p, 1)
-    wide = batch(False, lambda b: (b["L2p"], b["L1p"]))
-    pw = problem(wide)
-    hold_dp("gotoh_row", gotoh_row, False, pw, 1)
-    out["gotoh_row"]["also_held"] = \
-        f"{len(pw['la'])}x{pw['L1p']}x{pw['L2p']}"
+    for key, b, reps in (
+            ("widest", batch(False, lambda b: (b["L2p"], b["L1p"])), 5),
+            ("few", batch(False, lambda b: (-len(b["la"]), cells(b)),
+                          stats_default), 10)):
+        pk = problem(b)
+        _, k_ms, k_plain_ms = hold_dp("gotoh_row", gotoh_row, False, pk, reps)
+        b_ms, b_by = gotoh_bound(pk, 1)
+        out["gotoh_row"][key] = dict(
+            shape=shape_of(pk), ms=k_ms, plain_ms=k_plain_ms,
+            device_ms=row_device_ms(pk), bound_ms=b_ms,
+            bound_by=b_by, block=gotoh_row.launch_config(
+                len(pk["la"]), pk["L2p"])._asdict(),
+            by_block=row_blocks(pk, reps))
+        if key == "widest":
+            pw = pk
     emit({"phase": "main_shape", "kernel": "gotoh_row", **out["gotoh_row"]})
 
     # lanewise kernel: the main path's 1,024-problem leaf bucket
@@ -566,17 +680,28 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
     emit({"phase": "main_shape", "kernel": "traceback", **out["traceback"]})
 
     # prefix sums: the row-side terminal-gap run of the leaf bucket, as
-    # gotoh_lanewise.prepare takes it (a strided view)
-    x = q["pr"][:, 2, 1:]
-    got = scan.prefix_sum_f32(x)
-    ref, plain_ms = timed_once(lambda: scan.plain(x))
-    hold_equal("prefix_sum", got, ref, "at the main path's shape")
-    ms = cuda_time_ms(lambda: scan.launch(x), reps=50)
-    lib_ms = cuda_time_ms(lambda: torch.cumsum(x, dim=1), reps=50)
-    b_ms, b_by = bound(x.numel() * 8, x.numel(), FP32_OPS_PER_S)
-    out["prefix_sum"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bound_by=b_by,
-                             shape=f"{x.shape[0]}x{x.shape[1]}")
+    # gotoh_lanewise.prepare takes it (a strided view), and the column gap
+    # extensions of the widest row launch, as gotoh_row.prepare takes them
+    out["prefix_sum"] = {}
+    for key, x in (("leaf", q["pr"][:, 2, 1:]),
+                   ("widest", pw["pc"][:, 1, 1:])):
+        got = scan.prefix_sum_f32(x)
+        ref, plain_ms = timed_once(lambda: scan.plain(x))
+        hold_equal("prefix_sum", got, ref, f"{tuple(x.shape)} at the main "
+                   "path's shape")
+        b_ms, b_by = bound(x.numel() * 8, x.numel(), FP32_OPS_PER_S)
+        cumsum = lambda: torch.cumsum(x, dim=1)
+        t = dict(ms=cuda_time_ms(lambda: scan.launch(x), reps=50),
+                 plain_ms=plain_ms, library_ms=cuda_time_ms(cumsum, reps=50),
+                 device_ms=device_ms(lambda: scan.launch(x), 50,
+                                     PROFILE_NAMES["prefix_sum"]),
+                 library_device_ms=device_ms(cumsum, 50),
+                 bound_ms=b_ms, bound_by=b_by,
+                 shape=f"{x.shape[0]}x{x.shape[1]}")
+        if key == "leaf":
+            out["prefix_sum"].update(t)
+        else:
+            out["prefix_sum"][key] = t
     emit({"phase": "main_shape", "kernel": "prefix_sum",
           **out["prefix_sum"]})
 
@@ -737,9 +862,8 @@ def main():
             "max_abs_err": MAX_ABS_ERR[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
-            "shape": t["shape"],
-            **({"materialised_ms": t["materialised_ms"]}
-               if "materialised_ms" in t else {})})
+            **{k: v for k, v in t.items() if k not in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     total_s = time.perf_counter() - t_start
     emit({"phase": "total", "total_s": round(total_s, 1)})
     print(json.dumps({"kernels": kernels}))

@@ -68,9 +68,10 @@ def lib() -> ctypes.CDLL:
     L.kt_cuda_error_string.restype = ctypes.c_char_p
     L.kt_cuda_error_string.argtypes = [_i]
     L.kt_gotoh_row_smem_bytes.restype = ctypes.c_size_t
-    L.kt_gotoh_row_smem_bytes.argtypes = [_i]
+    L.kt_gotoh_row_smem_bytes.argtypes = [_i, _i]
     L.kt_gotoh_row_forward.restype = _i
-    L.kt_gotoh_row_forward.argtypes = [_p] * 8 + [_i] * 3 + [_p] * 4
+    L.kt_gotoh_row_forward.argtypes = ([_p] * 8 + [_i] * 3 + [_p] * 3
+                                       + [_i, _i, _p])
     L.kt_gotoh_lanewise_forward.restype = _i
     L.kt_gotoh_lanewise_forward.argtypes = [_p] * 9 + [_i] * 3 + [_p] * 5
     L.kt_gotoh_fused_forward.restype = _i
@@ -81,8 +82,8 @@ def lib() -> ctypes.CDLL:
     L.kt_bpm_batch.restype = _i
     L.kt_bpm_batch.argtypes = [_p, ctypes.c_int64, _p, _p, _p, _p, _i, _i,
                                _p, _p]
-    L.kt_prefix_sum_f32.restype = _i
-    L.kt_prefix_sum_f32.argtypes = [_p, ctypes.c_longlong, _i, _i, _p, _p]
+    L.kt_prefix_sums_f32.restype = _i
+    L.kt_prefix_sums_f32.argtypes = [_i, _p, _p]
     return L
 
 
@@ -93,7 +94,9 @@ def check(rc: int, what: str) -> None:
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream's handle, from torch's raw-stream query
+    (no torch.cuda.Stream object is built on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

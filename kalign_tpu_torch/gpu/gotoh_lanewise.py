@@ -26,7 +26,7 @@ import torch
 
 from kalign_tpu_torch.gpu import _cuda
 from kalign_tpu_torch.gpu.gotoh_row import pick_dp, run_dp
-from kalign_tpu_torch.gpu.scan import prefix_sum_f32
+from kalign_tpu_torch.gpu.scan import prefix_sums_f32
 
 NEG = -3.0e38
 BT = 1024          # routing granularity (launch batches of k * 1024)
@@ -47,9 +47,9 @@ def prepare(pens_cols, pens_rows, la, lb, slope, bias_eps):
     cols_f = torch.arange(1, L2p + 1, device=dev).to(torch.float32)
     rows_f = torch.arange(1, L1p + 1, device=dev).to(torch.float32)
     cols = torch.arange(1, L2p + 1, device=dev)[None, :]
-    C_term = prefix_sum_f32(pens_cols[:, 2, 1:])
+    C_term, cum_tgeA = prefix_sums_f32(pens_cols[:, 2, 1:],
+                                       pens_rows[:, 2, 1:])   # cum: [B, L1p]
     ga0 = torch.where(cols <= lb[:, None], C_term, torch.full((), NEG, **f32))
-    cum_tgeA = prefix_sum_f32(pens_rows[:, 2, 1:])           # [B, L1p]
     gb0 = torch.cat([torch.full((B, 1), NEG, **f32), cum_tgeA], dim=1)
     lb0_score = torch.cat([torch.zeros((B, 1), **f32), cum_tgeA],
                           dim=1).gather(1, la[:, None].long())[:, 0]

@@ -21,16 +21,57 @@ c+1; only rows < la are written by the kernel), score [B] f32 and end
 state [B] int32.
 """
 
+from collections import namedtuple
+
 import torch
 
 from kalign_tpu_torch.gpu import _cuda
-from kalign_tpu_torch.gpu.scan import prefix_sum_f32
+from kalign_tpu_torch.gpu.scan import prefix_sums_f32
 
 NEG = -3.0e38
 SMEM_LIMIT = 232448        # dynamic shared memory a Hopper block may use
-COL_QUANTUM = 128          # L2p must be a multiple of the block's threads
+COL_QUANTUM = 128          # L2p must be a multiple of this
+# csrc/gotoh_row.cu's instantiations: columns per thread -> (most threads
+# a block may have, match rows in the shared-memory ring)
+CHUNKS = {4: (512, 8), 8: (896, 4)}
+SLOT_FLOATS = 5            # per warp, two row parities
 
 launches = 0
+
+RowLaunch = namedtuple("RowLaunch", "threads ch smem")
+
+
+def smem_bytes(threads, ch):
+    """csrc/gotoh_row.cu::smem_bytes: four invariant vectors and the match
+    ring over threads * ch columns, and the warp slots."""
+    stages = CHUNKS[ch][1]
+    return 4 * ((4 + stages) * threads * ch
+                + threads // 32 * 2 * SLOT_FLOATS)
+
+
+def config_for(L2p, ch):
+    """RowLaunch of ch columns per thread, or None if it does not fit."""
+    threads = -(-L2p // (32 * ch)) * 32
+    smem = smem_bytes(threads, ch)
+    if threads > CHUNKS[ch][0] or smem > SMEM_LIMIT:
+        return None
+    return RowLaunch(threads, ch, smem)
+
+
+def launch_config(B, L2p):
+    """Block size and columns per thread of the row kernel for B problems
+    of width L2p: 4 columns per thread (up to 512 threads), 8 beyond
+    that."""
+    if L2p <= 0 or L2p % COL_QUANTUM:
+        raise ValueError(f"row Gotoh kernel: L2p={L2p} is not a multiple "
+                         f"of {COL_QUANTUM}")
+    for ch in CHUNKS:
+        cfg = config_for(L2p, ch)
+        if cfg is not None:
+            return cfg
+    raise ValueError(f"row Gotoh kernel: L2p={L2p} needs more threads or "
+                     f"shared memory than one block has (at most "
+                     f"{CHUNKS[8][0] * 8} columns)")
 
 
 def prepare(pens_cols, pens_rows, la, lb, slope, bias_eps):
@@ -44,8 +85,11 @@ def prepare(pens_cols, pens_rows, la, lb, slope, bias_eps):
     goB = pens_cols[:, 0, 1:]
     geB = pens_cols[:, 1, 1:]
     tgeB = pens_cols[:, 2, 1:]
-    C_norm = prefix_sum_f32(geB)
-    C_term = prefix_sum_f32(tgeB)
+    goA = pens_rows[:, 0, :]
+    geA = pens_rows[:, 1, :]
+    tgeA = pens_rows[:, 2, :]
+    C_norm, C_term, cum_tgeA = prefix_sums_f32(geB, tgeB,
+                                               tgeA[:, 1:])  # cum: [B, L1p]
     pad1 = torch.zeros((B, 1), **f32)
     goB_next = torch.cat([goB[:, 1:], pad1], dim=1)        # goB[j+1]
     tgeB_next = torch.cat([tgeB[:, 1:], pad1], dim=1)
@@ -60,10 +104,6 @@ def prepare(pens_cols, pens_rows, la, lb, slope, bias_eps):
     colpen = torch.stack([C_norm, C_term, gnC_norm, gnC_term, goB_s],
                          dim=0).contiguous()               # [5, B, W]
 
-    goA = pens_rows[:, 0, :]
-    geA = pens_rows[:, 1, :]
-    tgeA = pens_rows[:, 2, :]
-    cum_tgeA = prefix_sum_f32(tgeA[:, 1:])            # [B, L1p]
     gb0 = torch.cat([torch.full((B, 1), NEG, **f32), cum_tgeA[:, :L1p - 1]],
                     dim=1)                                 # GB[row-1, 0]
     rowpen = torch.stack([goA[:, 1:], geA[:, 1:], tgeA[:, 1:],
@@ -149,20 +189,17 @@ def plain(match, prep, la, lb):
     return dec, score, state
 
 
-def launch(match, prep, la, lb):
-    """Launch csrc/gotoh_row.cu on CUDA tensors."""
+def launch(match, prep, la, lb, config=None):
+    """Launch csrc/gotoh_row.cu on CUDA tensors, with launch_config's
+    block unless a RowLaunch is given."""
     global launches
     match = match.contiguous()
     B, L1p, W = match.shape
-    if W % COL_QUANTUM:
-        raise ValueError(f"row Gotoh kernel: L2p={W} is not a multiple of "
-                         f"{COL_QUANTUM}")
+    cfg = config or launch_config(B, W)
     lib = _cuda.lib()
-    smem = lib.kt_gotoh_row_smem_bytes(W)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"row Gotoh kernel: L2p={W} needs {smem} bytes of "
-                         f"shared memory, above the {SMEM_LIMIT} a block "
-                         "may use")
+    if lib.kt_gotoh_row_smem_bytes(cfg.threads, cfg.ch) != cfg.smem:
+        raise RuntimeError("row Gotoh kernel: shared-memory size differs "
+                           "between csrc/gotoh_row.cu and launch_config")
     _cuda.require_cuda("gotoh_row", match, prep["colpen"], prep["ga0"],
                        prep["rowpen"], prep["cols_eps"], prep["row_term"],
                        la, lb)
@@ -176,7 +213,8 @@ def launch(match, prep, la, lb):
         match.data_ptr(), *(prep[k].data_ptr() for k in (
             "colpen", "ga0", "rowpen", "cols_eps", "row_term")),
         la.data_ptr(), lb.data_ptr(), B, L1p, W, dec.data_ptr(),
-        score.data_ptr(), state.data_ptr(), _cuda.stream())
+        score.data_ptr(), state.data_ptr(), cfg.threads, cfg.ch,
+        _cuda.stream())
     _cuda.check(rc, "gotoh_row")
     launches += 1
     return dec, score, state

@@ -152,3 +152,26 @@ def test_prefix_sums_run_left_to_right_in_float32():
         assert np.array_equal(got.view(np.int32), ref.view(np.int32))
     with pytest.raises(ValueError, match="CUDA"):
         scan.launch(x[:, 0, :])
+
+
+@pytest.mark.parametrize("B", [1, 512])
+def test_row_launch_config_covers_every_width_of_the_old_kernel(B):
+    """launch_config gives every L2p the one-block-of-128-threads design
+    took (33 bytes of shared memory per column, so up to 7,040) a block
+    within Hopper's limits: whole warps, enough columns, at most the
+    instantiation's threads and 232,448 bytes of shared memory, sized by
+    the kernel's own formula; anything else raises."""
+    old_max = (gotoh_row.SMEM_LIMIT - 16) // 33 // 128 * 128
+    assert old_max == 7040
+    for L2p in range(128, old_max + 1, 128):
+        cfg = gotoh_row.launch_config(B, L2p)
+        max_threads, stages = gotoh_row.CHUNKS[cfg.ch]
+        assert cfg.threads % 32 == 0 and cfg.threads <= max_threads
+        assert L2p <= cfg.threads * cfg.ch < L2p + 32 * cfg.ch
+        assert cfg.ch == (4 if L2p <= 4 * 512 else 8)
+        assert cfg.smem == 4 * ((4 + stages) * cfg.threads * cfg.ch
+                                + cfg.threads // 32 * 2 * 5)
+        assert cfg.smem <= gotoh_row.SMEM_LIMIT == 232448
+    for bad in (64, 200, 7296, 8192):
+        with pytest.raises(ValueError, match="row Gotoh kernel"):
+            gotoh_row.launch_config(B, bad)
