@@ -8,7 +8,10 @@ Phases (any failure raises and the script exits non-zero):
      kernels and the native tree library built from this checkout;
   2. edge cases: every hand-written kernel held against its plain
      PyTorch version on the same CUDA tensors (bitwise / exact), with
-     la = 0 and lb = 0 problems, short and odd-sized inputs;
+     la = 0 and lb = 0 problems, short and odd-sized inputs (for the
+     walk: walks across many windows, pure-gap walks, a short max_steps
+     and walks longer than its step buffer; for the fused kernel: nc = 1,
+     5, 8, 23 and 32, rows past a strip, one decision word per row);
   3. the fast path: a 2,000-sequence protein family (270-330 residues,
      made from a seed) aligned with kalign_tpu_torch.align_msa(mode=
      "fast") on the card; the output is checked and every kernel of the
@@ -19,16 +22,21 @@ Phases (any failure raises and the script exits non-zero):
      then the progressive pass with the consistency bonus; checked the
      same way, all six kernels must have launched;
   5. both paths once more under torch.profiler: device time by kernel,
-     each of the six kernels' total device time and launches, and the
-     device's idle share;
+     each of the six kernels' total device time and launches (the trace
+     must hold every launch of phases 3-4), and the device's idle share;
   6. main-path shapes: every kernel held bitwise against its plain
      version again, at the shapes and problem lengths the paths gave it
      (its largest launch; for the row kernel also its widest and the
      default path's largest launch of few problems, each under every
      block size that fits; for the prefix sums also the widest row
-     launch's [B, L2p]), and timed there beside its plain version and its
-     bound; the fused kernel also beside the materialised route
-     (torch.bmm + lanewise kernel) on the same inputs;
+     launch's [B, L2p]; for the walk each decision layout apart and the
+     widest row launch's walks; for the fused kernel every launch shape
+     of the default path), and timed there beside its plain version and
+     its bound (the walk also beside its chain floor: its steps and the
+     windows it staged at this card's shared-memory and device-memory
+     latencies, measured by scripts/latency_probe.cu); the fused kernel
+     also beside the materialised route (torch.bmm + lanewise kernel) on
+     the same inputs;
   7. the same package on the card and on the CPU: BB30014 and a
      150-sequence protein family in --fast mode, BB30014 and a
      250-sequence DNA family (one 2,048-problem fused launch) in default
@@ -65,6 +73,13 @@ INT32_OPS_PER_S = 16.7e12
 GOTOH_OPS_PER_CELL = 19
 # 64-bit operations per (pair, text symbol, live block) of the BPM kernel
 BPM_OPS_PER_BLOCK_STEP = 17
+# the pointer chases that measure the walk's chain floor
+PROBE_SRC = os.path.join(HERE, "scripts", "latency_probe.cu")
+# seconds of idle time at each end of a torch.profiler capture: on the
+# card's machine the trace's kernel timestamps stray from the host's
+# clock by up to milliseconds, and the profiler drops records that fall
+# outside its window
+PROFILE_PAD_S = 0.05
 
 PROTEIN = "ARNDCQEGHILKMFPSTWYV"
 DNA = "ACGT"
@@ -129,28 +144,52 @@ def dev_us(e):
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def device_ms(fn, reps: int, name=None) -> float:
-    """Device time per call of fn() from torch.profiler over reps calls:
-    the mean duration of each kernel whose name holds `name` (of every
-    kernel if None), summed over those kernels.  Means, not totals over
-    reps: the trace may lack some of the launches.  Unlike
-    cuda_time_ms it leaves out the host's time to launch them."""
+def profiled(fn):
+    """torch.profiler's trace of fn() (CPU and CUDA activity), the card
+    drained and the capture window padded by PROFILE_PAD_S on each side;
+    returns (trace, fn's result, fn's wall seconds)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(PROFILE_PAD_S)
+    return prof, out, wall
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of fn(): CUDA events around reps calls queued
+    behind a spin kernel, so that the card runs them back to back while
+    the host is still launching them (the host's launch time is hidden,
+    the card's gap between kernels is not).  The spin doubles until it
+    outlasts the host's launches.  Not torch.profiler: on the card's
+    machine its traces of short windows lost kernel records (PERF.md)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    for _ in range(10):
+        spin, t0, t1 = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+        h0 = time.perf_counter()
+        spin.record()
+        torch.cuda._sleep(cycles)
+        t0.record()
         for _ in range(reps):
             fn()
+        t1.record()
+        host_ms = (time.perf_counter() - h0) * 1e3
         torch.cuda.synchronize()
-    hits = [(dev_us(e), e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and dev_us(e) > 0
-            and (name is None or name in e.key)]
-    if not hits:
-        raise AssertionError("the profiler saw no device time")
-    return sum(us / count for us, count in hits) / 1e3
+        if spin.elapsed_time(t0) > host_ms:
+            return t0.elapsed_time(t1) / reps
+        cycles *= 2
+    raise AssertionError("the spin kernel never outlasted the host's "
+                         "launches")
 
 
 def timed_once(fn):
@@ -216,10 +255,13 @@ def phase_device_and_build():
     from kalign_tpu_torch.gpu import _cuda
     from kalign_tpu_torch.utils.build import build_log
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         f_cuda = ex.submit(_cuda.library_path)
         f_tree = ex.submit(native.library_path)
+        f_probe = ex.submit(_cuda.library_path, "libkt_probe", [PROBE_SRC],
+                            [])
         cuda_path, tree_path = f_cuda.result(), f_tree.result()
+        f_probe.result()
     secs = time.perf_counter() - t0
     _cuda.lib()
     native.lib()
@@ -297,14 +339,51 @@ def hold_dp_outputs(name, lanewise, a, b, p, what):
     hold(name, ok, abs_err(sa, sb), what)
 
 
-def hold_walks(a, b, la, lb, what):
-    """Identical steps and counts; each walk consumes la rows, lb cols."""
+def hold_walks(a, b, la, lb, what, whole=True):
+    """Identical steps and counts; unless max_steps cut them (whole=False),
+    each walk consumes la rows and lb columns."""
     import torch
     (sa, na), (sb, nb) = a, b
-    ok = (torch.equal(sa, sb) and torch.equal(na, nb)
-          and torch.equal(((sa == 0) | (sa == 2)).sum(1).int(), la)
-          and torch.equal(((sa == 0) | (sa == 1)).sum(1).int(), lb))
+    ok = torch.equal(sa, sb) and torch.equal(na, nb)
+    if whole:
+        ok = (ok and torch.equal(((sa == 0) | (sa == 2)).sum(1).int(), la)
+              and torch.equal(((sa == 0) | (sa == 1)).sum(1).int(), lb))
     hold("traceback", ok, max(abs_err(sa, sb), abs_err(na, nb)), what)
+
+
+def walk_decisions(rng, B, L1p, L2p, p_diag, p_ext):
+    """Random decision bytes [B, L1p, L2p] (numpy int8): the next state
+    from A is the diagonal with probability p_diag, else GA or GB; the gap
+    states extend with probability p_ext.  Near-diagonal walks cross the
+    walk's windows through their tops, gap-heavy ones through both edges."""
+    shape = (B, L1p, L2p)
+    a = np.where(rng.random(shape, dtype=np.float32) < p_diag, 0,
+                 rng.integers(1, 3, shape, dtype=np.int8))
+    ga = rng.random(shape, dtype=np.float32) < p_ext
+    gb = rng.random(shape, dtype=np.float32) < p_ext
+    return (a | (ga << 2) | (gb << 3)).astype(np.int8)
+
+
+def hold_walk_case(dev, rng, lanewise, B, L1p, L2p, p_diag, p_ext, la, lb,
+                   max_steps=None):
+    """The walk kernel against its plain version on random decisions with
+    lengths la, lb (B of them) and random end states."""
+    import torch
+    from kalign_tpu_torch.gpu import gotoh_lanewise
+    from kalign_tpu_torch.gpu import traceback as tb
+    dec = torch.from_numpy(walk_decisions(rng, B, L1p, L2p, p_diag,
+                                          p_ext)).to(dev)
+    if lanewise:
+        dec = gotoh_lanewise.pack_dec(dec)
+    t = lambda x: torch.from_numpy(np.asarray(x, np.int32)).to(dev)
+    st = t(rng.integers(0, 3, size=B))
+    la, lb = t(la), t(lb)
+    ms = max_steps or L1p + L2p + 2
+    walk, plain = ((tb.walk_lanewise, tb.plain_lanewise) if lanewise
+                   else (tb.walk_rows, tb.plain_rows))
+    hold_walks(walk(dec, la, lb, st, ms), plain(dec, la, lb, st, ms), la, lb,
+               f"{walk.__name__} {B}x{L1p}x{L2p} p_diag={p_diag} "
+               f"p_ext={p_ext} max_steps={ms}", whole=max_steps is None)
 
 
 def hold_equal(name, a, b, what):
@@ -359,29 +438,67 @@ def phase_edge_cases(dev):
                     gotoh_lanewise.forward_plain(*dp_args(q)), q,
                     "1024x128x128 with la=0/lb=0")
 
-    # fused Gotoh: B=1024 with la=0/lb=0 problems, operands of any float
-    # value (the chain's order is the plain version's), nc=5 at 128 x 128
-    # and nc=23 at 64 x 64
-    for nc, L in ((5, 128), (23, 64)):
-        la = rng.integers(1, L + 1, size=1024)
-        lb = rng.integers(1, L + 1, size=1024)
+    # lanewise Gotoh with rows past a strip of 32 x R rows: B=64 at
+    # 136 x 16, with la=0/lb=0 problems
+    la = rng.integers(1, 137, size=64)
+    lb = rng.integers(1, 17, size=64)
+    la[[3, 5]] = 0
+    lb[[4, 5]] = 0
+    la[6] = 136
+    q2 = dp_problem(rng, 136, 16, la, lb, dev)
+    hold_dp_outputs("gotoh_lanewise", True,
+                    gotoh_lanewise.forward(*dp_args(q2)),
+                    gotoh_lanewise.forward_plain(*dp_args(q2)), q2,
+                    "64x136x16 with la=0/lb=0")
+
+    # fused Gotoh: la=0/lb=0 problems, operands of any float value (the
+    # chain's order is the plain version's): nc=5 at 128 x 128 and nc=23
+    # at 64 x 64 (B=1024), nc=1 at 136 x 16 (rows past a 128-row strip),
+    # nc=8 at 72 x 8 (one decision word per row), nc=32 at 40 x 24 (the
+    # widest operand rows, one row per lane)
+    for nc, B, L1, L2 in ((5, 1024, 128, 128), (23, 1024, 64, 64),
+                          (1, 64, 136, 16), (8, 64, 72, 8),
+                          (32, 64, 40, 24)):
+        la = rng.integers(1, L1 + 1, size=B)
+        lb = rng.integers(1, L2 + 1, size=B)
         la[[3, 5]] = 0
         lb[[4, 5]] = 0
-        f = dp_problem(rng, L, L, la, lb, dev)
+        lb[6] = L2
+        f = dp_problem(rng, L1, L2, la, lb, dev)
         ops = [torch.from_numpy(rng.standard_normal(
-            (1024, L, nc), dtype=np.float32)).to(dev) for _ in range(2)]
+            (B, L, nc), dtype=np.float32)).to(dev) for L in (L1, L2)]
         args = (*ops, *dp_args(f)[1:])
         hold_dp_outputs("gotoh_fused", True, gotoh_fused.forward(*args),
                         gotoh_fused.forward_plain(*args), f,
-                        f"1024x{L}x{L} nc={nc} with la=0/lb=0")
+                        f"{B}x{L1}x{L2} nc={nc} with la=0/lb=0")
 
-    # traceback over both decision layouts
+    # traceback over both decision layouts: the forward kernels' own
+    # decisions, then random decisions whose walks cross many windows
+    # (tb.WINDOW) through their tops (near-diagonal) and left edges
+    # (gap-heavy), pure-gap walks (la = 0, lb = 0, lb = L2p), lengths
+    # just past a window edge, a max_steps shorter than la + lb, and
+    # walks longer than the step buffer
     for walk, plain, r, (dec, _, st) in (
             (tb.walk_rows, tb.plain_rows, p, row_k),
             (tb.walk_lanewise, tb.plain_lanewise, q, lw_k)):
         args = (dec, r["la"], r["lb"], st, r["L1p"] + r["L2p"] + 2)
         hold_walks(walk(*args), plain(*args), r["la"], r["lb"],
                    f"{walk.__name__} {tuple(dec.shape)}")
+    for lanewise in (False, True):
+        win = tb.WINDOW[0]
+        la = rng.integers(300, 513, size=64)
+        lb = rng.integers(300, 513, size=64)
+        la[0], lb[1], lb[2] = 0, 0, 512
+        la[3:6], lb[3:6] = (win + 1, win, 1), (win + 1, win + 1, win + 2)
+        la[6], lb[6] = 2 * win + 1, 3 * win + 1
+        for p_diag, p_ext in ((0.9, 0.5), (0.2, 0.9)):
+            hold_walk_case(dev, rng, lanewise, 64, 512, 512, p_diag, p_ext,
+                           la, lb)
+        hold_walk_case(dev, rng, lanewise, 64, 512, 512, 0.5, 0.7, la, lb,
+                       max_steps=300)
+        L = 3072 if not lanewise else 2560
+        hold_walk_case(dev, rng, lanewise, 4, L, L, 0.6, 0.7,
+                       [L, L - 1, L // 2, 0], [L, L - 7, L, L])
 
     # prefix sums: strided views of R = 1, 33, 1000 rows (not multiples
     # of a block's rows) and W = 1, 129, 1408 columns (one column, past a
@@ -476,20 +593,30 @@ def phase_path(path: str, seqs):
     return launches, stats
 
 
-def phase_profile(path: str, seqs):
+def phase_profile(path: str, seqs, launches):
     """A path once more under torch.profiler: device time by kernel, and
-    the device's busy share of the run's wall time."""
-    import torch
+    the device's busy share of the run's wall time.  The trace must hold
+    each kernel as many times as the path launched it: a trace that lost
+    records is taken again, twice at most."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     import kalign_tpu_torch
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        kalign_tpu_torch.align_msa(seqs, mode=path)
-        torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
+    for attempt in range(3):
+        prof, _, wall_s = profiled(
+            lambda: kalign_tpu_torch.align_msa(seqs, mode=path))
+        counts = {name: sum(e.count for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA
+                            and sub in e.key)
+                  for name, sub in PROFILE_NAMES.items()}
+        lost = {k: (c, launches[k]) for k, c in counts.items()
+                if c != launches[k]}
+        if not lost:
+            break
+        emit({"phase": "profile", "path": path, "attempt": attempt,
+              "lost_records": lost})
+    else:
+        raise AssertionError(f"the {path} path's trace lacks launches "
+                             f"(traced, launched): {lost}")
+    wall_us = wall_s * 1e6
 
     # device-side entries only (kernels and copies): an operator's
     # device time is also listed under the kernels it launched
@@ -538,32 +665,119 @@ def gotoh_bound(p, dec_bytes_per_cell, nc=0):
     return bound(bytes_, cells * ops, FP32_OPS_PER_S)
 
 
+def memory_latencies_ms(dev):
+    """Latencies in ms on this card, from scripts/latency_probe.cu: of one
+    dependent shared-memory read, and of one round trip to L2 and to
+    device memory.  Each is a pointer chase through a random cycle, of
+    8,192 entries in shared memory, of 2^21 (8 MB, written just before,
+    so in L2) and of 2^26 (256 MB, L2 flushed first) in device memory,
+    timed at H and 2H hops (CUDA events, the least of three launches, the
+    chains from starts far apart on the cycle): the difference over H."""
+    import ctypes
+    import torch
+    from kalign_tpu_torch.gpu import _cuda
+    lib = ctypes.CDLL(_cuda.library_path("libkt_probe", [PROBE_SRC], []))
+    lib.kt_probe_chase.restype = ctypes.c_int
+    lib.kt_probe_chase.argtypes = ([ctypes.c_int, ctypes.c_void_p]
+                                   + [ctypes.c_int] * 3
+                                   + [ctypes.c_void_p] * 2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    sink = torch.empty(1, dtype=torch.int32, device=dev)
+    out = {}
+    for key, shared, n, hops in (("shared_read", 1, 8192, 100_000),
+                                 ("l2_round_trip", 0, 1 << 21, 20_000),
+                                 ("device_round_trip", 0, 1 << 26, 20_000)):
+        perm = torch.randperm(n, device=dev, generator=gen)
+        nxt = torch.empty(n, dtype=torch.int32, device=dev)
+        nxt[perm] = perm.roll(-1).to(torch.int32)
+        if key == "device_round_trip":
+            torch.ones(1 << 26, device=dev).sum()  # evicts nxt from L2
+        starts = iter(perm[::n // 8].tolist())
+        best = {}
+        for h in (hops, 2 * hops):
+            for _ in range(3):
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                _cuda.check(lib.kt_probe_chase(
+                    shared, nxt.data_ptr(), n, next(starts), h,
+                    sink.data_ptr(), _cuda.stream()), "latency probe")
+                t1.record()
+                torch.cuda.synchronize()
+                best[h] = min(best.get(h, 1e9), t0.elapsed_time(t1))
+        out[key] = (best[2 * hops] - best[hops]) / hops
+    return out
+
+
+def walk_chain_floor(walk_args, lanewise, lat):
+    """The walks' chain floor: for each walk its steps at one shared-memory
+    read each plus the windows the kernel staged for it at one L2 round
+    trip each (the least a window's load can wait: the forward kernel has
+    just written the decisions), latencies from memory_latencies_ms; the
+    floor is the largest over the walks.  Also that walk's floor with its
+    windows from device memory."""
+    from kalign_tpu_torch.gpu import traceback as tb
+    dec = walk_args[0]
+    L1p, L2p = ((dec.shape[2], dec.shape[1] * tb.PACK) if lanewise
+                else dec.shape[1:])
+    _, n, win = tb.launch(lanewise, *walk_args, L1p, L2p,
+                          count_windows=True)
+    n, win = n.double(), win.double()
+    floor = n * lat["shared_read"] + win * lat["l2_round_trip"]
+    b = int(floor.argmax())
+    return dict(chain_floor_ms=float(floor[b]), steps=int(n[b]),
+                windows=int(win[b]),
+                from_device_memory_ms=float(n[b] * lat["shared_read"] + win[b]
+                                            * lat["device_round_trip"]))
+
+
+def plain_on_cpu(fn, *args):
+    """(fn(*args) on CPU copies of the tensors, dicts of tensors among
+    them; wall ms).  The lanewise DP's plain version is a loop over cells
+    that launches one small operation at a time: at 1,024 problems the
+    host runs that loop faster than it can launch it on the card, with
+    the same float32 operations, so the same bits."""
+    def cpu(a):
+        if isinstance(a, dict):
+            return {k: v.cpu() for k, v in a.items()}
+        return a.cpu()
+    args = [cpu(a) for a in args]
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def hold_dp_on_cpu(name, out, plain, args, p, what):
+    """A lanewise kernel's outputs against its plain version run on CPU
+    copies of the same inputs; returns the plain version's wall ms."""
+    ref, plain_ms = plain_on_cpu(plain, *args)
+    hold_dp_outputs(name, True, tuple(x.cpu() for x in out), ref,
+                    dict(la=p["la"].cpu(), lb=p["lb"].cpu(), L2p=p["L2p"]),
+                    f"{what}, plain version on the CPU")
+    return plain_ms
+
+
 def hold_dp(name, mod, lanewise, p, reps):
     """Kernel vs plain DP on the same prepared inputs: bitwise, then the
-    kernel timed over reps launches and the plain version once."""
+    kernel timed over reps launches (events, then device_ms over 5)
+    and the plain version once (the lanewise kernel's on the CPU,
+    plain_on_cpu).  Returns (outputs, ms, device ms, plain ms)."""
     prep = mod.prepare(p["pc"], p["pr"], p["la"], p["lb"], p["slope"],
                        p["eps"])
     args = (p["match"], prep, p["la"], p["lb"])
     out = mod.launch(*args)
-    ref, plain_ms = timed_once(lambda: mod.plain(*args))
-    hold_dp_outputs(name, lanewise, out, ref, p,
-                    f"{len(p['la'])}x{p['L1p']}x{p['L2p']}")
-    ms = cuda_time_ms(lambda: mod.launch(*args), reps=reps)
-    return out, ms, plain_ms
+    if lanewise:
+        plain_ms = hold_dp_on_cpu(name, out, mod.plain, args, p, shape_of(p))
+    else:
+        ref, plain_ms = timed_once(lambda: mod.plain(*args))
+        hold_dp_outputs(name, lanewise, out, ref, p, shape_of(p))
+    run = lambda: mod.launch(*args)
+    return out, cuda_time_ms(run, reps=reps), device_ms(run, 5), plain_ms
 
 
 def shape_of(p):
     return f"{len(p['la'])}x{p['L1p']}x{p['L2p']}"
-
-
-def row_device_ms(p, reps=5):
-    """The row kernel's device time on p under launch_config's block."""
-    from kalign_tpu_torch.gpu import gotoh_row
-    prep = gotoh_row.prepare(p["pc"], p["pr"], p["la"], p["lb"], p["slope"],
-                             p["eps"])
-    return device_ms(lambda: gotoh_row.launch(p["match"], prep, p["la"],
-                                              p["lb"]),
-                     reps, PROFILE_NAMES["gotoh_row"])
 
 
 def row_blocks(p, reps):
@@ -619,9 +833,10 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
     # upper tree level); each timed under launch_config's block and under
     # every other block that fits
     p = problem(batch(False, cells))
-    row_out, ms, plain_ms = hold_dp("gotoh_row", gotoh_row, False, p, 20)
+    row_out, ms, dev_ms, plain_ms = hold_dp("gotoh_row", gotoh_row, False,
+                                            p, 20)
     out["gotoh_row"] = dict(ms=ms, plain_ms=plain_ms, shape=shape_of(p),
-                            device_ms=row_device_ms(p),
+                            device_ms=dev_ms,
                             block=gotoh_row.launch_config(
                                 len(p["la"]), p["L2p"])._asdict(),
                             by_block=row_blocks(p, 20))
@@ -632,11 +847,12 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
             ("few", batch(False, lambda b: (-len(b["la"]), cells(b)),
                           stats_default), 10)):
         pk = problem(b)
-        _, k_ms, k_plain_ms = hold_dp("gotoh_row", gotoh_row, False, pk, reps)
+        _, k_ms, k_dev_ms, k_plain_ms = hold_dp("gotoh_row", gotoh_row,
+                                                False, pk, reps)
         b_ms, b_by = gotoh_bound(pk, 1)
         out["gotoh_row"][key] = dict(
             shape=shape_of(pk), ms=k_ms, plain_ms=k_plain_ms,
-            device_ms=row_device_ms(pk), bound_ms=b_ms,
+            device_ms=k_dev_ms, bound_ms=b_ms,
             bound_by=b_by, block=gotoh_row.launch_config(
                 len(pk["la"]), pk["L2p"])._asdict(),
             by_block=row_blocks(pk, reps))
@@ -646,38 +862,55 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
 
     # lanewise kernel: the main path's 1,024-problem leaf bucket
     q = problem(batch(True, cells))
-    lw_out, ms, plain_ms = hold_dp("gotoh_lanewise", gotoh_lanewise, True,
-                                   q, 10)
+    lw_out, ms, dev_ms, plain_ms = hold_dp("gotoh_lanewise", gotoh_lanewise,
+                                           True, q, 10)
     out["gotoh_lanewise"] = dict(
-        ms=ms, plain_ms=plain_ms,
-        shape=f"{len(q['la'])}x{q['L1p']}x{q['L2p']}")
+        ms=ms, plain_ms=plain_ms, shape=shape_of(q), device_ms=dev_ms,
+        plan=gotoh_lanewise.launch_plan(q["L2p"])._asdict())
     out["gotoh_lanewise"]["bound_ms"], out["gotoh_lanewise"]["bound_by"] = \
         gotoh_bound(q, 0.5)
     emit({"phase": "main_shape", "kernel": "gotoh_lanewise",
           **out["gotoh_lanewise"]})
 
-    # traceback: walks of the two buckets' decisions
-    ms = plain_ms = bytes_ = 0.0
-    for walk, plain, r, (dec, _, st) in (
-            (tb.walk_rows, tb.plain_rows, p, row_out),
-            (tb.walk_lanewise, tb.plain_lanewise, q, lw_out)):
+    # traceback: walks of the two buckets' decisions, each layout timed on
+    # its own, and of the widest row launch's; `ms` and its bound are the
+    # two buckets' sum.  Each beside its chain floor, from this card's
+    # memory latencies (phase line only: the floor is not a bound)
+    pw_out = gotoh_row.launch(pw["match"], gotoh_row.prepare(
+        pw["pc"], pw["pr"], pw["la"], pw["lb"], pw["slope"], pw["eps"]),
+        pw["la"], pw["lb"])
+    latencies = memory_latencies_ms(dev)
+    walks, floors = {}, {}
+    for key, lanewise, r, (dec, _, st) in (
+            ("rows", False, p, row_out), ("lanewise", True, q, lw_out),
+            ("widest", False, pw, pw_out)):
+        walk, plain = ((tb.walk_lanewise, tb.plain_lanewise) if lanewise
+                       else (tb.walk_rows, tb.plain_rows))
         args = (dec, r["la"], r["lb"], st, r["L1p"] + r["L2p"] + 2)
         got = walk(*args)
         ref, t_plain = timed_once(lambda: plain(*args))
         hold_walks(got, ref, r["la"], r["lb"],
-                   f"{walk.__name__} at the main path's shape")
-        ms += cuda_time_ms(lambda: walk(*args), reps=20)
-        plain_ms += t_plain
+                   f"{walk.__name__} {shape_of(r)} at the main path's shape")
         # one decision byte read per step, the step rows written, and
         # la, lb, the end state and n
-        bytes_ += int(got[1].sum()) + got[0].numel() + len(r["la"]) * 16
-    b_ms, b_by = bound(bytes_, 0, FP32_OPS_PER_S)
-    out["traceback"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by,
-                            shape=f"{out['gotoh_row']['shape']} rows + "
-                                  f"{out['gotoh_lanewise']['shape']} "
-                                  "lanewise")
-    emit({"phase": "main_shape", "kernel": "traceback", **out["traceback"]})
+        b_ms, b_by = bound(int(got[1].sum()) + got[0].numel()
+                           + len(r["la"]) * 16, 0, FP32_OPS_PER_S)
+        walks[key] = dict(
+            shape=shape_of(r), ms=cuda_time_ms(lambda: walk(*args), reps=20),
+            device_ms=device_ms(lambda: walk(*args), 10),
+            plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+            plan=tb.launch_plan(len(r["la"]), args[4])._asdict())
+        floors[key] = walk_chain_floor(args, lanewise, latencies)
+    out["traceback"] = dict(
+        ms=walks["rows"]["ms"] + walks["lanewise"]["ms"],
+        device_ms=walks["rows"]["device_ms"] + walks["lanewise"]["device_ms"],
+        plain_ms=walks["rows"]["plain_ms"] + walks["lanewise"]["plain_ms"],
+        bound_ms=walks["rows"]["bound_ms"] + walks["lanewise"]["bound_ms"],
+        bound_by="bytes", shape=f"{walks['rows']['shape']} rows + "
+        f"{walks['lanewise']['shape']} lanewise", **walks)
+    emit({"phase": "main_shape", "kernel": "traceback", **out["traceback"],
+          "chain_floor": floors,
+          "memory_latency_ms": latencies})
 
     # prefix sums: the row-side terminal-gap run of the leaf bucket, as
     # gotoh_lanewise.prepare takes it (a strided view), and the column gap
@@ -693,8 +926,7 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
         cumsum = lambda: torch.cumsum(x, dim=1)
         t = dict(ms=cuda_time_ms(lambda: scan.launch(x), reps=50),
                  plain_ms=plain_ms, library_ms=cuda_time_ms(cumsum, reps=50),
-                 device_ms=device_ms(lambda: scan.launch(x), 50,
-                                     PROFILE_NAMES["prefix_sum"]),
+                 device_ms=device_ms(lambda: scan.launch(x), 50),
                  library_device_ms=device_ms(cumsum, 50),
                  bound_ms=b_ms, bound_by=b_by,
                  shape=f"{x.shape[0]}x{x.shape[1]}")
@@ -730,50 +962,69 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
                       shape=f"{len(codes)}x{len(anchors)} pairs")
     emit({"phase": "main_shape", "kernel": "bpm", **out["bpm"]})
 
-    # fused kernel: the default path's largest fused launch (map DPs),
-    # its real lengths, the engine's own operands (one-hot rows against
-    # rows of the DNA substitution matrix, integer-valued) from random
-    # nucleotide codes, the map DPs' penalties and eps = 0
-    fb = batch(True, cells, stats_default, "fused")
-    B, L1p, L2p = len(fb["la"]), fb["L1p"], fb["L2p"]
+    # fused kernel: every launch shape of the default path (map DPs), the
+    # largest launch of each, with its real lengths, the engine's own
+    # operands (one-hot rows against rows of the DNA substitution matrix,
+    # integer-valued) from random nucleotide codes, the map DPs'
+    # penalties and eps = 0.  The largest launch (4,096 problems) is held
+    # against the plain version on the card and beside the materialised
+    # route; the others (1,024 problems) against it on the CPU
+    # (plain_on_cpu)
     ap = P.aln_param_init(P.BIOTYPE_DNA, 0)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-    la_d, lb_d = t(fb["la"]), t(fb["lb"])
-    tok = t(rng.integers(0, 4, size=(2 * B, max(L1p, L2p))).astype(np.uint8))
-    lhs, rhs, pc, pr = leaf_operands(
-        tok, t(np.asarray(ap.subm, np.float32)),
-        t(np.array([-ap.gpo, -ap.gpe, -ap.tgpe], np.float32)),
-        t(np.arange(B, dtype=np.int32)), t(np.arange(B, 2 * B,
-                                                     dtype=np.int32)),
-        la_d, lb_d, L1p, L2p)
     nc = 5
-    x, y = lhs[:, :, :nc].contiguous(), rhs[:, :, :nc].contiguous()
-    slope = lb_d.float() / torch.clamp(la_d.float(), min=1.0)
-    prep = gotoh_fused.prepare(pc, pr, la_d, lb_d, slope,
-                               torch.zeros(B, device=dev))
-    f = dict(la=la_d, lb=lb_d, L1p=L1p, L2p=L2p)
-    got = gotoh_fused.launch(x, y, prep, la_d, lb_d)
-    ref, plain_ms = timed_once(
-        lambda: gotoh_fused.plain(x, y, prep, la_d, lb_d))
-    shape = f"{B}x{L1p}x{L2p}"
-    hold_dp_outputs("gotoh_fused", True, got, ref, f, shape)
-    del ref
-    ms = cuda_time_ms(lambda: gotoh_fused.launch(x, y, prep, la_d, lb_d),
-                      reps=10)
-
-    # the materialised route on the same inputs: the 23-wide match
-    # product, then the match-stream lanewise kernel; integer operands
-    # make the product exact, so it gives the fused route's bits
-    def materialised():
-        match = torch.bmm(lhs, rhs.transpose(1, 2))
-        return gotoh_lanewise.launch(match, prep, la_d, lb_d)
-    hold_dp_outputs("gotoh_fused", True, got, materialised(), f,
-                    f"{shape} fused vs bmm + lanewise")
-    mat_ms = cuda_time_ms(materialised, reps=10)
-    out["gotoh_fused"] = dict(ms=ms, plain_ms=plain_ms, shape=shape,
-                              materialised_ms=mat_ms)
-    out["gotoh_fused"]["bound_ms"], out["gotoh_fused"]["bound_by"] = \
-        gotoh_bound(f, 0.5, nc)
+    shapes = {}
+    for b in stats_default["batches"]:
+        if b["route"] == "fused":
+            key = (len(b["la"]), b["L1p"], b["L2p"])
+            if key not in shapes or cells(b) > cells(shapes[key]):
+                shapes[key] = b
+    launches_f = []
+    for k, ((B, L1p, L2p), fb) in enumerate(sorted(
+            shapes.items(), key=lambda kv: -cells(kv[1]))):
+        la_d, lb_d = t(fb["la"]), t(fb["lb"])
+        tok = t(rng.integers(0, 4, size=(2 * B, max(L1p, L2p)))
+                .astype(np.uint8))
+        lhs, rhs, pc, pr = leaf_operands(
+            tok, t(np.asarray(ap.subm, np.float32)),
+            t(np.array([-ap.gpo, -ap.gpe, -ap.tgpe], np.float32)),
+            t(np.arange(B, dtype=np.int32)),
+            t(np.arange(B, 2 * B, dtype=np.int32)), la_d, lb_d, L1p, L2p)
+        x, y = lhs[:, :, :nc].contiguous(), rhs[:, :, :nc].contiguous()
+        slope = lb_d.float() / torch.clamp(la_d.float(), min=1.0)
+        prep = gotoh_fused.prepare(pc, pr, la_d, lb_d, slope,
+                                   torch.zeros(B, device=dev))
+        f = dict(la=la_d, lb=lb_d, L1p=L1p, L2p=L2p)
+        run = lambda: gotoh_fused.launch(x, y, prep, la_d, lb_d)
+        got = run()
+        shape = f"{B}x{L1p}x{L2p}"
+        b_ms, b_by = gotoh_bound(f, 0.5, nc)
+        entry = dict(shape=shape, ms=cuda_time_ms(run, reps=10),
+                     device_ms=device_ms(run, 5),
+                     bound_ms=b_ms, bound_by=b_by,
+                     plan=gotoh_lanewise.launch_plan(L2p, nc)._asdict())
+        if k == 0:
+            ref, entry["plain_ms"] = timed_once(
+                lambda: gotoh_fused.plain(x, y, prep, la_d, lb_d))
+            hold_dp_outputs("gotoh_fused", True, got, ref, f, shape)
+            del ref
+        else:
+            entry["plain_ms"] = hold_dp_on_cpu(
+                "gotoh_fused", got, gotoh_fused.plain,
+                (x, y, prep, la_d, lb_d), f, shape)
+        if k == 0:
+            # the materialised route on the same inputs: the 23-wide match
+            # product, then the match-stream lanewise kernel; integer
+            # operands make the product exact, so it gives the fused
+            # route's bits
+            def materialised():
+                match = torch.bmm(lhs, rhs.transpose(1, 2))
+                return gotoh_lanewise.launch(match, prep, la_d, lb_d)
+            hold_dp_outputs("gotoh_fused", True, got, materialised(), f,
+                            f"{shape} fused vs bmm + lanewise")
+            entry["materialised_ms"] = cuda_time_ms(materialised, reps=10)
+        launches_f.append(entry)
+    out["gotoh_fused"] = dict(launches_f[0], other_shapes=launches_f[1:])
     emit({"phase": "main_shape", "kernel": "gotoh_fused",
           **out["gotoh_fused"]})
     return out
@@ -848,7 +1099,7 @@ def main():
     for path in ("fast", "default"):
         launches[path], stats[path] = phase_path(path, seqs[path])
     for path in ("fast", "default"):
-        phase_profile(path, seqs[path])
+        phase_profile(path, seqs[path], launches[path])
     shapes = phase_main_shapes(dev, stats["fast"], stats["default"],
                                seqs["fast"])
     phase_gpu_vs_cpu()

@@ -50,10 +50,13 @@ def nvcc() -> str:
                        "to build the kalign_tpu_torch CUDA kernels")
 
 
-def library_path() -> str:
+def library_path(name: str = "libkt_cuda", sources=SOURCES,
+                 headers=HEADERS) -> str:
+    """The package's kernel library (or another library of CUDA sources
+    with a plain C interface, built the same way)."""
     cc = nvcc()
     return build_library(
-        "libkt_cuda", SOURCES, HEADERS,
+        name, sources, headers,
         compile_cmd=lambda src, obj: [cc, *NVCC_FLAGS, "-I", CSRC, "-c",
                                       "-o", obj, src],
         link_cmd=lambda objs, out: [cc, "-shared", "-gencode",
@@ -72,13 +75,15 @@ def lib() -> ctypes.CDLL:
     L.kt_gotoh_row_forward.restype = _i
     L.kt_gotoh_row_forward.argtypes = ([_p] * 8 + [_i] * 3 + [_p] * 3
                                        + [_i, _i, _p])
+    L.kt_gotoh_lanewise_smem_bytes.restype = ctypes.c_size_t
+    L.kt_gotoh_lanewise_smem_bytes.argtypes = [_i, _i, _i]
     L.kt_gotoh_lanewise_forward.restype = _i
-    L.kt_gotoh_lanewise_forward.argtypes = [_p] * 9 + [_i] * 3 + [_p] * 5
+    L.kt_gotoh_lanewise_forward.argtypes = [_p] * 9 + [_i] * 4 + [_p] * 4
     L.kt_gotoh_fused_forward.restype = _i
-    L.kt_gotoh_fused_forward.argtypes = ([_p, _p, _i] + [_p] * 8 + [_i] * 3
-                                         + [_p] * 5)
+    L.kt_gotoh_fused_forward.argtypes = ([_p, _p, _i] + [_p] * 8 + [_i] * 4
+                                         + [_p] * 4)
     L.kt_traceback.restype = _i
-    L.kt_traceback.argtypes = [_i] + [_p] * 4 + [_i] * 4 + [_p] * 3
+    L.kt_traceback.argtypes = [_i] + [_p] * 4 + [_i] * 8 + [_p] * 4
     L.kt_bpm_batch.restype = _i
     L.kt_bpm_batch.argtypes = [_p, ctypes.c_int64, _p, _p, _p, _p, _i, _i,
                                _p, _p]

@@ -23,7 +23,7 @@ Operands: lhs [B, L1p, nc] and rhs [B, L2p, nc] float32, contiguous, the
 engine's operands sliced to the live alphabet (exact: the counts side
 is zero beyond it, so the dropped terms of the chain are zeros).
 Penalties, lengths, bias and outputs as gotoh_lanewise.forward (packed
-[L1p, L2p/8, B] nibble decisions; walk them with
+[B, L2p/8, L1p4] nibble decisions; walk them with
 traceback.walk_lanewise).
 """
 
@@ -72,22 +72,12 @@ def launch(lhs, rhs, prep, la, lb):
     _cuda.require_cuda("gotoh_fused", lhs, rhs, prep["colpen"],
                        prep["cols_eps"], prep["rowpen"], prep["row_term"],
                        prep["gb0"], prep["ga0"], la, lb)
-    dev = lhs.device
-    bound = torch.empty((B, 3, L2p), dtype=torch.float32, device=dev)
-    dec = torch.empty((L1p, L2p // gotoh_lanewise.PACK, B), dtype=torch.int32,
-                      device=dev)
-    score = torch.empty(B, dtype=torch.float32, device=dev)
-    state = torch.empty(B, dtype=torch.int32, device=dev)
-    if B == 0:
-        return dec, score, state
-    rc = _cuda.lib().kt_gotoh_fused_forward(
-        lhs.data_ptr(), rhs.data_ptr(), nc, *(prep[k].data_ptr() for k in (
-            "colpen", "cols_eps", "rowpen", "row_term", "gb0", "ga0")),
-        la.data_ptr(), lb.data_ptr(), B, L1p, L2p, bound.data_ptr(),
-        dec.data_ptr(), score.data_ptr(), state.data_ptr(), _cuda.stream())
-    _cuda.check(rc, "gotoh_fused")
-    launches += 1
-    return dec, score, state
+    out = gotoh_lanewise.launch_kernel(
+        "kt_gotoh_fused_forward", "gotoh_fused",
+        (lhs.data_ptr(), rhs.data_ptr(), nc), B, L1p, L2p, nc, prep, la, lb)
+    if B:
+        launches += 1
+    return out
 
 
 def forward(lhs, rhs, pens_cols, pens_rows, la, lb, slope=None,

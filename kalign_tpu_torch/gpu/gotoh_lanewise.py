@@ -15,24 +15,81 @@ here it only keeps the two engines' routing, and so their near-tie
 behaviour, alike.
 
 Layouts: inputs as gotoh_row.forward (problem-major; the kernel sweeps
-each problem with one warp, see csrc/gotoh_lanewise.cu).  Decisions come
-back in this package's own layout, eight 4-bit cells per int32: dec
-[L1p, L2p/8, B], cell (b, i, j) at word [i, j // 8, b], bits 4*(j % 8).
-Walk it with traceback.walk_lanewise.  Rows past a problem's length are
-not written by the kernel.
+each problem with one warp, R rows per lane, see csrc/gotoh_lanewise.cu;
+``launch_plan`` sizes its block).  Decisions come back in this package's
+own layout, eight 4-bit cells per int32, problem-major with the rows
+innermost: dec [B, L2p/8, L1p4] (L1p4 = L1p rounded up to ROW_QUANTUM),
+cell (b, i, j) at word [b, j // 8, i], bits 4*(j % 8), so that a lane
+stores its four rows' word of eight columns in one 16-byte store.  Walk
+it with traceback.walk_lanewise.  Rows past a problem's length hold no
+decisions of its (the kernel may write any value there).
 """
+
+from collections import namedtuple
 
 import torch
 
 from kalign_tpu_torch.gpu import _cuda
-from kalign_tpu_torch.gpu.gotoh_row import pick_dp, run_dp
+from kalign_tpu_torch.gpu.gotoh_row import SMEM_LIMIT, pick_dp, run_dp
 from kalign_tpu_torch.gpu.scan import prefix_sums_f32
 
 NEG = -3.0e38
 BT = 1024          # routing granularity (launch batches of k * 1024)
 PACK = 8           # decision cells per int32 word
+ROW_QUANTUM = 4    # decision rows are padded to a multiple of this
+MAX_WARPS = 4      # problems (warps) per block
 
 launches = 0
+
+LanewiseLaunch = namedtuple("LanewiseLaunch", "warps smem")
+
+
+def smem_bytes(L2p: int, nc: int, warps: int) -> int:
+    """csrc/gotoh_lanewise.cu::kt_gotoh_lanewise_smem_bytes: per warp, a
+    record of 4 + nc floats (padded to a float4) per column and the strip
+    boundary row (3 floats per column); nc = 0 on the match-stream
+    route."""
+    return warps * L2p * (4 + -(-nc // 4) * 4 + 3) * 4
+
+
+def launch_plan(L2p: int, nc: int = 0) -> LanewiseLaunch:
+    """MAX_WARPS problems per block, fewer where their shared memory
+    would not fit one block."""
+    warps = min(MAX_WARPS, SMEM_LIMIT // smem_bytes(L2p, nc, 1))
+    if warps < 1:
+        raise ValueError(f"lanewise Gotoh kernel: L2p={L2p}, nc={nc} needs "
+                         f"more shared memory than one block has")
+    return LanewiseLaunch(warps, smem_bytes(L2p, nc, warps))
+
+
+def dec_rows(L1p: int) -> int:
+    """Rows of the decision array: L1p rounded up to ROW_QUANTUM."""
+    return -(-L1p // ROW_QUANTUM) * ROW_QUANTUM
+
+
+def launch_kernel(entry, name, args, B, L1p, L2p, nc, prep, la, lb):
+    """Allocate the outputs and launch one instantiation of
+    csrc/gotoh_lanewise.cu through its C entry point (named entry): args
+    are the match source's leading arguments."""
+    dev = la.device
+    dec = torch.empty((B, L2p // PACK, dec_rows(L1p)), dtype=torch.int32,
+                      device=dev)
+    score = torch.empty(B, dtype=torch.float32, device=dev)
+    state = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return dec, score, state
+    plan = launch_plan(L2p, nc)
+    lib = _cuda.lib()
+    if lib.kt_gotoh_lanewise_smem_bytes(L2p, nc, plan.warps) != plan.smem:
+        raise RuntimeError(f"{name}: shared-memory size differs between "
+                           "csrc/gotoh_lanewise.cu and launch_plan")
+    rc = getattr(lib, entry)(
+        *args, *(prep[k].data_ptr() for k in (
+            "colpen", "cols_eps", "rowpen", "row_term", "gb0", "ga0")),
+        la.data_ptr(), lb.data_ptr(), B, L1p, L2p, plan.warps,
+        dec.data_ptr(), score.data_ptr(), state.data_ptr(), _cuda.stream())
+    _cuda.check(rc, name)
+    return dec, score, state
 
 
 def prepare(pens_cols, pens_rows, la, lb, slope, bias_eps):
@@ -83,7 +140,8 @@ def plain(match, prep, la, lb):
     SA = torch.full((L2p, B), NEG, **f32)
     SGA = prep["ga0"].t().clone()
     SGB = torch.full((L2p, B), NEG, **f32)
-    words = torch.zeros((L1p, L2p // PACK, B), dtype=torch.int64, device=dev)
+    words = torch.zeros((B, L2p // PACK, dec_rows(L1p)), dtype=torch.int64,
+                        device=dev)
     negv = torch.full((B,), NEG, **f32)
     for i in range(1, L1p + 1):
         valid = la >= i
@@ -128,7 +186,7 @@ def plain(match, prep, la, lb):
             nib = (j - 1) % PACK
             word = word | (d << (4 * nib))
             if nib == PACK - 1:
-                words[i - 1, (j - 1) // PACK] = word
+                words[:, (j - 1) // PACK, i - 1] = word
                 word = torch.zeros_like(word)
 
             A_n = torch.where(valid, A_new, A_p)
@@ -163,22 +221,11 @@ def launch(match, prep, la, lb):
     _cuda.require_cuda("gotoh_lanewise", match, prep["colpen"],
                        prep["cols_eps"], prep["rowpen"], prep["row_term"],
                        prep["gb0"], prep["ga0"], la, lb)
-    dev = match.device
-    bound = torch.empty((B, 3, L2p), dtype=torch.float32, device=dev)
-    dec = torch.empty((L1p, L2p // PACK, B), dtype=torch.int32, device=dev)
-    score = torch.empty(B, dtype=torch.float32, device=dev)
-    state = torch.empty(B, dtype=torch.int32, device=dev)
-    if B == 0:
-        return dec, score, state
-    rc = _cuda.lib().kt_gotoh_lanewise_forward(
-        match.data_ptr(), *(prep[k].data_ptr() for k in (
-            "colpen", "cols_eps", "rowpen", "row_term", "gb0", "ga0")),
-        la.data_ptr(), lb.data_ptr(), B, L1p, L2p, bound.data_ptr(),
-        dec.data_ptr(), score.data_ptr(), state.data_ptr(),
-        _cuda.stream())
-    _cuda.check(rc, "gotoh_lanewise")
-    launches += 1
-    return dec, score, state
+    out = launch_kernel("kt_gotoh_lanewise_forward", "gotoh_lanewise",
+                        (match.data_ptr(),), B, L1p, L2p, 0, prep, la, lb)
+    if B:
+        launches += 1
+    return out
 
 
 def forward(match, pens_cols, pens_rows, la, lb, slope=None, bias_eps=None):
@@ -194,13 +241,24 @@ def forward_plain(match, pens_cols, pens_rows, la, lb, slope=None,
                   bias_eps)
 
 
+def pack_dec(cells):
+    """[B, L1p, L2p] decision cells (4 bits each) -> the kernel's
+    [B, L2p/8, L1p4] int32 nibble words, padding rows zero (tests and
+    kernel checks)."""
+    B, L1p, L2p = cells.shape
+    d = (cells.to(torch.int64) & 0xF).reshape(B, L1p, L2p // PACK, PACK)
+    w = sum(d[..., u] << (4 * u) for u in range(PACK)).permute(0, 2, 1)
+    w = torch.nn.functional.pad(w, (0, dec_rows(L1p) - L1p))
+    return _to_int32_words(w).contiguous()
+
+
 def unpack_dec(dec_packed, L2p: int):
-    """[L1p, L2p/8, B] int32 nibbles -> [B, L1p, L2p] uint8 (tests)."""
-    L1p, W8, B = dec_packed.shape
+    """[B, L2p/8, L1p4] int32 nibbles -> [B, L1p4, L2p] uint8 (tests)."""
+    B, W8, L1p4 = dec_packed.shape
     w = dec_packed.to(torch.int64) & 0xFFFFFFFF
-    out = torch.zeros((B, L1p, L2p), dtype=torch.uint8,
+    out = torch.zeros((B, L1p4, L2p), dtype=torch.uint8,
                       device=dec_packed.device)
     for u in range(PACK):
-        nib = ((w >> (4 * u)) & 0xF).to(torch.uint8)       # [L1p, W8, B]
-        out[:, :, u::PACK] = nib.permute(2, 0, 1)
+        nib = ((w >> (4 * u)) & 0xF).to(torch.uint8)       # [B, W8, L1p4]
+        out[:, :, u::PACK] = nib.permute(0, 2, 1)
     return out

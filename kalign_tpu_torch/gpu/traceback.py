@@ -7,24 +7,50 @@ card keeps a level's decision matrices in device memory; only the step
 lists come back.
 
 ``walk_rows`` reads the row kernel's int8 [B, L1p, L2p] layout,
-``walk_lanewise`` the lanewise kernel's [L1p, L2p/8, B] nibble words.
+``walk_lanewise`` the lanewise kernel's [B, L2p/8, L1p4] nibble words.
 Both return steps [B, max_steps] int8 in forward order padded with 3
 (0 = match, 1 = gap in the rows, 2 = gap in the columns) and n [B] int32.
-CUDA tensors launch the kernel; CPU tensors run ``plain``, the same walk
-vectorised over the batch in PyTorch.
+CUDA tensors launch the kernel (one warp per walk over windows of the
+decisions staged in shared memory; ``launch_plan`` sizes them); CPU
+tensors run ``plain``, the same walk vectorised over the batch in
+PyTorch.
 """
+
+from collections import namedtuple
 
 import torch
 
 from kalign_tpu_torch.gpu import _cuda
+from kalign_tpu_torch.gpu.gotoh_row import SMEM_LIMIT
 
 DEC_A_MASK = 3
 DEC_GA_EXT = 4
 DEC_GB_EXT = 8
 STEP_PAD = 3
 PACK = 8
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+# decision window staged per warp (rows x columns, one byte per cell), both
+# layouts: small windows load fewer bytes that the walk never reads, at one
+# device-memory round trip per 32 or more steps
+WINDOW = (32, 32)
+STEP_BUF_MAX = 4096        # step buffer per warp; longer walks flush
+MAX_WARPS = 8
 
 launches = 0
+
+WalkLaunch = namedtuple("WalkLaunch", "warps win_rows win_cols buf smem")
+
+
+def launch_plan(B: int, max_steps: int) -> WalkLaunch:
+    """csrc/traceback.cu's launch: a step buffer of max_steps bytes (at
+    least a window row and 16 more, at most STEP_BUF_MAX) and a window
+    per warp, and enough warps per block to spread B walks over the
+    SMs."""
+    rows, cols = WINDOW
+    buf = min(max(-(-max_steps // 16) * 16, cols + 16), STEP_BUF_MAX)
+    per_warp = buf + rows * cols
+    warps = max(1, min(MAX_WARPS, -(-B // SMS), SMEM_LIMIT // per_warp))
+    return WalkLaunch(warps, rows, cols, buf, warps * per_warp)
 
 
 def _fetch_rows(dec):
@@ -36,10 +62,10 @@ def _fetch_rows(dec):
 
 
 def _fetch_lanewise(dec):
-    bidx = torch.arange(dec.shape[2], device=dec.device)
+    bidx = torch.arange(dec.shape[0], device=dec.device)
 
     def fetch(r, c):
-        w = dec[r, c // PACK, bidx].to(torch.int64) & 0xFFFFFFFF
+        w = dec[bidx, c // PACK, r].to(torch.int64) & 0xFFFFFFFF
         return (w >> (4 * (c % PACK))) & 0xF
     return fetch
 
@@ -86,22 +112,33 @@ def plain(fetch, la, lb, st, max_steps: int):
 
 
 def launch(lanewise: bool, dec, la, lb, st, max_steps: int, L1p: int,
-           L2p: int):
-    """Launch csrc/traceback.cu on CUDA tensors."""
+           L2p: int, count_windows: bool = False):
+    """Launch csrc/traceback.cu on CUDA tensors; with count_windows, also
+    return the windows each walk staged ([B] int32)."""
     global launches
     B = la.shape[0]
     _cuda.require_cuda("traceback", dec, la, lb, st)
+    if (L2p % (PACK if lanewise else 16) or (lanewise and L1p % 4)
+            or dec.data_ptr() % 16):
+        raise ValueError(f"traceback: L2p={L2p} is not a multiple of "
+                         f"{PACK if lanewise else 16}, the lanewise rows "
+                         f"({L1p}) not of 4, or the decisions are not "
+                         "16-byte aligned")
     steps = torch.empty((B, max_steps), dtype=torch.int8, device=la.device)
     n = torch.empty(B, dtype=torch.int32, device=la.device)
+    win = torch.empty_like(n) if count_windows else None
+    out = (steps, n, win) if count_windows else (steps, n)
     if B == 0:
-        return steps, n
+        return out
+    plan = launch_plan(B, max_steps)
     rc = _cuda.lib().kt_traceback(
         int(lanewise), dec.data_ptr(), la.data_ptr(), lb.data_ptr(),
-        st.data_ptr(), B, L1p, L2p, max_steps, steps.data_ptr(),
-        n.data_ptr(), _cuda.stream())
+        st.data_ptr(), B, L1p, L2p, max_steps, plan.warps, plan.win_rows,
+        plan.win_cols, plan.buf, steps.data_ptr(), n.data_ptr(),
+        win.data_ptr() if count_windows else None, _cuda.stream())
     _cuda.check(rc, "traceback")
     launches += 1
-    return steps, n
+    return out
 
 
 def _walk(lanewise, dec, la, lb, st, max_steps, L1p, L2p, fetch):
@@ -122,9 +159,10 @@ def walk_rows(dec, la, lb, st, max_steps: int):
 
 
 def walk_lanewise(dec, la, lb, st, max_steps: int):
-    """dec [L1p, L2p/8, B] int32 nibble words (gotoh_lanewise layout)."""
-    L1p, W8, _ = dec.shape
-    return _walk(True, dec, la, lb, st, max_steps, L1p, W8 * PACK,
+    """dec [B, L2p/8, L1p4] int32 nibble words (gotoh_lanewise layout,
+    rows padded to a multiple of 4)."""
+    _, W8, L1p4 = dec.shape
+    return _walk(True, dec, la, lb, st, max_steps, L1p4, W8 * PACK,
                  _fetch_lanewise(dec))
 
 

@@ -158,3 +158,29 @@ def test_routing_rules_match_the_jax_feasibility():
     assert GpuEngine.fused_ok(1024, 384, 384, 5)
     assert not GpuEngine.fused_ok(1024, 384, 512, 5)
     assert not GpuEngine.fused_ok(1024, 256, 256, 0)
+
+
+@pytest.mark.parametrize("nc", [0, 1, 5, 8, 23, 32])
+def test_lanewise_launch_plan_fits_shared_memory(nc):
+    """gotoh_lanewise.launch_plan (the block of csrc/gotoh_lanewise.cu:
+    staged column records and the strip boundary row per warp) fits one
+    block at every width the engine routes to the kernel: the match
+    stream (nc = 0) at lanewise_ok's widths, the fused route at
+    fused_ok's, for every operand width the kernel takes (the plan
+    depends on L2p alone; the rules on L1p only through its divisors)."""
+    widths = [(B, L1p, L2p) for B in (1024, 2048, 4096)
+              for L1p in (8, 24, 128, 136, 2048)
+              for L2p in range(8, 2049, 8)
+              if (GpuEngine.lanewise_ok(B, L1p, L2p) if nc == 0
+                  else jlw.fused_feasible(B, L1p, L2p, nc))]
+    assert widths
+    if nc == 5:
+        assert {w for w in widths if GpuEngine.fused_ok(*w, nc)} == \
+            set(widths)
+    for _, _, L2p in widths:
+        plan = gotoh_lanewise.launch_plan(L2p, nc)
+        assert 1 <= plan.warps <= gotoh_lanewise.MAX_WARPS
+        assert plan.smem == gotoh_lanewise.smem_bytes(L2p, nc, plan.warps)
+        assert plan.smem <= 232448, (L2p, nc)
+    # the default path's launch shapes keep four problems per block
+    assert gotoh_lanewise.launch_plan(384, 5).warps == 4
