@@ -11,7 +11,9 @@ Phases (any failure raises and the script exits non-zero):
      la = 0 and lb = 0 problems, short and odd-sized inputs (for the
      walk: walks across many windows, pure-gap walks, a short max_steps
      and walks longer than its step buffer; for the fused kernel: nc = 1,
-     5, 8, 23 and 32, rows past a strip, one decision word per row);
+     5, 8, 23 and 32, rows past a strip, one decision word per row; for
+     BPM and its mask-table kernel: every instantiation, nblk 1..16, with
+     m = 0, 1, 64, 65 and 64*nblk, texts past 1,024, P = 1);
   3. the fast path: a 2,000-sequence protein family (270-330 residues,
      made from a seed) aligned with kalign_tpu_torch.align_msa(mode=
      "fast") on the card; the output is checked and every kernel of the
@@ -20,9 +22,9 @@ Phases (any failure raises and the script exits non-zero):
      nt, made from a seed) aligned with align_msa(mode="default"), anchor
      consistency with 5 anchors: ~10,000 map DPs on the fused kernel,
      then the progressive pass with the consistency bonus; checked the
-     same way, all six kernels must have launched;
+     same way, all seven kernels must have launched;
   5. both paths once more under torch.profiler: device time by kernel,
-     each of the six kernels' total device time and launches (the trace
+     each of the seven kernels' total device time and launches (the trace
      must hold every launch of phases 3-4), and the device's idle share;
   6. main-path shapes: every kernel held bitwise against its plain
      version again, at the shapes and problem lengths the paths gave it
@@ -36,7 +38,8 @@ Phases (any failure raises and the script exits non-zero):
      windows it staged at this card's shared-memory and device-memory
      latencies, measured by scripts/latency_probe.cu); the fused kernel
      also beside the materialised route (torch.bmm + lanewise kernel) on
-     the same inputs;
+     the same inputs; BPM and its table at both paths' distance stages and
+     at one full 262,144-pair chunk (8,192 sequences x 32 anchors);
   7. the same package on the card and on the CPU: BB30014 and a
      150-sequence protein family in --fast mode, BB30014 and a
      250-sequence DNA family (one 2,048-problem fused launch) in default
@@ -62,8 +65,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s device memory; 67 TFLOP/s
 # fp32 counts a fused multiply-add as two operations, so plain fp32
 # add/max/compare ops run at 33.5e12/s; integer ALU lanes are half the
-# fp32 lanes (64 per SM): 16.7e12 int32 ops/s, a 64-bit logic op or add
-# costing two of them.
+# fp32 lanes (64 per SM): 16.7e12 int32 ops/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 33.5e12
 INT32_OPS_PER_S = 16.7e12
@@ -71,8 +73,12 @@ INT32_OPS_PER_S = 16.7e12
 # candidates 4, A 1, GB 4, GA 3, decision compares 4); the fused kernel
 # adds nc multiplies and nc - 1 adds for the match
 GOTOH_OPS_PER_CELL = 19
-# 64-bit operations per (pair, text symbol, live block) of the BPM kernel
-BPM_OPS_PER_BLOCK_STEP = 17
+# 32-bit integer operations per (pair, text symbol, live block) step of
+# the BPM kernel: one 64-bit Myers block step on lo/hi words with Hopper's
+# 3-input logic (LOP3) and add with carry: t = (eq | h-) & pv 2, s = t +
+# pv 2, xh 3, ph 2, mh 2, the carry out 2, ph and mh shifted with the
+# carry in 5, vp 4, vn 2, the score 1
+BPM_OPS_PER_BLOCK_STEP = 25
 # the pointer chases that measure the walk's chain floor
 PROBE_SRC = os.path.join(HERE, "scripts", "latency_probe.cu")
 # seconds of idle time at each end of a torch.profiler capture: on the
@@ -91,6 +97,9 @@ KERNELS = {
                        "kalign_tpu/tpu/gotoh_lanewise.py:357 (_kernel :132)"),
     "bpm": ("kalign_tpu_torch/csrc/bpm.cu",
             "kalign_tpu/tpu/bpm_pallas.py:213 (_kernel :80)"),
+    "bpm_table": ("kalign_tpu_torch/csrc/bpm.cu",
+                  "kalign_tpu/parallel/mesh.py:106 (tpu/bpm.py:51 build_peq "
+                  "per pair, feeding bpm_batch_pallas; XLA, not Pallas)"),
     "traceback": ("kalign_tpu_torch/csrc/traceback.cu",
                   "kalign_tpu/tpu/traceback.py:32 (_walk; XLA, not Pallas)"),
     "prefix_sum": ("kalign_tpu_torch/csrc/scan.cu",
@@ -103,6 +112,7 @@ KERNELS = {
 # a substring of each kernel's name in a torch.profiler trace
 PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
                  "gotoh_lanewise": "MatchStream", "bpm": "bpm_kernel",
+                 "bpm_table": "peq_table_kernel",
                  "traceback": "walk_kernel", "prefix_sum": "prefix_sum_kernel",
                  "gotoh_fused": "FusedOperands"}
 # the kernels each path must launch
@@ -243,6 +253,19 @@ def v4_family(n: int, seed: int):
                   subs=(0.08, 0.04), max_indel=3, p_del=0.6)
 
 
+def ptxas_lines(log: str, entry: str = ""):
+    """`nvcc -Xptxas -v`'s lines (entry, stack frame and spills,
+    registers) of the kernels whose mangled names hold ``entry``."""
+    out, keep = [], False
+    for ln in log.splitlines():
+        if "Compiling entry" in ln:
+            keep = entry in ln
+        if keep and ("registers" in ln or "spill" in ln
+                     or "Compiling entry" in ln):
+            out.append(ln.strip())
+    return out
+
+
 # ---------------------------------------------------------------------------
 def phase_device_and_build():
     import torch
@@ -265,8 +288,7 @@ def phase_device_and_build():
     secs = time.perf_counter() - t0
     _cuda.lib()
     native.lib()
-    ptxas = [ln.strip() for ln in build_log(cuda_path).splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    ptxas = ptxas_lines(build_log(cuda_path))
     emit({"phase": "build", "seconds": round(secs, 3),
           "cuda_lib": os.path.relpath(cuda_path, HERE),
           "tree_lib": os.path.relpath(tree_path, HERE), "ptxas": ptxas})
@@ -395,8 +417,8 @@ def phase_edge_cases(dev):
     """Each kernel against its plain version on small and degenerate
     inputs (the wrappers' full function, lb == 0 fix-up included)."""
     import torch
-    from kalign_tpu_torch.gpu import bpm, distances, gotoh_fused, \
-        gotoh_lanewise, gotoh_row, scan
+    from kalign_tpu_torch.gpu import gotoh_fused, gotoh_lanewise, gotoh_row, \
+        scan
     from kalign_tpu_torch.gpu import traceback as tb
     rng = np.random.default_rng(0)
 
@@ -515,29 +537,82 @@ def phase_edge_cases(dev):
         hold_equal("prefix_sum", got, scan.plain(v),
                    f"{tuple(v.shape)} of three sets in one launch")
 
-    # BPM: 2,048 sequences x 32 anchors, lengths 60-1,100 (patterns of
-    # 1-16 blocks, texts longer than 1,024)
+    edge_cases_bpm(dev, rng)
+    emit({"phase": "edge_cases", "ok": True})
+
+
+def random_tokens(rng, lens):
+    """Rows of random codes 0..12, zero past each length."""
+    tokens = np.zeros((len(lens), max(1, int(max(lens)))), np.uint8)
+    for i, n in enumerate(lens):
+        tokens[i, :n] = rng.integers(0, 13, size=n)
+    return tokens
+
+
+def edge_cases_bpm(dev, rng):
+    """BPM and its mask-table kernel against their plain versions: every
+    instantiation (nblk 1..16) on pairs whose patterns need nblk blocks,
+    with m = 0, 1, 63, 64, 65, 64*nblk - 1 and 64*nblk where they fit,
+    texts of length 0, equal to the pattern and (nblk 1 and 16) past
+    1,024, a P that is no multiple of a block's threads and P = 1 (plain
+    versions on CPU copies); then 2,048 sequences x 32 anchors through
+    distances.PairBatch, lengths 60-1,100 (plain version on the card)."""
+    import torch
+    from kalign_tpu_torch.gpu import bpm, distances
+    for nblk in range(1, bpm.NBLK + 1):
+        width = bpm.WORD * nblk
+        longest = 1100 if nblk in (1, bpm.NBLK) else width + 40
+        lens = [x for x in (0, 1, 63, 64, 65, width - 1, width)
+                if x <= width]
+        lens += [longest, width + 1] + list(rng.integers(
+            width - bpm.WORD + 1, width + 1, size=12))
+        lens += list(rng.integers(1, longest + 1, size=20))
+        lens = np.array(lens, np.int32)
+        t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        tokens = random_tokens(rng, lens)
+        tok = t(np.pad(tokens, ((0, 0), (0, -tokens.shape[1] % 16))))
+        m_seq = t(np.minimum(lens, bpm.MAX_PATTERN).astype(np.int32))
+        table = bpm.build_table(tok, m_seq, nblk)
+        ref_table, _ = plain_on_cpu(lambda a, b: bpm.plain_table(a, b, nblk),
+                                    tok, m_seq)
+        hold_equal("bpm_table", table.cpu(), ref_table,
+                   f"nblk={nblk}, {len(lens)} rows")
+        N = len(lens)
+        P = 300 + nblk
+        ti = rng.integers(0, N, size=P).astype(np.int32)
+        pi = rng.integers(0, N, size=P).astype(np.int32)
+        ti[:N], pi[:N] = np.arange(N), np.arange(N)          # text = pattern
+        pi[N:2 * N] = np.arange(N)                           # every pattern
+        inp = (tok, t(ti), t(pi), t(lens[ti]), m_seq[t(pi).long()], table)
+        ref, _ = plain_on_cpu(bpm.plain, *inp)
+        hold_equal("bpm", bpm.bpm_batch(*inp).cpu(), ref,
+                   f"nblk={nblk}, P={P}")
+        one = slice(N + 1, N + 2)           # P = 1 (pairs are independent)
+        hold_equal("bpm", bpm.bpm_batch(tok, *(x[one] for x in inp[1:5]),
+                                        table).cpu(), ref[one],
+                   f"nblk={nblk}, P=1")
+
     N = 2048
     lens = rng.integers(60, 1101, size=N).astype(np.int32)
-    tokens = np.zeros((N, int(lens.max())), np.uint8)
-    for i in range(N):
-        tokens[i, :lens[i]] = rng.integers(0, 13, size=lens[i])
     anchors = list(range(0, N, N // 32))
-    pairs = distances.PairBatch(tokens, lens, anchors, dev)
+    pairs = distances.PairBatch(random_tokens(rng, lens), lens, anchors, dev)
     inp = pairs.inputs(0, pairs.n_pairs)
     hold_equal("bpm", bpm.bpm_batch(*inp), bpm.plain(*inp),
                "2048x32, lengths 60-1100")
-    emit({"phase": "edge_cases", "ok": True})
 
 
 # ---------------------------------------------------------------------------
 def counters():
+    """{kernel: (wrapper module, name of its launch count)}"""
     from kalign_tpu_torch.gpu import bpm, gotoh_fused, gotoh_lanewise, \
         gotoh_row, scan
     from kalign_tpu_torch.gpu import traceback as tb
-    return {"gotoh_row": gotoh_row, "gotoh_lanewise": gotoh_lanewise,
+    mods = {"gotoh_row": gotoh_row, "gotoh_lanewise": gotoh_lanewise,
             "bpm": bpm, "traceback": tb, "prefix_sum": scan,
             "gotoh_fused": gotoh_fused}
+    out = {k: (m, "launches") for k, m in mods.items()}
+    out["bpm_table"] = (bpm, "table_launches")
+    return out
 
 
 def check_alignment(rows, seqs):
@@ -558,14 +633,14 @@ def phase_path(path: str, seqs):
     import torch
     import kalign_tpu_torch
     mods = counters()
-    for m in mods.values():
-        m.launches = 0
+    for m, attr in mods.values():
+        setattr(m, attr, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     msa = kalign_tpu_torch.align_msa(seqs, mode=path)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: m.launches for k, m in mods.items()}
+    launches = {k: getattr(m, attr) for k, (m, attr) in mods.items()}
     rows = msa.aligned_rows()
     width = check_alignment(rows, seqs)
     stats = msa.engine_stats
@@ -801,17 +876,80 @@ def row_blocks(p, reps):
     return out
 
 
-def phase_main_shapes(dev, stats, stats_default, seqs):
-    """Each kernel at the shapes and lengths a path gave it: the row,
-    lanewise, traceback, prefix-sum and BPM kernels at the fast path's,
-    the fused kernel at the default path's."""
-    import torch
+def distance_stage(seqs, dev):
+    """The anchor-distance stage of engine.align_msa for seqs: encoded,
+    sorted and anchored as the engine does it.  Returns (PairBatch, the
+    sequences' lengths)."""
     from kalign_tpu_torch import engine as E
     from kalign_tpu_torch.core import alphabet as alpha
     from kalign_tpu_torch.core import params as P
     from kalign_tpu_torch.core.msa import Msa
-    from kalign_tpu_torch.gpu import bpm, distances, gotoh_fused, \
-        gotoh_lanewise, gotoh_row, scan
+    from kalign_tpu_torch.gpu import distances
+    msa = Msa.from_sequences(list(seqs))
+    msa.quiet = True
+    msa.sort_len_name()
+    msa.encode(alpha.ALPHA_DEFAULT_DNA if msa.biotype == P.BIOTYPE_DNA
+               else alpha.ALPHA_REDUCED_PROTEIN)
+    anchors = E.pick_anchors(msa)
+    codes = [sq.s for sq in msa.sequences]
+    lens = np.array([len(c) for c in codes], np.int32)
+    tokens = np.zeros((len(codes), int(lens.max())), np.uint8)
+    for i, c in enumerate(codes):
+        tokens[i, :len(c)] = c
+    return distances.PairBatch(tokens, lens, anchors, dev), lens
+
+
+def bpm_stage(dev, seqs):
+    """The BPM kernel and its mask-table kernel at the pairs of seqs'
+    distance stage, each held bitwise against its plain version (on the
+    card) and timed: {"bpm": ..., "bpm_table": ...}.  Bounds: BPM reads
+    each sequence's tokens, the table and 16 bytes of index vectors per
+    pair, writes 4 bytes per pair and does BPM_OPS_PER_BLOCK_STEP 32-bit
+    integer operations per (pair, symbol, live block) step this data
+    needs; the table kernel reads each row's tokens up to nblk*64 and its
+    length, writes the table and compares every pattern position with
+    every symbol."""
+    import torch
+    from kalign_tpu_torch.gpu import bpm
+    pairs, lens = distance_stage(seqs, dev)
+    tok, ti, pi, nn, mm, table = inp = pairs.inputs(0, pairs.n_pairs)
+    P, N, nblk = pairs.n_pairs, len(lens), pairs.nblk
+    shape = f"{N}x{P // N} pairs, nblk={nblk}"
+    m_seq = torch.from_numpy(np.minimum(lens, bpm.MAX_PATTERN)).to(dev)
+    ref_table, t_plain_ms = timed_once(
+        lambda: bpm.plain_table(tok, m_seq, nblk))
+    hold_equal("bpm_table", table, ref_table, f"{N} rows, nblk={nblk}")
+    run_table = lambda: bpm.launch_table(tok, m_seq, nblk)
+    t_bytes = (int(np.minimum(lens, bpm.WORD * nblk).sum()) + N * 4
+               + table.numel() * 8)
+    tb_ms, tb_by = bound(t_bytes, table.numel() * bpm.WORD, INT32_OPS_PER_S)
+    got = bpm.launch(*inp)
+    (ref, work), plain_ms = timed_once(
+        lambda: bpm.plain(*inp, count_work=True))
+    hold_equal("bpm", got, ref, f"{shape} at a distance stage's pairs")
+    run = lambda: bpm.launch(*inp)
+    b_ms, b_by = bound(int(lens.sum()) + table.numel() * 8 + P * 20,
+                       work * BPM_OPS_PER_BLOCK_STEP, INT32_OPS_PER_S)
+    return {
+        "bpm": dict(ms=cuda_time_ms(run, reps=20),
+                    device_ms=device_ms(run, 10), plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, shape=shape,
+                    block_steps=work, plan=bpm.launch_plan(nblk)._asdict()),
+        "bpm_table": dict(ms=cuda_time_ms(run_table, reps=20),
+                          device_ms=device_ms(run_table, 20),
+                          plain_ms=t_plain_ms, bound_ms=tb_ms,
+                          bound_by=tb_by, shape=f"{N}x{bpm.SIGMA}x{nblk}")}
+
+
+def phase_main_shapes(dev, stats, stats_default, seqs):
+    """Each kernel at the shapes and lengths a path gave it: the row,
+    lanewise, traceback and prefix-sum kernels at the fast path's, the
+    fused kernel at the default path's, BPM and its table at both
+    paths' and at one full chunk of raw_distances."""
+    import torch
+    from kalign_tpu_torch.core import params as P
+    from kalign_tpu_torch.gpu import gotoh_fused, gotoh_lanewise, gotoh_row, \
+        scan
     from kalign_tpu_torch.gpu import traceback as tb
     from kalign_tpu_torch.gpu.engine import leaf_operands
     rng = np.random.default_rng(1)
@@ -937,30 +1075,15 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
     emit({"phase": "main_shape", "kernel": "prefix_sum",
           **out["prefix_sum"]})
 
-    # BPM at the main path's N x 32 pairs
-    msa = Msa.from_sequences(list(seqs))
-    msa.quiet = True
-    msa.sort_len_name()
-    msa.encode(alpha.ALPHA_REDUCED_PROTEIN)
-    anchors = E.pick_anchors(msa)
-    codes = [sq.s for sq in msa.sequences]
-    lens = np.array([len(c) for c in codes], np.int32)
-    tokens = np.zeros((len(codes), int(lens.max())), np.uint8)
-    for i, c in enumerate(codes):
-        tokens[i, :len(c)] = c
-    pairs = distances.PairBatch(tokens, lens, anchors, dev)
-    inp = pairs.inputs(0, pairs.n_pairs)
-    got = bpm.launch(*inp)
-    (ref, work), plain_ms = timed_once(
-        lambda: bpm.plain(*inp, count_work=True))
-    hold_equal("bpm", got, ref, "at the main path's pairs")
-    ms = cuda_time_ms(lambda: bpm.launch(*inp), reps=20)
-    b_ms, b_by = bound(int(lens.sum()) + inp[3].numel() * 8
-                       + len(inp[1]) * 16,
-                       work * BPM_OPS_PER_BLOCK_STEP * 2, INT32_OPS_PER_S)
-    out["bpm"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                      shape=f"{len(codes)}x{len(anchors)} pairs")
-    emit({"phase": "main_shape", "kernel": "bpm", **out["bpm"]})
+    # BPM and its mask table at each path's N x 32 pairs, and at one full
+    # raw_distances chunk: 8,192 protein sequences x 32 anchors
+    stages = {key: bpm_stage(dev, s) for key, s in (
+        ("fast", seqs["fast"]), ("default", seqs["default"]),
+        ("full_chunk", family(8192, seed=4)))}
+    for name in ("bpm", "bpm_table"):
+        out[name] = dict(stages["fast"][name], **{
+            key: stages[key][name] for key in ("default", "full_chunk")})
+        emit({"phase": "main_shape", "kernel": name, **out[name]})
 
     # fused kernel: every launch shape of the default path (map DPs), the
     # largest launch of each, with its real lengths, the engine's own
@@ -1100,8 +1223,7 @@ def main():
         launches[path], stats[path] = phase_path(path, seqs[path])
     for path in ("fast", "default"):
         phase_profile(path, seqs[path], launches[path])
-    shapes = phase_main_shapes(dev, stats["fast"], stats["default"],
-                               seqs["fast"])
+    shapes = phase_main_shapes(dev, stats["fast"], stats["default"], seqs)
     phase_gpu_vs_cpu()
     kernels = []
     for name, (src, replaces) in KERNELS.items():

@@ -84,9 +84,11 @@ def lib() -> ctypes.CDLL:
                                          + [_p] * 4)
     L.kt_traceback.restype = _i
     L.kt_traceback.argtypes = [_i] + [_p] * 4 + [_i] * 8 + [_p] * 4
+    L.kt_bpm_table.restype = _i
+    L.kt_bpm_table.argtypes = [_p, _i, _p, _i, _i, _p, _p]
     L.kt_bpm_batch.restype = _i
-    L.kt_bpm_batch.argtypes = [_p, ctypes.c_int64, _p, _p, _p, _p, _i, _i,
-                               _p, _p]
+    L.kt_bpm_batch.argtypes = ([_p, ctypes.c_int64] + [_p] * 5
+                               + [_i] * 2 + [_p, _p])
     L.kt_prefix_sums_f32.restype = _i
     L.kt_prefix_sums_f32.argtypes = [_i, _p, _p]
     return L

@@ -7,16 +7,23 @@ patterns of up to MAX_PATTERN symbols, text padded with W = 64*b_max - m
 symbols of code 0, the adaptive active-block window, and the minimum
 score along the bottom row.
 
-A batch is P (text, pattern) pairs over a device-resident token table:
-tok [N, Lmax] uint8, text_idx [P] (row of tok holding the text), n [P]
-(text length), peq [P, SIGMA, nblk] int64 (the pattern's match masks from
-``build_peq``) and m [P] (pattern length, <= nblk * 64).
-``bpm_batch`` launches the kernel for CUDA tensors and runs ``plain`` —
-kalign_tpu/tpu/bpm.py::bpm_batch in PyTorch, every block computed and
-the window applied by masks, on native 64-bit words — for CPU tensors.
+A batch is P (text, pattern) pairs over a device-resident token table
+tok [N, L] uint8 (L a multiple of 16 on the card): text_idx [P] and
+pat_idx [P] (the rows of tok holding the text and the pattern), n [P]
+(text length, <= L), m [P] (pattern length) and the match-mask table
+peq_seq [N, SIGMA, nblk] int64 of every row, from ``build_table`` with
+the same lengths (m[p] == m_seq[pat_idx[p]]).  ``bpm_batch`` launches
+the kernel for CUDA tensors and runs ``plain`` — kalign_tpu/tpu/bpm.py::
+bpm_batch in PyTorch, every block computed and the window applied by
+masks, on native 64-bit words, over the per-pair masks peq_seq[pat_idx]
+— for CPU tensors.  ``build_table`` likewise launches csrc/bpm.cu's
+table kernel or runs ``build_peq`` over the rows.
 """
 
+from collections import namedtuple
+
 import torch
+import torch.nn.functional as F
 
 from kalign_tpu_torch.gpu import _cuda
 
@@ -24,8 +31,23 @@ SIGMA = 13
 WORD = 64
 MAX_PATTERN = 1024
 NBLK = MAX_PATTERN // WORD  # 16
+# pairs per block of the distance kernel (csrc/bpm.cu::kThreads); it
+# uses no shared memory
+THREADS = 256
 
-launches = 0
+launches = 0          # distance kernel
+table_launches = 0    # match-mask table kernel
+
+BpmLaunch = namedtuple("BpmLaunch", "nblk threads smem")
+
+
+def launch_plan(nblk: int) -> BpmLaunch:
+    """csrc/bpm.cu's launch: the instantiation for nblk blocks of 64
+    pattern symbols, THREADS pairs per block, no shared memory."""
+    if not 1 <= nblk <= NBLK:
+        raise ValueError(f"bpm: nblk={nblk} has no instantiation "
+                         f"(1..{NBLK})")
+    return BpmLaunch(nblk, THREADS, 0)
 
 
 def build_peq(patterns, m, nblk: int):
@@ -45,6 +67,49 @@ def build_peq(patterns, m, nblk: int):
     return peq
 
 
+def plain_table(tok, m_seq, nblk: int):
+    """The match masks of every row of tok [N, L] (``build_peq`` of the
+    rows cut or zero-padded to nblk*64 symbols), lengths m_seq [N]."""
+    width = nblk * WORD
+    rows = tok[:, :width]
+    if rows.shape[1] < width:
+        rows = F.pad(rows, (0, width - rows.shape[1]))
+    return build_peq(rows, m_seq, nblk)
+
+
+def launch_table(tok, m_seq, nblk: int):
+    """Launch csrc/bpm.cu's table kernel on CUDA tensors."""
+    global table_launches
+    launch_plan(nblk)
+    _cuda.require_cuda("bpm table", tok, m_seq)
+    if tok.dtype != torch.uint8 or m_seq.dtype != torch.int32:
+        raise ValueError("bpm table: takes uint8 tokens, int32 lengths")
+    N, L = tok.shape
+    if L % 16 or tok.data_ptr() % 16:
+        raise ValueError("bpm table: token rows must be 16-byte aligned "
+                         f"(width {L})")
+    table = torch.empty((N, SIGMA, nblk), dtype=torch.int64,
+                        device=tok.device)
+    if N == 0:
+        return table
+    rc = _cuda.lib().kt_bpm_table(tok.data_ptr(), L, m_seq.data_ptr(), N,
+                                  nblk, table.data_ptr(), _cuda.stream())
+    _cuda.check(rc, "bpm table")
+    table_launches += 1
+    return table
+
+
+def build_table(tok, m_seq, nblk: int):
+    """Kernel on CUDA tensors, plain version on CPU tensors:
+    [N, SIGMA, nblk] int64."""
+    if tok.is_cuda:
+        return launch_table(tok.contiguous(), m_seq.to(torch.int32)
+                            .contiguous(), nblk)
+    if tok.device.type == "cpu":
+        return plain_table(tok, m_seq, nblk)
+    raise ValueError(f"bpm table: unsupported device {tok.device}")
+
+
 def _advance(eq, pv, mv, h_in):
     """One 64-bit Myers block step; h_in in {-1, 0, 1}."""
     xv = eq | mv
@@ -60,11 +125,13 @@ def _advance(eq, pv, mv, h_in):
     return mh | ~(xv | ph), ph & xv, h_out
 
 
-def plain(tok, text_idx, n, peq, m, count_work: bool = False):
-    """kalign_tpu/tpu/bpm.py::bpm_batch in PyTorch (masked window).
-    count_work=True also returns the number of (pair, text symbol,
-    live block) steps the data needs, the work a bound is counted on."""
+def plain(tok, text_idx, pat_idx, n, m, peq_seq, count_work: bool = False):
+    """kalign_tpu/tpu/bpm.py::bpm_batch in PyTorch (masked window) over
+    the per-pair masks peq_seq[pat_idx].  count_work=True also returns
+    the number of (pair, text symbol, live block) steps the data needs,
+    the work a bound is counted on."""
     dev = tok.device
+    peq = peq_seq[pat_idx.long()]                             # [P, 13, nblk]
     P, _, nblk = peq.shape
     texts = tok[text_idx.long()]                              # [P, T]
     T = texts.shape[1]
@@ -132,31 +199,38 @@ def plain(tok, text_idx, n, peq, m, count_work: bool = False):
     return k.to(torch.int32)
 
 
-def launch(tok, text_idx, n, peq, m):
+def launch(tok, text_idx, pat_idx, n, m, peq_seq):
     """Launch csrc/bpm.cu on CUDA tensors."""
     global launches
-    P, _, nblk = peq.shape
-    if not 1 <= nblk <= NBLK:
-        raise ValueError(f"bpm: nblk={nblk} outside 1..{NBLK}")
-    _cuda.require_cuda("bpm", tok, text_idx, n, peq, m)
+    P = text_idx.shape[0]
+    plan = launch_plan(peq_seq.shape[2])
+    _cuda.require_cuda("bpm", tok, text_idx, pat_idx, n, m, peq_seq)
+    if (tok.dtype != torch.uint8 or peq_seq.dtype != torch.int64
+            or peq_seq.shape[1] != SIGMA
+            or any(x.dtype != torch.int32 for x in (text_idx, pat_idx, n, m))):
+        raise ValueError("bpm: takes uint8 tokens, int64 masks [N, 13, nblk] "
+                         "and int32 index vectors")
+    if tok.shape[1] % 16 or tok.data_ptr() % 16:
+        raise ValueError("bpm: token rows must be 16-byte aligned "
+                         f"(width {tok.shape[1]})")
     out = torch.empty(P, dtype=torch.int32, device=tok.device)
     if P == 0:
         return out
     rc = _cuda.lib().kt_bpm_batch(
-        tok.data_ptr(), tok.shape[1], text_idx.data_ptr(), n.data_ptr(),
-        peq.data_ptr(), m.data_ptr(), P, nblk, out.data_ptr(),
-        _cuda.stream())
+        tok.data_ptr(), tok.shape[1], text_idx.data_ptr(), pat_idx.data_ptr(),
+        n.data_ptr(), m.data_ptr(), peq_seq.data_ptr(), P, plan.nblk,
+        out.data_ptr(), _cuda.stream())
     _cuda.check(rc, "bpm")
     launches += 1
     return out
 
 
-def bpm_batch(tok, text_idx, n, peq, m):
+def bpm_batch(tok, text_idx, pat_idx, n, m, peq_seq):
     """Kernel on CUDA tensors, plain version on CPU tensors.  [P] int32."""
     if tok.is_cuda:
-        return launch(tok.contiguous(), text_idx.to(torch.int32).contiguous(),
-                      n.to(torch.int32).contiguous(), peq.contiguous(),
-                      m.to(torch.int32).contiguous())
+        i32 = lambda x: x.to(torch.int32).contiguous()
+        return launch(tok.contiguous(), i32(text_idx),
+                      i32(pat_idx), i32(n), i32(m), peq_seq.contiguous())
     if tok.device.type == "cpu":
-        return plain(tok, text_idx, n, peq, m)
+        return plain(tok, text_idx, pat_idx, n, m, peq_seq)
     raise ValueError(f"bpm: unsupported device {tok.device}")

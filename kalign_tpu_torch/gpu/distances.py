@@ -8,8 +8,10 @@ the pattern, capped at 1024 symbols (sequence_distance.c:153-162); the
 integer distance gets the short-sequence preference bias
 min(10000, (la + lb) // 2) / 10000 added in float32.
 
-The token table goes to the device once; each launch ships only int32
-index vectors and builds the patterns' match masks on the device.
+The token table goes to the device once, its rows padded to a multiple
+of 16 bytes, and so does one match-mask table of every sequence (its
+first min(len, 1024) symbols, bpm.build_table); each launch ships only
+int32 index vectors.
 """
 
 import numpy as np
@@ -17,13 +19,12 @@ import torch
 
 from kalign_tpu_torch.gpu import bpm
 
-PEQ_SUB = 16384      # pairs whose match masks are built at once
-
 
 class PairBatch:
     """The (text, pattern) pairs of every (sequence, anchor) pair, with
-    the token table on the device.  ``inputs(lo, hi)`` gives the BPM
-    kernel's arguments for pairs [lo, hi)."""
+    the token table and the match-mask table on the device.
+    ``inputs(lo, hi)`` gives the BPM kernel's arguments for pairs
+    [lo, hi)."""
 
     def __init__(self, tokens: np.ndarray, lengths: np.ndarray, anchors,
                  device):
@@ -39,29 +40,26 @@ class PairBatch:
         self.text_src = np.where(seq_is_text, seq_idx,
                                  anchors[anc_idx]).astype(np.int32)
         self.pat_src = np.where(seq_is_text, anchors[anc_idx],
-                                seq_idx).astype(np.int64)
+                                seq_idx).astype(np.int32)
         self.tlen = np.where(seq_is_text, li, lk).astype(np.int32)
-        self.plen = np.minimum(np.where(seq_is_text, lk, li),
-                               bpm.MAX_PATTERN).astype(np.int32)
+        m_seq = np.minimum(lengths, bpm.MAX_PATTERN).astype(np.int32)
+        self.plen = m_seq[self.pat_src]
         self.n_pairs = N * K
-        pat_w = min(bpm.MAX_PATTERN, Lmax)
-        self.nblk = max(1, (pat_w + bpm.WORD - 1) // bpm.WORD)
+        self.nblk = max(1, (min(bpm.MAX_PATTERN, Lmax) + bpm.WORD - 1)
+                        // bpm.WORD)
         self.device = device
-        self.tok = torch.from_numpy(np.ascontiguousarray(tokens)).to(device)
-        self.tok_pat = torch.zeros((N, self.nblk * bpm.WORD),
-                                   dtype=torch.uint8, device=device)
-        self.tok_pat[:, :pat_w] = self.tok[:, :pat_w]
+        padded = np.zeros((N, Lmax + (-Lmax % 16)), np.uint8)
+        padded[:, :Lmax] = tokens
+        self.tok = torch.from_numpy(padded).to(device)
+        self.peq = bpm.build_table(self.tok, torch.from_numpy(m_seq)
+                                   .to(device), self.nblk)
 
     def inputs(self, lo: int, hi: int):
-        """(tok, text_idx, n, peq, m) for bpm.bpm_batch."""
+        """(tok, text_idx, pat_idx, n, m, peq_seq) for bpm.bpm_batch."""
         def put(x):
             return torch.from_numpy(x[lo:hi]).to(self.device)
-        ts, ps, nn, mm = (put(self.text_src), put(self.pat_src),
-                          put(self.tlen), put(self.plen))
-        peq = torch.cat([bpm.build_peq(self.tok_pat[ps[s:s + PEQ_SUB]],
-                                       mm[s:s + PEQ_SUB], self.nblk)
-                         for s in range(0, hi - lo, PEQ_SUB)])
-        return self.tok, ts, nn, peq, mm
+        return (self.tok, put(self.text_src), put(self.pat_src),
+                put(self.tlen), put(self.plen), self.peq)
 
 
 def raw_distances(tokens: np.ndarray, lengths: np.ndarray, anchors,

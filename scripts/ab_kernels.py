@@ -1,36 +1,33 @@
 #!/usr/bin/env python3
-"""Time the traceback walk and the lanewise Gotoh kernel (its fused and
-match-stream instantiations) of this checkout against those of an
-earlier checkout, on one NVIDIA GPU, in one process.
+"""Time the kernels of this checkout against those of another checkout,
+on one NVIDIA GPU, in one process.
 
     git archive <commit> kalign_tpu_torch | tar -x -C _proof/parent
     python3 scripts/ab_kernels.py --parent _proof/parent
     python3 scripts/ab_kernels.py --variant _proof/variant
 
-With --variant, the other checkout has this one's C interfaces (a
-variant of one kernel, say): this checkout's own wrappers launch it,
-with their library swapped for the variant's, and its outputs must be
-identical.  --parent and --variant may be given together.
+--parent: the BPM kernel of an earlier checkout, called through its own C
+entry point `kt_bpm_batch` as of 7448aa4 (per-pair masks [P, 13, nblk],
+here this checkout's table gathered by pat_idx, given once), against
+this checkout's, at the pairs of the fast and default paths' distance
+stages (chip_smoke.distance_stage), in their (sequence, anchor) order.
 
-The earlier checkout's CUDA library is built from its own csrc/ (as
-chip_smoke.py builds this one's) and called through its own C entry
-points: `kt_traceback` without a launch plan, `kt_gotoh_lanewise_forward`
-and `kt_gotoh_fused_forward` with a device-memory strip boundary, the
-interfaces up to the redesign of both kernels, whose nibble decisions
-are laid out [L1p, L2p/8, B] (this checkout's: [B, L2p/8, L1p4]; the
-lanewise walks are given the same cells in each one's layout).  The
-inputs are those of chip_smoke.py's main-shape phase: the fast and
-default paths run once here to give their launches; the walk is taken
-over the decisions of the fast path's largest row launch (by cells), its
-lanewise leaf bucket and its widest row launch, each layout timed on its
-own; the fused kernel at the largest launch of each shape the default
-path gave it; the match-stream kernel at the fast path's leaf bucket.  Both versions see
-the same tensors, their outputs are held bitwise equal, and each is
-timed in turns (earlier, this, this, earlier): CUDA events over
-back-to-back launches (`ms`, the host's launch time included) and
-chip_smoke.device_ms (`device_ms`, the launches queued behind a spin
-kernel, so the host's launch time is hidden).  Prints one JSON line per
-shape.
+--variant: the other checkout has this one's C interfaces (a variant of
+one kernel, say): this checkout's own wrappers launch it, with their
+library swapped for the variant's, and its outputs must be identical.
+Besides BPM, the match-stream lanewise kernel at the fast path's leaf
+bucket, the walk over the decisions of the fast path's largest row
+launch (by cells), its lanewise leaf bucket and its widest row launch,
+and the fused kernel at the largest launch of each shape the default
+path gave it (the inputs of chip_smoke.py's main-shape phase; the two
+paths run once here to give their launches).
+
+--parent and --variant may be given together.  Both versions see the
+same tensors, their outputs are held bitwise equal, and each is timed
+in turns (other, this, this, other): CUDA events over back-to-back
+launches (`ms`, the host's launch time included) and chip_smoke.device_ms
+(`device_ms`, the launches queued behind a spin kernel, so the host's
+launch time is hidden).  Prints one JSON line per shape.
 """
 
 import argparse
@@ -69,21 +66,31 @@ def main():
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     from kalign_tpu_torch.core import params as P
-    from kalign_tpu_torch.gpu import _cuda, gotoh_fused, gotoh_lanewise, \
-        gotoh_row
+    from kalign_tpu_torch.gpu import _cuda, bpm, gotoh_fused, \
+        gotoh_lanewise, gotoh_row
     from kalign_tpu_torch.gpu import traceback as tb
     from kalign_tpu_torch.gpu.engine import leaf_operands
+    from kalign_tpu_torch.utils.build import build_log
 
     dev = torch.device("cuda")
     print(cs.nvidia_smi_line(), flush=True)
     old = var = None
+    libs = {"this": _cuda}
     if args.parent:
-        old = load_cuda(os.path.abspath(args.parent), "parent_cuda")
+        old = libs["parent"] = load_cuda(os.path.abspath(args.parent),
+                                         "parent_cuda")
         old_lib = old.lib()
     if args.variant:
-        var = load_cuda(os.path.abspath(args.variant), "variant_cuda")
+        var = libs["variant"] = load_cuda(os.path.abspath(args.variant),
+                                          "variant_cuda")
         var.lib()
     _cuda.lib()
+    # -Xptxas -v of each library's BPM kernel (this checkout's: the
+    # instantiation for nblk = 5, the paths')
+    ptxas = {k: cs.ptxas_lines(build_log(m.library_path()),
+                               "bpm_kernelILi5E" if k != "parent" else
+                               "bpm_kernel") for k, m in libs.items()}
+    print(json.dumps({"ptxas": ptxas}), flush=True)
 
     def on_variant(fn):
         """fn with this checkout's wrappers launching the variant's
@@ -97,45 +104,21 @@ def main():
                 _cuda.lib = own
         return run
 
-    def old_walk(lanewise, dec, la, lb, st, max_steps, L1p, L2p):
-        B = la.shape[0]
-        steps = torch.empty((B, max_steps), dtype=torch.int8, device=dev)
-        n = torch.empty(B, dtype=torch.int32, device=dev)
-        rc = old_lib.kt_traceback(
-            int(lanewise), dec.data_ptr(), la.data_ptr(), lb.data_ptr(),
-            st.data_ptr(), B, L1p, L2p, max_steps, steps.data_ptr(),
-            n.data_ptr(), _cuda.stream())
-        old.check(rc, "earlier traceback")
-        return steps, n
-
-    def old_dp(entry, lead, B, L1p, L2p, prep, la, lb):
-        bound = torch.empty((B, 3, L2p), dtype=torch.float32, device=dev)
-        dec = torch.empty((L1p, L2p // 8, B), dtype=torch.int32, device=dev)
-        score = torch.empty(B, dtype=torch.float32, device=dev)
-        state = torch.empty(B, dtype=torch.int32, device=dev)
-        rc = getattr(old_lib, entry)(
-            *lead, *(prep[k].data_ptr() for k in (
-                "colpen", "cols_eps", "rowpen", "row_term", "gb0", "ga0")),
-            la.data_ptr(), lb.data_ptr(), B, L1p, L2p, bound.data_ptr(),
-            dec.data_ptr(), score.data_ptr(), state.data_ptr(),
+    def old_bpm(tok, ti, nn, peq, mm):
+        P_, _, nblk = peq.shape
+        out = torch.empty(P_, dtype=torch.int32, device=dev)
+        rc = old_lib.kt_bpm_batch(
+            tok.data_ptr(), tok.shape[1], ti.data_ptr(), nn.data_ptr(),
+            peq.data_ptr(), mm.data_ptr(), P_, nblk, out.data_ptr(),
             _cuda.stream())
-        old.check(rc, f"earlier {entry}")
-        return dec, score, state
+        old.check(rc, "earlier bpm")
+        return out
 
-    def new_layout(dec):
-        """[L1p, W8, B] nibble words -> [B, W8, L1p4]."""
-        d = dec.permute(2, 1, 0)
-        return gotoh_lanewise.pack_dec(
-            gotoh_lanewise.unpack_dec(d, d.shape[1] * gotoh_lanewise.PACK))
-
-    def old_layout(dec, L1p):
-        return dec[:, :, :L1p].permute(2, 1, 0).contiguous()
-
-    def ab(fn_old, fn_new, reps, other="old"):
+    def ab(fn_other, fn_new, reps, other="old"):
         t = {f"{other}_ms": [], "new_ms": [], f"{other}_device_ms": [],
              "new_device_ms": []}
-        for which, fn in ((other, fn_old), ("new", fn_new), ("new", fn_new),
-                          (other, fn_old)):
+        for which, fn in ((other, fn_other), ("new", fn_new),
+                          ("new", fn_new), (other, fn_other)):
             t[f"{which}_ms"].append(cs.cuda_time_ms(fn, reps=reps))
             t[f"{which}_device_ms"].append(cs.device_ms(fn, reps))
         return t
@@ -153,9 +136,31 @@ def main():
         show(kernel, label, shape, ab(on_variant(fn), fn, reps, "variant"),
              against="variant", **extra)
 
-    stats = {p: cs.phase_path(p, s)[1] for p, s in (
-        ("fast", cs.family(2000, seed=0)),
-        ("default", cs.v4_family(2000, seed=2)))}
+    seqs = {"fast": cs.family(2000, seed=0),
+            "default": cs.v4_family(2000, seed=2)}
+
+    # BPM at the distance stages' pairs
+    for path in ("fast", "default"):
+        pairs, _ = cs.distance_stage(seqs[path], dev)
+        inp = pairs.inputs(0, pairs.n_pairs)
+        tok, ti, pi, nn, mm, table = inp
+        shape = f"{pairs.n_pairs // 32}x32 pairs, nblk={pairs.nblk}"
+        b_new = lambda: bpm.launch(*inp)
+        got = b_new()
+        if old:
+            peq = table[pi.long()].contiguous()
+            b_old = lambda: old_bpm(tok, ti, nn, peq, mm)
+            cs.hold_equal("bpm", b_old(), got, f"{path} old vs new")
+            show("bpm", f"{path} stage", shape, ab(b_old, b_new, 10),
+                 ptxas_this=ptxas["this"][-2:],
+                 ptxas_parent=ptxas["parent"][-2:])
+        against_variant("bpm", f"{path} stage", shape, b_new, 10,
+                        lambda a, b: cs.hold_equal("bpm", a, b,
+                                                   "variant vs new"))
+    if var is None:
+        return 0
+
+    stats = {p: cs.phase_path(p, s)[1] for p, s in seqs.items()}
     rng = np.random.default_rng(1)
 
     def cells(b):
@@ -168,27 +173,16 @@ def main():
     def problem(b):
         return cs.dp_problem(rng, b["L1p"], b["L2p"], b["la"], b["lb"], dev)
 
+    def same_dp(name, p):
+        return lambda a, b: cs.hold_dp_outputs(name, True, a, b, p,
+                                               "variant vs new")
+
     # the match-stream lanewise kernel and its walk at the leaf bucket
     q = problem(largest(stats["fast"], "lanewise"))
     prep = gotoh_lanewise.prepare(q["pc"], q["pr"], q["la"], q["lb"],
                                   q["slope"], q["eps"])
-    B, L1p, L2p = len(q["la"]), q["L1p"], q["L2p"]
-
-    def same_dp(name, p):
-        return lambda a, b: cs.hold_dp_outputs(name, True, a, b, p,
-                                               "variant vs new")
     a_new = lambda: gotoh_lanewise.launch(q["match"], prep, q["la"], q["lb"])
     lw_out = a_new()
-    if old:
-        a_old = lambda: old_dp("kt_gotoh_lanewise_forward",
-                               (q["match"].data_ptr(),), B, L1p, L2p, prep,
-                               q["la"], q["lb"])
-        old_out = a_old()
-        cs.hold_dp_outputs("gotoh_lanewise", True,
-                           (new_layout(old_out[0]), *old_out[1:]), lw_out, q,
-                           "leaf old vs new")
-        show("gotoh_lanewise", "leaf", cs.shape_of(q),
-             ab(a_old, a_new, 10))
     against_variant("gotoh_lanewise", "leaf", cs.shape_of(q), a_new, 10,
                     same_dp("gotoh_lanewise", q))
 
@@ -204,19 +198,12 @@ def main():
     for label, lanewise, p, (dec, _, st) in walks:
         wa = (dec, p["la"], p["lb"], st, p["L1p"] + p["L2p"] + 2)
         w_new = lambda: (tb.walk_lanewise if lanewise else tb.walk_rows)(*wa)
-        extra = dict(layout="lanewise" if lanewise else "rows",
-                     plan=tb.launch_plan(len(p["la"]), wa[4])._asdict())
-        if old:
-            wo = ((old_layout(dec, p["L1p"]) if lanewise else dec), *wa[1:])
-            w_old = lambda: old_walk(lanewise, *wo, p["L1p"], p["L2p"])
-            cs.hold_walks(w_old(), w_new(), p["la"], p["lb"],
-                          f"{label} old vs new")
-            show("traceback", label, cs.shape_of(p),
-                 ab(w_old, w_new, 20), **extra)
         against_variant(
             "traceback", label, cs.shape_of(p), w_new, 20,
             lambda a, b: cs.hold_walks(a, b, p["la"], p["lb"],
-                                       f"{label} variant vs new"), **extra)
+                                       f"{label} variant vs new"),
+            layout="lanewise" if lanewise else "rows",
+            plan=tb.launch_plan(len(p["la"]), wa[4])._asdict())
 
     # the fused kernel at each launch shape of the default path
     ap_dna = P.aln_param_init(P.BIOTYPE_DNA, 0)
@@ -244,21 +231,10 @@ def main():
         fprep = gotoh_fused.prepare(pc, pr, la, lb, slope,
                                     torch.zeros(B, device=dev))
         f_new = lambda: gotoh_fused.launch(x, y, fprep, la, lb)
-        shape = f"{B}x{L1p}x{L2p}"
-        f = dict(la=la, lb=lb, L2p=L2p)
-        plan = gotoh_lanewise.launch_plan(L2p, nc)._asdict()
-        if old:
-            f_old = lambda: old_dp("kt_gotoh_fused_forward",
-                                   (x.data_ptr(), y.data_ptr(), nc), B, L1p,
-                                   L2p, fprep, la, lb)
-            old_out = f_old()
-            cs.hold_dp_outputs("gotoh_fused", True,
-                               (new_layout(old_out[0]), *old_out[1:]),
-                               f_new(), f, f"{shape} old vs new")
-            show("gotoh_fused", "map DPs", shape,
-                 ab(f_old, f_new, 10), plan=plan)
-        against_variant("gotoh_fused", "map DPs", shape, f_new, 10,
-                        same_dp("gotoh_fused", f), plan=plan)
+        against_variant("gotoh_fused", "map DPs", f"{B}x{L1p}x{L2p}", f_new,
+                        10, same_dp("gotoh_fused", dict(la=la, lb=lb,
+                                                        L2p=L2p)),
+                        plan=gotoh_lanewise.launch_plan(L2p, nc)._asdict())
     return 0
 
 

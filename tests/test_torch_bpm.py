@@ -1,9 +1,12 @@
 """The bit-parallel edit distance's plain version (gpu/bpm.py, the
 function of csrc/bpm.cu) and the anchor-distance stage (gpu/distances.py)
 against kalign_tpu: tpu/bpm.py::bpm_batch (XLA) and the native
-kt_dist_to_anchors / kt_bpm_block, bit-exact."""
+kt_dist_to_anchors / kt_bpm_block, bit-exact; the per-sequence
+match-mask table against the per-pair masks, and the kernel's launch
+plan."""
 
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
@@ -41,8 +44,8 @@ def test_plain_bpm_matches_xla_bpm_batch():
         jbpm.build_peq(jnp.asarray(pats), jnp.asarray(m)), jnp.asarray(m),
         int(n.max()) + 64))
     t = torch.from_numpy
-    peq = bpm.build_peq(t(pats), t(m), 16)
-    got = bpm.bpm_batch(t(tok), t(ti), t(n), peq, t(m)).numpy()
+    peq_seq = bpm.build_table(t(tok), t(np.minimum(lens, 1024)), 16)
+    got = bpm.bpm_batch(t(tok), t(ti), t(pi), t(n), t(m), peq_seq).numpy()
     assert np.array_equal(got, want)
     # and each against the native kernel, pair by pair
     for k, (a, b) in enumerate(pairs):
@@ -71,3 +74,67 @@ def test_anchor_distances_match_native_bit_exact():
     got = distances.anchor_distances(codes, anchors, "cpu")
     assert got.shape == want.shape
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("nblk", [1, 5, 16])
+@pytest.mark.parametrize("plen", [1, 63, 64, 65, 1024, 1100])
+def test_match_mask_table_equals_per_pair_masks(plen, nblk):
+    """peq_seq[pat_idx], one table of every sequence as the CPU route
+    builds it (bpm.build_table), equals kalign_tpu's tpu/bpm.py::build_peq
+    of each pair's own pattern (its first min(len, 1024) symbols,
+    zero-padded to nblk*64), bit for bit."""
+    lens = np.array([plen, 3, 70, 200, 1100, plen], np.int32)
+    tok = _tokens(lens, plen + nblk)
+    m_seq = np.minimum(lens, 1024).astype(np.int32)
+    table = bpm.build_table(torch.from_numpy(tok), torch.from_numpy(m_seq),
+                            nblk)
+    assert table.shape == (len(lens), bpm.SIGMA, nblk)
+    pat_idx = np.array([0, 5, 1, 0, 2, 3, 4, 4, 5], np.int64)
+    pats = np.zeros((len(pat_idx), jbpm.MAX_PATTERN), np.uint8)
+    for k, p in enumerate(pat_idx):
+        pats[k, :m_seq[p]] = tok[p, :m_seq[p]]
+    # [P, 13, 16, 2] u32 (lo, hi) -> the first nblk 64-bit words
+    want = np.asarray(jbpm.build_peq(jnp.asarray(pats),
+                                     jnp.asarray(m_seq[pat_idx])))
+    want = np.ascontiguousarray(want[:, :, :nblk]).view(np.int64)[..., 0]
+    got = table[torch.from_numpy(pat_idx)].numpy()
+    assert np.array_equal(got, want)
+
+
+def test_table_inputs_match_xla_bpm_batch():
+    """bpm.bpm_batch on CPU tensors through distances.PairBatch's inputs
+    (one mask table, indexed by pattern) equals kalign_tpu's
+    tpu/bpm.py::bpm_batch on the same (text, pattern) pairs."""
+    rng = np.random.default_rng(11)
+    lens = rng.integers(1, 140, size=12).astype(np.int32)
+    lens[[2, 7]] = (64, 65)
+    tok = _tokens(lens, 12)
+    pairs = distances.PairBatch(tok, lens, [0, 2, 7], "cpu")
+    inp = pairs.inputs(0, pairs.n_pairs)
+    got = bpm.bpm_batch(*inp).numpy()
+    ti, pi = pairs.text_src, pairs.pat_src
+    pats = np.zeros((pairs.n_pairs, 1024), np.uint8)
+    for k, p in enumerate(pi):
+        pats[k, :lens[p]] = tok[p, :lens[p]]
+    m = np.minimum(lens[pi], 1024).astype(np.int32)
+    want = np.asarray(jbpm.bpm_batch(
+        jnp.asarray(tok[ti]), jnp.asarray(lens[ti]),
+        jbpm.build_peq(jnp.asarray(pats), jnp.asarray(m)), jnp.asarray(m),
+        int(lens.max()) + 64))
+    assert np.array_equal(got, want)
+    assert np.array_equal(pairs.tlen, lens[ti])
+    assert np.array_equal(pairs.plen, m)
+
+
+@pytest.mark.parametrize("nblk", range(1, bpm.NBLK + 1))
+def test_bpm_launch_plan_covers_every_block_count(nblk):
+    """Every block count a batch can need (1..16 blocks of 64 pattern
+    symbols) has an instantiation, with whole warps and the shared
+    memory of one block (none); anything else raises."""
+    plan = bpm.launch_plan(nblk)
+    assert plan.nblk == nblk
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
+    assert plan.smem <= 232448
+    for bad in (0, bpm.NBLK + 1):
+        with pytest.raises(ValueError, match="no instantiation"):
+            bpm.launch_plan(bad)
