@@ -12,40 +12,52 @@ Phases (any failure raises and the script exits non-zero):
      walk: walks across many windows, pure-gap walks, a short max_steps
      and walks longer than its step buffer; for the fused kernel: nc = 1,
      5, 8, 23 and 32, rows past a strip, one decision word per row; for
-     BPM and its mask-table kernel: every instantiation, nblk 1..16, with
-     m = 0, 1, 64, 65 and 64*nblk, texts past 1,024, P = 1);
-  3. the fast path: a 2,000-sequence protein family (270-330 residues,
-     made from a seed) aligned with kalign_tpu_torch.align_msa(mode=
-     "fast") on the card; the output is checked and every kernel of the
-     path must have launched;
-  4. the default path: a 2,000-sequence 16S-V4-like DNA family (240-270
-     nt, made from a seed) aligned with align_msa(mode="default"), anchor
-     consistency with 5 anchors: ~10,000 map DPs on the fused kernel,
-     then the progressive pass with the consistency bonus; checked the
-     same way, all seven kernels must have launched;
-  5. both paths once more under torch.profiler: device time by kernel,
-     each of the seven kernels' total device time and launches (the trace
-     must hold every launch of phases 3-4), and the device's idle share;
+     the tiled row kernel: 8 x 512 x 8,192 and 2 x 256 x 16,384 with full
+     and short lengths, and two tiles of a narrow row; for BPM and its
+     mask-table kernel: every instantiation, nblk 1..16, with m = 0, 1,
+     64, 65 and 64*nblk, texts past 1,024, P = 1);
+  3. three paths, each aligned on the card with the device-resident
+     progressive pass (launch counts set to 0 just before and read just
+     after; every kernel of the path must have launched; one fetch per
+     guide-tree level plus one), then with the host-assembled pass
+     (GpuEngine(resident=False)), whose FASTA must be the same; each
+     path line gives both walls, the phase split and the progressive
+     pass's host split (assembly, bonus, dispatch, merge, weave, fetch):
+     "fast", a 2,000-sequence protein family (270-330 residues, made
+     from a seed) with align_msa(mode="fast"); "default", a 2,000-sequence
+     16S-V4-like DNA family (240-270 nt) with mode="default", anchor
+     consistency with 5 anchors (~10,000 map DPs on the fused kernel,
+     then the pass with the consistency bonus); "protein_default", the
+     protein family in default mode (map DPs on the match stream);
+  4. the three paths once more under torch.profiler: device time by
+     kernel and by part of the progressive pass, each kernel's total
+     device time and launches (the trace must hold every launch of
+     phase 3), and the device's idle share;
+  5. the same package on the card and on the CPU: BB30014 and a
+     150-sequence protein family in --fast mode, BB30014 and a
+     250-sequence DNA family (one 2,048-problem fused launch) in default
+     mode: identical FASTA, or equal per-merge scores where a near-tie
+     resolved differently; and a long family (three fragments of 200-400
+     residues and one of ~7,300, merges wider than 7,168 columns) in both
+     modes: identical FASTA, the tiled row kernel launched;
   6. main-path shapes: every kernel held bitwise against its plain
      version again, at the shapes and problem lengths the paths gave it
      (its largest launch; for the row kernel also its widest and the
      default path's largest launch of few problems, each under every
-     block size that fits; for the prefix sums also the widest row
-     launch's [B, L2p]; for the walk each decision layout apart and the
-     widest row launch's walks; for the fused kernel every launch shape
-     of the default path), and timed there beside its plain version and
-     its bound (the walk also beside its chain floor: its steps and the
-     windows it staged at this card's shared-memory and device-memory
-     latencies, measured by scripts/latency_probe.cu); the fused kernel
-     also beside the materialised route (torch.bmm + lanewise kernel) on
-     the same inputs; BPM and its table at both paths' distance stages and
-     at one full 262,144-pair chunk (8,192 sequences x 32 anchors);
-  7. the same package on the card and on the CPU: BB30014 and a
-     150-sequence protein family in --fast mode, BB30014 and a
-     250-sequence DNA family (one 2,048-problem fused launch) in default
-     mode: identical FASTA, or equal per-merge scores where a near-tie
-     resolved differently;
-  8. one JSON line with every kernel's numbers, the nvidia-smi line, and
+     block size that fits; for the tiled row kernel the long family's
+     largest launch and 8 x 512 x 8,192 and 2 x 256 x 16,384, with the
+     device memory one wide launch takes; for the prefix sums also the
+     widest row launch's [B, L2p]; for the walk each decision layout
+     apart and the widest row launch's walks; for the fused kernel every
+     launch shape of the default path), and timed there beside its plain
+     version and its bound (the walk also beside its chain floor: its
+     steps and the windows it staged at this card's shared-memory and
+     device-memory latencies, measured by scripts/latency_probe.cu); the
+     fused kernel also beside the materialised route (torch.bmm +
+     lanewise kernel) on the same inputs; BPM and its table at both
+     paths' distance stages and at one full 262,144-pair chunk (8,192
+     sequences x 32 anchors);
+  7. one JSON line with every kernel's numbers, the nvidia-smi line, and
      the last line {"ok": true, "device": {...}}.
 Without a card, or outside a checkout of the repository, it prints no
 result and exits non-zero.
@@ -108,19 +120,32 @@ KERNELS = {
     "gotoh_fused": ("kalign_tpu_torch/csrc/gotoh_lanewise.cu",
                     "kalign_tpu/tpu/gotoh_lanewise.py:692 "
                     "(_fused_kernel :525)"),
+    "gotoh_row_tiled": ("kalign_tpu_torch/csrc/gotoh_row.cu",
+                        "kalign_tpu/tpu/gotoh_pallas.py:272 (_kernel :112) "
+                        "past its plan's widths, where kalign_tpu runs "
+                        "tpu/gotoh.py:47 gotoh_forward (XLA, not Pallas)"),
 }
 # a substring of each kernel's name in a torch.profiler trace
 PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
                  "gotoh_lanewise": "MatchStream", "bpm": "bpm_kernel",
                  "bpm_table": "peq_table_kernel",
                  "traceback": "walk_kernel", "prefix_sum": "prefix_sum_kernel",
-                 "gotoh_fused": "FusedOperands"}
-# the kernels each path must launch
-PATH_KERNELS = {"fast": [k for k in KERNELS if k != "gotoh_fused"],
-                "default": list(KERNELS)}
+                 "gotoh_fused": "FusedOperands",
+                 "gotoh_row_tiled": "gotoh_row_tiled_kernel"}
+# the three paths: (mode, kernels the path must launch); the long
+# family's cases of phase_gpu_vs_cpu must launch the tiled row kernel
+NARROW = [k for k in KERNELS if k not in ("gotoh_fused", "gotoh_row_tiled")]
+PATHS = {"fast": ("fast", NARROW),
+         "default": ("default", NARROW + ["gotoh_fused"]),
+         "protein_default": ("default", NARROW)}
+
+
+T_START = time.perf_counter()
 
 
 def emit(obj):
+    """One JSON line, with the seconds since the script started."""
+    obj = dict(obj, t_s=round(time.perf_counter() - T_START, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -243,6 +268,39 @@ def family(n: int, seed: int, root_len: int = 300, lo: int = 270,
         s = mutate(anc[i % clades], subs[1], int(rng.poisson(2)))
         out.append(s.tobytes().decode())
     return out
+
+
+def long_family(seed: int, n_short: int = 3, long_len: int = 7300):
+    """Short protein fragments and one long protein from a seed: a
+    long_len-residue root taken whole with 5 % substitutions and a few
+    short indels, and n_short fragments of 200-400 residues of one region
+    of it at 10 % more.  Where the long sequence is a merge's column side,
+    the merge is wider than 7,168 columns (the tiled row kernel's
+    widths) while its rows stay short."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(PROTEIN.encode(), np.uint8)
+
+    def mutate(seq, sub, n_indel):
+        seq = seq.copy()
+        mask = rng.random(len(seq)) < sub
+        seq[mask] = alpha[rng.integers(0, len(alpha), int(mask.sum()))]
+        for _ in range(n_indel):
+            k = int(rng.integers(1, 4))
+            pos = int(rng.integers(0, len(seq)))
+            if rng.random() < 0.5:
+                seq = np.delete(seq, slice(pos, pos + k))
+            else:
+                seq = np.insert(seq, pos, alpha[rng.integers(0, len(alpha),
+                                                             k)])
+        return seq
+
+    root = alpha[rng.integers(0, len(alpha), long_len)]
+    out = [mutate(root, 0.05, 8)]
+    for _ in range(n_short):
+        L = int(rng.integers(200, 401))
+        s0 = int(rng.integers(3000, 3200))
+        out.append(mutate(root[s0:s0 + L], 0.1, 2))
+    return [s.tobytes().decode() for s in out]
 
 
 def v4_family(n: int, seed: int):
@@ -448,6 +506,7 @@ def phase_edge_cases(dev):
     hold_dp_outputs("gotoh_row", False, gotoh_row.forward(*dp_args(w)),
                     gotoh_row.forward_plain(*dp_args(w)), w,
                     f"4x256x2176 under {gotoh_row.launch_config(4, 2176)}")
+    edge_cases_tiled(dev, rng, p, row_ref)
 
     # lanewise Gotoh: B=1024 at 128 x 128, lengths 1..128 and 0
     la = rng.integers(1, 129, size=1024)
@@ -541,6 +600,39 @@ def phase_edge_cases(dev):
     emit({"phase": "edge_cases", "ok": True})
 
 
+def tiled_cases(dev, rng):
+    """The tiled row kernel's edge problems: 8 x 512 x 8,192 and
+    2 x 256 x 16,384, with full and short la / lb, lb = 0 and la = 0, lb
+    inside the first tile and just past it."""
+    return [dp_problem(rng, 512, 8192, [512, 300, 0, 512, 1, 511, 200, 512],
+                       [8192, 8192, 5000, 0, 8192, 7169, 4096, 4095], dev),
+            dp_problem(rng, 256, 16384, [256, 100], [16384, 9000], dev)]
+
+
+def edge_cases_tiled(dev, rng, p, ref):
+    """The tiled row kernel against the plain version at its edge widths
+    (tiled_cases), and on the 64 x 384 x 384 problem p (plain outputs
+    ref) under blocks of 32, 64 and 128 threads: two tiles with threads
+    past L2p in the last, and one tile."""
+    from kalign_tpu_torch.gpu import gotoh_row
+    for w in tiled_cases(dev, rng):
+        cfg = gotoh_row.launch_config(len(w["la"]), w["L2p"])
+        if not cfg.tiled:
+            raise AssertionError(f"{shape_of(w)}: not the tiled plan")
+        hold_dp_outputs("gotoh_row_tiled", False,
+                        gotoh_row.forward(*dp_args(w)),
+                        gotoh_row.forward_plain(*dp_args(w)), w,
+                        f"{shape_of(w)} under {cfg}")
+    for threads in (32, 64, 128):
+        cfg = gotoh_row.RowLaunch(threads, gotoh_row.TILED_CH,
+                                  gotoh_row.tiled_config(threads * 8).smem,
+                                  True)
+        hold_dp_outputs("gotoh_row_tiled", False, gotoh_row.run_dp(
+            gotoh_row.prepare,
+            lambda *a: gotoh_row.launch(*a, config=cfg), *dp_args(p)),
+            ref, p, f"64x384x384 under {cfg}")
+
+
 def random_tokens(rng, lens):
     """Rows of random codes 0..12, zero past each length."""
     tokens = np.zeros((len(lens), max(1, int(max(lens)))), np.uint8)
@@ -612,7 +704,17 @@ def counters():
             "gotoh_fused": gotoh_fused}
     out = {k: (m, "launches") for k, m in mods.items()}
     out["bpm_table"] = (bpm, "table_launches")
+    out["gotoh_row_tiled"] = (gotoh_row, "tiled_launches")
     return out
+
+
+def reset_counts():
+    for m, attr in counters().values():
+        setattr(m, attr, 0)
+
+
+def read_counts():
+    return {k: getattr(m, attr) for k, (m, attr) in counters().items()}
 
 
 def check_alignment(rows, seqs):
@@ -627,57 +729,92 @@ def check_alignment(rows, seqs):
     return widths.pop()
 
 
-def phase_path(path: str, seqs):
-    """One alignment of seqs in mode ``path`` on the card, every launch
-    count set to 0 just before it and read just after."""
+def align_on_card(seqs, mode, engine="gpu-fast"):
+    """(Msa, wall seconds) of one alignment on the card."""
     import torch
     import kalign_tpu_torch
-    mods = counters()
-    for m, attr in mods.values():
-        setattr(m, attr, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    msa = kalign_tpu_torch.align_msa(seqs, mode=path)
+    msa = kalign_tpu_torch.align_msa(seqs, mode=mode, engine=engine)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: getattr(m, attr) for k, (m, attr) in mods.items()}
+    return msa, time.perf_counter() - t0
+
+
+def pass_summary(msa, wall):
+    """Wall, phase split and the progressive pass's host split and
+    transfers of one alignment."""
+    st = msa.engine_stats
+    return {"wall_s": round(wall, 3),
+            "phase_s": {k: round(v, 3) for k, v in msa.phase_times.items()},
+            "progressive_split_s": {k: round(v, 4) for k, v in
+                                    st["progressive_split_s"].items()},
+            "fetches": st["fetches"], "levels": len(st["levels"])}
+
+
+def phase_path(path: str, seqs):
+    """One alignment of seqs on the path's mode on the card, every launch
+    count set to 0 just before it and read just after; then the same
+    alignment with the host-assembled progressive pass, which must give
+    the same FASTA."""
+    from kalign_tpu_torch.core import io as kio
+    from kalign_tpu_torch.gpu.engine import GpuEngine
+    mode, must_launch = PATHS[path]
+    reset_counts()
+    msa, wall = align_on_card(seqs, mode)
+    launches = read_counts()
     rows = msa.aligned_rows()
     width = check_alignment(rows, seqs)
     stats = msa.engine_stats
+    host, host_wall = align_on_card(seqs, mode,
+                                    GpuEngine("cuda", resident=False))
+    same = kio.format_alignment(msa, "fasta") == \
+        kio.format_alignment(host, "fasta")
     routes = {}
     for b in stats["batches"]:
         key = f"{'maps' if b['maps'] else 'merges'} {b['route']}"
         routes.setdefault(key, []).append(
             f"{len(b['la'])}x{b['L1p']}x{b['L2p']}")
-    emit({"phase": "path", "path": path, "sequences": len(seqs),
+    emit({"phase": "path", "path": path, "mode": mode,
+          "sequences": len(seqs),
           "lengths": [min(map(len, seqs)), max(map(len, seqs))],
-          "width": width, "wall_s": round(wall, 3),
-          "phase_s": {k: round(v, 3) for k, v in msa.phase_times.items()},
+          "width": width, **pass_summary(msa, wall),
+          "host_pass": pass_summary(host, host_wall),
+          "identical_fasta_host_pass": same,
           "mean_seq_distance": float(np.mean(msa.seq_distances)),
           "map_pairs": stats["map_pairs"],
           "row_merges": stats["row_merges"],
           "lanewise_merges": stats["lanewise_merges"],
           "fused_merges": stats["fused_merges"],
           "launches": launches, "launch_batches": routes,
-          "levels": stats["levels"]})
-    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+          "buckets_by_level": stats["levels"]})
+    missing = [k for k in must_launch if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: "
                              f"{missing}; buckets per level: "
                              f"{stats['levels']}")
+    if stats["fetches"] != len(stats["levels"]) + 1:
+        raise AssertionError(f"{path}: the resident pass fetched "
+                             f"{stats['fetches']} times over "
+                             f"{len(stats['levels'])} levels")
+    if not same:
+        raise AssertionError(f"{path}: the resident and host-assembled "
+                             "passes gave different alignments")
     return launches, stats
 
 
 def phase_profile(path: str, seqs, launches):
-    """A path once more under torch.profiler: device time by kernel, and
-    the device's busy share of the run's wall time.  The trace must hold
-    each kernel as many times as the path launched it: a trace that lost
-    records is taken again, twice at most."""
+    """A path once more under torch.profiler: device time by kernel, the
+    device time under each part of the progressive pass (its
+    ``progressive.<part>`` ranges), and the device's busy share of the
+    run's wall time.  The trace must hold each kernel as many times as the
+    path launched it: a trace that lost records is taken again, twice at
+    most."""
     from torch.autograd import DeviceType
     import kalign_tpu_torch
+    mode = PATHS[path][0]
     for attempt in range(3):
         prof, _, wall_s = profiled(
-            lambda: kalign_tpu_torch.align_msa(seqs, mode=path))
+            lambda: kalign_tpu_torch.align_msa(seqs, mode=mode))
         counts = {name: sum(e.count for e in prof.key_averages()
                             if e.device_type == DeviceType.CUDA
                             and sub in e.key)
@@ -694,10 +831,12 @@ def phase_profile(path: str, seqs, launches):
     wall_us = wall_s * 1e6
 
     # device-side entries only (kernels and copies): an operator's
-    # device time is also listed under the kernels it launched
+    # device time is also listed under the kernels it launched, and a
+    # progressive.<part> range's device-side span under the range
     rows = sorted(((e.key, dev_us(e), e.count)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+                   and not e.key.startswith("progressive.")),
                   key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     if busy_us <= 0:
@@ -707,10 +846,24 @@ def phase_profile(path: str, seqs, launches):
         hit = [(us, c) for k, us, c in rows if sub in k]
         totals[name] = {"device_ms": round(sum(h[0] for h in hit) / 1e3, 3),
                         "launches": sum(h[1] for h in hit)}
+    # each progressive.<part> range: the device time of the kernels its
+    # operations launched (host-side entry) and the span from its first
+    # kernel's start to its last one's end (device-side entry)
+    parts, spans = {}, {}
+    for e in prof.key_averages():
+        if e.key.startswith("progressive."):
+            part = e.key.split(".", 1)[1]
+            if e.device_type == DeviceType.CUDA:
+                spans[part] = round(dev_us(e) / 1e3, 3)
+            else:
+                parts[part] = round(getattr(e, "device_time_total", getattr(
+                    e, "cuda_time_total", 0.0)) / 1e3, 3)
     emit({"phase": "profile", "path": path,
           "wall_s": round(wall_us / 1e6, 3),
           "device_busy_s": round(busy_us / 1e6, 4),
           "device_idle_share": round(1.0 - busy_us / wall_us, 4),
+          "progressive_device_ms": parts,
+          "progressive_device_span_ms": spans,
           "kernels": totals,
           "top": [{"name": k[:80], "device_ms": round(us / 1e3, 3),
                    "calls": c} for k, us, c in rows[:12]]})
@@ -941,11 +1094,54 @@ def bpm_stage(dev, seqs):
                           bound_by=tb_by, shape=f"{N}x{bpm.SIGMA}x{nblk}")}
 
 
-def phase_main_shapes(dev, stats, stats_default, seqs):
+def launch_memory(dev):
+    """Peak device bytes per DP cell of one GpuEngine.launch_bucket on the
+    row route (8 problems of 1,024 x 8,192, the tiled kernel's widths),
+    without and with a consistency bonus of 5 anchors, and from each the
+    widest square problem (a multiple of 128) of which one launch of 8
+    problems, the least GpuEngine.max_launch gives, fits in this card's
+    memory."""
+    import torch
+    from kalign_tpu_torch.gpu.engine import GpuEngine
+    eng = GpuEngine(dev)
+    B, L1p, L2p, K = 8, 1024, 8192, 5
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+    lhs, rhs = rnd(B, L1p, 23), rnd(B, L2p, 23)
+    pc, pr = -rnd(B, 3, L2p + 1) - 0.5, -rnd(B, 3, L1p + 1) - 0.5
+    la = torch.full((B,), L1p, dtype=torch.int32, device=dev)
+    lb = torch.full((B,), L2p, dtype=torch.int32, device=dev)
+    eps = torch.full((B,), 1e-3, device=dev)
+    pos = lambda L: (torch.arange(L, device=dev, dtype=torch.int32)
+                     .expand(B, K, L).contiguous())
+    bonus = (torch.tensor(0.4, device=dev), pos(L1p), rnd(B, K, L1p),
+             pos(L2p), rnd(B, K, L2p))
+    total = torch.cuda.get_device_properties(dev).total_memory
+    out = {"total_bytes": total}
+    for key, bn in (("no_bonus", None), ("bonus", bonus)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        eng.launch_bucket(lhs, rhs, pc, pr, la, lb, eps, bn,
+                          la.cpu().numpy(), lb.cpu().numpy())
+        torch.cuda.synchronize()
+        per_cell = (torch.cuda.max_memory_allocated(dev) - base) / (
+            B * L1p * L2p)
+        out[key] = {"bytes_per_cell": per_cell, "widest_square_8": int(
+            (total / (8 * per_cell)) ** 0.5) // 128 * 128}
+    return out
+
+
+def phase_main_shapes(dev, stats, stats_default, seqs, stats_long):
     """Each kernel at the shapes and lengths a path gave it: the row,
     lanewise, traceback and prefix-sum kernels at the fast path's, the
-    fused kernel at the default path's, BPM and its table at both
-    paths' and at one full chunk of raw_distances."""
+    fused kernel at the default path's, the tiled row kernel at the long
+    family's largest launch and at 8 x 512 x 8,192 and 2 x 256 x 16,384,
+    BPM and its table at both paths' and at one full chunk of
+    raw_distances."""
     import torch
     from kalign_tpu_torch.core import params as P
     from kalign_tpu_torch.gpu import gotoh_fused, gotoh_lanewise, gotoh_row, \
@@ -997,6 +1193,30 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
         if key == "widest":
             pw = pk
     emit({"phase": "main_shape", "kernel": "gotoh_row", **out["gotoh_row"]})
+
+    # tiled row kernel: the long family's largest launch, then the edge
+    # widths at full lengths
+    tiled = [b for b in stats_long["batches"] if b["route"] == "row"
+             and gotoh_row.launch_config(len(b["la"]), b["L2p"]).tiled]
+    for key, pk in (("main", problem(max(tiled, key=cells))),
+                    ("8192", dp_problem(rng, 512, 8192, [512] * 8,
+                                        [8192] * 8, dev)),
+                    ("16384", dp_problem(rng, 256, 16384, [256] * 2,
+                                         [16384] * 2, dev))):
+        _, k_ms, k_dev_ms, k_plain_ms = hold_dp("gotoh_row_tiled",
+                                                gotoh_row, False, pk, 5)
+        b_ms, b_by = gotoh_bound(pk, 1)
+        entry = dict(shape=shape_of(pk), ms=k_ms, device_ms=k_dev_ms,
+                     plain_ms=k_plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     block=gotoh_row.launch_config(
+                         len(pk["la"]), pk["L2p"])._asdict())
+        if key == "main":
+            out["gotoh_row_tiled"] = entry
+        else:
+            out["gotoh_row_tiled"][key] = entry
+    out["gotoh_row_tiled"]["launch_memory"] = launch_memory(dev)
+    emit({"phase": "main_shape", "kernel": "gotoh_row_tiled",
+          **out["gotoh_row_tiled"]})
 
     # lanewise kernel: the main path's 1,024-problem leaf bucket
     q = problem(batch(True, cells))
@@ -1153,50 +1373,91 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
     return out
 
 
-def phase_gpu_vs_cpu():
-    from kalign_tpu_torch import engine as E
+# the gpu_vs_cpu cases: (consistency anchors, how the input is made)
+VS_CASES = {"BB30014": 0, "family150": 0, "BB30014-default": 5,
+            "dna250-default": 5, "long-fast": 0, "long-default": 5}
+
+
+def vs_input(name):
+    """The input Msa of a gpu_vs_cpu case."""
     from kalign_tpu_torch.core import io as kio
     from kalign_tpu_torch.core.msa import Msa
-
-    def bb30014():
-        return kio.read_alignment(os.path.join(HERE, "tests", "data",
-                                               "BB30014.tfa"))
-
-    def dna250():
+    if name.startswith("BB30014"):
+        msa = kio.read_alignment(os.path.join(HERE, "tests", "data",
+                                              "BB30014.tfa"))
+    elif name == "family150":
+        msa = Msa.from_sequences(family(150, seed=1))
+    elif name == "dna250-default":
         # 100-128 nt: its 1,245 map DPs fill one 2,048-problem launch of
         # the fused route at 128 x 128, on the card and on the CPU
-        return Msa.from_sequences(family(
+        msa = Msa.from_sequences(family(
             250, seed=3, root_len=114, lo=100, hi=128, letters=DNA,
             subs=(0.08, 0.04), max_indel=3, p_del=0.6))
+    else:
+        msa = Msa.from_sequences(long_family(0))
+    msa.quiet = True
+    return msa
 
-    cases = [("BB30014", bb30014, 0),
-             ("family150", lambda: Msa.from_sequences(family(150, seed=1)),
-              0),
-             ("BB30014-default", bb30014, 5),
-             ("dna250-default", dna250, 5)]
-    for name, make, consistency in cases:
-        outs = {}
-        for d in ("cuda", "cpu"):
-            msa = make()
-            msa.quiet = True
-            msa = E.align_msa(msa, consistency_anchors=consistency, device=d)
-            outs[d] = (kio.format_alignment(msa, "fasta"),
-                       np.asarray(msa.task_confidence, np.float64))
-            fused = [len(b["la"]) for b in msa.engine_stats["batches"]
-                     if b["route"] == "fused"]
-            if name.startswith("dna") and fused != [2048]:
-                raise AssertionError(f"{name} on {d}: fused launches "
-                                     f"{fused}, not one of 2,048")
-        same = outs["cuda"][0] == outs["cpu"][0]
-        c_gpu, c_cpu = outs["cuda"][1], outs["cpu"][1]
-        rel = np.abs(c_gpu - c_cpu) / np.maximum(1.0, np.abs(c_cpu))
-        emit({"phase": "gpu_vs_cpu", "case": name, "identical_fasta": same,
-              "consistency": consistency, "merges": int(len(c_cpu)),
-              "merges_with_other_score": int((c_gpu != c_cpu).sum()),
-              "max_rel_score_diff": float(rel.max()) if len(rel) else 0.0})
-        if not same and rel.max() > 1e-5:
-            raise AssertionError(f"{name}: GPU and CPU alignments differ "
-                                 "with unequal merge scores")
+
+def vs_align(name, device):
+    """(FASTA, per-merge scores, fused launch sizes) of a gpu_vs_cpu case
+    aligned on device; on the CPU in a worker process of one thread."""
+    import torch
+    from kalign_tpu_torch import engine as E
+    from kalign_tpu_torch.core import io as kio
+    if device == "cpu":
+        torch.set_num_threads(1)
+    msa = E.align_msa(vs_input(name), consistency_anchors=VS_CASES[name],
+                      device=device)
+    fused = [len(b["la"]) for b in msa.engine_stats["batches"]
+             if b["route"] == "fused"]
+    return (kio.format_alignment(msa, "fasta"),
+            np.asarray(msa.task_confidence, np.float64), fused,
+            msa.engine_stats)
+
+
+def phase_gpu_vs_cpu():
+    """Every case on the card and on the CPU; the CPU sides run at once
+    in worker processes (their plain versions are host-bound loops) while
+    the card takes the cases one by one."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    launches, stats = {}, {}
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(len(VS_CASES), mp_context=ctx) as pool:
+        cpu = {name: pool.submit(vs_align, name, "cpu") for name in VS_CASES}
+        for name, consistency in VS_CASES.items():
+            reset_counts()
+            outs = {"cuda": vs_align(name, "cuda")}
+            launches[name] = read_counts()
+            stats[name] = outs["cuda"][3]
+            outs["cpu"] = cpu[name].result()
+            for d in ("cuda", "cpu"):
+                fused = outs[d][2]
+                if name.startswith("dna") and fused != [2048]:
+                    raise AssertionError(f"{name} on {d}: fused launches "
+                                         f"{fused}, not one of 2,048")
+            same = outs["cuda"][0] == outs["cpu"][0]
+            c_gpu, c_cpu = outs["cuda"][1], outs["cpu"][1]
+            rel = np.abs(c_gpu - c_cpu) / np.maximum(1.0, np.abs(c_cpu))
+            emit({"phase": "gpu_vs_cpu", "case": name,
+                  "identical_fasta": same, "consistency": consistency,
+                  "merges": int(len(c_cpu)),
+                  "merges_with_other_score": int((c_gpu != c_cpu).sum()),
+                  "max_rel_score_diff": float(rel.max()) if len(rel)
+                  else 0.0, "launches": launches[name]})
+            if not same and rel.max() > 1e-5:
+                raise AssertionError(f"{name}: GPU and CPU alignments "
+                                     "differ with unequal merge scores")
+            if name.startswith("long"):
+                # wider than 7,168 columns: card and CPU must agree exactly
+                if not same:
+                    raise AssertionError(f"{name}: GPU and CPU alignments "
+                                         "differ")
+                if launches[name]["gotoh_row_tiled"] == 0:
+                    raise AssertionError(f"{name}: the tiled row kernel "
+                                         "did not launch")
+    return launches, stats
 
 
 def main():
@@ -1213,31 +1474,36 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    t_start = time.perf_counter()
-
     smi = phase_device_and_build()
     phase_edge_cases(dev)
-    seqs = {"fast": family(2000, seed=0), "default": v4_family(2000, seed=2)}
+    seqs = {"fast": family(2000, seed=0), "default": v4_family(2000, seed=2),
+            "protein_default": family(2000, seed=0)}
     launches, stats = {}, {}
-    for path in ("fast", "default"):
+    for path in PATHS:
         launches[path], stats[path] = phase_path(path, seqs[path])
-    for path in ("fast", "default"):
+    for path in PATHS:
         phase_profile(path, seqs[path], launches[path])
-    shapes = phase_main_shapes(dev, stats["fast"], stats["default"], seqs)
-    phase_gpu_vs_cpu()
+    vs_launches, vs_stats = phase_gpu_vs_cpu()
+    launches.update({k: v for k, v in vs_launches.items()
+                     if k.startswith("long")})
+    shapes = phase_main_shapes(dev, stats["fast"], stats["default"], seqs,
+                               vs_stats["long-fast"])
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = shapes[name]
+        main = ("long-fast", "long-default") if name == "gotoh_row_tiled" \
+            else ("default",)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches["default"][name],
+            "replaces": replaces,
+            "launches": sum(launches[p][name] for p in main),
             "launches_by_path": {p: launches[p][name] for p in launches},
             "max_abs_err": MAX_ABS_ERR[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
             **{k: v for k, v in t.items() if k not in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
-    total_s = time.perf_counter() - t_start
+    total_s = time.perf_counter() - T_START
     emit({"phase": "total", "total_s": round(total_s, 1)})
     print(json.dumps({"kernels": kernels}))
     print(f"total_s {total_s:.1f}", file=sys.stderr)

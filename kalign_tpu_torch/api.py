@@ -47,8 +47,9 @@ def align_msa(sequences: Sequence[str],
               names: Optional[Sequence[str]] = None,
               mode: Optional[str] = None, device=None,
               consistency: Optional[int] = None,
-              consistency_weight: float = 2.0) -> Msa:
-    """Align and return the finalised Msa (input order restored)."""
+              consistency_weight: float = 2.0, engine="gpu-fast") -> Msa:
+    """Align and return the finalised Msa (input order restored);
+    ``engine`` as engine.align_msa takes it."""
     consistency = _resolve_mode(mode, consistency)
     _validate_sequences(sequences)
     msa = Msa.from_sequences(list(sequences),
@@ -56,7 +57,7 @@ def align_msa(sequences: Sequence[str],
     msa.quiet = True
     return _engine.align_msa(msa, consistency_anchors=consistency,
                              consistency_weight=consistency_weight,
-                             device=device)
+                             engine=engine, device=device)
 
 
 def align(sequences: Sequence[str], mode: Optional[str] = None,

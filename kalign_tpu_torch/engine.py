@@ -58,10 +58,15 @@ def pick_anchors(msa: Msa) -> List[int]:
     return [order[i * stride] for i in range(num_anchor)]
 
 
-def get_engine(name: str = "gpu-fast", device=None):
+def get_engine(name="gpu-fast", device=None):
+    """The engine of a name, on ``device``; a GpuEngine passed as the name
+    is used as it is (``GpuEngine(device, resident=False)`` runs the
+    host-assembled progressive pass)."""
+    from kalign_tpu_torch.gpu.engine import GpuEngine
+    if isinstance(name, GpuEngine):
+        return name
     if name not in ENGINES:
         raise ValueError(f"unknown engine {name!r} (have {ENGINES})")
-    from kalign_tpu_torch.gpu.engine import GpuEngine
     return GpuEngine(resolve_device(device))
 
 
@@ -90,14 +95,15 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
               use_seq_weights: float = -1.0,
               consistency_anchors: int = 0, consistency_weight: float = 2.0,
               realign: int = 0,
-              engine: str = "gpu-fast",
+              engine="gpu-fast",
               save_checkpoint: Optional[str] = None,
               resume_checkpoint: Optional[str] = None,
               device=None) -> Msa:
     """Full alignment pipeline: default mode with consistency_anchors > 0
     (the reference's default is 5), --fast mode with 0.  Options of the
     reference pipeline that this package does not run yet raise
-    NotImplementedError."""
+    NotImplementedError.  ``engine`` is a name of ENGINES or a GpuEngine
+    (get_engine)."""
     if refine != P.REFINE_NONE:
         _not_ported("refinement")
     if realign > 0:

@@ -1,7 +1,7 @@
 """GPU engine: progressive MSA with the DP on the card.
 
-Counterpart of kalign_tpu/tpu/engine.py::TpuEngine in its host-assembled,
-single-device form (the ``KALIGN_TPU_NO_RESIDENT=1`` configuration):
+Counterpart of kalign_tpu/tpu/engine.py::TpuEngine in its single-device
+form, one centering-bias candidate per merge:
 
   * anchor distances: the BPM kernel (gpu/distances.py);
   * guide tree: the native builder (native/);
@@ -10,14 +10,18 @@ single-device form (the ``KALIGN_TPU_NO_RESIDENT=1`` configuration):
     (``dp_leaf_batch``); only index vectors travel per launch;
   * progressive pass: level-synchronous — all merges of one guide-tree
     level are independent, so they are bucketed by padded shape and each
-    bucket runs as one batch: an fp32 ``torch.bmm`` for the match scores
-    (plus the consistency bonus, built on the card from compact arrays),
-    the row Gotoh kernel, or for buckets of k * 1024 problems the
-    problem-per-lane kernel, and the traceback walk on the card; only
-    step lists come back.  Bonus-free batches over a narrow alphabet
-    (DNA) skip the match product: the fused kernel computes the match
-    from the operands.  Profile merge and gap weave stay numpy
-    (gpu/profile.py).
+    bucket runs as one batch (``launch_bucket``): an fp32 ``torch.bmm``
+    for the match scores (plus the consistency bonus, built on the card
+    from compact arrays), the row Gotoh kernel, or for buckets of
+    k * 1024 problems the problem-per-lane kernel, and the traceback walk
+    on the card.  Bonus-free batches over a narrow alphabet (DNA) skip
+    the match product: the fused kernel computes the match from the
+    operands.  By default the pass is device-resident (gpu/resident.py:
+    profiles, gap lists and bonus arrays stay on the device, one fetch
+    per level); ``GpuEngine(device, resident=False)`` runs the
+    host-assembled pass (``host_pass``: buckets assembled in numpy, step
+    lists fetched per bucket, profile merge and gap weave in numpy,
+    gpu/profile.py), the resident pass's oracle.
 
 Every kernel wrapper runs its plain PyTorch version when the engine's
 device is the CPU; the routing is the same on both devices.
@@ -26,6 +30,8 @@ Contract: the same pipeline semantics as the host engine; alignments are
 score-optimal per merge and may differ from other engines on near-ties.
 """
 
+import time
+from contextlib import contextmanager
 from typing import List, Optional
 
 import numpy as np
@@ -199,8 +205,10 @@ class GpuEngine:
     # (tpu/engine.py:987-996)
     MAP_EPS = 0.0
 
-    def __init__(self, device):
+    def __init__(self, device, resident: bool = True):
         self.device = torch.device(device)
+        # the progressive pass: device-resident, or host-assembled
+        self.resident = resident
         # the match product is a full-fp32 bmm (the JAX engine leaves it
         # to XLA at f32): TF32 would round the scores to ~3 digits
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -212,6 +220,29 @@ class GpuEngine:
         self.stats = {"row_merges": 0, "lanewise_merges": 0,
                       "fused_merges": 0, "map_pairs": 0, "levels": [],
                       "batches": []}
+        # the progressive pass's host seconds by part (``split``) and its
+        # transfers to the host (``fetch``)
+        self.stats["progressive_split_s"] = {}
+        self.stats["fetches"] = 0
+
+    @contextmanager
+    def split(self, part: str):
+        """Add the host seconds of the block to the pass's split (blocks do
+        not nest).  The block is also a torch.profiler range,
+        ``progressive.<part>``, under which a trace lists the device time
+        of the kernels it launched."""
+        t0 = time.perf_counter()
+        try:
+            with torch.profiler.record_function("progressive." + part):
+                yield
+        finally:
+            d = self.stats["progressive_split_s"]
+            d[part] = d.get(part, 0.0) + time.perf_counter() - t0
+
+    def fetch(self, x) -> np.ndarray:
+        """One device-to-host transfer of the progressive pass, counted."""
+        self.stats["fetches"] += 1
+        return x.cpu().numpy()
 
     # ------------------------------------------------------------------
     def anchor_distances(self, codes, anchors):
@@ -344,9 +375,9 @@ class GpuEngine:
                 scores.append(sc)
             return steps, np.concatenate(scores)
         _, steps, n, score, B = handle
-        steps = steps[:B].cpu().numpy()
-        n = n[:B].cpu().numpy()
-        score = score[:B].cpu().numpy()
+        steps = self.fetch(steps[:B])
+        n = self.fetch(n[:B])
+        score = self.fetch(score[:B])
         return ([steps[b, :n[b]] for b in range(B)],
                 score.astype(np.float64))
 
@@ -413,6 +444,23 @@ class GpuEngine:
         return out
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def schedule(tasks, n: int):
+        """The tasks sorted by parent id, parent -> task index, and the
+        parents of each guide-tree level (a level's merges depend only on
+        earlier levels)."""
+        order = np.asarray(tasks)[np.argsort(np.asarray(tasks)[:, 2])]
+        task_index = {int(c): t for t, (_, _, c) in enumerate(order)}
+        level = {i: 0 for i in range(n)}
+        levels: List[List[int]] = []
+        for a, b, c in order:
+            lv = 1 + max(level[int(a)], level[int(b)])
+            level[int(c)] = lv
+            while len(levels) < lv:
+                levels.append([])
+            levels[lv - 1].append(int(c))
+        return order, task_index, levels
+
     def align(self, codes, tasks, ap: P.AlnParam, seq_distances, ct=None):
         """One bottom-up progressive pass (tpu/engine.py:731-901), with
         the consistency bonus of table ct when given; the fused route
@@ -420,6 +468,20 @@ class GpuEngine:
         per sequence, per-merge scores indexed like the tasks sorted by
         parent id)."""
         sd = None if seq_distances is None else np.asarray(seq_distances)
+        order, task_index, levels = self.schedule(tasks, len(codes))
+        if self.resident:
+            # imported here: gpu/resident.py imports this module
+            from kalign_tpu_torch.gpu.resident import ResidentPass
+            return ResidentPass(self, codes, ap, sd, ct).run(
+                order, task_index, levels)
+        return self.host_pass(codes, order, task_index, levels, ap, sd, ct)
+
+    def host_pass(self, codes, order, task_index, levels, ap: P.AlnParam,
+                  sd, ct):
+        """The host-assembled progressive pass: each bucket assembled in
+        numpy, uploaded and launched, every bucket's step lists fetched,
+        then merged and woven in numpy."""
+        split = self.split
         n = len(codes)
         nprof = 2 * n - 1
         lens = [len(c) for c in codes]
@@ -430,122 +492,119 @@ class GpuEngine:
         profiles: List[Optional[Profile]] = [None] * nprof
         conf = np.zeros(n - 1, dtype=np.float32)
 
-        order = np.asarray(tasks)[np.argsort(np.asarray(tasks)[:, 2])]
-        task_index = {int(c): t for t, (_, _, c) in enumerate(order)}
-
-        level = {i: 0 for i in range(n)}
-        levels: List[List[int]] = []
-        for a, b, c in order:
-            lv = 1 + max(level[int(a)], level[int(b)])
-            level[int(c)] = lv
-            while len(levels) < lv:
-                levels.append([])
-            levels[lv - 1].append(int(c))
-
         for lv_nodes in levels:
-            batch = []
-            for c in lv_nodes:
-                t_idx = task_index[c]
-                a, b = int(order[t_idx][0]), int(order[t_idx][1])
-                eff = self.effective(ap, sd, sip, a, b, n)
-                pa = self.node_profile(profiles, codes, a, nsip, eff)
-                pb = self.node_profile(profiles, codes, b, nsip, eff)
-                leaf_a = nsip[a] == 1
-                leaf_b = nsip[b] == 1
-                if leaf_a and not leaf_b:
-                    rows_node = b
-                elif leaf_b and not leaf_a:
-                    rows_node = a
-                elif pa.length <= pb.length:
-                    rows_node = a
-                else:
-                    rows_node = b
-                cols_node = b if rows_node == a else a
-                prof_r = pa if rows_node == a else pb
-                prof_c = pb if rows_node == a else pa
-                cols_is_leaf = nsip[cols_node] == 1 and not (leaf_a and leaf_b)
-                batch.append((c, a, b, rows_node, cols_node, prof_r, prof_c,
-                              cols_is_leaf))
+            with split("assembly"):
+                batch = []
+                for c in lv_nodes:
+                    t_idx = task_index[c]
+                    a, b = int(order[t_idx][0]), int(order[t_idx][1])
+                    eff = self.effective(ap, sd, sip, a, b, n)
+                    pa = self.node_profile(profiles, codes, a, nsip, eff)
+                    pb = self.node_profile(profiles, codes, b, nsip, eff)
+                    leaf_a = nsip[a] == 1
+                    leaf_b = nsip[b] == 1
+                    if leaf_a and not leaf_b:
+                        rows_node = b
+                    elif leaf_b and not leaf_a:
+                        rows_node = a
+                    elif pa.length <= pb.length:
+                        rows_node = a
+                    else:
+                        rows_node = b
+                    cols_node = b if rows_node == a else a
+                    prof_r = pa if rows_node == a else pb
+                    prof_c = pb if rows_node == a else pa
+                    cols_is_leaf = (nsip[cols_node] == 1
+                                    and not (leaf_a and leaf_b))
+                    batch.append((c, a, b, rows_node, cols_node, prof_r,
+                                  prof_c, cols_is_leaf))
 
-            buckets = {}
-            for item in batch:
-                key = (_bucket(item[5].length), _bucket(item[6].length))
-                buckets.setdefault(key, []).append(item)
-            self.stats["levels"].append(
-                {f"{k[0]}x{k[1]}": len(v) for k, v in buckets.items()})
+                buckets = {}
+                for item in batch:
+                    key = (_bucket(item[5].length), _bucket(item[6].length))
+                    buckets.setdefault(key, []).append(item)
+                self.stats["levels"].append(
+                    {f"{k[0]}x{k[1]}": len(v) for k, v in buckets.items()})
 
             # dispatch every bucket of the level, then collect
             dispatched = []
             for (L1p, L2p), items in buckets.items():
-                B = len(items)
-                Ba = _pow2_batch(B)
-                pc = np.zeros((Ba, 3, L2p + 1), np.float32)
-                pr = np.zeros((Ba, 3, L1p + 1), np.float32)
-                la = np.full(Ba, 8, np.int32)
-                lb = np.full(Ba, 8, np.int32)
-                lhs = np.zeros((Ba, L1p, 23), np.float32)
-                rhs = np.zeros((Ba, L2p, 23), np.float32)
+                with split("assembly"):
+                    B = len(items)
+                    Ba = _pow2_batch(B)
+                    pc = np.zeros((Ba, 3, L2p + 1), np.float32)
+                    pr = np.zeros((Ba, 3, L1p + 1), np.float32)
+                    la = np.full(Ba, 8, np.int32)
+                    lb = np.full(Ba, 8, np.int32)
+                    lhs = np.zeros((Ba, L1p, 23), np.float32)
+                    rhs = np.zeros((Ba, L2p, 23), np.float32)
+                    for k, (c, a, b, rn, cn, prof_r, prof_c, cif) in \
+                            enumerate(items):
+                        la[k] = prof_r.length
+                        lb[k] = prof_c.length
+                        if cif:
+                            lhs[k, :la[k]] = prof_r.subrows
+                            rhs[k, :lb[k]] = prof_c.counts
+                        else:
+                            lhs[k, :la[k]] = prof_r.counts
+                            rhs[k, :lb[k]] = prof_c.subrows
+                        pc[k, :, 1:lb[k] + 1] = (prof_c.pen[1:-1] *
+                                                 np.float32(nsip[rn])).T
+                        pr[k, :, 1:la[k] + 1] = (prof_r.pen[1:-1] *
+                                                 np.float32(nsip[cn])).T
+                    # pad problems are 8 x 8 with copies of the last real
+                    # problem's penalties
+                    if Ba > B:
+                        pc[B:] = pc[B - 1]
+                        pr[B:] = pr[B - 1]
+                    eps = np.full(Ba, self.EPS, np.float32)
                 bonus = None
                 if ct is not None:
-                    # compact per-anchor positions and confidences; the
-                    # bonus matrix is built on the device
-                    bonus = (ct.per_weight,
-                             np.full((Ba, ct.K, L1p), -1, np.int32),
-                             np.zeros((Ba, ct.K, L1p), np.float32),
-                             np.full((Ba, ct.K, L2p), -1, np.int32),
-                             np.zeros((Ba, ct.K, L2p), np.float32))
-                for k, (c, a, b, rn, cn, prof_r, prof_c, cif) in \
-                        enumerate(items):
-                    la[k] = prof_r.length
-                    lb[k] = prof_c.length
-                    if cif:
-                        lhs[k, :la[k]] = prof_r.subrows
-                        rhs[k, :lb[k]] = prof_c.counts
-                    else:
-                        lhs[k, :la[k]] = prof_r.counts
-                        rhs[k, :lb[k]] = prof_c.subrows
-                    if ct is not None:
-                        apr, cfr, apc, cfc = ct.bonus_arrays(
-                            rn, prof_r.length, cn, prof_c.length, sip, nsip,
-                            gaps, lens)
-                        bonus[1][k, :, :la[k]] = apr
-                        bonus[2][k, :, :la[k]] = cfr
-                        bonus[3][k, :, :lb[k]] = apc
-                        bonus[4][k, :, :lb[k]] = cfc
-                    pc[k, :, 1:lb[k] + 1] = (prof_c.pen[1:-1] *
-                                             np.float32(nsip[rn])).T
-                    pr[k, :, 1:la[k] + 1] = (prof_r.pen[1:-1] *
-                                             np.float32(nsip[cn])).T
-                # pad problems are 8 x 8 with copies of the last real
-                # problem's penalties
-                if Ba > B:
-                    pc[B:] = pc[B - 1]
-                    pr[B:] = pr[B - 1]
-                eps = np.full(Ba, self.EPS, np.float32)
-                dispatched.append((items, self.dispatch_bucket(
-                    lhs, rhs, pc, pr, la, lb, eps, bonus)))
+                    with split("bonus"):
+                        # compact per-anchor positions and confidences;
+                        # the bonus matrix is built on the device
+                        bonus = (ct.per_weight,
+                                 np.full((Ba, ct.K, L1p), -1, np.int32),
+                                 np.zeros((Ba, ct.K, L1p), np.float32),
+                                 np.full((Ba, ct.K, L2p), -1, np.int32),
+                                 np.zeros((Ba, ct.K, L2p), np.float32))
+                        for k, (c, a, b, rn, cn, prof_r, prof_c, _) in \
+                                enumerate(items):
+                            apr, cfr, apc, cfc = ct.bonus_arrays(
+                                rn, prof_r.length, cn, prof_c.length, sip,
+                                nsip, gaps, lens)
+                            bonus[1][k, :, :la[k]] = apr
+                            bonus[2][k, :, :la[k]] = cfr
+                            bonus[3][k, :, :lb[k]] = apc
+                            bonus[4][k, :, :lb[k]] = cfc
+                with split("dispatch"):
+                    dispatched.append((items, self.dispatch_bucket(
+                        lhs, rhs, pc, pr, la, lb, eps, bonus)))
 
             for items, handle in dispatched:
-                steps_list, scores = self.collect_bucket(handle)
+                with split("fetch"):
+                    steps_list, scores = self.collect_bucket(handle)
                 for k, (c, a, b, rn, cn, prof_r, prof_c, _) in \
                         enumerate(items):
-                    steps_rc = np.asarray(steps_list[k], np.int8)
-                    if rn == a:
-                        steps = steps_rc
-                    else:
-                        steps = np.where(steps_rc == 1, 2,
-                                         np.where(steps_rc == 2, 1,
-                                                  0)).astype(np.int8)
-                    conf[task_index[c]] = scores[k]
-                    terminal = terminal_mask(steps)
-                    prof_a = prof_r if rn == a else prof_c
-                    prof_b = prof_c if rn == a else prof_r
-                    profiles[c] = merge_profiles(prof_a, prof_b, steps,
-                                                 terminal, nsip[a], nsip[b],
-                                                 ap.gpo, ap.gpe, ap.tgpe)
-                    profiles[a] = None
-                    profiles[b] = None
-                    weave_steps(steps, gaps, sip[a], sip[b])
+                    with split("merge"):
+                        steps_rc = np.asarray(steps_list[k], np.int8)
+                        if rn == a:
+                            steps = steps_rc
+                        else:
+                            steps = np.where(steps_rc == 1, 2,
+                                             np.where(steps_rc == 2, 1,
+                                                      0)).astype(np.int8)
+                        conf[task_index[c]] = scores[k]
+                        terminal = terminal_mask(steps)
+                        prof_a = prof_r if rn == a else prof_c
+                        prof_b = prof_c if rn == a else prof_r
+                        profiles[c] = merge_profiles(
+                            prof_a, prof_b, steps, terminal, nsip[a],
+                            nsip[b], ap.gpo, ap.gpe, ap.tgpe)
+                        profiles[a] = None
+                        profiles[b] = None
+                    with split("weave"):
+                        weave_steps(steps, gaps, sip[a], sip[b])
                     nsip[c] = nsip[a] + nsip[b]
                     sip[c] = list(reversed(sip[a])) + list(reversed(sip[b]))
         return gaps, conf

@@ -3,6 +3,10 @@
 Kernel: csrc/gotoh_row.cu (replaces the TPU kernel
 kalign_tpu/tpu/gotoh_pallas.py::_kernel, gotoh_forward_pallas:272).  The
 note at the top of the CUDA source gives its design and what bounds it.
+Rows wider than one block holds in registers (past 7,168 columns) take
+its tiled instantiation (``tiled_config``), which walks each row in
+column tiles with the previous row's state in a global-memory scratch:
+the widths kalign_tpu gives its XLA scan (tpu/gotoh.py::gotoh_forward).
 
 ``forward`` launches the kernel for CUDA tensors and runs ``plain`` — the
 same arithmetic in PyTorch, one row at a time — for CPU tensors.  Both
@@ -35,10 +39,14 @@ COL_QUANTUM = 128          # L2p must be a multiple of this
 # a block may have, match rows in the shared-memory ring)
 CHUNKS = {4: (512, 8), 8: (896, 4)}
 SLOT_FLOATS = 5            # per warp, two row parities
+# the tiled instantiation: most threads of a block, columns per thread,
+# floats per warp slot
+TILED_THREADS, TILED_CH, TILED_SLOT_FLOATS = 512, 8, 2
 
 launches = 0
+tiled_launches = 0
 
-RowLaunch = namedtuple("RowLaunch", "threads ch smem")
+RowLaunch = namedtuple("RowLaunch", "threads ch smem tiled")
 
 
 def smem_bytes(threads, ch):
@@ -55,13 +63,23 @@ def config_for(L2p, ch):
     smem = smem_bytes(threads, ch)
     if threads > CHUNKS[ch][0] or smem > SMEM_LIMIT:
         return None
-    return RowLaunch(threads, ch, smem)
+    return RowLaunch(threads, ch, smem, False)
+
+
+def tiled_config(L2p):
+    """RowLaunch of the tiled instantiation: as few tiles of at most
+    TILED_THREADS * TILED_CH columns as cover L2p, the block no wider
+    than the tiles need."""
+    tiles = -(-L2p // (TILED_THREADS * TILED_CH))
+    threads = -(-L2p // (tiles * TILED_CH * 32)) * 32
+    return RowLaunch(threads, TILED_CH,
+                     4 * 2 * (threads // 32) * TILED_SLOT_FLOATS, True)
 
 
 def launch_config(B, L2p):
     """Block size and columns per thread of the row kernel for B problems
     of width L2p: 4 columns per thread (up to 512 threads), 8 beyond
-    that."""
+    that, and past 896 threads of 8 the tiled instantiation."""
     if L2p <= 0 or L2p % COL_QUANTUM:
         raise ValueError(f"row Gotoh kernel: L2p={L2p} is not a multiple "
                          f"of {COL_QUANTUM}")
@@ -69,9 +87,7 @@ def launch_config(B, L2p):
         cfg = config_for(L2p, ch)
         if cfg is not None:
             return cfg
-    raise ValueError(f"row Gotoh kernel: L2p={L2p} needs more threads or "
-                     f"shared memory than one block has (at most "
-                     f"{CHUNKS[8][0] * 8} columns)")
+    return tiled_config(L2p)
 
 
 def prepare(pens_cols, pens_rows, la, lb, slope, bias_eps):
@@ -193,11 +209,14 @@ def launch(match, prep, la, lb, config=None):
     """Launch csrc/gotoh_row.cu on CUDA tensors, with launch_config's
     block unless a RowLaunch is given."""
     global launches
+    global tiled_launches
     match = match.contiguous()
     B, L1p, W = match.shape
     cfg = config or launch_config(B, W)
     lib = _cuda.lib()
-    if lib.kt_gotoh_row_smem_bytes(cfg.threads, cfg.ch) != cfg.smem:
+    smem = (lib.kt_gotoh_row_tiled_smem_bytes(cfg.threads) if cfg.tiled
+            else lib.kt_gotoh_row_smem_bytes(cfg.threads, cfg.ch))
+    if smem != cfg.smem:
         raise RuntimeError("row Gotoh kernel: shared-memory size differs "
                            "between csrc/gotoh_row.cu and launch_config")
     _cuda.require_cuda("gotoh_row", match, prep["colpen"], prep["ga0"],
@@ -209,14 +228,23 @@ def launch(match, prep, la, lb, config=None):
     state = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return dec, score, state
-    rc = lib.kt_gotoh_row_forward(
-        match.data_ptr(), *(prep[k].data_ptr() for k in (
-            "colpen", "ga0", "rowpen", "cols_eps", "row_term")),
+    args = (match.data_ptr(), *(prep[k].data_ptr() for k in (
+        "colpen", "ga0", "rowpen", "cols_eps", "row_term")),
         la.data_ptr(), lb.data_ptr(), B, L1p, W, dec.data_ptr(),
-        score.data_ptr(), state.data_ptr(), cfg.threads, cfg.ch,
-        _cuda.stream())
+        score.data_ptr(), state.data_ptr())
+    if cfg.tiled:
+        # the previous row's A, GA and GB, two row parities
+        scratch = torch.empty((B, 2, 3, W), dtype=torch.float32, device=dev)
+        rc = lib.kt_gotoh_row_tiled_forward(*args, scratch.data_ptr(),
+                                            cfg.threads, _cuda.stream())
+    else:
+        rc = lib.kt_gotoh_row_forward(*args, cfg.threads, cfg.ch,
+                                      _cuda.stream())
     _cuda.check(rc, "gotoh_row")
-    launches += 1
+    if cfg.tiled:
+        tiled_launches += 1
+    else:
+        launches += 1
     return dec, score, state
 
 

@@ -33,7 +33,9 @@ def test_table_and_every_merge_bonus_match_kalign_tpu(case, monkeypatch):
     """The port's pipeline builds its table; kalign_tpu builds one from the
     same codes, parameters and distances (its CPU path, the XLA DP).
     Anchors and every position map must be identical, and so must the
-    bonus arrays of every merge of the progressive pass."""
+    bonus arrays of every merge of the host-assembled progressive pass,
+    which builds them on the host (the resident pass's votes are held
+    against these in test_torch_resident.py)."""
     seen = {"merges": 0}
     build = tcons.ConsistencyTable.build.__func__
 
@@ -64,7 +66,8 @@ def test_table_and_every_merge_bonus_match_kalign_tpu(case, monkeypatch):
                         classmethod(checked_build))
     m = tio.read_alignment(os.path.join(DATA, case))
     m.quiet = True
-    out = TE.align_msa(m, consistency_anchors=5, device="cpu")
+    out = TE.align_msa(m, consistency_anchors=5,
+                       engine=TGE.GpuEngine("cpu", resident=False))
     assert seen["merges"] == out.numseq - 1
 
 

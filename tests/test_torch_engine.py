@@ -171,8 +171,12 @@ def test_non_dyadic_divergence_is_a_near_tie(monkeypatch, tmp_path):
                         recorder(JTE.TpuEngine._collect_bucket, "jax"))
     m = tio.read_alignment(str(path))
     m.quiet = True
-    out = TE.align_msa(m, consistency_anchors=0, device="cpu")
+    # the host-assembled pass: its buckets come back through
+    # collect_bucket, merge by merge in the JAX engine's order
+    out = TE.align_msa(m, consistency_anchors=0,
+                       engine=GpuEngine("cpu", resident=False))
     ref = _jax_fast(str(path), monkeypatch)
+    assert seen["port"] and len(seen["port"]) == len(seen["jax"])
     first = None
     for (st_p, sc_p), (st_j, sc_j) in zip(seen["port"], seen["jax"]):
         for q in range(len(st_p)):
@@ -186,3 +190,30 @@ def test_non_dyadic_divergence_is_a_near_tie(monkeypatch, tmp_path):
     for msa in (out, ref):
         for s, row in zip(msa.sequences, msa.aligned_rows()):
             assert row.replace("-", "") == raw[s.name]
+
+
+def test_long_sequence_family_matches_tpu_fast(monkeypatch):
+    """Short fragments and one sequence of ~7,300 residues (chip_smoke's
+    long family), --fast mode: the merges whose column side is the long
+    sequence are wider than 7,168 columns (the tiled row kernel's widths,
+    kalign_tpu's XLA scan); FASTA byte-identical to kalign_tpu's, scores
+    bitwise."""
+    import chip_smoke
+    from kalign_tpu.core.msa import Msa as JMsa
+    from kalign_tpu_torch.core.msa import Msa as TMsa
+    seqs = chip_smoke.long_family(0)
+    assert max(map(len, seqs)) > 7168 and min(map(len, seqs)) < 400
+    monkeypatch.setenv("KALIGN_TPU_NO_RESIDENT", "1")
+    monkeypatch.setenv("KALIGN_TPU_NO_AUTOROUTE", "1")
+    m = JMsa.from_sequences(seqs)
+    m.quiet = True
+    ref = JE.align_msa(m, consistency_anchors=0, engine="tpu-fast")
+    m = TMsa.from_sequences(seqs)
+    m.quiet = True
+    out = TE.align_msa(m, consistency_anchors=0, device="cpu")
+    assert any(b["route"] == "row" and b["L2p"] > 7168 and b["L1p"] <= 512
+               for b in out.engine_stats["batches"])
+    assert tio.format_alignment(out, "fasta") == \
+        jio.format_alignment(ref, "fasta")
+    assert np.array_equal(np.asarray(out.task_confidence),
+                          np.asarray(ref.task_confidence))

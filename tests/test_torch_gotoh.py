@@ -76,10 +76,11 @@ def test_single_problem_dp_matches_xla():
 
 
 @pytest.mark.parametrize("shape", [(8, 128, 128), (8, 128, 256),
-                                   (16, 256, 128)])
+                                   (16, 256, 128), (2, 64, 8192)])
 def test_row_plain_matches_xla_scores_and_paths(shape):
     """tests/test_pallas_kernel.py:52 for the port: scores within rel
-    1e-5 and identical paths."""
+    1e-5 and identical paths; 8,192 columns are a width of the tiled
+    kernel, which kalign_tpu gives its XLA scan."""
     B, L1p, L2p = shape
     rng = np.random.default_rng(sum(shape))
     match, pc, pr, la, lb = _random_problem(rng, B, L1p, L2p)
@@ -160,18 +161,31 @@ def test_row_launch_config_covers_every_width_of_the_old_kernel(B):
     took (33 bytes of shared memory per column, so up to 7,040) a block
     within Hopper's limits: whole warps, enough columns, at most the
     instantiation's threads and 232,448 bytes of shared memory, sized by
-    the kernel's own formula; anything else raises."""
+    the kernel's own formula; every wider L2p (7,296 to 32,768) gets the
+    tiled instantiation, whose tiles cover the row; an L2p that is no
+    multiple of 128 raises."""
     old_max = (gotoh_row.SMEM_LIMIT - 16) // 33 // 128 * 128
     assert old_max == 7040
     for L2p in range(128, old_max + 1, 128):
         cfg = gotoh_row.launch_config(B, L2p)
         max_threads, stages = gotoh_row.CHUNKS[cfg.ch]
+        assert not cfg.tiled
         assert cfg.threads % 32 == 0 and cfg.threads <= max_threads
         assert L2p <= cfg.threads * cfg.ch < L2p + 32 * cfg.ch
         assert cfg.ch == (4 if L2p <= 4 * 512 else 8)
         assert cfg.smem == 4 * ((4 + stages) * cfg.threads * cfg.ch
                                 + cfg.threads // 32 * 2 * 5)
         assert cfg.smem <= gotoh_row.SMEM_LIMIT == 232448
-    for bad in (64, 200, 7296, 8192):
+    assert not gotoh_row.launch_config(B, 7168).tiled
+    for L2p in range(7296, 32768 + 1, 128):
+        cfg = gotoh_row.launch_config(B, L2p)
+        assert cfg.tiled and cfg.ch == gotoh_row.TILED_CH == 8
+        assert cfg.threads % 32 == 0
+        assert cfg.threads <= gotoh_row.TILED_THREADS == 512
+        tiles = -(-L2p // (cfg.threads * cfg.ch))
+        assert tiles == -(-L2p // (512 * 8))
+        assert L2p <= tiles * cfg.threads * cfg.ch < L2p + tiles * 32 * 8
+        assert cfg.smem == 4 * 2 * (cfg.threads // 32) * 2
+    for bad in (64, 200):
         with pytest.raises(ValueError, match="row Gotoh kernel"):
             gotoh_row.launch_config(B, bad)
