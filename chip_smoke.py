@@ -15,8 +15,11 @@ Phases (any failure raises and the script exits non-zero):
      the tiled row kernel: 8 x 512 x 8,192 and 2 x 256 x 16,384 with full
      and short lengths, and two tiles of a narrow row; for BPM and its
      mask-table kernel: every instantiation, nblk 1..16, with m = 0, 1,
-     64, 65 and 64*nblk, texts past 1,024, P = 1);
-  3. three paths, each aligned on the card with the device-resident
+     64, 65 and 64*nblk, texts past 1,024, P = 1; for the k-means Lloyd
+     kernel, in both of its forms: clusters of exactly 50, 51 and 2,048
+     rows, D = 5 anchors, rows that tie within EPS and rows all alike,
+     each launched twice for the same bits);
+  3. five paths, each aligned on the card with the device-resident
      progressive pass (launch counts set to 0 just before and read just
      after; every kernel of the path must have launched; one fetch per
      guide-tree level plus one), then with the host-assembled pass
@@ -29,17 +32,31 @@ Phases (any failure raises and the script exits non-zero):
      consistency with 5 anchors (~10,000 map DPs on the fused kernel,
      then the pass with the consistency bonus); "protein_default", the
      protein family in default mode (map DPs on the match stream);
-  4. the three paths once more under torch.profiler: device time by
-     kernel and by part of the progressive pass, each kernel's total
-     device time and launches (the trace must hold every launch of
-     phase 3), and the device's idle share;
+     "large_default", 16,384 protein sequences in default mode, whose
+     guide tree is the fused device k-means tree (the Lloyd kernel) and
+     whose host-assembled pass is not run (it would take minutes);
+     "refine_confident", the 2,000-sequence protein family in default
+     mode with refine="confident" (a probe pass, then the flagged merges
+     again with three candidates), whose host-assembled pass must give
+     the same FASTA or part ways at a near-SP-tie (refine_divergence);
+  4. the paths but the refined one once more under torch.profiler:
+     device time by kernel and by part of the progressive pass, each
+     kernel's total device time and launches (the trace must hold every
+     launch of phase 3), and the device's idle share;
+  4b. the device tree at the large path's own anchor distances: each
+     entry point through the kernel twice (the same tasks) and through
+     its plain version on the card (the same tasks, or a first split made
+     otherwise whose best tries' SSE agree to rel 1e-5), beside the
+     native tree's seconds; a lowered depth cap; the kernel's root split
+     timed beside its plain version and its bound;
   5. the same package on the card and on the CPU: BB30014 and a
      150-sequence protein family in --fast mode, BB30014 and a
      250-sequence DNA family (one 2,048-problem fused launch) in default
      mode: identical FASTA, or equal per-merge scores where a near-tie
-     resolved differently; and a long family (three fragments of 200-400
+     resolved differently; a long family (three fragments of 200-400
      residues and one of ~7,300, merges wider than 7,168 columns) in both
-     modes: identical FASTA, the tiled row kernel launched;
+     modes: identical FASTA, the tiled row kernel launched; and BB11001
+     with refine="all" in --fast mode: identical FASTA;
   6. main-path shapes: every kernel held bitwise against its plain
      version again, at the shapes and problem lengths the paths gave it
      (its largest launch; for the row kernel also its widest and the
@@ -60,7 +77,8 @@ Phases (any failure raises and the script exits non-zero):
   7. one JSON line with every kernel's numbers, the nvidia-smi line, and
      the last line {"ok": true, "device": {...}}.
 Without a card, or outside a checkout of the repository, it prints no
-result and exits non-zero.
+result and exits non-zero. ``--only PHASES`` runs the build and the named
+phases alone (run_only) and prints no result lines.
 """
 
 import json
@@ -124,6 +142,9 @@ KERNELS = {
                         "kalign_tpu/tpu/gotoh_pallas.py:272 (_kernel :112) "
                         "past its plan's widths, where kalign_tpu runs "
                         "tpu/gotoh.py:47 gotoh_forward (XLA, not Pallas)"),
+    "kmeans": ("kalign_tpu_torch/csrc/kmeans.cu",
+               "kalign_tpu/tpu/kmeans.py:46 _lloyd_batch / :322 "
+               "_fused_splits (XLA, not Pallas)"),
 }
 # a substring of each kernel's name in a torch.profiler trace
 PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
@@ -131,22 +152,46 @@ PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
                  "bpm_table": "peq_table_kernel",
                  "traceback": "walk_kernel", "prefix_sum": "prefix_sum_kernel",
                  "gotoh_fused": "FusedOperands",
-                 "gotoh_row_tiled": "gotoh_row_tiled_kernel"}
-# the three paths: (mode, kernels the path must launch); the long
-# family's cases of phase_gpu_vs_cpu must launch the tiled row kernel
-NARROW = [k for k in KERNELS if k not in ("gotoh_fused", "gotoh_row_tiled")]
-PATHS = {"fast": ("fast", NARROW),
-         "default": ("default", NARROW + ["gotoh_fused"]),
-         "protein_default": ("default", NARROW)}
+                 "gotoh_row_tiled": "gotoh_row_tiled_kernel",
+                 "kmeans": "lloyd_kernel"}
+# the paths: mode, the kernels the path must launch, refinement, whether
+# the host-assembled pass runs too (it would take minutes at 16,384
+# sequences) and whether a profiled run follows; the long family's cases
+# of phase_gpu_vs_cpu must launch the tiled row kernel
+NARROW = [k for k in KERNELS
+          if k not in ("gotoh_fused", "gotoh_row_tiled", "kmeans")]
+PATHS = {"fast": dict(mode="fast", launch=NARROW),
+         "default": dict(mode="default", launch=NARROW + ["gotoh_fused"]),
+         "protein_default": dict(mode="default", launch=NARROW),
+         "large_default": dict(mode="default", launch=NARROW + ["kmeans"],
+                               host_pass=False),
+         "refine_confident": dict(mode="default", launch=NARROW,
+                                  refine="confident", profile=False)}
+# fp32 operations per cluster member, iteration and try of the k-means
+# Lloyd kernel, at D anchors: two D-long dot products (2D multiplies,
+# 2D - 2 adds), the two squared distances (1 multiply, 2 adds each), the
+# clamps and square roots (4), the tie test and side (4), the SSE's
+# minimum and add and the side's count (3), and the D adds of the side's
+# sums (csrc/kmeans.cu); ||x||^2 is a per-row constant and not counted
+KMEANS_OPS = lambda D: 5 * D + 15
+# the k-means check's tolerance: a split made otherwise must tie, its
+# best tries' SSE equal to rel 1e-5 (gpu/kmeans.py)
+KMEANS_SSE_RTOL = 1e-5
 
 
 T_START = time.perf_counter()
+# a file that also gets every JSON line (``--log``)
+LOG = None
 
 
 def emit(obj):
     """One JSON line, with the seconds since the script started."""
     obj = dict(obj, t_s=round(time.perf_counter() - T_START, 1))
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if LOG is not None:
+        with open(LOG, "a") as fh:
+            fh.write(line + "\n")
 
 
 def nvidia_smi_line() -> str:
@@ -694,14 +739,215 @@ def edge_cases_bpm(dev, rng):
 
 
 # ---------------------------------------------------------------------------
+def kmeans_plain_split(rows, form: int):
+    """The plain versions' split of one cluster (all of rows [n, D]): form
+    0 through lloyd_batch, form 1 through the fused recursion's first
+    depth (plain_depth_split).  Returns (right [n] bool, degenerate, best
+    SSE)."""
+    import torch
+    from kalign_tpu_torch.gpu import kmeans as K
+    n, D = rows.shape
+    dev = rows.device
+    T = K.MAX_TRIES
+    if form == 0:
+        tries = min(T, n)
+        seeds = torch.zeros((1, T), dtype=torch.int32, device=dev)
+        seeds[0, :tries] = torch.arange(tries, device=dev) * (n // tries)
+        ar = torch.arange(n, device=dev)[None]
+        a, deg, sse = K.lloyd_batch(
+            rows, ar.to(torch.int32), torch.ones_like(ar, dtype=torch.bool),
+            (ar & 1).to(torch.int32), seeds,
+            torch.tensor([tries], device=dev), T)
+        right, deg, sse = a[0] == 1, bool(deg[0]), float(sse[0])
+    else:
+        Np = K._pow2_at_least(n)
+        Ca = Np // K.UPGMA_THRESHOLD + 1
+        emb = torch.zeros((Np, D), dtype=torch.float32, device=dev)
+        emb[:n] = rows
+        iota = torch.arange(Np, device=dev)
+        cid = torch.where(iota < n, 1, K._PAD_CID).to(torch.int64)
+        sg = K.segments(cid, iota >= n, iota, Np, Ca, T)
+        r, d, sse_a = K.plain_depth_split(emb[sg["sidx"]], sg, Ca, T)
+        right, deg, sse = r[:n], bool(d[0]), float(sse_a[0])
+    if deg:
+        right = torch.arange(n, device=dev) >= n // 2
+    return right, deg, sse
+
+
+def kmeans_kernel_split(rows, form: int):
+    """The kernel's split of one cluster: (right, degenerate, best SSE,
+    the launch's outputs)."""
+    import torch
+    from kalign_tpu_torch.gpu import kmeans as K
+    n = rows.shape[0]
+    dev = rows.device
+    out = K.lloyd(rows, torch.zeros(1, dtype=torch.int32, device=dev),
+                  torch.full((1,), n, dtype=torch.int32, device=dev), form)
+    right, deg, sse = K.best_tries(*out[:3], torch.zeros(
+        n, dtype=torch.int64, device=dev))
+    deg = bool(deg[0])
+    if deg:
+        right = torch.arange(n, device=dev) >= n // 2
+    return right, deg, float(sse[0]), out
+
+
+def hold_kmeans_split(rows, form: int, what: str, identical_rows=False):
+    """The kernel against its plain version on one cluster: the same
+    split, or (a member within float noise of the tie boundary) the best
+    tries' SSE equal to KMEANS_SSE_RTOL; twice the same bits. Rows all
+    alike split on float noise (their distances are square roots of
+    rounding errors), so there only a split into two nonempty sides is
+    asked. Returns the case's record."""
+    import torch
+    right, deg, sse, out = kmeans_kernel_split(rows, form)
+    again = kmeans_kernel_split(rows, form)[3]
+    same_bits = all(torch.equal(a, b) for a, b in zip(out, again))
+    hold("kmeans", same_bits, 0.0, f"{what}: two launches differ")
+    p_right, p_deg, p_sse = kmeans_plain_split(rows, form)
+    differ = int((right != p_right).sum())
+    if identical_rows:
+        n_right = int(right.sum())
+        ok = 0 < n_right < len(right)
+    else:
+        ok = differ == 0 or abs(sse - p_sse) <= KMEANS_SSE_RTOL * abs(p_sse)
+    hold("kmeans", ok, abs(sse - p_sse), what)
+    return dict(case=what, n=rows.shape[0], D=rows.shape[1], form=form,
+                rows_differ=differ, sse=sse, plain_sse=p_sse,
+                degenerate=deg, plain_degenerate=p_deg,
+                iters_max=int(out[3].max()))
+
+
+def edge_cases_kmeans(dev, rng):
+    """The Lloyd kernel against its plain versions in both forms: clusters
+    of exactly 50, 51 and 2,048 rows, D = 5 anchors, rows that tie within
+    EPS (two dyadic points and their midpoint: the midpoint's distances to
+    the centroids differ by rounding only, so parity places them), and
+    rows all alike."""
+    import torch
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        dev)
+    cases = []
+    for n in (50, 51, 2048):
+        rows = t(rng.random((n, 32)))
+        for form in (0, 1):
+            cases.append(hold_kmeans_split(rows, form,
+                                           f"{n} x 32 form {form}"))
+    cases.append(hold_kmeans_split(t(rng.random((300, 5))), 0,
+                                   "300 x 5 form 0"))
+    ties = np.concatenate([np.zeros((32, 4)), np.ones((32, 4)),
+                           np.full((32, 4), 0.5)])[rng.permutation(96)]
+    for form in (0, 1):
+        cases.append(hold_kmeans_split(t(ties), form,
+                                       f"96 x 4 ties form {form}"))
+    cases.append(hold_kmeans_split(t(np.full((64, 32), 0.3)), 0,
+                                   "64 x 32 all alike", identical_rows=True))
+    emit({"phase": "edge_cases", "kernel": "kmeans", "cases": cases})
+
+
+def tree_inputs(seqs, dev):
+    """The guide tree's inputs of an alignment of seqs, as align_msa makes
+    them on the card: (codes, dm, anchors)."""
+    from kalign_tpu_torch import engine as TE
+    from kalign_tpu_torch.core import alphabet as alpha
+    from kalign_tpu_torch.core.msa import Msa
+    from kalign_tpu_torch.gpu import distances
+    msa = Msa.from_sequences(seqs)
+    msa.quiet = True
+    msa.essential_input_check()
+    if msa.aligned != 1:
+        msa.dealign()
+    msa.sort_len_name()
+    TE._encoded(msa, alpha.ALPHA_REDUCED_PROTEIN)
+    anchors = TE.pick_anchors(msa)
+    codes = [sq.s for sq in msa.sequences]
+    return codes, distances.anchor_distances(codes, anchors, dev), \
+        len(anchors)
+
+
+def phase_kmeans(dev, seqs):
+    """The device tree at the large path's own input (its anchor distances
+    on the card): each entry point through the kernel, twice (the same
+    tasks: deterministic), and through its plain version on the card,
+    which must give the same tasks or, where a split went otherwise, a
+    first differing split whose best tries' SSE agree to KMEANS_SSE_RTOL
+    (the number of splits made otherwise is reported); the native tree's
+    seconds on the same input beside the device tree's; a fused run
+    whose depth cap (lowered through its argument) is hit returns None.
+    Then the kernel at its largest launch, the root split, timed beside
+    its plain version (the fused form's first depth) and its bound."""
+    import torch
+    from kalign_tpu_torch import native
+    from kalign_tpu_torch.gpu import kmeans as K
+    codes, dm, na = tree_inputs(seqs, dev)
+    n = len(codes)
+    line = {"phase": "kmeans", "sequences": n, "anchors": na}
+    _, ms = timed_once(lambda: native.build_tree(codes, dm, na))
+    line["native_tree_s"] = ms / 1e3
+    for entry, build in (("fused", K.build_tree_device_fused),
+                         ("per_depth", K.build_tree_device)):
+        launches0 = K.launches
+        got, ms = timed_once(lambda: build(codes, dm, na, dev))
+        split_s = {k: round(v, 4) for k, v in K.timings.items()}
+        tr_k, tr_p = [], []
+        again = build(codes, dm, na, dev, trace=tr_k)
+        if got is None or again is None:
+            raise AssertionError(f"kmeans {entry}: the depth cap was hit")
+        hold("kmeans", np.array_equal(got[0], again[0]), 0.0,
+             f"{entry} tree at {n} sequences: two runs differ")
+        want, plain_ms = timed_once(lambda: build(codes, dm, na, dev,
+                                                  plain=True, trace=tr_p))
+        same = np.array_equal(got[0], want[0])
+        differ, first = K.compare_traces(tr_k, tr_p)
+        ok = same or (first is not None and first[3] is not None and abs(
+            first[2] - first[3]) <= KMEANS_SSE_RTOL * abs(first[3]))
+        hold("kmeans", ok, 0.0 if first is None or first[3] is None
+             else abs(first[2] - first[3]),
+             f"{entry} tree at {n} sequences against the plain version")
+        line[entry] = dict(
+            device_tree_s=round(ms / 1e3, 4),
+            device_tree_split_s=split_s,
+            plain_tree_s=round(plain_ms / 1e3, 4), same_tasks=bool(same),
+            splits=len(tr_k), splits_made_otherwise=differ,
+            first_split_otherwise=first,
+            launches=(K.launches - launches0) // 2,
+            same_seq_dist=bool(np.array_equal(got[1], want[1])))
+    line["depth_cap_2_returns_none"] = K.build_tree_device_fused(
+        codes, dm, na, dev, depth_cap=2) is None
+    if not line["depth_cap_2_returns_none"]:
+        raise AssertionError("kmeans: a fused run at depth cap 2 returned "
+                             "a tree")
+
+    # the root split, the largest launch of the fused entry
+    emb = torch.from_numpy(np.ascontiguousarray(
+        dm[:, :na], np.float32)).to(dev)
+    st = torch.zeros(1, dtype=torch.int32, device=dev)
+    sz = torch.full((1,), n, dtype=torch.int32, device=dev)
+    run = lambda: K.lloyd(emb, st, sz, form=1)
+    out = run()
+    _, plain_ms = timed_once(lambda: kmeans_plain_split(emb, 1))
+    iters = out[3].double()
+    ops = float(iters.sum()) * n * KMEANS_OPS(na)
+    b_ms, b_by = bound(n * na * 4 + K.MAX_TRIES * (n + 9), ops,
+                       FP32_OPS_PER_S)
+    root = dict(shape=f"1 x {K.MAX_TRIES} x {n} x {na}",
+                ms=cuda_time_ms(run, reps=5), device_ms=device_ms(run, 3),
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, iterations=[int(iters.min()),
+                                             int(iters.max()),
+                                             float(iters.mean())])
+    line["root_split"] = root
+    emit(line)
+    return root
+
+
 def counters():
     """{kernel: (wrapper module, name of its launch count)}"""
     from kalign_tpu_torch.gpu import bpm, gotoh_fused, gotoh_lanewise, \
-        gotoh_row, scan
+        gotoh_row, kmeans, scan
     from kalign_tpu_torch.gpu import traceback as tb
     mods = {"gotoh_row": gotoh_row, "gotoh_lanewise": gotoh_lanewise,
             "bpm": bpm, "traceback": tb, "prefix_sum": scan,
-            "gotoh_fused": gotoh_fused}
+            "gotoh_fused": gotoh_fused, "kmeans": kmeans}
     out = {k: (m, "launches") for k, m in mods.items()}
     out["bpm_table"] = (bpm, "table_launches")
     out["gotoh_row_tiled"] = (gotoh_row, "tiled_launches")
@@ -729,13 +975,14 @@ def check_alignment(rows, seqs):
     return widths.pop()
 
 
-def align_on_card(seqs, mode, engine="gpu-fast"):
+def align_on_card(seqs, mode, engine="gpu-fast", refine=None):
     """(Msa, wall seconds) of one alignment on the card."""
     import torch
     import kalign_tpu_torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    msa = kalign_tpu_torch.align_msa(seqs, mode=mode, engine=engine)
+    msa = kalign_tpu_torch.align_msa(seqs, mode=mode, engine=engine,
+                                     refine=refine)
     torch.cuda.synchronize()
     return msa, time.perf_counter() - t0
 
@@ -751,52 +998,117 @@ def pass_summary(msa, wall):
             "fetches": st["fetches"], "levels": len(st["levels"])}
 
 
+def refine_divergence(res, host):
+    """Where the resident and host-assembled passes of a refined alignment
+    part ways (their FASTA differ): the first merge, pass by pass and in
+    task order (a merge's task index is above its children's), whose
+    chosen candidate or candidate set differs. The resident pass scores
+    the candidates' SP in float32 on the card, the host pass in float64,
+    so a near-SP-tie may go either way: the divergence must be one, its
+    candidates' SP equal to rel 1e-5 in the host's scores (for a candidate
+    set that differs, in the probe pass that flagged it). Returns a
+    record, or raises."""
+    passes = list(zip(res.engine_stats["candidate_passes"],
+                      host.engine_stats["candidate_passes"]))
+    for p, (cr, ch) in enumerate(passes):
+        for t in sorted(set(cr) | set(ch)):
+            a, b = cr.get(t), ch.get(t)
+            if a is not None and b is not None and a[0] == b[0]:
+                continue
+            if a is None or b is None:
+                # the probe's paths disagreed in one pass only: its
+                # candidates must tie in SP there
+                sps = passes[0][1].get(t, (0, []))[1]
+                ok = bool(sps) and max(sps) - min(sps) <= \
+                    1e-5 * abs(max(sps))
+                what = "candidate set"
+            else:
+                sps = b[1]
+                ok = abs(sps[a[0]] - sps[b[0]]) <= 1e-5 * abs(sps[b[0]])
+                what = "choice"
+            rec = dict(pass_index=p, task=int(t), differs_in=what,
+                       resident=a, host=b)
+            if not ok:
+                raise AssertionError(f"refined passes diverge at a merge "
+                                     f"whose candidates do not tie: {rec}")
+            return rec
+    a = np.asarray(res.task_confidence, np.float64)
+    b = np.asarray(host.task_confidence, np.float64)
+    bad = np.flatnonzero(np.abs(a - b) > 1e-5 * np.abs(b))
+    if len(bad):
+        raise AssertionError(f"refined passes chose the same candidates but "
+                             f"merge {int(bad[0])} scores {a[bad[0]]} vs "
+                             f"{b[bad[0]]}")
+    return dict(differs_in="paths of equal score")
+
+
 def phase_path(path: str, seqs):
     """One alignment of seqs on the path's mode on the card, every launch
-    count set to 0 just before it and read just after; then the same
-    alignment with the host-assembled progressive pass, which must give
-    the same FASTA."""
+    count set to 0 just before it and read just after; then, unless the
+    path skips it, the same alignment with the host-assembled progressive
+    pass, which must give the same FASTA (a refined path: or a divergence
+    at a near-SP-tie, refine_divergence)."""
     from kalign_tpu_torch.core import io as kio
     from kalign_tpu_torch.gpu.engine import GpuEngine
-    mode, must_launch = PATHS[path]
+    cfg = PATHS[path]
+    mode, must_launch, refine = cfg["mode"], cfg["launch"], cfg.get("refine")
     reset_counts()
-    msa, wall = align_on_card(seqs, mode)
+    msa, wall = align_on_card(seqs, mode, refine=refine)
     launches = read_counts()
     rows = msa.aligned_rows()
     width = check_alignment(rows, seqs)
     stats = msa.engine_stats
-    host, host_wall = align_on_card(seqs, mode,
-                                    GpuEngine("cuda", resident=False))
-    same = kio.format_alignment(msa, "fasta") == \
-        kio.format_alignment(host, "fasta")
+    line = {"phase": "path", "path": path, "mode": mode, "refine": refine,
+            "sequences": len(seqs),
+            "lengths": [min(map(len, seqs)), max(map(len, seqs))],
+            "width": width, "tree": stats["tree"],
+            "tree_s": stats.get("tree_s"),
+            **pass_summary(msa, wall)}
+    same, divergence = True, None
+    if cfg.get("host_pass", True):
+        host, host_wall = align_on_card(seqs, mode,
+                                        GpuEngine("cuda", resident=False),
+                                        refine=refine)
+        same = kio.format_alignment(msa, "fasta") == \
+            kio.format_alignment(host, "fasta")
+        line["host_pass"] = pass_summary(host, host_wall)
+        line["identical_fasta_host_pass"] = same
+        if refine and not same:
+            divergence = refine_divergence(msa, host)
+            line["divergence"] = divergence
+    if refine:
+        line["refine_flagged"] = stats.get("refine_flagged")
+        line["refined_merges"] = len(stats["candidates"])
     routes = {}
     for b in stats["batches"]:
         key = f"{'maps' if b['maps'] else 'merges'} {b['route']}"
         routes.setdefault(key, []).append(
             f"{len(b['la'])}x{b['L1p']}x{b['L2p']}")
-    emit({"phase": "path", "path": path, "mode": mode,
-          "sequences": len(seqs),
-          "lengths": [min(map(len, seqs)), max(map(len, seqs))],
-          "width": width, **pass_summary(msa, wall),
-          "host_pass": pass_summary(host, host_wall),
-          "identical_fasta_host_pass": same,
+    emit({**line,
           "mean_seq_distance": float(np.mean(msa.seq_distances)),
           "map_pairs": stats["map_pairs"],
           "row_merges": stats["row_merges"],
           "lanewise_merges": stats["lanewise_merges"],
           "fused_merges": stats["fused_merges"],
-          "launches": launches, "launch_batches": routes,
-          "buckets_by_level": stats["levels"]})
+          "launches": launches,
+          "launch_batches": {k: v[:40] for k, v in routes.items()},
+          "launch_batch_counts": {k: len(v) for k, v in routes.items()},
+          "buckets_by_level": stats["levels"][:80]})
     missing = [k for k in must_launch if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: "
                              f"{missing}; buckets per level: "
                              f"{stats['levels']}")
-    if stats["fetches"] != len(stats["levels"]) + 1:
+    passes = len(stats["candidate_passes"])
+    if stats["fetches"] != len(stats["levels"]) + passes:
         raise AssertionError(f"{path}: the resident pass fetched "
                              f"{stats['fetches']} times over "
-                             f"{len(stats['levels'])} levels")
-    if not same:
+                             f"{len(stats['levels'])} levels in {passes} "
+                             "passes")
+    if "kmeans" in must_launch and stats["tree"] != "device_fused":
+        raise AssertionError(f"{path}: the {stats['tree']} tree ran, not "
+                             "the fused device tree")
+    if not same and divergence is None:
         raise AssertionError(f"{path}: the resident and host-assembled "
                              "passes gave different alignments")
     return launches, stats
@@ -811,11 +1123,14 @@ def phase_profile(path: str, seqs, launches):
     most."""
     from torch.autograd import DeviceType
     import kalign_tpu_torch
-    mode = PATHS[path][0]
+    mode = PATHS[path]["mode"]
     for attempt in range(3):
         prof, _, wall_s = profiled(
             lambda: kalign_tpu_torch.align_msa(seqs, mode=mode))
-        counts = {name: sum(e.count for e in prof.key_averages()
+        # one pass over the trace's events: at 16,384 sequences each
+        # key_averages() takes seconds
+        averages = prof.key_averages()
+        counts = {name: sum(e.count for e in averages
                             if e.device_type == DeviceType.CUDA
                             and sub in e.key)
                   for name, sub in PROFILE_NAMES.items()}
@@ -834,7 +1149,7 @@ def phase_profile(path: str, seqs, launches):
     # device time is also listed under the kernels it launched, and a
     # progressive.<part> range's device-side span under the range
     rows = sorted(((e.key, dev_us(e), e.count)
-                   for e in prof.key_averages()
+                   for e in averages
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0
                    and not e.key.startswith("progressive.")),
                   key=lambda r: -r[1])
@@ -850,7 +1165,7 @@ def phase_profile(path: str, seqs, launches):
     # operations launched (host-side entry) and the span from its first
     # kernel's start to its last one's end (device-side entry)
     parts, spans = {}, {}
-    for e in prof.key_averages():
+    for e in averages:
         if e.key.startswith("progressive."):
             part = e.key.split(".", 1)[1]
             if e.device_type == DeviceType.CUDA:
@@ -1373,18 +1688,21 @@ def phase_main_shapes(dev, stats, stats_default, seqs, stats_long):
     return out
 
 
-# the gpu_vs_cpu cases: (consistency anchors, how the input is made)
+# the gpu_vs_cpu cases: consistency anchors (how the input is made:
+# vs_input); and the refine mode of a refined case
 VS_CASES = {"BB30014": 0, "family150": 0, "BB30014-default": 5,
-            "dna250-default": 5, "long-fast": 0, "long-default": 5}
+            "dna250-default": 5, "long-fast": 0, "long-default": 5,
+            "BB11001-refine-all": 0}
+VS_REFINE = {"BB11001-refine-all": "all"}
 
 
 def vs_input(name):
     """The input Msa of a gpu_vs_cpu case."""
     from kalign_tpu_torch.core import io as kio
     from kalign_tpu_torch.core.msa import Msa
-    if name.startswith("BB30014"):
+    if name.startswith("BB"):
         msa = kio.read_alignment(os.path.join(HERE, "tests", "data",
-                                              "BB30014.tfa"))
+                                              name.split("-")[0] + ".tfa"))
     elif name == "family150":
         msa = Msa.from_sequences(family(150, seed=1))
     elif name == "dna250-default":
@@ -1403,11 +1721,13 @@ def vs_align(name, device):
     """(FASTA, per-merge scores, fused launch sizes) of a gpu_vs_cpu case
     aligned on device; on the CPU in a worker process of one thread."""
     import torch
+    from kalign_tpu_torch import api
     from kalign_tpu_torch import engine as E
     from kalign_tpu_torch.core import io as kio
     if device == "cpu":
         torch.set_num_threads(1)
     msa = E.align_msa(vs_input(name), consistency_anchors=VS_CASES[name],
+                      refine=api._resolve_refine(VS_REFINE.get(name)),
                       device=device)
     fused = [len(b["la"]) for b in msa.engine_stats["batches"]
              if b["route"] == "fused"]
@@ -1449,6 +1769,9 @@ def phase_gpu_vs_cpu():
             if not same and rel.max() > 1e-5:
                 raise AssertionError(f"{name}: GPU and CPU alignments "
                                      "differ with unequal merge scores")
+            if name in VS_REFINE and not same:
+                raise AssertionError(f"{name}: GPU and CPU alignments "
+                                     "differ")
             if name.startswith("long"):
                 # wider than 7,168 columns: card and CPU must agree exactly
                 if not same:
@@ -1460,8 +1783,51 @@ def phase_gpu_vs_cpu():
     return launches, stats
 
 
-def main():
+def large_family():
+    """The large_default path's input: 16,384 protein sequences."""
+    return family(16384, seed=4)
+
+
+def run_only(dev, only):
+    """The phases named in ``--only`` (comma-separated: edge, kmeans_edge,
+    kmeans, path:NAME, profile:NAME, vs), for a short call; no result
+    lines."""
+    protein = lambda: family(2000, seed=0)
+    seqs = {"default": lambda: v4_family(2000, seed=2),
+            "large_default": large_family}
+    for what in only.split(","):
+        if what == "edge":
+            phase_edge_cases(dev)
+        elif what == "kmeans_edge":
+            edge_cases_kmeans(dev, np.random.default_rng(7))
+        elif what == "kmeans":
+            phase_kmeans(dev, large_family())
+        elif what.startswith(("path:", "profile:")):
+            kind, path = what.split(":")
+            s = seqs.get(path, protein)()
+            launches, _ = phase_path(path, s)
+            if kind == "profile":
+                phase_profile(path, s, launches)
+        elif what == "vs":
+            phase_gpu_vs_cpu()
+        else:
+            raise ValueError(f"--only: unknown phase {what!r}")
+    emit({"phase": "partial", "only": only})
+
+
+def main(argv=None):
+    import argparse
     import torch
+    parser = argparse.ArgumentParser(description="chip smoke run")
+    parser.add_argument("--only", default=None,
+                        help="run only these phases (see run_only)")
+    parser.add_argument("--log", default=None,
+                        help="also append every JSON line to this file")
+    args = parser.parse_args(argv)
+    global LOG
+    if args.log:
+        os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
+        LOG = args.log
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1475,24 +1841,33 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = phase_device_and_build()
+    if args.only:
+        run_only(dev, args.only)
+        return 0
     phase_edge_cases(dev)
-    seqs = {"fast": family(2000, seed=0), "default": v4_family(2000, seed=2),
-            "protein_default": family(2000, seed=0)}
+    edge_cases_kmeans(dev, np.random.default_rng(7))
+    protein = family(2000, seed=0)
+    seqs = {"fast": protein, "default": v4_family(2000, seed=2),
+            "protein_default": protein, "large_default": large_family(),
+            "refine_confident": protein}
     launches, stats = {}, {}
     for path in PATHS:
         launches[path], stats[path] = phase_path(path, seqs[path])
     for path in PATHS:
-        phase_profile(path, seqs[path], launches[path])
+        if PATHS[path].get("profile", True):
+            phase_profile(path, seqs[path], launches[path])
+    kmeans_root = phase_kmeans(dev, seqs["large_default"])
     vs_launches, vs_stats = phase_gpu_vs_cpu()
     launches.update({k: v for k, v in vs_launches.items()
-                     if k.startswith("long")})
+                     if k.startswith(("long", "BB11001"))})
     shapes = phase_main_shapes(dev, stats["fast"], stats["default"], seqs,
                                vs_stats["long-fast"])
+    shapes["kmeans"] = kmeans_root
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = shapes[name]
-        main = ("long-fast", "long-default") if name == "gotoh_row_tiled" \
-            else ("default",)
+        main = {"gotoh_row_tiled": ("long-fast", "long-default"),
+                "kmeans": ("large_default",)}.get(name, ("default",))
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -1505,7 +1880,11 @@ def main():
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     total_s = time.perf_counter() - T_START
     emit({"phase": "total", "total_s": round(total_s, 1)})
-    print(json.dumps({"kernels": kernels}))
+    line = json.dumps({"kernels": kernels})
+    print(line)
+    if LOG is not None:
+        with open(LOG, "a") as fh:
+            fh.write(line + "\n")
     print(f"total_s {total_s:.1f}", file=sys.stderr)
     print(smi)
     print(json.dumps({"ok": True, "device": {

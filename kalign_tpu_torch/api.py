@@ -2,14 +2,57 @@
 
 Mirrors kalign_tpu/api.py's ``align`` for the modes this package runs
 (default: anchor consistency with 5 anchors; fast: none), with the
-default scoring model.  ``device`` defaults to ``cuda``; ``device="cpu"``
-runs every kernel's plain PyTorch version.
+scoring model's arguments (seq_type, gap_open, gap_extend,
+terminal_gap_extend, vsm_amax) and refinement (refine=None, "none",
+"all", "confident", "inline").  ``device`` defaults to ``cuda``;
+``device="cpu"`` runs every kernel's plain PyTorch version.
 """
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 from kalign_tpu_torch import engine as _engine
+from kalign_tpu_torch.core import params as P
 from kalign_tpu_torch.core.msa import Msa
+
+# kalign_tpu/api.py:16-35
+_TYPE_NAMES = {
+    None: 0,
+    "auto": 0,
+    "protein": P.KALIGN_TYPE_PROTEIN,
+    "dna": P.KALIGN_TYPE_DNA,
+    "internal": P.KALIGN_TYPE_DNA_INTERNAL,
+    "rna": P.KALIGN_TYPE_RNA,
+    "divergent": P.KALIGN_TYPE_PROTEIN_DIVERGENT,
+    "pfasum43": P.KALIGN_TYPE_PROTEIN_PFASUM43,
+    "pfasum60": P.KALIGN_TYPE_PROTEIN_PFASUM60,
+    "pfasum": P.KALIGN_TYPE_PROTEIN_PFASUM_AUTO,
+}
+
+_REFINE_NAMES = {
+    None: P.REFINE_NONE,
+    "none": P.REFINE_NONE,
+    "all": P.REFINE_ALL,
+    "confident": P.REFINE_CONFIDENT,
+    "inline": P.REFINE_INLINE,
+}
+
+
+def _resolve_type(seq_type) -> int:
+    if isinstance(seq_type, int):
+        return seq_type
+    try:
+        return _TYPE_NAMES[seq_type]
+    except KeyError:
+        raise ValueError(f"Unknown sequence type {seq_type!r}") from None
+
+
+def _resolve_refine(refine) -> int:
+    if isinstance(refine, int):
+        return refine
+    try:
+        return _REFINE_NAMES[refine]
+    except KeyError:
+        raise ValueError(f"Unknown refine mode {refine!r}") from None
 
 
 def _resolve_mode(mode: Optional[str], consistency: Optional[int]) -> int:
@@ -47,15 +90,25 @@ def align_msa(sequences: Sequence[str],
               names: Optional[Sequence[str]] = None,
               mode: Optional[str] = None, device=None,
               consistency: Optional[int] = None,
-              consistency_weight: float = 2.0, engine="gpu-fast") -> Msa:
+              consistency_weight: float = 2.0, engine="gpu-fast",
+              seq_type: Union[str, int, None] = "auto",
+              gap_open: float = -1.0, gap_extend: float = -1.0,
+              terminal_gap_extend: float = -1.0,
+              refine: Union[str, int, None] = None,
+              vsm_amax: float = -1.0) -> Msa:
     """Align and return the finalised Msa (input order restored);
     ``engine`` as engine.align_msa takes it."""
     consistency = _resolve_mode(mode, consistency)
+    type_ = _resolve_type(seq_type)
+    refine_ = _resolve_refine(refine)
     _validate_sequences(sequences)
     msa = Msa.from_sequences(list(sequences),
                              list(names) if names else None)
     msa.quiet = True
-    return _engine.align_msa(msa, consistency_anchors=consistency,
+    return _engine.align_msa(msa, type_=type_, gpo=gap_open, gpe=gap_extend,
+                             tgpe=terminal_gap_extend, refine=refine_,
+                             vsm_amax=vsm_amax,
+                             consistency_anchors=consistency,
                              consistency_weight=consistency_weight,
                              engine=engine, device=device)
 
@@ -63,8 +116,16 @@ def align_msa(sequences: Sequence[str],
 def align(sequences: Sequence[str], mode: Optional[str] = None,
           names: Optional[Sequence[str]] = None, device=None,
           consistency: Optional[int] = None,
-          consistency_weight: float = 2.0):
+          consistency_weight: float = 2.0,
+          seq_type: Union[str, int, None] = "auto",
+          gap_open: float = -1.0, gap_extend: float = -1.0,
+          terminal_gap_extend: float = -1.0,
+          refine: Union[str, int, None] = None, vsm_amax: float = -1.0):
     """Align sequences; returns the aligned rows in input order."""
     return align_msa(sequences, names=names, mode=mode, device=device,
                      consistency=consistency,
-                     consistency_weight=consistency_weight).aligned_rows()
+                     consistency_weight=consistency_weight,
+                     seq_type=seq_type, gap_open=gap_open,
+                     gap_extend=gap_extend,
+                     terminal_gap_extend=terminal_gap_extend, refine=refine,
+                     vsm_amax=vsm_amax).aligned_rows()

@@ -1,11 +1,15 @@
 """Command line of the PyTorch/CUDA port:
 
     python -m kalign_tpu_torch.cli -i IN -o OUT [-f fasta|msf|clu] [--fast]
-        [--consistency K] [--consistency-weight W] [--device cuda|cpu]
+        [--consistency K] [--consistency-weight W] [--type T] [--gpo X]
+        [--gpe X] [--tgpe X] [--vsm-amax X] [--refine MODE]
+        [--device cuda|cpu]
 
 The flags are kalign_tpu/cli.py's (and so the reference binary's,
 src/run_kalign.c) for what this package runs: the default mode (anchor
-consistency with K = 5 anchors) or, with --fast, none.
+consistency with K = 5 anchors) or, with --fast, none; the scoring
+model; and refinement (--refine all or confident; any other value,
+"inline" among them, is none, as kalign_tpu/cli.py:189-191 parses it).
 """
 
 import argparse
@@ -13,7 +17,40 @@ import sys
 
 from kalign_tpu_torch import engine as E
 from kalign_tpu_torch.core import io as kio
+from kalign_tpu_torch.core import params as P
 from kalign_tpu_torch.version import KALIGN_COMPAT_VERSION, __version__
+
+# kalign_tpu/cli.py:16-25
+TYPES = {
+    None: 0, "rna": P.KALIGN_TYPE_RNA, "dna": P.KALIGN_TYPE_DNA,
+    "internal": P.KALIGN_TYPE_DNA_INTERNAL, "protein": P.KALIGN_TYPE_PROTEIN,
+    "divergent": P.KALIGN_TYPE_PROTEIN_DIVERGENT,
+    "pfasum43": P.KALIGN_TYPE_PROTEIN_PFASUM43,
+    "pfasum60": P.KALIGN_TYPE_PROTEIN_PFASUM60,
+    "pfasum": P.KALIGN_TYPE_PROTEIN_PFASUM_AUTO,
+}
+REFINES = {None: P.REFINE_NONE, "none": P.REFINE_NONE, "all": P.REFINE_ALL,
+           "confident": P.REFINE_CONFIDENT}
+
+
+def _resolve_type(s):
+    """kalign_tpu/cli.py::_resolve_type: the first type name the value
+    contains."""
+    if s is None:
+        return 0
+    for key in ("rna", "dna", "internal", "protein", "divergent",
+                "pfasum43", "pfasum60", "pfasum"):
+        if key in s:
+            return TYPES[key]
+    raise SystemExit(f"Type {s} not recognized.")
+
+
+def _resolve_refine(s):
+    """kalign_tpu/cli.py:189-191: all, confident, else none."""
+    return REFINES.get(s if s is None else
+                       ("all" if "all" in s else
+                        "confident" if "confident" in s else "none"))
+
 
 def build_parser():
     p = argparse.ArgumentParser(prog="kalign-tpu-torch")
@@ -22,6 +59,12 @@ def build_parser():
     p.add_argument("-o", "--output", "--outfile", "--out", dest="outfile",
                    default=None)
     p.add_argument("-f", "--format", dest="format", default=None)
+    p.add_argument("--type", dest="type", default=None)
+    p.add_argument("--gpo", type=float, default=-1.0)
+    p.add_argument("--gpe", type=float, default=-1.0)
+    p.add_argument("--tgpe", type=float, default=-1.0)
+    p.add_argument("--refine", default=None)
+    p.add_argument("--vsm-amax", type=float, default=-1.0)
     p.add_argument("--consistency", type=int, default=5)
     p.add_argument("--consistency-weight", type=float, default=2.0)
     p.add_argument("--fast", action="store_true")
@@ -47,6 +90,8 @@ def main(argv=None):
         print("No input files", file=sys.stderr)
         return 0
     infiles = [None if f == "-" else f for f in infiles]
+    type_ = _resolve_type(args.type)
+    refine = _resolve_refine(args.refine)
     msa = kio.read_inputs(infiles)
     msa.quiet = args.quiet
     # mode preset (run_kalign.c:370-383): --fast turns the default
@@ -54,7 +99,10 @@ def main(argv=None):
     consistency = args.consistency
     if args.fast and consistency == 5:
         consistency = 0
-    msa = E.align_msa(msa, consistency_anchors=consistency,
+    msa = E.align_msa(msa, type_=type_, gpo=args.gpo, gpe=args.gpe,
+                      tgpe=args.tgpe, refine=refine,
+                      vsm_amax=args.vsm_amax,
+                      consistency_anchors=consistency,
                       consistency_weight=args.consistency_weight,
                       device=args.device)
     kio.write_alignment_file(msa, args.outfile, args.format)

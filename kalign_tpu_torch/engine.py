@@ -5,9 +5,10 @@ default (anchor consistency) and ``--fast`` modes of the reference's
 kalign_run_seeded (lib/src/aln_wrap.c:133-537):
 
   input check -> dealign -> sort len/name -> encode reduced -> anchors
-  -> anchor distances -> guide tree -> encode full -> params
-  -> consistency maps (default mode) -> progressive align -> finalise
-  -> restore rank order
+  -> anchor distances -> guide tree (native, or the device k-means tree
+  from 2,048 sequences on the card) -> encode full -> params
+  -> consistency maps (default mode) -> progressive align (with
+  refinement candidates when asked) -> finalise -> restore rank order
 
 Engine "gpu-fast" (gpu/engine.py): hand-written CUDA kernels on the
 card, level-batched merges and map DPs; score-optimal per merge, may
@@ -100,12 +101,11 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
               resume_checkpoint: Optional[str] = None,
               device=None) -> Msa:
     """Full alignment pipeline: default mode with consistency_anchors > 0
-    (the reference's default is 5), --fast mode with 0.  Options of the
-    reference pipeline that this package does not run yet raise
+    (the reference's default is 5), --fast mode with 0; refine one of
+    P.REFINE_NONE, REFINE_ALL, REFINE_CONFIDENT, REFINE_INLINE.  Options
+    of the reference pipeline that this package does not run yet raise
     NotImplementedError.  ``engine`` is a name of ENGINES or a GpuEngine
     (get_engine)."""
-    if refine != P.REFINE_NONE:
-        _not_ported("refinement")
     if realign > 0:
         _not_ported("realignment")
     if save_checkpoint is not None or resume_checkpoint is not None:
@@ -170,9 +170,13 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
             ct = ConsistencyTable.build(eng, codes, ap, msa.seq_distances,
                                         ap.consistency_anchors,
                                         ap.consistency_weight)
+    # refinement scheduling (kalign_tpu/engine.py:389-402): with no
+    # realignment the first pass takes the refine mode itself
+    first_mode = refine
     log("Aligning", quiet)
     with timer("Alignment", quiet), phases.phase("progressive"):
-        gaps, conf = eng.align(codes, tasks, ap, msa.seq_distances, ct)
+        gaps, conf = eng.align(codes, tasks, ap, msa.seq_distances, ct,
+                               refine_mode=first_mode)
     for sq, g in zip(msa.sequences, gaps):
         sq.gaps = g
     msa.aligned = ALN_STATUS_ALIGNED

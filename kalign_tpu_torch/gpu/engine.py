@@ -1,10 +1,12 @@
 """GPU engine: progressive MSA with the DP on the card.
 
 Counterpart of kalign_tpu/tpu/engine.py::TpuEngine in its single-device
-form, one centering-bias candidate per merge:
+form:
 
   * anchor distances: the BPM kernel (gpu/distances.py);
-  * guide tree: the native builder (native/);
+  * guide tree: the native builder (native/) below DEVICE_TREE_MIN_SEQS
+    sequences or on the CPU, else the device k-means tree
+    (gpu/kmeans.py, the Lloyd kernel);
   * consistency maps (default mode): N x K leaf-against-anchor DPs whose
     operands are assembled on the card from a token table uploaded once
     (``dp_leaf_batch``); only index vectors travel per launch;
@@ -21,7 +23,10 @@ form, one centering-bias candidate per merge:
     per level); ``GpuEngine(device, resident=False)`` runs the
     host-assembled pass (``host_pass``: buckets assembled in numpy, step
     lists fetched per bucket, profile merge and gap weave in numpy,
-    gpu/profile.py), the resident pass's oracle.
+    gpu/profile.py), the resident pass's oracle;
+  * refinement (``align``'s refine_mode): K candidate DPs per merge, one
+    per centering-bias strength, the path of the best expected
+    sum-of-pairs kept.
 
 Every kernel wrapper runs its plain PyTorch version when the engine's
 device is the CPU; the routing is the same on both devices.
@@ -40,10 +45,12 @@ import torch
 from kalign_tpu_torch import native
 from kalign_tpu_torch.core import params as P
 from kalign_tpu_torch.gpu import (distances, gotoh_fused, gotoh_lanewise,
-                                  gotoh_row)
+                                  gotoh_row, kmeans)
 from kalign_tpu_torch.gpu import traceback as tb
-from kalign_tpu_torch.gpu.profile import (Profile, leaf_profile,
-                                          merge_profiles, weave_steps)
+from kalign_tpu_torch.gpu.profile import (Profile, column_gap_counts,
+                                          leaf_profile, merge_profiles,
+                                          sp_score_from_profiles,
+                                          weave_steps)
 
 
 def _bucket(n: int, q: int = 128) -> int:
@@ -57,6 +64,16 @@ def _pow2_batch(B: int) -> int:
     while p < B:
         p *= 2
     return p
+
+
+def level_buckets(buckets) -> dict:
+    """A level's bucket sizes for stats["levels"], keyed "L1pxL2p", with
+    "/K" for a bucket of K > 1 candidates."""
+    out = {}
+    for (L1p, L2p, cands), items in buckets.items():
+        key = f"{L1p}x{L2p}" + (f"/{len(cands)}" if len(cands) > 1 else "")
+        out[key] = out.get(key, 0) + len(items)
+    return out
 
 
 def terminal_mask(steps: np.ndarray) -> np.ndarray:
@@ -204,11 +221,21 @@ class GpuEngine:
     # centering-bias strength of the consistency-map DPs
     # (tpu/engine.py:987-996)
     MAP_EPS = 0.0
+    # the device tree from this many sequences up (tpu/engine.py:317-319)
+    DEVICE_TREE_MIN_SEQS = 2048
+    # the fused tree up to this many sequences (KALIGN_TPU_FUSED_TREE_MAX)
+    FUSED_TREE_MAX = 32768
 
-    def __init__(self, device, resident: bool = True):
+    def __init__(self, device, resident: bool = True, device_tree=None,
+                 fused_tree_max: int = FUSED_TREE_MAX):
         self.device = torch.device(device)
         # the progressive pass: device-resident, or host-assembled
         self.resident = resident
+        # the guide tree (KALIGN_TPU_DEVICE_TREE): None routes by device
+        # and size, True / False force the device / native tree; the fused
+        # device tree runs up to fused_tree_max sequences (0: never)
+        self.device_tree = device_tree
+        self.fused_tree_max = fused_tree_max
         # the match product is a full-fp32 bmm (the JAX engine leaves it
         # to XLA at f32): TF32 would round the scores to ~3 digits
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -224,6 +251,11 @@ class GpuEngine:
         # transfers to the host (``fetch``)
         self.stats["progressive_split_s"] = {}
         self.stats["fetches"] = 0
+        # the guide tree that ran: native, device or device_fused
+        self.stats["tree"] = None
+        # per progressive pass, per multi-candidate merge: (chosen
+        # candidate, the candidates' SP scores); "candidates" is the last
+        self.stats["candidate_passes"] = []
 
     @contextmanager
     def split(self, part: str):
@@ -248,8 +280,38 @@ class GpuEngine:
     def anchor_distances(self, codes, anchors):
         return distances.anchor_distances(codes, anchors, self.device)
 
+    def tree_route(self, n: int) -> str:
+        """The guide tree for n sequences (tpu/engine.py:321-352): the
+        device tree on the card from DEVICE_TREE_MIN_SEQS up (kalign_tpu
+        takes it wherever it runs its Pallas kernels), the native one
+        otherwise, either forced by ``device_tree``; the device tree
+        tries the fused entry first up to ``fused_tree_max``.  Returns
+        "native", "device_fused" or "device"."""
+        use_device = self.device_tree
+        if use_device is None:
+            use_device = (self.device.type == "cuda"
+                          and n >= self.DEVICE_TREE_MIN_SEQS)
+        if not use_device:
+            return "native"
+        return "device_fused" if n <= self.fused_tree_max else "device"
+
     def build_tree(self, codes, dm, n_anchors):
-        return native.build_tree(codes, dm, n_anchors)
+        """The guide tree of tree_route; a device tree's host seconds by
+        part go to stats["tree_s"] (kmeans.timings)."""
+        route = self.tree_route(len(codes))
+        res = None
+        if route == "device_fused":
+            res = kmeans.build_tree_device_fused(codes, dm, n_anchors,
+                                                 self.device)
+            if res is None:
+                route = "device"      # the depth cap was hit
+        if route == "device":
+            res = kmeans.build_tree_device(codes, dm, n_anchors, self.device)
+        self.stats["tree"] = route
+        if res is None:
+            return native.build_tree(codes, dm, n_anchors)
+        self.stats["tree_s"] = dict(kmeans.timings)
+        return res
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -298,11 +360,13 @@ class GpuEngine:
 
     def dispatch_bucket(self, lhs, rhs, pc, pr, la, lb, eps, bonus=None):
         """Queue one bucket of host arrays on the device (nothing is
-        fetched): chunks of at most max_launch problems, each uploaded and
-        launched.  The bucket arrives padded to a power of two (``align``),
-        so every chunk is one too.  bonus is None or the compact tuple
-        (per_w, apos_r, conf_r, apos_c, conf_c).  Returns a handle for
-        collect_bucket."""
+        fetched): chunks of at most max_launch problems, each padded to a
+        power of two, uploaded and launched (tpu/engine.py::
+        _dispatch_bucket :361-465; a single-candidate bucket arrives
+        padded already, a multi-candidate one as its K tiles).  A pad
+        problem is 8 x 8 with the last problem's penalties, eps 0 and no
+        bonus.  bonus is None or the compact tuple (per_w, apos_r, conf_r,
+        apos_c, conf_c).  Returns a handle for collect_bucket."""
         B = lhs.shape[0]
         cap = self.max_launch(lhs.shape[1], rhs.shape[1])
         if B > cap:
@@ -316,13 +380,26 @@ class GpuEngine:
                 self.dispatch_bucket(*(part(x, lo) for x in (
                     lhs, rhs, pc, pr, la, lb, eps, bonus)))
                 for lo in range(0, B, cap)])
+        pad = _pow2_batch(B) - B
+        if pad:
+            def padn(x, fill=0):
+                return np.concatenate(
+                    [x, np.full((pad,) + x.shape[1:], fill, x.dtype)])
+            lhs, rhs, eps = padn(lhs), padn(rhs), padn(eps)
+            pc = np.concatenate([pc, np.repeat(pc[-1:], pad, axis=0)])
+            pr = np.concatenate([pr, np.repeat(pr[-1:], pad, axis=0)])
+            la, lb = padn(la, 8), padn(lb, 8)
+            if bonus is not None:
+                bonus = (bonus[0], padn(bonus[1], -1), padn(bonus[2]),
+                         padn(bonus[3], -1), padn(bonus[4]))
         bonus_d = None
         if bonus is not None:
             bonus_d = (torch.tensor(np.float32(bonus[0])).to(self.device),) \
                 + tuple(self.put(a) for a in bonus[1:])
-        return self.launch_bucket(
+        handle = self.launch_bucket(
             *(self.put(x) for x in (lhs, rhs, pc, pr, la, lb, eps)),
             bonus_d, la, lb)
+        return handle[:4] + (B,)
 
     def launch_bucket(self, lhs, rhs, pc, pr, la, lb, eps, bonus, la_h, lb_h,
                       maps=False):
@@ -461,26 +538,66 @@ class GpuEngine:
             levels[lv - 1].append(int(c))
         return order, task_index, levels
 
-    def align(self, codes, tasks, ap: P.AlnParam, seq_distances, ct=None):
-        """One bottom-up progressive pass (tpu/engine.py:731-901), with
-        the consistency bonus of table ct when given; the fused route
-        takes the alphabet width of the last set_alphabet.  Returns (gaps
-        per sequence, per-merge scores indexed like the tasks sorted by
-        parent id)."""
+    # centering-bias candidates of refinement (tpu/engine.py:663-698):
+    # every merge's full set, and the confident mode's probe
+    REFINE_FULL = (1e-3, 0.0, 4e-3)
+    REFINE_PROBE = (1e-3, 0.0)
+
+    def align(self, codes, tasks, ap: P.AlnParam, seq_distances, ct=None,
+              refine_mode: int = P.REFINE_NONE):
+        """The progressive alignment (tpu/engine.py::TpuEngine.align
+        :633-698), with the consistency bonus of table ct when given; the
+        fused route takes the alphabet width of the last set_alphabet.
+        Refinement runs K candidate DPs per merge, one per centering-bias
+        strength, and keeps the path of the best expected sum-of-pairs:
+        every merge with REFINE_FULL (refine all or inline), or
+        (confident) a probe pass with REFINE_PROBE, then a replay with
+        REFINE_FULL on the merges whose probe paths disagreed and EPS
+        alone elsewhere (stats["refine_flagged"] counts them).  Returns
+        (gaps per sequence, per-merge scores indexed like the tasks sorted
+        by parent id: the DP score, or the chosen path's SP where K > 1)."""
         sd = None if seq_distances is None else np.asarray(seq_distances)
-        order, task_index, levels = self.schedule(tasks, len(codes))
+        sched = self.schedule(tasks, len(codes))
+        if refine_mode == P.REFINE_CONFIDENT:
+            probe, full = self.REFINE_PROBE, self.REFINE_FULL
+            _, _, disagree = self.progressive(codes, sched, ap, sd, ct,
+                                              lambda t: probe)
+            self.stats["refine_flagged"] = int(disagree.sum())
+            gaps, conf, _ = self.progressive(
+                codes, sched, ap, sd, ct,
+                lambda t: full if disagree[t] else (self.EPS,))
+            return gaps, conf
+        cand = ((self.EPS,) if refine_mode == P.REFINE_NONE
+                else self.REFINE_FULL)
+        gaps, conf, _ = self.progressive(codes, sched, ap, sd, ct,
+                                         lambda t: cand)
+        return gaps, conf
+
+    def progressive(self, codes, sched, ap: P.AlnParam, sd, ct, cand_for):
+        """One bottom-up pass: device-resident, or host-assembled
+        (``resident=False``).  cand_for(task index) is the merge's tuple of
+        centering-bias candidates.  Returns (gaps, conf, disagree [n - 1]
+        bool: the merges whose candidates gave more than one path)."""
+        order, task_index, levels = sched
+        self.stats["candidates"] = {}
+        self.stats["candidate_passes"].append(self.stats["candidates"])
         if self.resident:
             # imported here: gpu/resident.py imports this module
             from kalign_tpu_torch.gpu.resident import ResidentPass
-            return ResidentPass(self, codes, ap, sd, ct).run(
+            return ResidentPass(self, codes, ap, sd, ct, cand_for).run(
                 order, task_index, levels)
-        return self.host_pass(codes, order, task_index, levels, ap, sd, ct)
+        return self.host_pass(codes, order, task_index, levels, ap, sd, ct,
+                              cand_for)
 
     def host_pass(self, codes, order, task_index, levels, ap: P.AlnParam,
-                  sd, ct):
-        """The host-assembled progressive pass: each bucket assembled in
-        numpy, uploaded and launched, every bucket's step lists fetched,
-        then merged and woven in numpy."""
+                  sd, ct, cand_for):
+        """The host-assembled progressive pass (tpu/engine.py::
+        _progressive :731-901): each bucket assembled in numpy, uploaded
+        and launched, every bucket's step lists fetched, then merged and
+        woven in numpy.  Buckets are keyed by padded shape and candidate
+        tuple; a bucket of K > 1 candidates runs its problems K times over
+        (tiled, eps repeated) and keeps each merge's best path by SP
+        (select_candidates)."""
         split = self.split
         n = len(codes)
         nprof = 2 * n - 1
@@ -491,6 +608,7 @@ class GpuEngine:
         nsip = [1] * n + [0] * (n - 1)
         profiles: List[Optional[Profile]] = [None] * nprof
         conf = np.zeros(n - 1, dtype=np.float32)
+        disagree = np.zeros(n - 1, dtype=bool)
 
         for lv_nodes in levels:
             with split("assembly"):
@@ -521,17 +639,20 @@ class GpuEngine:
 
                 buckets = {}
                 for item in batch:
-                    key = (_bucket(item[5].length), _bucket(item[6].length))
+                    key = (_bucket(item[5].length), _bucket(item[6].length),
+                           tuple(cand_for(task_index[item[0]])))
                     buckets.setdefault(key, []).append(item)
-                self.stats["levels"].append(
-                    {f"{k[0]}x{k[1]}": len(v) for k, v in buckets.items()})
+                self.stats["levels"].append(level_buckets(buckets))
 
             # dispatch every bucket of the level, then collect
             dispatched = []
-            for (L1p, L2p), items in buckets.items():
+            for (L1p, L2p, cands), items in buckets.items():
+                K = len(cands)
                 with split("assembly"):
                     B = len(items)
-                    Ba = _pow2_batch(B)
+                    # a multi-candidate bucket is tiled K times, then
+                    # padded by dispatch_bucket
+                    Ba = _pow2_batch(B) if K == 1 else B
                     pc = np.zeros((Ba, 3, L2p + 1), np.float32)
                     pr = np.zeros((Ba, 3, L1p + 1), np.float32)
                     la = np.full(Ba, 8, np.int32)
@@ -557,7 +678,7 @@ class GpuEngine:
                     if Ba > B:
                         pc[B:] = pc[B - 1]
                         pr[B:] = pr[B - 1]
-                    eps = np.full(Ba, self.EPS, np.float32)
+                    eps = np.full(Ba, cands[0], np.float32)
                 bonus = None
                 if ct is not None:
                     with split("bonus"):
@@ -577,13 +698,28 @@ class GpuEngine:
                             bonus[2][k, :, :la[k]] = cfr
                             bonus[3][k, :, :lb[k]] = apc
                             bonus[4][k, :, :lb[k]] = cfc
+                if K > 1:
+                    lhs, rhs, pc, pr = (np.concatenate([x] * K)
+                                        for x in (lhs, rhs, pc, pr))
+                    la, lb = np.tile(la, K), np.tile(lb, K)
+                    if bonus is not None:
+                        bonus = (bonus[0],) + tuple(
+                            np.concatenate([x] * K) for x in bonus[1:])
+                    eps = np.repeat(np.asarray(cands, np.float32), B)
                 with split("dispatch"):
-                    dispatched.append((items, self.dispatch_bucket(
+                    dispatched.append((items, K, self.dispatch_bucket(
                         lhs, rhs, pc, pr, la, lb, eps, bonus)))
 
-            for items, handle in dispatched:
+            for items, K, handle in dispatched:
                 with split("fetch"):
                     steps_list, scores = self.collect_bucket(handle)
+                if K > 1:
+                    with split("refine"):
+                        steps_list, scores, multi = self.select_candidates(
+                            items, steps_list, K, sip, nsip, gaps, lens, ap,
+                            task_index)
+                    for k, it in enumerate(items):
+                        disagree[task_index[it[0]]] = multi[k]
                 for k, (c, a, b, rn, cn, prof_r, prof_c, _) in \
                         enumerate(items):
                     with split("merge"):
@@ -607,7 +743,42 @@ class GpuEngine:
                         weave_steps(steps, gaps, sip[a], sip[b])
                     nsip[c] = nsip[a] + nsip[b]
                     sip[c] = list(reversed(sip[a])) + list(reversed(sip[b]))
-        return gaps, conf
+        return gaps, conf, disagree
+
+    def select_candidates(self, items, all_steps, K: int, sip, nsip, gaps,
+                          lens, ap: P.AlnParam, task_index):
+        """Each merge's best candidate by expected SP in float64
+        (tpu/engine.py::_select_candidates :929-960, the reference's trial
+        selection aln_refine.c:198-253): identical paths scored once,
+        the first strictly better kept.  all_steps holds candidate v of
+        merge k at v * B + k.  Returns (steps, SP scores, disagree)."""
+        B = len(items)
+        steps_out = []
+        scores_out = np.zeros(B, dtype=np.float64)
+        multi_out = np.zeros(B, dtype=bool)
+        for k, (c, a, b, rn, cn, prof_r, prof_c, _) in enumerate(items):
+            ga = column_gap_counts(prof_r.length, nsip[rn], sip[rn], lens,
+                                   gaps)
+            gb = column_gap_counts(prof_c.length, nsip[cn], sip[cn], lens,
+                                   gaps)
+            best, best_sp, best_v = None, -np.inf, 0
+            seen = {}
+            sps = []
+            for v in range(K):
+                st = np.asarray(all_steps[v * B + k], np.int8)
+                key = st.tobytes()
+                if key not in seen:
+                    seen[key] = sp_score_from_profiles(
+                        prof_r, prof_c, st, terminal_mask(st), nsip[rn],
+                        nsip[cn], ga, gb, ap.subm, ap.gpo, ap.gpe, ap.tgpe)
+                    if seen[key] > best_sp:
+                        best, best_sp, best_v = st, seen[key], v
+                sps.append(seen[key])
+            steps_out.append(best)
+            scores_out[k] = best_sp
+            multi_out[k] = len(seen) > 1
+            self.stats["candidates"][task_index[c]] = (best_v, sps)
+        return steps_out, scores_out, multi_out
 
     # ------------------------------------------------------------------
     @staticmethod

@@ -106,3 +106,67 @@ def weave_steps(steps: np.ndarray, gaps, members_a, members_b):
         gaps[m] = apply(gaps[m], gap_a)
     for m in members_b:
         gaps[m] = apply(gaps[m], gap_b)
+
+
+def sp_score_from_profiles(pa: Profile, pb: Profile, steps: np.ndarray,
+                           terminal: np.ndarray, nsip_a: int, nsip_b: int,
+                           gaps_a: np.ndarray, gaps_b: np.ndarray,
+                           subm: np.ndarray, gpo: float, gpe: float,
+                           tgpe: float) -> float:
+    """Expected cross-group sum-of-pairs of a merge candidate
+    (compute_sp_score, lib/src/sp_score.c:75-201), in float64 as
+    kalign_tpu/tpu/profile.py::sp_score_from_profiles :121 computes it.
+
+    gaps_a/gaps_b: per-column gap counts of each side's current partial
+    alignment (nsip - residue count per column)."""
+    n = len(steps)
+    ai = np.cumsum(steps != 1) - 1
+    bi = np.cumsum(steps != 2) - 1
+    is_m = steps == 0
+    pen = np.where(terminal, np.float32(tgpe), np.float32(gpe))
+
+    total = 0.0
+    if is_m.any():
+        fa = pa.counts[ai[is_m]]             # [M, 23]
+        fb = pb.counts[bi[is_m]]
+        total += float(np.einsum("mi,ij,mj->", fa, subm.astype(np.float64),
+                                 fb, optimize=True))
+        n_res_a = nsip_a - gaps_a[ai[is_m]]
+        n_res_b = nsip_b - gaps_b[bi[is_m]]
+        n_gap_a = gaps_a[ai[is_m]]
+        n_gap_b = gaps_b[bi[is_m]]
+        total -= float(np.sum((n_res_a * n_gap_b + n_gap_a * n_res_b)
+                              * pen[is_m]))
+
+    # gap runs: opens at run starts (gpo), per-column pen
+    for side, is_g in ((0, steps == 1), (1, steps == 2)):
+        if not is_g.any():
+            continue
+        if side == 0:
+            n_res_other = nsip_b - gaps_b[bi[is_g]]
+            n_pairs = nsip_a * n_res_other
+        else:
+            n_res_other = nsip_a - gaps_a[ai[is_g]]
+            n_pairs = n_res_other * nsip_b
+        total -= float(np.sum(n_pairs * pen[is_g]))
+        opens = np.zeros(n, dtype=bool)
+        g = is_g
+        opens[0] = g[0]
+        opens[1:] = g[1:] & ~g[:-1]
+        sel = opens[is_g]
+        total -= float(np.sum(n_pairs[sel]) * gpo)
+    return total
+
+
+def column_gap_counts(prof_len: int, nsip: int, members, lens,
+                      gaps) -> np.ndarray:
+    """Per-column gap count of a node's partial alignment
+    (kalign_tpu/tpu/profile.py::column_gap_counts :170)."""
+    out = np.full(prof_len, 0, dtype=np.int64)
+    for si in members:
+        g = np.asarray(gaps[si], dtype=np.int64)
+        res_cols = np.cumsum(g[:-1] + 1) - 1
+        has = np.zeros(prof_len, dtype=np.int64)
+        has[res_cols] = 1
+        out += 1 - has
+    return out

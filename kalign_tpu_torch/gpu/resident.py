@@ -1,7 +1,7 @@
 """Device-resident progressive pass.
 
-Counterpart of kalign_tpu/tpu/resident.py (``ResidentPass``, one
-centering-bias candidate per merge).  The host-assembled pass
+Counterpart of kalign_tpu/tpu/resident.py (``ResidentPass``, with the
+refinement candidates of ``_bucket_step_refine``).  The host-assembled pass
 (``GpuEngine(device, resident=False)``) assembles every bucket in numpy,
 builds each merge's bonus arrays in a Python loop, fetches each bucket's
 step lists and merges and weaves on the host.  This pass keeps the whole
@@ -39,7 +39,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from kalign_tpu_torch.gpu.engine import _bucket, _pow2_batch
+from kalign_tpu_torch.gpu import traceback as tb
+from kalign_tpu_torch.gpu.engine import _bucket, _pow2_batch, level_buckets
 
 NALPHA = 23
 
@@ -263,18 +264,112 @@ def node_positions(gaps_buf, posmap, seq_lens, mem_seq, mem_node, mem_ord,
     return pos.to(torch.int32), conf.to(torch.float32)
 
 
+def node_gap_counts(gaps_buf, seq_lens, mem_seq, mem_node, n_nodes: int,
+                    Lp: int):
+    """Residues per column of a batch of nodes from the resident gap state
+    (kalign_tpu/tpu/resident.py::_node_gap_counts_device :458; a node's
+    gap counts are its member count minus these, as
+    gpu/profile.py::column_gap_counts counts them).  mem_seq / mem_node
+    [M] list every node's members.  Returns [n_nodes, Lp] int64."""
+    g = gaps_buf[mem_seq].long()
+    M, Lg = g.shape
+    col = torch.cumsum(g + 1, dim=1) - 1          # column of each residue
+    ridx = torch.arange(Lg, device=g.device)[None, :]
+    valid = (ridx < seq_lens[mem_seq][:, None]) & (col < Lp)
+    pres = torch.zeros((M, Lp + 1), dtype=torch.int64, device=g.device)
+    pres.scatter_add_(1, torch.where(valid, col, Lp), valid.long())
+    out = torch.zeros((n_nodes, Lp), dtype=torch.int64, device=g.device)
+    return out.index_add_(0, mem_node.long(), pres[:, :Lp])
+
+
+def sp_scores(steps, nsteps, r_counts, c_counts, gaps_rows, gaps_cols,
+              nsip_r, nsip_c, subm, base_pen, L1p: int, L2p: int):
+    """Expected cross-group sum-of-pairs of a batch of candidate paths
+    (kalign_tpu/tpu/resident.py::_sp_scores :337, compute_sp_score
+    lib/src/sp_score.c:75-201), float32 in the DP's rows/columns space
+    as the reference computes it (the host pass scores in float64:
+    gpu/profile.py::sp_score_from_profiles).  steps [B, S], nsteps [B];
+    r_counts [B, L1p, 23], c_counts [B, L2p, 23]; gaps_rows [B, L1p],
+    gaps_cols [B, L2p] per-column gap counts; nsip_r / nsip_c [B];
+    base_pen [B, 3] (gpo, gpe, tgpe).  Returns [B] float32."""
+    B, S = steps.shape
+    dev = steps.device
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device=dev)
+    t = torch.arange(S, device=dev)[None, :]
+    valid = t < nsteps[:, None].long()
+    is_m = (steps == 0) & valid
+    is_ga = (steps == 1) & valid          # gap in the rows: takes a column
+    is_gb = (steps == 2) & valid          # gap in the columns: takes a row
+    aic = (torch.cumsum(steps != 1, dim=1) - 1).clamp(0, L1p - 1)
+    bic = (torch.cumsum(steps != 2, dim=1) - 1).clamp(0, L2p - 1)
+    big = torch.full((), 1 << 30, device=dev)
+    fz = torch.where(is_m, t, big).min(dim=1, keepdim=True).values
+    lz = torch.where(is_m, t, -1).max(dim=1, keepdim=True).values
+    term = valid & ((t < fz) | (t > lz))
+    gpo = base_pen[:, 0:1]
+    pen = torch.where(term, base_pen[:, 2:3], base_pen[:, 1:2])
+    fa = r_counts.gather(1, aic[..., None].expand(B, S, r_counts.shape[2]))
+    fb = c_counts.gather(1, bic[..., None].expand(B, S, c_counts.shape[2]))
+    mterm = (torch.matmul(fa, subm) * fb).sum(dim=2)
+    ga = gaps_rows.gather(1, aic).to(f32)
+    gb = gaps_cols.gather(1, bic).to(f32)
+    nra = nsip_r[:, None].to(f32) - ga
+    nrb = nsip_c[:, None].to(f32) - gb
+    cross = nra * gb + ga * nrb
+    total = torch.where(is_m, mterm - cross * pen, zero).sum(dim=1)
+    npairs_a = nsip_r[:, None].to(f32) * nrb
+    npairs_b = nra * nsip_c[:, None].to(f32)
+    total = total - (torch.where(is_ga, npairs_a * pen, zero)
+                     + torch.where(is_gb, npairs_b * pen, zero)).sum(dim=1)
+    first = torch.zeros_like(is_ga[:, :1])
+    opens_a = is_ga & ~torch.cat([first, is_ga[:, :-1]], dim=1)
+    opens_b = is_gb & ~torch.cat([first, is_gb[:, :-1]], dim=1)
+    total = total - (torch.where(opens_a, npairs_a, zero)
+                     + torch.where(opens_b, npairs_b, zero)).sum(dim=1) \
+        * gpo[:, 0]
+    return total
+
+
+def select_paths(cands, sp_k):
+    """The best candidate of each problem
+    (kalign_tpu/tpu/resident.py::_bucket_step_refine :435-452): cands a
+    list of K (steps [B, S], nsteps [B]), sp_k [K, B].  The first of
+    equal SP wins.  Returns (steps, nsteps, SP, disagree [B] bool: any
+    candidate's path differs from candidate 0's, best [B])."""
+    steps_k = torch.stack([c[0] for c in cands])
+    n_k = torch.stack([c[1] for c in cands])
+    S = steps_k.shape[2]
+    t = torch.arange(S, device=steps_k.device)[None, None, :]
+    masked = torch.where(t < n_k[:, :, None].long(), steps_k,
+                         torch.full((), tb.STEP_PAD, dtype=steps_k.dtype,
+                                    device=steps_k.device))
+    best = torch.argmax(sp_k, dim=0)
+    sel = masked.gather(0, best[None, :, None].expand(1, *masked.shape[1:]))
+    n_sel = n_k.gather(0, best[None])[0]
+    sp = sp_k.gather(0, best[None])[0]
+    multi = (masked != masked[0:1]).any(dim=2).any(dim=0)
+    return sel[0], n_sel, sp, multi, best
+
+
 class ResidentPass:
     """One bottom-up progressive pass with its state on the engine's
-    device (kalign_tpu/tpu/resident.py::ResidentPass :620, one candidate
-    per merge).  ``run`` returns what GpuEngine.host_pass returns: the
-    gap lists and the per-merge scores."""
+    device (kalign_tpu/tpu/resident.py::ResidentPass :620).
+    cand_for(task index) gives a merge's centering-bias candidates
+    (:629-641); a bucket of K > 1 candidates produces its operands once,
+    runs the forward DP and walk once per candidate (through
+    GpuEngine.launch_bucket, which computes the match product again for
+    each), scores every path (sp_scores) and merges the best
+    (select_paths).  ``run`` returns what GpuEngine.host_pass returns:
+    the gap lists, the per-merge scores and the disagreement flags."""
 
-    def __init__(self, engine, codes, ap, sd, ct=None):
+    def __init__(self, engine, codes, ap, sd, ct=None, cand_for=None):
         self.eng = engine
         self.codes = codes
         self.ap = ap
         self.sd = sd
         self.ct = ct
+        self.cand_for = cand_for or (lambda t: (engine.EPS,))
         self.n = len(codes)
         self.lens = [len(c) for c in codes]
         self.dev = engine.device
@@ -415,6 +510,9 @@ class ResidentPass:
                 posmap = eng.put(pm)
                 per_w = eng.put(np.asarray(ct.per_weight, np.float32))
         score_parts, score_tasks = [], []
+        # per chunk of multi-candidate merges: (tasks, K, disagree, best,
+        # SP [K, B])
+        refine_parts = []
 
         for lv_nodes in levels:
             with split("assembly"):
@@ -437,14 +535,14 @@ class ResidentPass:
                 buckets = {}
                 for item in batch:
                     key = (_bucket(self.len_of[item[3]]),
-                           _bucket(self.len_of[item[4]]))
+                           _bucket(self.len_of[item[4]]),
+                           tuple(self.cand_for(task_index[item[0]])))
                     buckets.setdefault(key, []).append(item)
-                eng.stats["levels"].append(
-                    {f"{k[0]}x{k[1]}": len(v) for k, v in buckets.items()})
+                eng.stats["levels"].append(level_buckets(buckets))
 
             # every bucket dispatched, in the host pass's chunks
             chunks = []
-            for (L1p, L2p), items in buckets.items():
+            for (L1p, L2p, cands), items in buckets.items():
                 with split("assembly"):
                     Ba = _pow2_batch(len(items))
                     fi_h, ff_h = self.bucket_fields(items, Ba)
@@ -468,13 +566,29 @@ class ResidentPass:
                         lhs, rhs, pc, pr, sides = produce_operands(
                             self.live, tokens, subm, fi[:, sl], ff[:, sl],
                             L1p, L2p)
-                        eps = torch.full((Bc,), eng.EPS, dtype=torch.float32,
-                                         device=self.dev)
-                    with split("dispatch"):
-                        _, steps, nst, score, _ = eng.launch_bucket(
-                            lhs, rhs, pc, pr, fi[_F["la"], sl].contiguous(),
-                            fi[_F["lb"], sl].contiguous(), eps, bonus,
-                            fi_h[_F["la"], sl], fi_h[_F["lb"], sl])
+                    outs = []
+                    for e in cands:
+                        with split("dispatch"):
+                            eps = torch.full((Bc,), e, dtype=torch.float32,
+                                             device=self.dev)
+                            outs.append(eng.launch_bucket(
+                                lhs, rhs, pc, pr,
+                                fi[_F["la"], sl].contiguous(),
+                                fi[_F["lb"], sl].contiguous(), eps, bonus,
+                                fi_h[_F["la"], sl], fi_h[_F["lb"], sl])[1:4])
+                    steps, nst, score = outs[0]
+                    if len(cands) > 1:
+                        with split("refine"):
+                            steps, nst, score, multi, best, sp_k = \
+                                self.refine_chunk(citems, outs, sides,
+                                                  fi[:, sl], gaps_buf,
+                                                  tok_lens, subm, L1p, L2p)
+                        if citems:
+                            B = len(citems)
+                            refine_parts.append((
+                                [task_index[it[0]] for it in citems],
+                                len(cands), multi[:B], best[:B],
+                                sp_k[:, :B]))
                     if not citems:          # a chunk of pad problems
                         continue
                     with split("merge"):
@@ -523,16 +637,59 @@ class ResidentPass:
                         self.slot_of[it[0]] = s
                     self.scatter_live(slots, merged, len(citems))
 
-        # the gap lists and the scores in one transfer (the scores' bits
-        # ride as int32)
+        # the gap lists, the scores and the candidates' records in one
+        # transfer (float bits ride as int32)
         with split("fetch"):
             flat = [gaps_buf.reshape(-1)]
             if score_parts:
                 flat.append(torch.cat(score_parts).view(torch.int32))
+            for _, _, multi, best, sp_k in refine_parts:
+                flat += [multi.to(torch.int32), best.to(torch.int32),
+                         sp_k.reshape(-1).contiguous().view(torch.int32)]
             host = eng.fetch(torch.cat(flat))
         ng = gaps_buf.numel()
         g = host[:ng].reshape(gaps_buf.shape)
         gaps = [g[i, :lens[i] + 1].tolist() for i in range(n)]
         conf = np.zeros(max(n - 1, 0), dtype=np.float32)
-        conf[np.asarray(score_tasks, np.int64)] = host[ng:].view(np.float32)
-        return gaps, conf
+        off = ng + len(score_tasks)
+        conf[np.asarray(score_tasks, np.int64)] = \
+            host[ng:off].view(np.float32)
+        disagree = np.zeros(max(n - 1, 0), dtype=bool)
+        for tasks, K, *_ in refine_parts:
+            B = len(tasks)
+            multi, best = host[off:off + B], host[off + B:off + 2 * B]
+            sp = host[off + 2 * B:off + (2 + K) * B].view(np.float32) \
+                .reshape(K, B)
+            off += (2 + K) * B
+            for k, t in enumerate(tasks):
+                disagree[t] = bool(multi[k])
+                eng.stats["candidates"][t] = (int(best[k]),
+                                              sp[:, k].tolist())
+        return gaps, conf, disagree
+
+    def refine_chunk(self, citems, outs, sides, fi, gaps_buf, tok_lens, subm,
+                     L1p: int, L2p: int):
+        """Trial selection of a chunk's candidates on the device
+        (kalign_tpu/tpu/resident.py::_bucket_step_refine :400-455): each
+        side's gap counts from the resident gap state, every candidate
+        path's SP, the best path.  outs: K (steps, nsteps, score).
+        Returns (steps, nsteps, SP, disagree, best, SP [K, B])."""
+        eng = self.eng
+        Bc = fi.shape[1]
+        ap = self.ap
+        gaps = []
+        for which, Lp, ns in ((3, L1p, fi[_F["nsip_r"]]),
+                              (4, L2p, fi[_F["nsip_c"]])):
+            ms, mn, _ = eng.put(self.members(citems, which))
+            res = node_gap_counts(gaps_buf, tok_lens, ms, mn, Bc, Lp)
+            gaps.append(ns.long()[:, None] - res)
+        base_pen = torch.tensor([ap.gpo, ap.gpe, ap.tgpe], dtype=torch.float32,
+                                device=self.dev).expand(Bc, 3)
+        (r_counts, _, _), (c_counts, _, _) = sides
+        sp_k = torch.stack([sp_scores(st, n, r_counts, c_counts, gaps[0],
+                                      gaps[1], fi[_F["nsip_r"]],
+                                      fi[_F["nsip_c"]], subm, base_pen, L1p,
+                                      L2p) for st, n, _ in outs])
+        steps, nst, sp, multi, best = select_paths(
+            [(st, n) for st, n, _ in outs], sp_k)
+        return steps, nst, sp, multi, best, sp_k

@@ -79,10 +79,15 @@ def test_unported_options_raise():
         kalign_tpu_torch.align(seqs, mode="precise", device="cpu")
     with pytest.raises(ValueError):
         kalign_tpu_torch.align(seqs, mode="quick", device="cpu")
-    for kw in (dict(refine=1), dict(realign=1),
-               dict(save_checkpoint="x"), dict(tree_seed=3, tree_noise=0.1)):
+    for kw in (dict(realign=1), dict(save_checkpoint="x"),
+               dict(tree_seed=3, tree_noise=0.1)):
         with pytest.raises(NotImplementedError):
             E.align_msa(Msa.from_sequences(seqs), device="cpu", **kw)
+    # refinement is ported: it aligns
+    m = Msa.from_sequences(seqs)
+    m.quiet = True
+    out = E.align_msa(m, device="cpu", refine=1)
+    assert [r.replace("-", "") for r in out.aligned_rows()] == seqs
 
 
 def test_wrappers_take_plain_versions_on_cpu_without_launching():
