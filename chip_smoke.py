@@ -19,6 +19,18 @@ Phases (any failure raises and the script exits non-zero):
      kernel, in both of its forms: clusters of exactly 50, 51 and 2,048
      rows, D = 5 anchors, rows that tie within EPS and rows all alike,
      each launched twice for the same bits);
+  2b. the exact engine: its canary on the card (a line of its own), then
+     the wavefront sweep kernel bitwise against its plain version on
+     single windows at the edges (one row, one column, start = end,
+     init_tg / start_tg / end_tg) in match and chain form, on launches
+     captured from BB30014 in default mode on the card (the pre-pass's
+     residue pairs in 4,096-row packed grids; merges of residues x
+     residues, profile x residues, profile x profile), on tall windows
+     past 4,096 virtual rows (TALL_WINDOWS: 8,192 and 16,384 rows, the
+     kernel's wide instantiation; each whole recursion also against the
+     native oracle) and on the tallest launch of a long divergent family
+     (LONG_DIVERGENT_*: routed to the exact engine in --fast mode, FASTA
+     equal to the host engine's);
   3. five paths, each aligned on the card with the device-resident
      progressive pass (launch counts set to 0 just before and read just
      after; every kernel of the path must have launched; one fetch per
@@ -39,6 +51,12 @@ Phases (any failure raises and the script exits non-zero):
      mode with refine="confident" (a probe pass, then the flagged merges
      again with three candidates), whose host-assembled pass must give
      the same FASTA or part ways at a near-SP-tie (refine_divergence);
+     "divergent", DIVERGENT_N protein sequences whose mean anchor
+     distance lies in DIVERGENT_DISTANCE, default mode with the default
+     gpu-fast engine: it must route to the exact engine "gpu", launch
+     bpm and exact_sweep, and give the host engine's FASTA byte for byte
+     (the host engine's wall beside it, and gpu-fast's with the route
+     off);
   4. the paths but the refined one once more under torch.profiler:
      device time by kernel and by part of the progressive pass, each
      kernel's total device time and launches (the trace must hold every
@@ -49,11 +67,13 @@ Phases (any failure raises and the script exits non-zero):
      otherwise whose best tries' SSE agree to rel 1e-5), beside the
      native tree's seconds; a lowered depth cap; the kernel's root split
      timed beside its plain version and its bound;
-  5. the same package on the card and on the CPU: BB30014 and a
-     150-sequence protein family in --fast mode, BB30014 and a
-     250-sequence DNA family (one 2,048-problem fused launch) in default
-     mode: identical FASTA, or equal per-merge scores where a near-tie
-     resolved differently; a long family (three fragments of 200-400
+  5. the same package on the card and on the CPU: BB30014 (routed to
+     the exact engine) and a 150-sequence protein family in --fast mode,
+     BB30014 (routed; also the golden file) and a 250-sequence DNA family
+     (one 2,048-problem fused launch) in default mode, BB12006 through
+     engine "gpu" in default mode (also the golden file): identical
+     FASTA, or equal per-merge scores where a near-tie resolved
+     differently; a long family (three fragments of 200-400
      residues and one of ~7,300, merges wider than 7,168 columns) in both
      modes: identical FASTA, the tiled row kernel launched; and BB11001
      with refine="all" in --fast mode: identical FASTA;
@@ -73,7 +93,8 @@ Phases (any failure raises and the script exits non-zero):
      fused kernel also beside the materialised route (torch.bmm +
      lanewise kernel) on the same inputs; BPM and its table at both
      paths' distance stages and at one full 262,144-pair chunk (8,192
-     sequences x 32 anchors);
+     sequences x 32 anchors); the sweep at the divergent path's largest
+     launch;
   7. one JSON line with every kernel's numbers, the nvidia-smi line, and
      the last line {"ok": true, "device": {...}}.
 Without a card, or outside a checkout of the repository, it prints no
@@ -87,6 +108,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -113,9 +135,11 @@ BPM_OPS_PER_BLOCK_STEP = 25
 PROBE_SRC = os.path.join(HERE, "scripts", "latency_probe.cu")
 # seconds of idle time at each end of a torch.profiler capture: on the
 # card's machine the trace's kernel timestamps stray from the host's
-# clock by up to milliseconds, and the profiler drops records that fall
-# outside its window
-PROFILE_PAD_S = 0.05
+# clock, and the profiler drops records that fall outside its window;
+# runs of this script lost a path's first kernels (launched ~1 s into
+# the capture) in three captures in a row at 0.05 s and at 0.5 s, and a
+# path's last ones at 0.05 s
+PROFILE_PAD_S = 2.0
 
 PROTEIN = "ARNDCQEGHILKMFPSTWYV"
 DNA = "ACGT"
@@ -145,6 +169,9 @@ KERNELS = {
     "kmeans": ("kalign_tpu_torch/csrc/kmeans.cu",
                "kalign_tpu/tpu/kmeans.py:46 _lloyd_batch / :322 "
                "_fused_splits (XLA, not Pallas)"),
+    "exact_sweep": ("kalign_tpu_torch/csrc/exact_sweep.cu",
+                    "kalign_tpu/tpu/exact.py:65 _sweep_one / :163 "
+                    "_sweep_batch (XLA, not Pallas)"),
 }
 # a substring of each kernel's name in a torch.profiler trace
 PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
@@ -153,13 +180,15 @@ PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
                  "traceback": "walk_kernel", "prefix_sum": "prefix_sum_kernel",
                  "gotoh_fused": "FusedOperands",
                  "gotoh_row_tiled": "gotoh_row_tiled_kernel",
-                 "kmeans": "lloyd_kernel"}
+                 "kmeans": "lloyd_kernel",
+                 "exact_sweep": "exact_sweep_kernel"}
 # the paths: mode, the kernels the path must launch, refinement, whether
 # the host-assembled pass runs too (it would take minutes at 16,384
 # sequences) and whether a profiled run follows; the long family's cases
 # of phase_gpu_vs_cpu must launch the tiled row kernel
 NARROW = [k for k in KERNELS
-          if k not in ("gotoh_fused", "gotoh_row_tiled", "kmeans")]
+          if k not in ("gotoh_fused", "gotoh_row_tiled", "kmeans",
+                       "exact_sweep")]
 PATHS = {"fast": dict(mode="fast", launch=NARROW),
          "default": dict(mode="default", launch=NARROW + ["gotoh_fused"]),
          "protein_default": dict(mode="default", launch=NARROW),
@@ -177,6 +206,29 @@ KMEANS_OPS = lambda D: 5 * D + 15
 # the k-means check's tolerance: a split made otherwise must tie, its
 # best tries' SSE equal to rel 1e-5 (gpu/kmeans.py)
 KMEANS_SSE_RTOL = 1e-5
+# fp32 operations per processed cell of the exact engine's sweep: the
+# diagonal candidates (2 adds, 2 max), the match and bonus adds (2), GA
+# (2 adds, 1 max), GB (2 adds, 1 max; the terminal form 1 max, 1 add)
+# and the selects (3); the profile x profile chain adds 23 multiplies and
+# 23 adds (csrc/exact_sweep.cu)
+SWEEP_OPS_PER_CELL = 15
+SWEEP_CHAIN_OPS = 46
+# the divergent path: sequences, and the protein family's divergence
+# (mean anchor distance in DIVERGENT_DISTANCE, the autoroute's range)
+DIVERGENT_N = 2000
+DIVERGENT_SUBS = (0.25, 0.15)
+DIVERGENT_DISTANCE = (0.52, 0.60)
+# the sweep's tall windows (its wide instantiation past 4,096 virtual
+# rows): (rows la, operand mode) of one window of TALL_LB columns, VR
+# 8,192 and 16,384
+TALL_WINDOWS = ((10000, 0), (20000, 2))
+TALL_LB = 300
+# the long divergent family: LONG_DIVERGENT_SHORT sequences of the
+# divergent family and two of ~LONG_DIVERGENT_LEN residues (mean anchor
+# distance ~0.52, so gpu-fast routes it to the exact engine, whose merges
+# of the long pair take 8,192-row grids)
+LONG_DIVERGENT_SHORT = 30
+LONG_DIVERGENT_LEN = 10000
 
 
 T_START = time.perf_counter()
@@ -224,15 +276,15 @@ def dev_us(e):
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def profiled(fn):
-    """torch.profiler's trace of fn() (CPU and CUDA activity), the card
-    drained and the capture window padded by PROFILE_PAD_S on each side;
-    returns (trace, fn's result, fn's wall seconds)."""
+def profiled(fn, cpu=True):
+    """torch.profiler's trace of fn() (CUDA activity, and the CPU's with
+    cpu), the card drained and the capture window padded by PROFILE_PAD_S
+    on each side; returns (trace, fn's result, fn's wall seconds)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + [ProfilerActivity.CPU] * cpu) as prof:
         time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         out = fn()
@@ -394,7 +446,7 @@ def phase_device_and_build():
     ptxas = ptxas_lines(build_log(cuda_path))
     emit({"phase": "build", "seconds": round(secs, 3),
           "cuda_lib": os.path.relpath(cuda_path, HERE),
-          "tree_lib": os.path.relpath(tree_path, HERE), "ptxas": ptxas})
+          "native_lib": os.path.relpath(tree_path, HERE), "ptxas": ptxas})
     return smi
 
 
@@ -844,6 +896,21 @@ def edge_cases_kmeans(dev, rng):
     emit({"phase": "edge_cases", "kernel": "kmeans", "cases": cases})
 
 
+@contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms for the block: the plain k-means
+    versions' segment sums (index_add_) add with atomics on the card, in
+    an order that changes from run to run, and with them the splits
+    that lie within float noise of a tie."""
+    import torch
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
 def tree_inputs(seqs, dev):
     """The guide tree's inputs of an alignment of seqs, as align_msa makes
     them on the card: (codes, dm, anchors)."""
@@ -894,12 +961,17 @@ def phase_kmeans(dev, seqs):
             raise AssertionError(f"kmeans {entry}: the depth cap was hit")
         hold("kmeans", np.array_equal(got[0], again[0]), 0.0,
              f"{entry} tree at {n} sequences: two runs differ")
-        want, plain_ms = timed_once(lambda: build(codes, dm, na, dev,
-                                                  plain=True, trace=tr_p))
+        with deterministic():
+            want, plain_ms = timed_once(lambda: build(
+                codes, dm, na, dev, plain=True, trace=tr_p))
         same = np.array_equal(got[0], want[0])
         differ, first = K.compare_traces(tr_k, tr_p)
         ok = same or (first is not None and first[3] is not None and abs(
             first[2] - first[3]) <= KMEANS_SSE_RTOL * abs(first[3]))
+        if not ok:
+            emit({"phase": "kmeans", "entry": entry, "same_tasks": same,
+                  "splits_made_otherwise": differ,
+                  "first_split_otherwise": first})
         hold("kmeans", ok, 0.0 if first is None or first[3] is None
              else abs(first[2] - first[3]),
              f"{entry} tree at {n} sequences against the plain version")
@@ -922,7 +994,7 @@ def phase_kmeans(dev, seqs):
         dm[:, :na], np.float32)).to(dev)
     st = torch.zeros(1, dtype=torch.int32, device=dev)
     sz = torch.full((1,), n, dtype=torch.int32, device=dev)
-    run = lambda: K.lloyd(emb, st, sz, form=1)
+    run = lambda: K.lloyd(emb, st, sz, form=1, max_size=n)
     out = run()
     _, plain_ms = timed_once(lambda: kmeans_plain_split(emb, 1))
     iters = out[3].double()
@@ -930,6 +1002,7 @@ def phase_kmeans(dev, seqs):
     b_ms, b_by = bound(n * na * 4 + K.MAX_TRIES * (n + 9), ops,
                        FP32_OPS_PER_S)
     root = dict(shape=f"1 x {K.MAX_TRIES} x {n} x {na}",
+                cluster_blocks=K.cluster_blocks(n),
                 ms=cuda_time_ms(run, reps=5), device_ms=device_ms(run, 3),
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, iterations=[int(iters.min()),
@@ -940,14 +1013,397 @@ def phase_kmeans(dev, seqs):
     return root
 
 
+# ---------------------------------------------------------------------------
+# the exact engine (engine "gpu"): its wavefront sweep kernel
+def divergent_family(n: int, seed: int = 5):
+    """The divergent path's input: the protein family with its divergence
+    raised (DIVERGENT_SUBS) until its mean anchor distance lies in
+    DIVERGENT_DISTANCE, so that gpu-fast routes it to the exact engine."""
+    return family(n, seed, subs=DIVERGENT_SUBS)
+
+
+@contextmanager
+def sweep_capture(keep):
+    """Every sweep launch of the exact engine inside the block is passed
+    to keep(plans, key, live, kind) before it runs: kind "pairs" (the
+    consistency pre-pass, residues x residues) or "merge m" with the
+    operand modes m of its problems (0 residues x residues, 1 profile x
+    residues, 2 profile x profile)."""
+    from kalign_tpu_torch.gpu import exact as X
+    run, build = X.Sweeper.run, X._plans
+    seen = set()
+
+    def build_rec(ops, w, *args):
+        seen.update(["pairs"] if ops.kind == "pairs"
+                    else (str(m) for m in ops.mode[w.p]))
+        return build(ops, w, *args)
+
+    def run_rec(self, plans, key, live):
+        kind = ("pairs" if "pairs" in seen else
+                "merge " + "".join(sorted(seen)))
+        seen.clear()
+        keep(plans, key, live, kind)
+        return run(self, plans, key, live)
+    X.Sweeper.run, X._plans = run_rec, build_rec
+    try:
+        yield
+    finally:
+        X.Sweeper.run, X._plans = run, build
+
+
+def sweep_cells(plans, live) -> int:
+    """Processed cells of a stacked plan below the live columns: per
+    active row that is not an init row, its window's columns."""
+    rows = plans["active"] & ~plans["is_init"]
+    hi = np.minimum(plans["endq"], live[1] - 1).astype(np.int64)
+    width = np.maximum(hi - plans["startq"] + 1, 0)
+    return int(np.sum(np.where(rows, width, 0)))
+
+
+def sweep_shape(plans, key, live):
+    VR, C, _, chain = key
+    return dict(grids=int(plans["seedA"].shape[0]), VR=VR, C=C,
+                live=list(live), chain=bool(chain))
+
+
+def hold_sweep(plans, key, live, what, dev):
+    """The sweep kernel against its plain version on the same CUDA
+    tensors: the live windows' outputs bit for bit, the -inf cells
+    included.  Returns (the case's record, the CUDA plan)."""
+    import torch
+    from kalign_tpu_torch.gpu import exact_sweep as XS
+    from kalign_tpu_torch.gpu import exact as X
+    VR, C, Wmax, chain = key
+    t = {k: X.on_device(v, dev) for k, v in plans.items()}
+    got = XS.launch(t, VR, C, Wmax, chain, *live)
+    ref = XS.plain(t, VR, C, Wmax, chain, XS.live_steps(VR, C, live[1]))
+    ref = ref[:, :live[0], :live[1]].contiguous()
+    same = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    both = torch.isfinite(got) & torch.isfinite(ref)
+    err = abs_err(got[both], ref[both]) if bool(both.any()) else 0.0
+    if not torch.equal(torch.isfinite(got), torch.isfinite(ref)):
+        err = float("inf")
+    hold("exact_sweep", same, err, what)
+    return dict(case=what, **sweep_shape(plans, key, live),
+                cells=sweep_cells(plans, live),
+                finite_outputs=int(torch.isfinite(got).sum())), t
+
+
+def sweep_edge_plans():
+    """Plans of single windows at the edges of the sweep's cases, in
+    residues x residues (match) and profile x profile (chain) form: a
+    window of one row (and its edge flags init_tg, start_tg, end_tg all
+    set: it spans every column), one of one column, one whose start is
+    its end, one with init_tg and start_tg alone, one with end_tg alone,
+    and all of them stacked in one grid."""
+    from kalign_tpu_torch import native
+    from kalign_tpu_torch.core import params as P
+    from kalign_tpu_torch.gpu import exact as X
+    rng = np.random.default_rng(3)
+    ap = P.aln_param_init(P.BIOTYPE_PROTEIN, P.KALIGN_TYPE_PROTEIN,
+                          -1.0, -1.0, -1.0, 1)
+    subm = np.ascontiguousarray(ap.subm, np.float32)
+    g = (np.float32(ap.gpo), np.float32(ap.gpe), np.float32(ap.tgpe))
+    la, lb = 12, 10
+    s1 = rng.integers(0, 23, la).astype(np.uint8)
+    s2 = rng.integers(0, 23, lb).astype(np.uint8)
+
+    def leaf(seq):
+        out = np.zeros((len(seq) + 2) * 64, np.float32)
+        native.lib().kt_leaf_profile(subm.reshape(-1), *g, seq, len(seq),
+                                     out)
+        return out
+    Z, N = np.float32(0.0), X.NEG
+    wins = {"one row": (0, 1, 0, 10), "one column": (3, 9, 4, 5),
+            "start = end": (2, 6, 3, 3),
+            "init_tg and start_tg": (0, 4, 0, 4), "end_tg": (5, 8, 6, 10)}
+    out = []
+    for mode, form in ((0, "match"), (2, "chain")):
+        if mode == 0:
+            aln = X.ExactAligner(0, s1, s2, None, None, la, lb, 0, subm,
+                                 *g, np.float32(0.5), None)
+        else:
+            aln = X.ExactAligner(2, None, None, leaf(s1), leaf(s2), la, lb,
+                                 0, None, *g, np.float32(0.0), None)
+        aln.VR = aln.Wmax = 64
+        key = (aln.VR, aln.Cpad, aln.Wmax, aln.use_chain)
+        every = []
+        for what, (sa, ea, sb, eb) in wins.items():
+            w = (sa, ea, sb, eb, (Z, N, N), (N, N, Z))
+            every.append((sa, ea, sb, eb, (N, Z, N), (Z, N, N)))
+            out.append((f"{what} ({form})", aln.plans([w]), key,
+                        (1, lb + 1)))
+        out.append((f"all windows in one grid ({form})",
+                    aln.plans(every), key, (len(every), lb + 1)))
+    return out
+
+
+def tall_window_cases(dev):
+    """The sweep's wide instantiation: for each of TALL_WINDOWS, one
+    window of random residues (or their leaf profiles in chain form) over
+    TALL_LB columns, its first launch held bitwise against the plain
+    version, then the whole recursion on the card against the native
+    oracle (kt_run_align_single: the same path, margin sum and count)."""
+    from kalign_tpu_torch import native
+    from kalign_tpu_torch.core import params as P
+    from kalign_tpu_torch.gpu import exact as X
+    from kalign_tpu_torch.gpu import exact_sweep as XS
+    L = native.lib()
+    rng = np.random.default_rng(11)
+    ap = P.aln_param_init(P.BIOTYPE_PROTEIN, P.KALIGN_TYPE_PROTEIN,
+                          -1.0, -1.0, -1.0, 1)
+    subm = np.ascontiguousarray(ap.subm.astype(np.float32).reshape(-1))
+    g = (np.float32(ap.gpo), np.float32(ap.gpe), np.float32(ap.tgpe))
+
+    def leaf(seq):
+        out = np.zeros((len(seq) + 2) * 64, np.float32)
+        L.kt_leaf_profile(subm, *g, seq, len(seq), out)
+        return out
+    Z, N = np.float32(0.0), X.NEG
+    cases = []
+    for la, mode in TALL_WINDOWS:
+        lb = TALL_LB
+        s1 = rng.integers(0, 23, la).astype(np.uint8)
+        s2 = rng.integers(0, 23, lb).astype(np.uint8)
+        if mode == 0:
+            ops = (s1, s2, None, None)
+            ptrs = (s1.ctypes.data, s2.ctypes.data, None, None)
+        else:
+            p1, p2 = leaf(s1), leaf(s2)
+            ops = (None, None, p1, p2)
+            ptrs = (None, None, p1.ctypes.data, p2.ctypes.data)
+        sweeper = X.Sweeper(dev)
+        aln = X.ExactAligner(mode, *ops, la, lb, 0,
+                             subm.reshape(23, 23) if mode == 0 else None,
+                             *g, np.float32(0.0), None, sweeper=sweeper)
+        top = (0, la, 0, lb, (Z, N, N), (Z, N, N))
+        key = (aln.VR, aln.Cpad, aln.Wmax, aln.use_chain)
+        form = "chain" if mode == 2 else "match"
+        rec, _ = hold_sweep(aln.plans([top]), key, (1, lb + 1),
+                            f"tall window {la} x {lb} ({form})", dev)
+        path = np.full(la + 2, -1, np.int32)
+        msum, mcount, _ = aln.run(path)
+        ref = np.full(la + 2, -1, np.int32)
+        info = np.zeros(3, np.float32)
+        L.kt_run_align_single(mode, *ptrs, la, lb, 0, subm, *g,
+                              np.float32(0.0), None, lb, 0.0, 0, 1, 0, ref,
+                              info)
+        same = (np.array_equal(ref, path) and np.float32(msum) == info[0]
+                and mcount == int(info[1]))
+        hold("exact_sweep", same, 0.0 if same else float("inf"),
+             f"tall window {la} x {lb} ({form}): the whole recursion "
+             "against the native oracle")
+        threads, rows = XS.launch_plan(aln.VR)
+        cases.append(dict(rec, threads=threads, rows_per_thread=rows,
+                          recursion_launches=sweeper.launches,
+                          recursion_equal_native=same))
+    return cases
+
+
+def long_divergent_family(seed: int = 8):
+    """LONG_DIVERGENT_SHORT sequences of the divergent family and two of
+    ~LONG_DIVERGENT_LEN residues from one root."""
+    L = LONG_DIVERGENT_LEN
+    return (divergent_family(LONG_DIVERGENT_SHORT)
+            + family(2, seed, root_len=L, lo=L - 200, hi=L + 200,
+                     subs=DIVERGENT_SUBS))
+
+
+def long_divergent_case(dev):
+    """The long divergent family in --fast mode with the default gpu-fast
+    engine: it must route to the exact engine, take the sweep's wide
+    instantiation and give the host engine's FASTA byte for byte; its
+    tallest launch is held bitwise against the plain version."""
+    import kalign_tpu_torch
+    from kalign_tpu_torch.core import io as kio
+    seqs = long_divergent_family()
+    tallest = {}
+
+    def keep(plans, key, live, kind):
+        if key[0] > tallest.get("VR", 0):
+            tallest.update(VR=key[0], launch=(plans, key, live), kind=kind)
+    with sweep_capture(keep):
+        msa, wall = align_on_card(seqs, "fast")
+    check_alignment(msa.aligned_rows(), seqs)
+    t0 = time.perf_counter()
+    host = kalign_tpu_torch.align_msa(seqs, mode="fast", engine="host")
+    host_wall = time.perf_counter() - t0
+    same = kio.format_alignment(msa, "fasta") == \
+        kio.format_alignment(host, "fasta")
+    st = msa.engine_stats
+    if st["engine"] != "gpu":
+        raise AssertionError(f"long divergent family: aligned by "
+                             f"{st['engine']}, not the exact engine")
+    if not same:
+        raise AssertionError("long divergent family: the exact engine's "
+                             "FASTA differs from the host engine's")
+    if tallest.get("VR", 0) <= 4096:
+        raise AssertionError("long divergent family: no sweep launch past "
+                             "4,096 rows")
+    rec, _ = hold_sweep(*tallest["launch"], "long divergent family's "
+                        f"tallest launch ({tallest['kind']})", dev)
+    return dict(rec, sequences=len(seqs),
+                lengths=[min(map(len, seqs)), max(map(len, seqs))],
+                mean_seq_distance=st.get("mean_seq_distance"),
+                wall_s=round(wall, 3), host_engine_wall_s=round(host_wall, 3),
+                sweep_launches=st.get("sweep_launches"),
+                identical_fasta_host_engine=same)
+
+
+def phase_exact_edge(dev):
+    """The exact engine's canary on the card (at engine start), then its
+    sweep kernel held bitwise against the plain version: single-window
+    edge cases, and launches captured from BB30014's alignment in
+    default mode on the card (the consistency pre-pass's residue pairs
+    in 4,096-row packed grids; merges of residues x residues, profile x
+    residues and profile x profile), the first two of each kind and grid
+    height."""
+    from kalign_tpu_torch import engine as TE
+    from kalign_tpu_torch.core import io as kio
+    eng = TE.GpuExactEngine(dev)
+    emit({"phase": "canary", **eng.stats["canary"]})
+    cases = [hold_sweep(*c[1:], c[0], dev)[0] for c in sweep_edge_plans()]
+    captured, counts = [], {}
+
+    def keep(plans, key, live, kind):
+        k = (kind, key[0], key[3])
+        counts[k] = counts.get(k, 0) + 1
+        if counts[k] <= 2:
+            captured.append((f"BB30014 {kind}", plans, key, live))
+    msa = kio.read_alignment(os.path.join(HERE, "tests", "data",
+                                          "BB30014.tfa"))
+    msa.quiet = True
+    with sweep_capture(keep):
+        TE.align_msa(msa, consistency_anchors=5, device=dev)
+    for what, plans, key, live in captured:
+        cases.append(hold_sweep(plans, key, live, what, dev)[0])
+    kinds = {k for k, _, _ in counts}
+    seen = {k for k in kinds if k == "pairs"} | set(
+        "".join(k[len("merge "):] for k in kinds if k != "pairs"))
+    if not {"pairs", "0", "1", "2"} <= seen:
+        raise AssertionError(f"exact_sweep: BB30014 gave launches of "
+                             f"{sorted(kinds)}: not the pairs and every "
+                             "merge mode")
+    if not any(c["VR"] == 4096 and c["case"] == "BB30014 pairs"
+               for c in cases):
+        raise AssertionError("exact_sweep: no 4,096-row packed grid held")
+    cases += tall_window_cases(dev)
+    cases.append(long_divergent_case(dev))
+    emit({"phase": "edge_cases", "kernel": "exact_sweep", "cases": cases,
+          "launches_by_kind": {f"{k[0]} VR={k[1]}": v
+                               for k, v in counts.items()}})
+
+
+def phase_divergent(seqs):
+    """The divergent path: seqs (mean anchor distance in
+    DIVERGENT_DISTANCE) in default mode with the default gpu-fast engine,
+    every launch count set to 0 just before and read just after: it must
+    route to the exact engine "gpu" and launch bpm and exact_sweep, its
+    rows must dealign to the inputs, and its FASTA must be the host
+    engine's (the native runtime alone) on the same input, byte for
+    byte.  Returns (launches, the largest sweep launch: plans, key,
+    live)."""
+    import kalign_tpu_torch
+    from kalign_tpu_torch.core import io as kio
+    largest = {}
+
+    def keep(plans, key, live, kind):
+        cells = sweep_cells(plans, live)
+        if cells > largest.get("cells", -1):
+            largest.update(cells=cells, launch=(plans, key, live),
+                           kind=kind)
+    reset_counts()
+    with sweep_capture(keep):
+        msa, wall = align_on_card(seqs, "default")
+    launches = read_counts()
+    check_alignment(msa.aligned_rows(), seqs)
+    st = msa.engine_stats
+    t0 = time.perf_counter()
+    host = kalign_tpu_torch.align_msa(seqs, mode="default", engine="host")
+    host_wall = time.perf_counter() - t0
+    same = kio.format_alignment(msa, "fasta") == \
+        kio.format_alignment(host, "fasta")
+    md = st.get("mean_seq_distance", float(np.mean(msa.seq_distances)))
+    # what the route costs: gpu-fast on the same input with it turned off
+    reset_counts()
+    unrouted, unrouted_wall = align_on_card(seqs, "default",
+                                            autoroute=False)
+    if unrouted.engine_stats["engine"] != "gpu-fast":
+        raise AssertionError("divergent: autoroute=False still routed")
+    emit({"phase": "path", "path": "divergent", "mode": "default",
+          "sequences": len(seqs),
+          "lengths": [min(map(len, seqs)), max(map(len, seqs))],
+          "engine": st["engine"], "routed_from": st.get("routed_from"),
+          "mean_seq_distance": md, "tree": st["tree"],
+          "wall_s": round(wall, 3),
+          "phase_s": {k: round(v, 3) for k, v in msa.phase_times.items()},
+          "sweep_launches": st.get("sweep_launches"),
+          "sweep_grids": st.get("sweep_grids"),
+          "sweep_steps": st.get("sweep_steps"),
+          "hook_calls": st.get("hook_calls"),
+          "host_engine_wall_s": round(host_wall, 3),
+          "gpu_fast_wall_s": round(unrouted_wall, 3),
+          "gpu_fast_phase_s": {k: round(v, 3) for k, v in
+                               unrouted.phase_times.items()},
+          "identical_fasta_host_engine": same, "launches": launches,
+          "largest_sweep": dict(kind=largest.get("kind"),
+                                cells=largest.get("cells"),
+                                **(sweep_shape(*largest["launch"])
+                                   if largest else {}))})
+    if st["engine"] != "gpu":
+        raise AssertionError(f"divergent: aligned by {st['engine']}, not "
+                             "the exact engine")
+    lo, hi = DIVERGENT_DISTANCE
+    if not lo <= md <= hi:
+        raise AssertionError(f"divergent: mean anchor distance {md} "
+                             f"outside [{lo}, {hi}]")
+    missing = [k for k in ("bpm", "exact_sweep") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the divergent "
+                             f"path: {missing}")
+    if not same:
+        raise AssertionError("divergent: the exact engine's FASTA differs "
+                             "from the host engine's")
+    return launches, largest["launch"]
+
+
+def sweep_main_shape(dev, launch):
+    """The sweep kernel at the divergent path's largest launch: held
+    bitwise against its plain version on the card and timed beside it
+    and its bound (8 bytes of match and bonus per processed cell, the
+    rows' and columns' addends, the output; SWEEP_OPS_PER_CELL fp32
+    operations per cell, SWEEP_CHAIN_OPS more in chain form)."""
+    from kalign_tpu_torch.gpu import exact_sweep as XS
+    plans, key, live = launch
+    VR, C, Wmax, chain = key
+    rec, t = hold_sweep(plans, key, live, "the divergent path's largest "
+                        "launch", dev)
+    run = lambda: XS.launch(t, VR, C, Wmax, chain, *live)
+    _, plain_ms = timed_once(lambda: XS.plain(
+        t, VR, C, Wmax, chain, XS.live_steps(VR, C, live[1])))
+    G = rec["grids"]
+    cells = rec["cells"]
+    bytes_ = (cells * 8 + G * VR * (16 + 32) + G * (C + 1) * 16
+              + G * live[0] * live[1] * 12)
+    ops = cells * (SWEEP_OPS_PER_CELL + (SWEEP_CHAIN_OPS if chain else 0))
+    b_ms, b_by = bound(bytes_, ops, FP32_OPS_PER_S)
+    threads, rows = XS.launch_plan(VR)
+    return dict(shape=f"{G} x {VR} x {C + 1}", ms=cuda_time_ms(run, reps=3),
+                device_ms=device_ms(run, 3), plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, cells=cells,
+                steps=XS.live_steps(VR, C, live[1]), chain=bool(chain),
+                threads=threads, rows_per_thread=rows)
+
+
 def counters():
     """{kernel: (wrapper module, name of its launch count)}"""
-    from kalign_tpu_torch.gpu import bpm, gotoh_fused, gotoh_lanewise, \
-        gotoh_row, kmeans, scan
+    from kalign_tpu_torch.gpu import bpm, exact_sweep, gotoh_fused, \
+        gotoh_lanewise, gotoh_row, kmeans, scan
     from kalign_tpu_torch.gpu import traceback as tb
     mods = {"gotoh_row": gotoh_row, "gotoh_lanewise": gotoh_lanewise,
             "bpm": bpm, "traceback": tb, "prefix_sum": scan,
-            "gotoh_fused": gotoh_fused, "kmeans": kmeans}
+            "gotoh_fused": gotoh_fused, "kmeans": kmeans,
+            "exact_sweep": exact_sweep}
     out = {k: (m, "launches") for k, m in mods.items()}
     out["bpm_table"] = (bpm, "table_launches")
     out["gotoh_row_tiled"] = (gotoh_row, "tiled_launches")
@@ -975,14 +1431,15 @@ def check_alignment(rows, seqs):
     return widths.pop()
 
 
-def align_on_card(seqs, mode, engine="gpu-fast", refine=None):
+def align_on_card(seqs, mode, engine="gpu-fast", refine=None,
+                  autoroute=True):
     """(Msa, wall seconds) of one alignment on the card."""
     import torch
     import kalign_tpu_torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     msa = kalign_tpu_torch.align_msa(seqs, mode=mode, engine=engine,
-                                     refine=refine)
+                                     refine=refine, autoroute=autoroute)
     torch.cuda.synchronize()
     return msa, time.perf_counter() - t0
 
@@ -1123,10 +1580,14 @@ def phase_profile(path: str, seqs, launches):
     most."""
     from torch.autograd import DeviceType
     import kalign_tpu_torch
-    mode = PATHS[path]["mode"]
+    mode = PATHS[path]["mode"] if path in PATHS else "default"
+    # the exact engine's path has no progressive.<part> ranges: its trace
+    # keeps the card's activity only (its CPU side's ~100 operations a
+    # sweep launch made that trace's processing take minutes)
+    cpu = path in PATHS
     for attempt in range(3):
         prof, _, wall_s = profiled(
-            lambda: kalign_tpu_torch.align_msa(seqs, mode=mode))
+            lambda: kalign_tpu_torch.align_msa(seqs, mode=mode), cpu)
         # one pass over the trace's events: at 16,384 sequences each
         # key_averages() takes seconds
         averages = prof.key_averages()
@@ -1689,11 +2150,16 @@ def phase_main_shapes(dev, stats, stats_default, seqs, stats_long):
 
 
 # the gpu_vs_cpu cases: consistency anchors (how the input is made:
-# vs_input); and the refine mode of a refined case
-VS_CASES = {"BB30014": 0, "family150": 0, "BB30014-default": 5,
+# vs_input); the refine mode of a refined case; the engine where it is not
+# the default gpu-fast; the golden file a case must give.  BB30014 (mean
+# anchor distance ~0.55) routes to the exact engine in both modes.
+VS_CASES = {"BB30014": 0, "family150": 0, "BB30014-autoroute": 5,
             "dna250-default": 5, "long-fast": 0, "long-default": 5,
-            "BB11001-refine-all": 0}
+            "BB11001-refine-all": 0, "BB12006-gpu": 5}
 VS_REFINE = {"BB11001-refine-all": "all"}
+VS_ENGINE = {"BB12006-gpu": "gpu"}
+VS_GOLDEN = {"BB30014-autoroute": "BB30014.default.afa",
+             "BB12006-gpu": "BB12006.default.afa"}
 
 
 def vs_input(name):
@@ -1728,8 +2194,8 @@ def vs_align(name, device):
         torch.set_num_threads(1)
     msa = E.align_msa(vs_input(name), consistency_anchors=VS_CASES[name],
                       refine=api._resolve_refine(VS_REFINE.get(name)),
-                      device=device)
-    fused = [len(b["la"]) for b in msa.engine_stats["batches"]
+                      engine=VS_ENGINE.get(name, "gpu-fast"), device=device)
+    fused = [len(b["la"]) for b in msa.engine_stats.get("batches", [])
              if b["route"] == "fused"]
     return (kio.format_alignment(msa, "fasta"),
             np.asarray(msa.task_confidence, np.float64), fused,
@@ -1760,8 +2226,15 @@ def phase_gpu_vs_cpu():
             same = outs["cuda"][0] == outs["cpu"][0]
             c_gpu, c_cpu = outs["cuda"][1], outs["cpu"][1]
             rel = np.abs(c_gpu - c_cpu) / np.maximum(1.0, np.abs(c_cpu))
-            emit({"phase": "gpu_vs_cpu", "case": name,
-                  "identical_fasta": same, "consistency": consistency,
+            engines = {d: outs[d][3]["engine"] for d in outs}
+            golden = None
+            if name in VS_GOLDEN:
+                with open(os.path.join(HERE, "tests", "golden",
+                                       VS_GOLDEN[name])) as fh:
+                    golden = outs["cuda"][0] == fh.read()
+            emit({"phase": "gpu_vs_cpu", "case": name, "engines": engines,
+                  "identical_fasta": same, "golden_fasta": golden,
+                  "consistency": consistency,
                   "merges": int(len(c_cpu)),
                   "merges_with_other_score": int((c_gpu != c_cpu).sum()),
                   "max_rel_score_diff": float(rel.max()) if len(rel)
@@ -1769,9 +2242,16 @@ def phase_gpu_vs_cpu():
             if not same and rel.max() > 1e-5:
                 raise AssertionError(f"{name}: GPU and CPU alignments "
                                      "differ with unequal merge scores")
-            if name in VS_REFINE and not same:
+            if (name in VS_REFINE or "gpu" in engines.values()) \
+                    and not same:
                 raise AssertionError(f"{name}: GPU and CPU alignments "
                                      "differ")
+            if name.startswith("BB30014") and \
+                    set(engines.values()) != {"gpu"}:
+                raise AssertionError(f"{name}: not routed to the exact "
+                                     f"engine ({engines})")
+            if golden is False:
+                raise AssertionError(f"{name}: not the golden alignment")
             if name.startswith("long"):
                 # wider than 7,168 columns: card and CPU must agree exactly
                 if not same:
@@ -1788,16 +2268,26 @@ def large_family():
     return family(16384, seed=4)
 
 
-def run_only(dev, only):
+def run_only(dev, only, divergent_n=DIVERGENT_N):
     """The phases named in ``--only`` (comma-separated: edge, kmeans_edge,
-    kmeans, path:NAME, profile:NAME, vs), for a short call; no result
-    lines."""
+    kmeans, exact_edge, path:NAME, profile:NAME, vs), for a short call;
+    no result lines.  path:divergent also holds and times the sweep at
+    its largest launch."""
     protein = lambda: family(2000, seed=0)
     seqs = {"default": lambda: v4_family(2000, seed=2),
             "large_default": large_family}
     for what in only.split(","):
         if what == "edge":
             phase_edge_cases(dev)
+        elif what == "exact_edge":
+            phase_exact_edge(dev)
+        elif what in ("path:divergent", "profile:divergent"):
+            s = divergent_family(divergent_n)
+            launches, largest = phase_divergent(s)
+            emit({"phase": "main_shape", "kernel": "exact_sweep",
+                  **sweep_main_shape(dev, largest)})
+            if what.startswith("profile"):
+                phase_profile("divergent", s, launches)
         elif what == "kmeans_edge":
             edge_cases_kmeans(dev, np.random.default_rng(7))
         elif what == "kmeans":
@@ -1823,6 +2313,8 @@ def main(argv=None):
                         help="run only these phases (see run_only)")
     parser.add_argument("--log", default=None,
                         help="also append every JSON line to this file")
+    parser.add_argument("--divergent-n", type=int, default=DIVERGENT_N,
+                        help="sequences of the divergent path")
     args = parser.parse_args(argv)
     global LOG
     if args.log:
@@ -1842,19 +2334,23 @@ def main(argv=None):
     dev = torch.device("cuda")
     smi = phase_device_and_build()
     if args.only:
-        run_only(dev, args.only)
+        run_only(dev, args.only, args.divergent_n)
         return 0
     phase_edge_cases(dev)
     edge_cases_kmeans(dev, np.random.default_rng(7))
+    phase_exact_edge(dev)
     protein = family(2000, seed=0)
     seqs = {"fast": protein, "default": v4_family(2000, seed=2),
             "protein_default": protein, "large_default": large_family(),
-            "refine_confident": protein}
+            "refine_confident": protein,
+            "divergent": divergent_family(args.divergent_n)}
     launches, stats = {}, {}
     for path in PATHS:
         launches[path], stats[path] = phase_path(path, seqs[path])
-    for path in PATHS:
-        if PATHS[path].get("profile", True):
+    launches["divergent"], sweep_largest = phase_divergent(
+        seqs["divergent"])
+    for path in list(PATHS) + ["divergent"]:
+        if PATHS.get(path, {}).get("profile", True):
             phase_profile(path, seqs[path], launches[path])
     kmeans_root = phase_kmeans(dev, seqs["large_default"])
     vs_launches, vs_stats = phase_gpu_vs_cpu()
@@ -1863,11 +2359,15 @@ def main(argv=None):
     shapes = phase_main_shapes(dev, stats["fast"], stats["default"], seqs,
                                vs_stats["long-fast"])
     shapes["kmeans"] = kmeans_root
+    shapes["exact_sweep"] = sweep_main_shape(dev, sweep_largest)
+    emit({"phase": "main_shape", "kernel": "exact_sweep",
+          **shapes["exact_sweep"]})
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = shapes[name]
         main = {"gotoh_row_tiled": ("long-fast", "long-default"),
-                "kmeans": ("large_default",)}.get(name, ("default",))
+                "kmeans": ("large_default",),
+                "exact_sweep": ("divergent",)}.get(name, ("default",))
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,

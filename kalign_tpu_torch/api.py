@@ -4,8 +4,11 @@ Mirrors kalign_tpu/api.py's ``align`` for the modes this package runs
 (default: anchor consistency with 5 anchors; fast: none), with the
 scoring model's arguments (seq_type, gap_open, gap_extend,
 terminal_gap_extend, vsm_amax) and refinement (refine=None, "none",
-"all", "confident", "inline").  ``device`` defaults to ``cuda``;
-``device="cpu"`` runs every kernel's plain PyTorch version.
+"all", "confident", "inline").  ``engine`` is one of engine.ENGINES
+("gpu-fast", the default; "gpu", bit-exact; "host", native only), with
+the divergent-family autoroute of "gpu-fast" (``autoroute``,
+``autoroute_max``).  ``device`` defaults to ``cuda``; ``device="cpu"``
+runs every kernel's plain PyTorch version.
 """
 
 from typing import Optional, Sequence, Union
@@ -95,9 +98,11 @@ def align_msa(sequences: Sequence[str],
               gap_open: float = -1.0, gap_extend: float = -1.0,
               terminal_gap_extend: float = -1.0,
               refine: Union[str, int, None] = None,
-              vsm_amax: float = -1.0) -> Msa:
+              vsm_amax: float = -1.0, autoroute: bool = True,
+              autoroute_max: int = _engine.AUTOROUTE_MAX) -> Msa:
     """Align and return the finalised Msa (input order restored);
-    ``engine`` as engine.align_msa takes it."""
+    ``engine``, ``autoroute`` and ``autoroute_max`` as engine.align_msa
+    takes them."""
     consistency = _resolve_mode(mode, consistency)
     type_ = _resolve_type(seq_type)
     refine_ = _resolve_refine(refine)
@@ -110,7 +115,9 @@ def align_msa(sequences: Sequence[str],
                              vsm_amax=vsm_amax,
                              consistency_anchors=consistency,
                              consistency_weight=consistency_weight,
-                             engine=engine, device=device)
+                             engine=engine, device=device,
+                             autoroute=autoroute,
+                             autoroute_max=autoroute_max)
 
 
 def align(sequences: Sequence[str], mode: Optional[str] = None,
@@ -120,7 +127,9 @@ def align(sequences: Sequence[str], mode: Optional[str] = None,
           seq_type: Union[str, int, None] = "auto",
           gap_open: float = -1.0, gap_extend: float = -1.0,
           terminal_gap_extend: float = -1.0,
-          refine: Union[str, int, None] = None, vsm_amax: float = -1.0):
+          refine: Union[str, int, None] = None, vsm_amax: float = -1.0,
+          engine="gpu-fast", autoroute: bool = True,
+          autoroute_max: int = _engine.AUTOROUTE_MAX):
     """Align sequences; returns the aligned rows in input order."""
     return align_msa(sequences, names=names, mode=mode, device=device,
                      consistency=consistency,
@@ -128,4 +137,5 @@ def align(sequences: Sequence[str], mode: Optional[str] = None,
                      seq_type=seq_type, gap_open=gap_open,
                      gap_extend=gap_extend,
                      terminal_gap_extend=terminal_gap_extend, refine=refine,
-                     vsm_amax=vsm_amax).aligned_rows()
+                     vsm_amax=vsm_amax, engine=engine, autoroute=autoroute,
+                     autoroute_max=autoroute_max).aligned_rows()

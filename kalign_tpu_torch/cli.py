@@ -3,13 +3,15 @@
     python -m kalign_tpu_torch.cli -i IN -o OUT [-f fasta|msf|clu] [--fast]
         [--consistency K] [--consistency-weight W] [--type T] [--gpo X]
         [--gpe X] [--tgpe X] [--vsm-amax X] [--refine MODE]
-        [--device cuda|cpu]
+        [--engine gpu-fast|gpu|host] [--no-autoroute] [--device cuda|cpu]
 
 The flags are kalign_tpu/cli.py's (and so the reference binary's,
 src/run_kalign.c) for what this package runs: the default mode (anchor
 consistency with K = 5 anchors) or, with --fast, none; the scoring
-model; and refinement (--refine all or confident; any other value,
-"inline" among them, is none, as kalign_tpu/cli.py:189-191 parses it).
+model; refinement (--refine all or confident; any other value,
+"inline" among them, is none, as kalign_tpu/cli.py:189-191 parses it);
+and the engine (kalign_tpu/cli.py:87 --engine; here gpu-fast, gpu or
+host), with --no-autoroute to keep a divergent family on gpu-fast.
 """
 
 import argparse
@@ -68,6 +70,11 @@ def build_parser():
     p.add_argument("--consistency", type=int, default=5)
     p.add_argument("--consistency-weight", type=float, default=2.0)
     p.add_argument("--fast", action="store_true")
+    p.add_argument("--engine", default="gpu-fast", choices=E.ENGINES,
+                   help="gpu-fast (default), gpu (bit-exact, the host "
+                        "engine's bytes) or host (native only)")
+    p.add_argument("--no-autoroute", action="store_true",
+                   help="keep divergent families on gpu-fast")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
@@ -104,7 +111,8 @@ def main(argv=None):
                       vsm_amax=args.vsm_amax,
                       consistency_anchors=consistency,
                       consistency_weight=args.consistency_weight,
-                      device=args.device)
+                      engine=args.engine, device=args.device,
+                      autoroute=not args.no_autoroute)
     kio.write_alignment_file(msa, args.outfile, args.format)
     return 0
 

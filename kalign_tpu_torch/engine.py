@@ -10,28 +10,50 @@ kalign_run_seeded (lib/src/aln_wrap.c:133-537):
   -> consistency maps (default mode) -> progressive align (with
   refinement candidates when asked) -> finalise -> restore rank order
 
-Engine "gpu-fast" (gpu/engine.py): hand-written CUDA kernels on the
-card, level-batched merges and map DPs; score-optimal per merge, may
-differ from the reference's Hirschberg midpoints on near-ties.  The
-entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
-which runs every kernel's plain PyTorch version instead; without a card
-they raise.
+Engines (kalign_tpu's "tpu-fast", "tpu" and "host"):
+  * "gpu-fast" (gpu/engine.py): hand-written CUDA kernels on the card,
+    level-batched merges and map DPs; score-optimal per merge, may differ
+    from the reference's Hirschberg midpoints on near-ties.  Divergent
+    families (mean anchor distance above 0.5, up to ``autoroute_max``
+    sequences) switch to "gpu" after the guide tree, as kalign_tpu's
+    tpu-fast switches to its exact engine (kalign_tpu/engine.py:345-364);
+  * "gpu": bit-exact — the native runtime orchestrates and every
+    Hirschberg DP runs its O(L^2) sweeps on the card (gpu/exact.py, the
+    wavefront kernel csrc/exact_sweep.cu); gives the "host" bytes;
+  * "host": the native C++ runtime alone (native/).
+The entry points run on ``cuda`` unless the caller passes
+``device="cpu"``, which runs every kernel's plain PyTorch version
+instead; without a card they raise.
 """
 
+import threading
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from kalign_tpu_torch import native
 from kalign_tpu_torch.core import alphabet as alpha
 from kalign_tpu_torch.core import params as P
 from kalign_tpu_torch.core.msa import (ALN_STATUS_ALIGNED, BIOTYPE_DNA,
                                        BIOTYPE_PROTEIN, Msa)
+from kalign_tpu_torch.gpu import distances
 from kalign_tpu_torch.gpu.consistency import ConsistencyTable
+from kalign_tpu_torch.gpu.engine import GpuEngine
+from kalign_tpu_torch.gpu.exact import ExactDpBackend
 from kalign_tpu_torch.utils.logging import PhaseTimes, log, timer
 from kalign_tpu_torch.utils.sorting import glibc_msort
 
-ENGINES = ("gpu-fast",)
+ENGINES = ("gpu-fast", "gpu", "host")
+# the divergent-family autoroute (kalign_tpu/engine.py:201-212,345-364):
+# mean anchor distance above this, up to AUTOROUTE_MAX sequences
+AUTOROUTE_DISTANCE = 0.5
+AUTOROUTE_MAX = 16384
+
+# serialises the native DP hooks' install -> align -> uninstall: the hooks
+# are process-wide globals, and ctypes releases the GIL during
+# kt_align_msa
+_HOOK_LOCK = threading.Lock()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -59,15 +81,116 @@ def pick_anchors(msa: Msa) -> List[int]:
     return [order[i * stride] for i in range(num_anchor)]
 
 
+class HostEngine:
+    """Engine "host" (kalign_tpu/engine.py::HostEngine :48): the native
+    runtime's anchor distances, guide tree and progressive alignment,
+    consistency table and refinement included."""
+
+    name = "host"
+
+    def __init__(self, n_threads: int = 1):
+        self.n_threads = n_threads
+        self.stats = {"engine": self.name, "tree": "native"}
+
+    def anchor_distances(self, codes, anchors):
+        return native.anchor_distances(codes, anchors, self.n_threads)
+
+    def build_tree(self, codes, dm, n_anchors):
+        return native.build_tree(codes, dm, n_anchors)
+
+    def align(self, codes, tasks, ap: P.AlnParam, seq_distances,
+              refine_mode: int = P.REFINE_NONE, cons_seq_distances=None):
+        """kt_align_msa: (gaps per sequence, per-merge confidences)."""
+        flat, off, lens = native.flatten_seqs(codes)
+        n = len(codes)
+        gaps_out = np.zeros(int(np.sum(lens + 1)), dtype=np.int32)
+        conf_out = np.zeros(n - 1, dtype=np.float32)
+
+        def ptr(x):
+            if x is None:
+                return None, None
+            x = np.ascontiguousarray(x, dtype=np.float32)
+            return x, x.ctypes.data
+        # sd and csd keep the buffers alive during the call
+        sd, sd_ptr = ptr(seq_distances)
+        csd, csd_ptr = ptr(cons_seq_distances)
+        rc = native.lib().kt_align_msa(
+            flat, off, lens, n,
+            np.ascontiguousarray(tasks.reshape(-1).astype(np.int32)), n - 1,
+            np.ascontiguousarray(ap.subm.astype(np.float32).reshape(-1)),
+            float(ap.gpo), float(ap.gpe), float(ap.tgpe),
+            float(ap.dist_scale), float(ap.vsm_amax),
+            float(ap.use_seq_weights), sd_ptr, csd_ptr,
+            int(ap.consistency_anchors), float(ap.consistency_weight),
+            int(refine_mode), int(ap.adaptive_budget),
+            gaps_out, conf_out, self.n_threads)
+        if rc != 0:
+            raise RuntimeError("native alignment failed")
+        bounds = np.cumsum(lens + 1)[:-1]
+        return [g.tolist() for g in np.split(gaps_out, bounds)], conf_out
+
+
+class GpuExactEngine(HostEngine):
+    """Engine "gpu" (kalign_tpu/engine.py::ExactTpuEngine :132): the
+    native runtime orchestrates (profiles, consistency, refinement, flip
+    bookkeeping) and every Hirschberg DP — merges, refinement trials and
+    the consistency pre-pass's pairwise maps — runs its sweeps on
+    ``device`` through the DP hooks (gpu/exact.py).  Column-identical to
+    "host".  The anchor distances run through the BPM kernel on the card
+    (the native ones on the CPU: the same bits, faster there); the guide
+    tree is the native one.  The canary runs at construction and raises
+    on a mismatch.  ``stats`` counts the sweep's launches, grids and
+    wavefront steps of the last alignment."""
+
+    name = "gpu"
+
+    def __init__(self, device, n_threads: int = 1):
+        super().__init__(n_threads)
+        self.device = torch.device(device)
+        self.backend = ExactDpBackend(self.device)
+        self.stats["canary"] = self.backend.run_canary()
+
+    def anchor_distances(self, codes, anchors):
+        if self.device.type == "cpu":
+            return super().anchor_distances(codes, anchors)
+        return distances.anchor_distances(codes, anchors, self.device)
+
+    def align(self, codes, tasks, ap: P.AlnParam, seq_distances,
+              refine_mode: int = P.REFINE_NONE, cons_seq_distances=None):
+        sw = self.backend.sweeper
+        before = (sw.launches, sw.grids, sw.steps, self.backend.calls)
+        with _HOOK_LOCK:
+            self.backend.install()
+            try:
+                return super().align(codes, tasks, ap, seq_distances,
+                                     refine_mode, cons_seq_distances)
+            except RuntimeError as e:
+                if self.backend.last_error:
+                    raise RuntimeError("device DP backend failed:\n"
+                                       + self.backend.last_error) from e
+                raise
+            finally:
+                self.backend.uninstall()
+                after = (sw.launches, sw.grids, sw.steps,
+                         self.backend.calls)
+                for key, a, b in zip(("sweep_launches", "sweep_grids",
+                                      "sweep_steps", "hook_calls"),
+                                     after, before):
+                    self.stats[key] = a - b
+
+
 def get_engine(name="gpu-fast", device=None):
-    """The engine of a name, on ``device``; a GpuEngine passed as the name
-    is used as it is (``GpuEngine(device, resident=False)`` runs the
-    host-assembled progressive pass)."""
-    from kalign_tpu_torch.gpu.engine import GpuEngine
-    if isinstance(name, GpuEngine):
+    """The engine of a name of ENGINES, on ``device``; an engine object
+    passed as the name is used as it is (``GpuEngine(device,
+    resident=False)`` runs the host-assembled progressive pass)."""
+    if isinstance(name, (GpuEngine, HostEngine)):
         return name
     if name not in ENGINES:
         raise ValueError(f"unknown engine {name!r} (have {ENGINES})")
+    if name == "host":
+        return HostEngine()
+    if name == "gpu":
+        return GpuExactEngine(resolve_device(device))
     return GpuEngine(resolve_device(device))
 
 
@@ -99,13 +222,19 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
               engine="gpu-fast",
               save_checkpoint: Optional[str] = None,
               resume_checkpoint: Optional[str] = None,
-              device=None) -> Msa:
+              device=None, autoroute: bool = True,
+              autoroute_max: int = AUTOROUTE_MAX) -> Msa:
     """Full alignment pipeline: default mode with consistency_anchors > 0
     (the reference's default is 5), --fast mode with 0; refine one of
     P.REFINE_NONE, REFINE_ALL, REFINE_CONFIDENT, REFINE_INLINE.  Options
     of the reference pipeline that this package does not run yet raise
-    NotImplementedError.  ``engine`` is a name of ENGINES or a GpuEngine
-    (get_engine)."""
+    NotImplementedError.  ``engine`` is a name of ENGINES or an engine
+    object (get_engine).  With ``autoroute`` (kalign_tpu's
+    KALIGN_TPU_NO_AUTOROUTE unset), a "gpu-fast" run of at most
+    ``autoroute_max`` sequences (KALIGN_TPU_AUTOROUTE_MAX) whose mean
+    anchor distance exceeds 0.5 aligns with "gpu" on the same device,
+    keeping the tree already built.  engine_stats["engine"] names the
+    engine that aligned."""
     if realign > 0:
         _not_ported("realignment")
     if save_checkpoint is not None or resume_checkpoint is not None:
@@ -139,12 +268,22 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
         with phases.phase("tree"):
             tasks, seq_dist = eng.build_tree(codes, dm, len(anchors))
     msa.seq_distances = seq_dist
-    # the JAX engine routes divergent families to its bit-exact engine;
-    # that engine has no counterpart here yet
-    mean_sd = float(np.mean(np.asarray(seq_dist, np.float64)))
-    if mean_sd > 0.5:
-        log(f"Divergent family (mean distance {mean_sd:.2f}): the exact "
-            "engine is not available, aligning with gpu-fast", quiet)
+    # Divergent-family autoroute (kalign_tpu/engine.py:345-364): the
+    # throughput engine's tie-breaking loses column accuracy where
+    # alignment is hardest (BB30014: TC 0.45 against the exact engine's
+    # 0.47), so such families take the bit-exact engine
+    if autoroute and isinstance(eng, GpuEngine) \
+            and msa.numseq <= autoroute_max:
+        mean_sd = float(np.mean(np.asarray(seq_dist, np.float64)))
+        if mean_sd > AUTOROUTE_DISTANCE:
+            log(f"Divergent family (mean distance {mean_sd:.2f}): using "
+                "the exact engine", quiet)
+            tree_stats = eng.stats
+            eng = GpuExactEngine(eng.device)
+            eng.stats.update(tree=tree_stats["tree"],
+                             tree_s=tree_stats.get("tree_s"),
+                             routed_from="gpu-fast",
+                             mean_seq_distance=mean_sd)
 
     if msa.biotype == BIOTYPE_PROTEIN:
         _encoded(msa, alpha.ALPHA_AMBIGUOUS_PROTEIN)
@@ -162,21 +301,33 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
         ap.consistency_weight = consistency_weight
 
     codes = [sq.s for sq in msa.sequences]
-    eng.set_alphabet(codes, ap.subm)
-    ct = None
-    if ap.consistency_anchors > 0:
-        # the anchors of the consistency maps come from the BPM distances
-        with phases.phase("consistency"):
-            ct = ConsistencyTable.build(eng, codes, ap, msa.seq_distances,
-                                        ap.consistency_anchors,
-                                        ap.consistency_weight)
     # refinement scheduling (kalign_tpu/engine.py:389-402): with no
     # realignment the first pass takes the refine mode itself
     first_mode = refine
-    log("Aligning", quiet)
-    with timer("Alignment", quiet), phases.phase("progressive"):
-        gaps, conf = eng.align(codes, tasks, ap, msa.seq_distances, ct,
-                               refine_mode=first_mode)
+    if isinstance(eng, GpuEngine):
+        eng.set_alphabet(codes, ap.subm)
+        ct = None
+        if ap.consistency_anchors > 0:
+            # the anchors of the consistency maps come from the BPM
+            # distances
+            with phases.phase("consistency"):
+                ct = ConsistencyTable.build(eng, codes, ap,
+                                            msa.seq_distances,
+                                            ap.consistency_anchors,
+                                            ap.consistency_weight)
+        log("Aligning", quiet)
+        with timer("Alignment", quiet), phases.phase("progressive"):
+            gaps, conf = eng.align(codes, tasks, ap, msa.seq_distances, ct,
+                                   refine_mode=first_mode)
+    else:
+        # the native runtime builds the consistency table inside
+        # kt_align_msa (so "progressive" covers it), from the BPM
+        # distances (kalign_tpu/engine.py:395-403)
+        log("Aligning", quiet)
+        with timer("Alignment", quiet), phases.phase("progressive"):
+            gaps, conf = eng.align(codes, tasks, ap, msa.seq_distances,
+                                   refine_mode=first_mode,
+                                   cons_seq_distances=msa.seq_distances)
     for sq, g in zip(msa.sequences, gaps):
         sq.gaps = g
     msa.aligned = ALN_STATUS_ALIGNED

@@ -25,7 +25,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 SOURCES = [os.path.join(CSRC, f) for f in
            ("gotoh_row.cu", "gotoh_lanewise.cu", "traceback.cu", "bpm.cu",
-            "scan.cu", "kmeans.cu", "errors.cu")]
+            "scan.cu", "kmeans.cu", "exact_sweep.cu", "errors.cu")]
 HEADERS = [os.path.join(CSRC, "kt_cuda.h")]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -98,7 +98,10 @@ def lib() -> ctypes.CDLL:
     L.kt_prefix_sums_f32.argtypes = [_i, _p, _p]
     L.kt_kmeans_lloyd.restype = _i
     L.kt_kmeans_lloyd.argtypes = ([_p, _i, ctypes.c_int64, _p, _p]
-                                  + [_i] * 4 + [ctypes.c_float] + [_p] * 5)
+                                  + [_i] * 4 + [ctypes.c_float] + [_p] * 4
+                                  + [_i, _p])
+    L.kt_exact_sweep.restype = _i
+    L.kt_exact_sweep.argtypes = [_p] * 9 + [_i] * 10 + [_p]
     return L
 
 

@@ -244,7 +244,8 @@ class GpuEngine:
         # per-run routing counts: problems (merges and map DPs, padding
         # included) per route, map DPs, bucket sizes per level, and each
         # launch batch's route, shape and lengths
-        self.stats = {"row_merges": 0, "lanewise_merges": 0,
+        self.stats = {"engine": "gpu-fast", "row_merges": 0,
+                      "lanewise_merges": 0,
                       "fused_merges": 0, "map_pairs": 0, "levels": [],
                       "batches": []}
         # the progressive pass's host seconds by part (``split``) and its

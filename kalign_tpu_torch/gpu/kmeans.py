@@ -12,8 +12,10 @@ child 2 * code + side) and fetches only the final codes;
 
 Kernel: csrc/kmeans.cu (replaces the XLA programs _lloyd_batch :46 and
 the Lloyd loop of _fused_splits :322, neither a Pallas kernel): one
-block per (cluster, try) runs its Lloyd loop to the end on the card;
-``lloyd`` launches it for CUDA tensors.  The plain versions
+thread-block cluster per (cluster, try) runs its Lloyd loop to the end on
+the card, its blocks (``cluster_blocks``) sharing the members and adding
+their partial sums through distributed shared memory; ``lloyd`` launches
+it for CUDA tensors.  The plain versions
 ``lloyd_batch`` and ``fused_splits`` follow the reference formula for
 formula (``||x||^2 - 2 x.c + ||c||^2`` distances on the sqrt scale,
 the |dr - dl| < 1e-6 tie broken by parity, the per-dimension move test,
@@ -45,6 +47,10 @@ MAX_ITERS = 500
 EPS = 1e-6
 MAX_TRIES = 40
 _PAD_CID = 1 << 28     # sorts after every real path code
+# members per block of the kernel's thread-block clusters, and the most
+# blocks a cluster takes (csrc/kmeans.cu kMaxBlocks)
+ROWS_PER_BLOCK = 1024
+MAX_CLUSTER_BLOCKS = 16
 _FUSED_DEPTH_CAP = 24  # path codes stay < 2^25 (int32-safe)
 MAX_D = 32             # anchors the kernel takes (csrc/kmeans.cu kMaxD)
 # the score of an inactive try
@@ -72,12 +78,26 @@ def _ctile(S: int) -> int:
 
 # ---------------------------------------------------------------------------
 # the kernel
+def cluster_blocks(n: int) -> int:
+    """Blocks of the kernel's thread-block cluster for a launch whose
+    largest cluster has n members: a power of two, ROWS_PER_BLOCK members
+    a block, at most MAX_CLUSTER_BLOCKS (a non-portable size that the
+    H100 takes; a card that refuses it refuses the launch, which raises)."""
+    want = max(1, -(-int(n) // ROWS_PER_BLOCK))
+    b = 1
+    while b < want and b < MAX_CLUSTER_BLOCKS:
+        b *= 2
+    return b
+
+
 def lloyd(rows, start, size, form: int, T: int = MAX_TRIES,
-          max_iters: int = MAX_ITERS):
+          max_iters: int = MAX_ITERS, max_size=None):
     """Launch csrc/kmeans.cu: every try of every cluster, a cluster being
     the rows [start[c], start[c] + size[c]) of rows [N, D] (CUDA float32,
     D <= 32; start and size int32 on the same card).  form 0 reflects the
-    seed as _lloyd_batch does, form 1 as _fused_splits does.  Returns
+    seed as _lloyd_batch does, form 1 as _fused_splits does.  max_size
+    is the largest size (fetched from the card when not given): it sets
+    the blocks per cluster (cluster_blocks).  Returns
     (assign [T, N] int8, 1 = right, of the rows the clusters cover;
     score [C, T] float32 SSE, 3.4e38 for an inactive try; degen [C, T]
     int8; iters [C, T] int32)."""
@@ -100,10 +120,13 @@ def lloyd(rows, start, size, form: int, T: int = MAX_TRIES,
     assign = torch.zeros((T, N), dtype=torch.int8, device=dev)
     iters = torch.empty((C, T), dtype=torch.int32, device=dev)
     if C:
+        if max_size is None:
+            max_size = int(size.max())
+        blocks = cluster_blocks(max_size)
         rc = _cuda.lib().kt_kmeans_lloyd(
             rows.data_ptr(), D, N, start.data_ptr(), size.data_ptr(), C, T,
             form, max_iters, EPS, score.data_ptr(), degen.data_ptr(),
-            assign.data_ptr(), iters.data_ptr(), _cuda.stream())
+            assign.data_ptr(), iters.data_ptr(), blocks, _cuda.stream())
         _cuda.check(rc, "kmeans.lloyd")
         launches += 1
     return assign, score, degen, iters
@@ -291,12 +314,15 @@ def plain_depth_split(rows, sg, Ca: int, T: int):
     return r_best, deg_best, score[c, t_best]
 
 
-def kernel_depth_split(rows, sg, Ca: int, T: int, n_act: int):
+def kernel_depth_split(rows, sg, Ca: int, T: int, n_act: int,
+                       max_size: int):
     """One depth's splits through the kernel: the active slots are the
     segments [st_a, st_a + size_a) of the sorted rows (slots past n_act
-    are empty).  Returns what plain_depth_split returns."""
+    are empty; the largest has max_size rows).  Returns what
+    plain_depth_split returns."""
     assign, score, degen, _ = lloyd(rows, sg["st_a"][:n_act],
-                                    sg["size_a"][:n_act], form=1, T=T)
+                                    sg["size_a"][:n_act], form=1, T=T,
+                                    max_size=max_size)
     slot = torch.clamp(sg["aslot"], 0, max(n_act - 1, 0))
     right, deg, sse = best_tries(assign, score, degen, slot)
     deg_row = deg[slot]
@@ -324,9 +350,9 @@ def fused_splits(emb, n: int, Np: int, T: int, Dmax: int, Ca: int,
     depth = 0
     while True:
         sg = segments(cid, done, iota, Np, Ca, T)
-        left, n_act = (int(x) for x in
-                       torch.stack([(~done).any().long(), sg["n_act"]])
-                       .cpu())
+        left, n_act, max_size = (int(x) for x in torch.stack(
+            [(~done).any().long(), sg["n_act"].long(),
+             sg["size_a"].max().long()]).cpu())
         if not left or depth >= Dmax:
             return cid.to(torch.int32), bool(left)
         rows = emb[sg["sidx"]]
@@ -335,7 +361,7 @@ def fused_splits(emb, n: int, Np: int, T: int, Dmax: int, Ca: int,
         else:
             if kernel:
                 r_best, deg_best, sse = kernel_depth_split(rows, sg, Ca, T,
-                                                           n_act)
+                                                           n_act, max_size)
             else:
                 r_best, deg_best, sse = plain_depth_split(rows, sg, Ca, T)
             side = torch.where(deg_best, sg["rank"] >= sg["size"] // 2,
@@ -507,7 +533,8 @@ def _depth_kernel(emb_dev, big, T):
     rows = emb_dev[idx]
     st = torch.from_numpy(starts.astype(np.int32)).to(dev)
     sz = torch.from_numpy(sizes.astype(np.int32)).to(dev)
-    assign, score, degen, _ = lloyd(rows, st, sz, form=0, T=T)
+    assign, score, degen, _ = lloyd(rows, st, sz, form=0, T=T,
+                                    max_size=int(sizes.max()))
     slot = torch.repeat_interleave(torch.arange(len(big), device=dev),
                                    sz.long())
     right, deg, sse = best_tries(assign, score, degen, slot)

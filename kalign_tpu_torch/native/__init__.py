@@ -1,8 +1,14 @@
-"""ctypes binding for the native guide-tree library (libkt_tree.so).
+"""ctypes binding for the native runtime (libkt_native.so).
 
-The library is built from ``native/src`` at first use (g++ with the
-reference's float contract: no FMA contraction) into the package's
-``_build`` directory; see utils/build.py for the locking.
+The library is the Kalign 3 compute core in C++ (native/src, copied from
+the reference runtime): anchor distances, the guide tree, and the
+progressive alignment with consistency and refinement
+(``kt_align_msa``), whose Hirschberg DPs go through process-wide hooks
+when an external backend is installed (gpu/exact.py drives them).  It is
+built from ``native/src`` at first use (g++ with the reference's float
+contract: no FMA contraction; no OpenMP, whose runtime the machine with
+the card lacks) into the package's ``_build`` directory; see
+utils/build.py for the locking.
 """
 
 import ctypes
@@ -14,20 +20,25 @@ import numpy as np
 from kalign_tpu_torch.utils.build import build_library
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
-SOURCES = [os.path.join(_SRC, f) for f in ("kt_tree.cpp", "kt_distance.cpp")]
-HEADERS = [os.path.join(_SRC, "kt_api.h")]
+SOURCES = [os.path.join(_SRC, f) for f in
+           ("kt_tree.cpp", "kt_distance.cpp", "kt_gotoh.cpp",
+            "kt_profile.cpp", "kt_align.cpp", "kt_single.cpp")]
+HEADERS = [os.path.join(_SRC, f) for f in ("kt_api.h", "kt_gotoh.h")]
 CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-ffp-contract=off"]
 
 _i8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
 _f32p = np.ctypeslib.ndpointer(dtype=np.float32, flags="C_CONTIGUOUS")
+_vp = ctypes.c_void_p
+_i32 = ctypes.c_int32
+_f = ctypes.c_float
 
 
 def library_path() -> str:
     cxx = os.environ.get("CXX", "g++")
     return build_library(
-        "libkt_tree", SOURCES, HEADERS,
+        "libkt_native", SOURCES, HEADERS,
         compile_cmd=lambda src, obj: [cxx, *CXXFLAGS, "-c", "-o", obj, src],
         link_cmd=lambda objs, out: [cxx, "-shared", "-o", out,
                                     *objs],
@@ -37,12 +48,141 @@ def library_path() -> str:
 @lru_cache(maxsize=1)
 def lib() -> ctypes.CDLL:
     L = ctypes.CDLL(library_path())
-    L.kt_build_tree.restype = ctypes.c_int32
+    L.kt_build_tree.restype = _i32
     L.kt_build_tree.argtypes = [
-        _i8p, _i64p, _i32p, ctypes.c_int32, _f32p, ctypes.c_int32,
-        _i32p, _f32p,
+        _i8p, _i64p, _i32p, _i32, _f32p, _i32, _i32p, _f32p,
     ]
+    L.kt_dist_to_anchors.restype = None
+    L.kt_dist_to_anchors.argtypes = [
+        _i8p, _i64p, _i32p, _i32, _i32p, _i32, _f32p, _i32,
+    ]
+    L.kt_align_msa.restype = _i32
+    L.kt_align_msa.argtypes = [
+        _i8p, _i64p, _i32p, _i32,                       # seqs
+        _i32p, _i32,                                    # tasks
+        _f32p, _f, _f, _f,                              # subm, gpo/gpe/tgpe
+        _f, _f, _f,                                     # dist_scale, vsm, weights
+        _vp,                                            # seq_distances (or None)
+        _vp,                                            # cons_seq_distances
+        _i32, _f,                                       # consistency
+        _i32, _i32,                                     # refine, adaptive
+        _i32p, _f32p, _i32,                             # gaps_out, conf_out, threads
+    ]
+    # the single-merge oracle of the device DP (kt_single.cpp)
+    L.kt_run_align_single.restype = _i32
+    L.kt_run_align_single.argtypes = [
+        _i32,                                           # mode
+        _vp, _vp,                                       # seq1, seq2
+        _vp, _vp,                                       # prof1, prof2
+        _i32, _i32, _i32,                               # len_a, len_b, sip
+        _f32p, _f, _f, _f,                              # subm, gpo/gpe/tgpe
+        _f,                                             # soff
+        _vp, ctypes.c_int64,                            # bonus, bstride
+        _f, _i32, _i32,                                 # flip thr/trial/stride
+        ctypes.c_uint32,                                # flip_mask
+        _i32p, _f32p,                                   # path_out, info_out
+    ]
+    L.kt_leaf_profile.restype = None
+    L.kt_leaf_profile.argtypes = [_f32p, _f, _f, _f, _i8p, _i32, _f32p]
+    L.kt_scale_gaps.restype = None
+    L.kt_scale_gaps.argtypes = [_f32p, _i32, _i32]
+    L.kt_merge_profiles.restype = _i32
+    L.kt_merge_profiles.argtypes = [
+        _f32p, _f32p, _f32p, _f, _f, _f, _i32p, _i32, _i32, _f, _f32p,
+    ]
+    for name in ("kt_set_dp_hook", "kt_set_pairwise_hook",
+                 "kt_set_merge_batch_hook", "kt_set_trial_batch_hook"):
+        fn = getattr(L, name)
+        fn.restype = None
+        fn.argtypes = [_vp]
     return L
+
+
+# The DP hooks (kt_api.h).  Each receives raw pointers; the Python side
+# wraps them with np.ctypeslib.as_array at known sizes.  A callback that
+# returns nonzero stops kt_align_msa, which then returns nonzero.
+
+# kt_dp_fn: one full-path alignment (a merge, or a refinement trial)
+DP_HOOK_TYPE = ctypes.CFUNCTYPE(
+    _i32,
+    _i32,                                            # mode
+    _vp, _vp,                                        # seq1, seq2
+    _vp, _vp,                                        # prof1, prof2
+    _i32, _i32, _i32,                                # len_a, len_b, sip
+    _vp,                                             # subm
+    _f, _f, _f, _f,                                  # gpo/gpe/tgpe, soff
+    _vp, ctypes.c_int64,                             # bonus, bstride
+    _f, _i32, _i32,                                  # flip thr/trial/stride
+    _vp, _vp,                                        # path_out, info_out
+    _vp, _i32,                                       # margins_out, margins_cap
+)
+
+# kt_pairwise_fn: the consistency pre-pass's N x K pairwise alignments
+PAIRWISE_HOOK_TYPE = ctypes.CFUNCTYPE(
+    _i32,
+    _i32,                                            # n_pairs
+    ctypes.POINTER(_vp),                             # seqs_a
+    ctypes.POINTER(_i32),                            # lens_a
+    ctypes.POINTER(_vp),                             # seqs_b
+    ctypes.POINTER(_i32),                            # lens_b
+    _vp,                                             # subm
+    _f, _f, _f,                                      # gpo/gpe/tgpe
+    _vp, ctypes.c_int64,                             # paths_out, stride
+)
+
+# kt_merge_batch_fn: every merge of one guide-tree level
+MERGE_BATCH_HOOK_TYPE = ctypes.CFUNCTYPE(
+    _i32,
+    _i32,                                            # n
+    ctypes.POINTER(_i32),                            # modes
+    ctypes.POINTER(_vp),                             # seqs_a
+    ctypes.POINTER(_vp),                             # seqs_b
+    ctypes.POINTER(_vp),                             # profs_a
+    ctypes.POINTER(_vp),                             # profs_b
+    ctypes.POINTER(_i32),                            # lens_a
+    ctypes.POINTER(_i32),                            # lens_b
+    ctypes.POINTER(_i32),                            # sips
+    ctypes.POINTER(_vp),                             # bonuses
+    ctypes.POINTER(ctypes.c_int64),                  # bstrides
+    ctypes.POINTER(_f),                              # gpos
+    ctypes.POINTER(_f),                              # gpes
+    ctypes.POINTER(_f),                              # tgpes
+    ctypes.POINTER(_f),                              # soffs
+    _vp,                                             # subm
+    _vp, ctypes.c_int64,                             # paths_out, stride
+    _vp, _vp,                                        # margin_sums, counts
+)
+
+# kt_trial_batch_fn: refinement trials 1..K-1 of one merge
+TRIAL_BATCH_HOOK_TYPE = ctypes.CFUNCTYPE(
+    _i32,
+    _i32,                                            # mode
+    _vp, _vp,                                        # seq1, seq2
+    _vp, _vp,                                        # prof1, prof2
+    _i32, _i32, _i32,                                # len_a, len_b, sip
+    _vp,                                             # subm
+    _f, _f, _f, _f,                                  # gpo/gpe/tgpe, soff
+    _vp, ctypes.c_int64,                             # bonus, bstride
+    _i32, _f, _i32,                                  # n_trials, thr, stride
+    _vp, ctypes.c_int64,                             # paths_out, path_stride
+    _vp, _vp,                                        # margin_sums, counts
+)
+
+
+def _setter(name):
+    def set_hook(cb):
+        """Install a callback of the hook's type, or None to clear it.
+        The caller keeps a reference to the callback while it is set."""
+        fn = getattr(lib(), name)
+        fn(None if cb is None else ctypes.cast(cb, _vp))
+    set_hook.__name__ = name.replace("kt_", "")
+    return set_hook
+
+
+set_dp_hook = _setter("kt_set_dp_hook")
+set_pairwise_hook = _setter("kt_set_pairwise_hook")
+set_merge_batch_hook = _setter("kt_set_merge_batch_hook")
+set_trial_batch_hook = _setter("kt_set_trial_batch_hook")
 
 
 def flatten_seqs(codes_list):
@@ -70,3 +210,15 @@ def build_tree(codes, dm: np.ndarray, n_anchors: int):
         raise RuntimeError(f"kt_build_tree returned {cnt} tasks for {n} "
                            "sequences")
     return tasks.reshape(-1, 3), seq_dist
+
+
+def anchor_distances(codes, anchors, n_threads: int = 1) -> np.ndarray:
+    """Anchor distances of the native runtime (kt_dist_to_anchors): the
+    [N, ceil(K/8)*8] float32 layout of build_tree."""
+    flat, off, lens = flatten_seqs(codes)
+    K = len(anchors)
+    out = np.zeros((len(codes), ((K + 7) // 8) * 8), dtype=np.float32)
+    lib().kt_dist_to_anchors(flat, off, lens, len(codes),
+                             np.asarray(anchors, dtype=np.int32), K,
+                             out.reshape(-1), n_threads)
+    return out

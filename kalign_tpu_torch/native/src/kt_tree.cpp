@@ -334,3 +334,28 @@ extern "C" int32_t kt_build_tree(const uint8_t* flat, const int64_t* off,
   }
   return count;
 }
+
+extern "C" int32_t kt_build_tree_pairwise(float* dm, int32_t numseq,
+                                          int32_t* tasks_out,
+                                          float* seq_dist_out) {
+  /* mean pairwise distance BEFORE upgma mutates dm
+     (bisectingKmeans.c:1167-1178) */
+  if (seq_dist_out) {
+    for (int i = 0; i < numseq; i++) {
+      float sum = 0.0f;
+      for (int j = 0; j < numseq; j++) {
+        if (j != i) sum += dm[(int64_t)i * numseq + j];
+      }
+      seq_dist_out[i] = numseq > 1 ? sum / (float)(numseq - 1) : 0.0f;
+    }
+  }
+  std::vector<int> samples(numseq);
+  for (int i = 0; i < numseq; i++) samples[i] = i;
+  std::vector<float> work(dm, dm + (int64_t)numseq * numseq);
+  TreeNode* root = upgma_build(work, samples);
+  label_postorder(root, numseq);
+  int count = 0;
+  emit_tasks_preorder(root, tasks_out, &count);
+  free_tree(root);
+  return count;
+}

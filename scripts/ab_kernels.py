@@ -6,11 +6,13 @@ on one NVIDIA GPU, in one process.
     python3 scripts/ab_kernels.py --parent _proof/parent
     python3 scripts/ab_kernels.py --variant _proof/variant
 
---parent: the BPM kernel of an earlier checkout, called through its own C
-entry point `kt_bpm_batch` as of 7448aa4 (per-pair masks [P, 13, nblk],
-here this checkout's table gathered by pat_idx, given once), against
-this checkout's, at the pairs of the fast and default paths' distance
-stages (chip_smoke.distance_stage), in their (sequence, anchor) order.
+--parent: the k-means Lloyd kernel of an earlier checkout, called
+through its own C entry point `kt_kmeans_lloyd` as of 9eb9643 (one
+256-thread block per (cluster, try), no blocks argument), against this
+checkout's (a thread-block cluster per (cluster, try)), at the root split
+of chip_smoke.py's large path (16,384 protein sequences x 32 anchors, the
+fused entry's form): the two splits must be the same or tie in SSE to
+chip_smoke.KMEANS_SSE_RTOL (their float orders differ).
 
 --variant: the other checkout has this one's C interfaces (a variant of
 one kernel, say): this checkout's own wrappers launch it, with their
@@ -67,7 +69,7 @@ def main():
     import chip_smoke as cs
     from kalign_tpu_torch.core import params as P
     from kalign_tpu_torch.gpu import _cuda, bpm, gotoh_fused, \
-        gotoh_lanewise, gotoh_row
+        gotoh_lanewise, gotoh_row, kmeans
     from kalign_tpu_torch.gpu import traceback as tb
     from kalign_tpu_torch.gpu.engine import leaf_operands
     from kalign_tpu_torch.utils.build import build_log
@@ -85,11 +87,9 @@ def main():
                                           "variant_cuda")
         var.lib()
     _cuda.lib()
-    # -Xptxas -v of each library's BPM kernel (this checkout's: the
-    # instantiation for nblk = 5, the paths')
-    ptxas = {k: cs.ptxas_lines(build_log(m.library_path()),
-                               "bpm_kernelILi5E" if k != "parent" else
-                               "bpm_kernel") for k, m in libs.items()}
+    # -Xptxas -v of each library's Lloyd kernel
+    ptxas = {k: cs.ptxas_lines(build_log(m.library_path()), "lloyd_kernel")
+             for k, m in libs.items()}
     print(json.dumps({"ptxas": ptxas}), flush=True)
 
     def on_variant(fn):
@@ -104,15 +104,21 @@ def main():
                 _cuda.lib = own
         return run
 
-    def old_bpm(tok, ti, nn, peq, mm):
-        P_, _, nblk = peq.shape
-        out = torch.empty(P_, dtype=torch.int32, device=dev)
-        rc = old_lib.kt_bpm_batch(
-            tok.data_ptr(), tok.shape[1], ti.data_ptr(), nn.data_ptr(),
-            peq.data_ptr(), mm.data_ptr(), P_, nblk, out.data_ptr(),
+    def old_lloyd(rows, start, size, form):
+        """The earlier checkout's kt_kmeans_lloyd: lloyd's outputs."""
+        N, D = rows.shape
+        C, T = start.shape[0], kmeans.MAX_TRIES
+        score = torch.empty((C, T), dtype=torch.float32, device=dev)
+        degen = torch.empty((C, T), dtype=torch.int8, device=dev)
+        assign = torch.zeros((T, N), dtype=torch.int8, device=dev)
+        iters = torch.empty((C, T), dtype=torch.int32, device=dev)
+        rc = old_lib.kt_kmeans_lloyd(
+            rows.data_ptr(), D, N, start.data_ptr(), size.data_ptr(), C, T,
+            form, kmeans.MAX_ITERS, kmeans.EPS, score.data_ptr(),
+            degen.data_ptr(), assign.data_ptr(), iters.data_ptr(),
             _cuda.stream())
-        old.check(rc, "earlier bpm")
-        return out
+        old.check(rc, "earlier lloyd")
+        return assign, score, degen, iters
 
     def ab(fn_other, fn_new, reps, other="old"):
         t = {f"{other}_ms": [], "new_ms": [], f"{other}_device_ms": [],
@@ -139,21 +145,42 @@ def main():
     seqs = {"fast": cs.family(2000, seed=0),
             "default": cs.v4_family(2000, seed=2)}
 
+    # the Lloyd kernel at the large path's root split
+    if old:
+        codes, dm, na = cs.tree_inputs(cs.large_family(), dev)
+        n = len(codes)
+        emb = torch.from_numpy(np.ascontiguousarray(
+            dm[:, :na], np.float32)).to(dev)
+        st = torch.zeros(1, dtype=torch.int32, device=dev)
+        sz = torch.full((1,), n, dtype=torch.int32, device=dev)
+        k_new = lambda: kmeans.lloyd(emb, st, sz, form=1, max_size=n)
+        k_old = lambda: old_lloyd(emb, st, sz, 1)
+        slot = torch.zeros(n, dtype=torch.int64, device=dev)
+        (r_new, _, sse_new), (r_old, _, sse_old) = (
+            kmeans.best_tries(*f()[:3], slot) for f in (k_new, k_old))
+        differ = int((r_new != r_old).sum())
+        sse_new, sse_old = float(sse_new[0]), float(sse_old[0])
+        if differ and abs(sse_new - sse_old) > cs.KMEANS_SSE_RTOL * abs(
+                sse_old):
+            raise AssertionError(f"lloyd: the splits differ ({differ} rows) "
+                                 f"and their SSE do not tie: {sse_new} vs "
+                                 f"{sse_old}")
+        show("kmeans", "root split", f"1 x {kmeans.MAX_TRIES} x {n} x {na}",
+             ab(k_old, k_new, 3), rows_differ=differ, sse_new=sse_new,
+             sse_old=sse_old,
+             iterations_new=k_new()[3].tolist()[0][:40],
+             iterations_old=k_old()[3].tolist()[0][:40],
+             cluster_blocks=kmeans.cluster_blocks(n),
+             ptxas_this=ptxas["this"], ptxas_parent=ptxas["parent"])
+
     # BPM at the distance stages' pairs
     for path in ("fast", "default"):
+        if var is None:
+            break
         pairs, _ = cs.distance_stage(seqs[path], dev)
         inp = pairs.inputs(0, pairs.n_pairs)
-        tok, ti, pi, nn, mm, table = inp
         shape = f"{pairs.n_pairs // 32}x32 pairs, nblk={pairs.nblk}"
         b_new = lambda: bpm.launch(*inp)
-        got = b_new()
-        if old:
-            peq = table[pi.long()].contiguous()
-            b_old = lambda: old_bpm(tok, ti, nn, peq, mm)
-            cs.hold_equal("bpm", b_old(), got, f"{path} old vs new")
-            show("bpm", f"{path} stage", shape, ab(b_old, b_new, 10),
-                 ptxas_this=ptxas["this"][-2:],
-                 ptxas_parent=ptxas["parent"][-2:])
         against_variant("bpm", f"{path} stage", shape, b_new, 10,
                         lambda a, b: cs.hold_equal("bpm", a, b,
                                                    "variant vs new"))

@@ -67,7 +67,8 @@ def test_table_and_every_merge_bonus_match_kalign_tpu(case, monkeypatch):
     m = tio.read_alignment(os.path.join(DATA, case))
     m.quiet = True
     out = TE.align_msa(m, consistency_anchors=5,
-                       engine=TGE.GpuEngine("cpu", resident=False))
+                       engine=TGE.GpuEngine("cpu", resident=False),
+                       autoroute=False)
     assert seen["merges"] == out.numseq - 1
 
 

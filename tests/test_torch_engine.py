@@ -1,8 +1,9 @@
 """The port end to end on the CPU (every kernel's plain version) against
 kalign_tpu's throughput engine: ``engine="tpu-fast"`` in its
 host-assembled form (KALIGN_TPU_NO_RESIDENT=1) without the divergent-
-family autoroute (KALIGN_TPU_NO_AUTOROUTE=1), which is what the port
-reproduces, in --fast mode and in default mode (anchor consistency).
+family autoroute (KALIGN_TPU_NO_AUTOROUTE=1), which is what the port's
+gpu-fast engine reproduces with autoroute=False, in --fast mode and in
+default mode (anchor consistency).
 Also the scoring model, the anchors, the distances and the native guide
 tree, piece by piece."""
 
@@ -52,7 +53,8 @@ def test_fast_alignment_matches_tpu_fast(case, consistency, monkeypatch):
     ref = _jax_fast(path, monkeypatch, consistency)
     m = tio.read_alignment(path)
     m.quiet = True
-    out = TE.align_msa(m, consistency_anchors=consistency, device="cpu")
+    out = TE.align_msa(m, consistency_anchors=consistency, device="cpu",
+                       autoroute=False)
     assert tio.format_alignment(out, "fasta") == \
         jio.format_alignment(ref, "fasta")
     assert np.array_equal(np.asarray(out.task_confidence),
@@ -174,7 +176,8 @@ def test_non_dyadic_divergence_is_a_near_tie(monkeypatch, tmp_path):
     # the host-assembled pass: its buckets come back through
     # collect_bucket, merge by merge in the JAX engine's order
     out = TE.align_msa(m, consistency_anchors=0,
-                       engine=GpuEngine("cpu", resident=False))
+                       engine=GpuEngine("cpu", resident=False),
+                       autoroute=False)
     ref = _jax_fast(str(path), monkeypatch)
     assert seen["port"] and len(seen["port"]) == len(seen["jax"])
     first = None
@@ -210,7 +213,8 @@ def test_long_sequence_family_matches_tpu_fast(monkeypatch):
     ref = JE.align_msa(m, consistency_anchors=0, engine="tpu-fast")
     m = TMsa.from_sequences(seqs)
     m.quiet = True
-    out = TE.align_msa(m, consistency_anchors=0, device="cpu")
+    out = TE.align_msa(m, consistency_anchors=0, device="cpu",
+                       autoroute=False)
     assert any(b["route"] == "row" and b["L2p"] > 7168 and b["L1p"] <= 512
                for b in out.engine_stats["batches"])
     assert tio.format_alignment(out, "fasta") == \

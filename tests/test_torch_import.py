@@ -28,7 +28,8 @@ def _port_files():
 def test_import_leaves_jax_and_kalign_tpu_unloaded():
     code = ("import sys\n"
             "import kalign_tpu_torch, kalign_tpu_torch.cli, "
-            "kalign_tpu_torch.gpu.engine, kalign_tpu_torch.gpu.distances\n"
+            "kalign_tpu_torch.gpu.engine, kalign_tpu_torch.gpu.distances, "
+            "kalign_tpu_torch.gpu.exact, kalign_tpu_torch.gpu.exact_sweep\n"
             "bad = [m for m in sys.modules if m in ('jax', 'kalign_tpu') "
             "or m.startswith(('jax.', 'kalign_tpu.'))]\n"
             "print(','.join(bad))\n")

@@ -203,7 +203,8 @@ def test_alignment_through_the_device_tree_matches_kalign_tpu(consistency,
     m = TMsa.from_sequences(seqs)
     m.quiet = True
     eng = GpuEngine("cpu", device_tree=True)
-    out = TE.align_msa(m, consistency_anchors=consistency, engine=eng)
+    out = TE.align_msa(m, consistency_anchors=consistency, engine=eng,
+                       autoroute=False)
     assert out.engine_stats["tree"] == "device_fused"
     got = tio.format_alignment(out, "fasta")
     from kalign_tpu.core import io as jio
@@ -213,3 +214,15 @@ def test_alignment_through_the_device_tree_matches_kalign_tpu(consistency,
         k = int(np.flatnonzero(a != b)[0])
         assert abs(a[k] - b[k]) <= 1e-5 * abs(b[k]), (k, a[k], b[k])
     chip_smoke.check_alignment(out.aligned_rows(), seqs)
+
+
+@pytest.mark.parametrize("n,blocks", [
+    (1, 1), (50, 1), (51, 1), (1024, 1), (1025, 2), (2048, 2), (4000, 4),
+    (8192, 8), (8193, 16), (16384, 16), (100000, 16)])
+def test_cluster_blocks_by_member_count(n, blocks):
+    """The Lloyd kernel's blocks per thread-block cluster: a power of two
+    with ROWS_PER_BLOCK members a block, at most 16; at the root of
+    16,384 sequences 16 (40 tries x 16 = 640 blocks)."""
+    from kalign_tpu_torch.gpu import kmeans as K
+    assert K.cluster_blocks(n) == blocks
+    assert K.ROWS_PER_BLOCK == 1024 and K.MAX_CLUSTER_BLOCKS == 16

@@ -183,7 +183,7 @@ def _port(path, consistency, mode, resident):
     m.quiet = True
     eng = GpuEngine("cpu", resident=resident)
     return TE.align_msa(m, consistency_anchors=consistency, refine=mode,
-                        engine=eng)
+                        engine=eng, autoroute=False)
 
 
 def _jax(path, consistency, mode, resident, monkeypatch):

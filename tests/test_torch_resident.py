@@ -32,7 +32,8 @@ def _port(path, consistency, resident):
     m = tio.read_alignment(path)
     m.quiet = True
     return TE.align_msa(m, consistency_anchors=consistency,
-                        engine=GpuEngine("cpu", resident=resident))
+                        engine=GpuEngine("cpu", resident=resident),
+                        autoroute=False)
 
 
 @pytest.mark.parametrize("case,consistency", CASES, ids=IDS)
