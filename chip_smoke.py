@@ -24,11 +24,11 @@ Phases (any failure raises and the script exits non-zero):
      single windows at the edges (one row, one column, start = end,
      init_tg / start_tg / end_tg) in match and chain form, on launches
      captured from BB30014 in default mode on the card (the pre-pass's
-     residue pairs in 4,096-row packed grids; merges of residues x
-     residues, profile x residues, profile x profile), on tall windows
-     past 4,096 virtual rows (TALL_WINDOWS: 8,192 and 16,384 rows, the
-     kernel's wide instantiation; each whole recursion also against the
-     native oracle) and on the tallest launch of a long divergent family
+     residue pairs in grids packed to exact.PACK_BUDGET rows; merges of
+     residues x residues, profile x residues, profile x profile), on tall
+     windows (TALL_WINDOWS: 8,192 and 16,384 rows, swept in strips; each
+     whole recursion also against the native oracle) and on the tallest
+     launch of a long divergent family
      (LONG_DIVERGENT_*: routed to the exact engine in --fast mode, FASTA
      equal to the host engine's);
   3. five paths, each aligned on the card with the device-resident
@@ -218,9 +218,9 @@ SWEEP_CHAIN_OPS = 46
 DIVERGENT_N = 2000
 DIVERGENT_SUBS = (0.25, 0.15)
 DIVERGENT_DISTANCE = (0.52, 0.60)
-# the sweep's tall windows (its wide instantiation past 4,096 virtual
-# rows): (rows la, operand mode) of one window of TALL_LB columns, VR
-# 8,192 and 16,384
+# the sweep's tall windows (swept in strips: past 1,024 virtual rows, 512
+# in chain form): (rows la, operand mode) of one window of TALL_LB
+# columns, VR 8,192 and 16,384
 TALL_WINDOWS = ((10000, 0), (20000, 2))
 TALL_LB = 300
 # the long divergent family: LONG_DIVERGENT_SHORT sequences of the
@@ -1066,15 +1066,28 @@ def sweep_shape(plans, key, live):
                 live=list(live), chain=bool(chain))
 
 
+def sweep_tensors(plans, key, live, dev):
+    """A captured plan on the card with the kernel's schedule computed
+    on the host from its numpy rows (so that a launch does not wait on
+    the card to compute it, as the engine's Sweeper does)."""
+    import torch
+    from kalign_tpu_torch.gpu import exact as X
+    from kalign_tpu_torch.gpu import exact_sweep as XS
+    lp = XS.launch_plan(key[0])
+    lag, span = XS.schedule(plans, live[1], lp.threads * lp.rows)
+    t = {k: X.on_device(v, dev) for k, v in plans.items()}
+    t["lag"], t["span"] = (torch.from_numpy(x).to(dev) for x in (lag, span))
+    return t
+
+
 def hold_sweep(plans, key, live, what, dev):
     """The sweep kernel against its plain version on the same CUDA
     tensors: the live windows' outputs bit for bit, the -inf cells
     included.  Returns (the case's record, the CUDA plan)."""
     import torch
     from kalign_tpu_torch.gpu import exact_sweep as XS
-    from kalign_tpu_torch.gpu import exact as X
     VR, C, Wmax, chain = key
-    t = {k: X.on_device(v, dev) for k, v in plans.items()}
+    t = sweep_tensors(plans, key, live, dev)
     got = XS.launch(t, VR, C, Wmax, chain, *live)
     ref = XS.plain(t, VR, C, Wmax, chain, XS.live_steps(VR, C, live[1]))
     ref = ref[:, :live[0], :live[1]].contiguous()
@@ -1139,7 +1152,7 @@ def sweep_edge_plans():
 
 
 def tall_window_cases(dev):
-    """The sweep's wide instantiation: for each of TALL_WINDOWS, one
+    """The sweep's strips: for each of TALL_WINDOWS, one
     window of random residues (or their leaf profiles in chain form) over
     TALL_LB columns, its first launch held bitwise against the plain
     version, then the whole recursion on the card against the native
@@ -1193,8 +1206,9 @@ def tall_window_cases(dev):
         hold("exact_sweep", same, 0.0 if same else float("inf"),
              f"tall window {la} x {lb} ({form}): the whole recursion "
              "against the native oracle")
-        threads, rows = XS.launch_plan(aln.VR)
-        cases.append(dict(rec, threads=threads, rows_per_thread=rows,
+        lp = XS.launch_plan(aln.VR)
+        cases.append(dict(rec, threads=lp.threads, rows_per_thread=lp.rows,
+                          strips=lp.strips,
                           recursion_launches=sweeper.launches,
                           recursion_equal_native=same))
     return cases
@@ -1211,8 +1225,8 @@ def long_divergent_family(seed: int = 8):
 
 def long_divergent_case(dev):
     """The long divergent family in --fast mode with the default gpu-fast
-    engine: it must route to the exact engine, take the sweep's wide
-    instantiation and give the host engine's FASTA byte for byte; its
+    engine: it must route to the exact engine, sweep grids of several
+    strips and give the host engine's FASTA byte for byte; its
     tallest launch is held bitwise against the plain version."""
     import kalign_tpu_torch
     from kalign_tpu_torch.core import io as kio
@@ -1255,11 +1269,13 @@ def phase_exact_edge(dev):
     sweep kernel held bitwise against the plain version: single-window
     edge cases, and launches captured from BB30014's alignment in
     default mode on the card (the consistency pre-pass's residue pairs
-    in 4,096-row packed grids; merges of residues x residues, profile x
+    in grids packed to exact.PACK_BUDGET rows; merges of residues x
+    residues, profile x
     residues and profile x profile), the first two of each kind and grid
     height."""
     from kalign_tpu_torch import engine as TE
     from kalign_tpu_torch.core import io as kio
+    from kalign_tpu_torch.gpu import exact as X
     eng = TE.GpuExactEngine(dev)
     emit({"phase": "canary", **eng.stats["canary"]})
     cases = [hold_sweep(*c[1:], c[0], dev)[0] for c in sweep_edge_plans()]
@@ -1284,9 +1300,11 @@ def phase_exact_edge(dev):
         raise AssertionError(f"exact_sweep: BB30014 gave launches of "
                              f"{sorted(kinds)}: not the pairs and every "
                              "merge mode")
-    if not any(c["VR"] == 4096 and c["case"] == "BB30014 pairs"
+    budget = X.PACK_BUDGET["cuda"]
+    if not any(c["VR"] == budget and c["case"] == "BB30014 pairs"
                for c in cases):
-        raise AssertionError("exact_sweep: no 4,096-row packed grid held")
+        raise AssertionError(f"exact_sweep: no {budget}-row packed grid "
+                             "held")
     cases += tall_window_cases(dev)
     cases.append(long_divergent_case(dev))
     emit({"phase": "edge_cases", "kernel": "exact_sweep", "cases": cases,
@@ -1341,6 +1359,8 @@ def phase_divergent(seqs):
           "sweep_grids": st.get("sweep_grids"),
           "sweep_steps": st.get("sweep_steps"),
           "hook_calls": st.get("hook_calls"),
+          "exact_split_s": {k: round(v, 3) for k, v in
+                            st.get("exact_split_s", {}).items()},
           "host_engine_wall_s": round(host_wall, 3),
           "gpu_fast_wall_s": round(unrouted_wall, 3),
           "gpu_fast_phase_s": {k: round(v, 3) for k, v in
@@ -1367,12 +1387,76 @@ def phase_divergent(seqs):
     return launches, largest["launch"]
 
 
+class _Stop(Exception):
+    """Ends a run once a capture has what it needs."""
+
+
+def divergent_prepass_pairs(n: int = DIVERGENT_N):
+    """The first slice of the divergent path's consistency pre-pass, as
+    the native runtime hands it to the exact engine (its alignment with
+    engine "gpu" on the card, stopped at the first pairwise hook call):
+    (pairs of residue codes, subm, gpo, gpe, tgpe)."""
+    import kalign_tpu_torch
+    from kalign_tpu_torch.gpu import exact as X
+    got = []
+    init = X.ExactPairBatch.__init__
+
+    def rec(self, pairs, subm, gpo, gpe, tgpe, sweeper=None):
+        got.append(([(np.array(a), np.array(b)) for a, b in pairs],
+                    np.array(subm), gpo, gpe, tgpe))
+        raise _Stop()
+    X.ExactPairBatch.__init__ = rec
+    try:
+        kalign_tpu_torch.align_msa(divergent_family(n), mode="default",
+                                   engine="gpu")
+    except RuntimeError:
+        pass
+    finally:
+        X.ExactPairBatch.__init__ = init
+    if not got:
+        raise AssertionError("divergent: no pre-pass pairs reached the "
+                             "exact engine")
+    return got[0]
+
+
+def prepass_plan(prepass, dev, grids=64, budget=4096):
+    """The top depth of the pre-pass pairs (divergent_prepass_pairs)
+    packed to ``budget`` rows in one launch, cut to its first ``grids``
+    grids (64 x 4,096: the divergent path's largest sweep launch before
+    grids were packed short): (plans, key, live)."""
+    from kalign_tpu_torch.gpu import exact as X
+    pairs, subm, gpo, gpe, tgpe = prepass
+    saved = X.PACK_BUDGET["cuda"], X.LAUNCH_CELLS
+    X.PACK_BUDGET["cuda"], X.LAUNCH_CELLS = budget, 1 << 62
+    got = []
+
+    def keep(plans, key, live, kind):
+        got.append((plans, key, live))
+        raise _Stop()
+    try:
+        with sweep_capture(keep):
+            X.ExactPairBatch(pairs, subm, gpo, gpe, tgpe,
+                             X.Sweeper(dev)).run(
+                [np.full(len(a) + 2, -1, np.int32) for a, _ in pairs])
+    except _Stop:
+        pass
+    finally:
+        X.PACK_BUDGET["cuda"], X.LAUNCH_CELLS = saved
+    (plans, key, live), = got
+    cut = {k: v[:grids] for k, v in plans.items()}
+    nslot = int(np.max(np.where(cut["is_final"], cut["win_slot"], -1))) + 1
+    return cut, key, (nslot, live[1])
+
+
 def sweep_main_shape(dev, launch):
     """The sweep kernel at the divergent path's largest launch: held
     bitwise against its plain version on the card and timed beside it
     and its bound (8 bytes of match and bonus per processed cell, the
     rows' and columns' addends, the output; SWEEP_OPS_PER_CELL fp32
-    operations per cell, SWEEP_CHAIN_OPS more in chain form)."""
+    operations per cell, SWEEP_CHAIN_OPS more in chain form), with its
+    block (threads, rows per thread, strips), its blocks and the steps of
+    its longest block (the band-local schedule) beside the reference
+    schedule's."""
     from kalign_tpu_torch.gpu import exact_sweep as XS
     plans, key, live = launch
     VR, C, Wmax, chain = key
@@ -1387,12 +1471,15 @@ def sweep_main_shape(dev, launch):
               + G * live[0] * live[1] * 12)
     ops = cells * (SWEEP_OPS_PER_CELL + (SWEEP_CHAIN_OPS if chain else 0))
     b_ms, b_by = bound(bytes_, ops, FP32_OPS_PER_S)
-    threads, rows = XS.launch_plan(VR)
+    lp = XS.launch_plan(VR)
+    _, span = XS.schedule(plans, live[1], lp.threads * lp.rows)
     return dict(shape=f"{G} x {VR} x {C + 1}", ms=cuda_time_ms(run, reps=3),
                 device_ms=device_ms(run, 3), plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None, cells=cells,
-                steps=XS.live_steps(VR, C, live[1]), chain=bool(chain),
-                threads=threads, rows_per_thread=rows)
+                steps=XS.steps_run(span),
+                reference_steps=XS.live_steps(VR, C, live[1]),
+                chain=bool(chain), blocks=G, threads=lp.threads,
+                rows_per_thread=lp.rows, strips=lp.strips)
 
 
 def counters():

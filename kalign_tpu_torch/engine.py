@@ -27,6 +27,7 @@ instead; without a card they raise.
 """
 
 import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -140,7 +141,14 @@ class GpuExactEngine(HostEngine):
     (the native ones on the CPU: the same bits, faster there); the guide
     tree is the native one.  The canary runs at construction and raises
     on a mismatch.  ``stats`` counts the sweep's launches, grids and
-    wavefront steps of the last alignment."""
+    wavefront steps of the last alignment (``sweep_steps``: per launch,
+    the steps of its longest block, gpu/exact.py::Sweeper), and splits
+    its host seconds (``exact_split_s``): ``native``, the native runtime
+    outside the DP hooks; ``plans``, the hooks' host work (operand
+    tables, chunks, plan rows, schedules, decoding the meets, spawning
+    the next depth's windows); ``enqueue``, queueing device work
+    (gathers, uploads, sweeps, meets); ``fetch``, waiting on each
+    depth's fetch."""
 
     name = "gpu"
 
@@ -157,8 +165,10 @@ class GpuExactEngine(HostEngine):
 
     def align(self, codes, tasks, ap: P.AlnParam, seq_distances,
               refine_mode: int = P.REFINE_NONE, cons_seq_distances=None):
-        sw = self.backend.sweeper
-        before = (sw.launches, sw.grids, sw.steps, self.backend.calls)
+        sw, be = self.backend.sweeper, self.backend
+        before = (sw.launches, sw.grids, sw.steps, be.calls)
+        secs = (be.hook_s, sw.enqueue_s, sw.fetch_s)
+        t0 = time.perf_counter()
         with _HOOK_LOCK:
             self.backend.install()
             try:
@@ -171,12 +181,17 @@ class GpuExactEngine(HostEngine):
                 raise
             finally:
                 self.backend.uninstall()
-                after = (sw.launches, sw.grids, sw.steps,
-                         self.backend.calls)
+                wall = time.perf_counter() - t0
+                after = (sw.launches, sw.grids, sw.steps, be.calls)
                 for key, a, b in zip(("sweep_launches", "sweep_grids",
                                       "sweep_steps", "hook_calls"),
                                      after, before):
                     self.stats[key] = a - b
+                hook, enq, fetch = (a - b for a, b in zip(
+                    (be.hook_s, sw.enqueue_s, sw.fetch_s), secs))
+                self.stats["exact_split_s"] = dict(
+                    native=wall - hook, plans=hook - enq - fetch,
+                    enqueue=enq, fetch=fetch)
 
 
 def get_engine(name="gpu-fast", device=None):

@@ -101,7 +101,7 @@ def lib() -> ctypes.CDLL:
                                   + [_i] * 4 + [ctypes.c_float] + [_p] * 4
                                   + [_i, _p])
     L.kt_exact_sweep.restype = _i
-    L.kt_exact_sweep.argtypes = [_p] * 9 + [_i] * 10 + [_p]
+    L.kt_exact_sweep.argtypes = [_p] * 11 + [_i] * 10 + [_p]
     return L
 
 

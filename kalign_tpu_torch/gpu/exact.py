@@ -35,6 +35,7 @@ no bit: each window's cells keep their own float order.
 """
 
 import ctypes
+import time
 
 import numpy as np
 import torch
@@ -49,12 +50,15 @@ _f32p = ctypes.POINTER(ctypes.c_float)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 
-# grids per stacked launch (2 per chunk): bounds one launch's plan
-_MAX_GRIDS = 64
+# match and bonus cells a launch's plan may hold (grids x rows x columns;
+# 0.68 GB of float32 match and bonus rows): bounds the grids per launch
+LAUNCH_CELLS = 64 * 4096 * 324
 # the VR budget of the consistency pre-pass, by device type: how many
 # virtual rows a grid may take so that the windows of several residue
-# pairs share a grid (ExactPairBatch)
-PACK_BUDGET = {"cuda": 4096, "cpu": 0}
+# pairs share a grid (ExactPairBatch).  On the card a grid's steps follow
+# its tallest band, not its height, so short grids, many to a launch,
+# fill the card (PERF.md §6 gives the settings measured)
+PACK_BUDGET = {"cuda": 256, "cpu": 0}
 
 
 def pack_budget(device) -> int:
@@ -63,25 +67,43 @@ def pack_budget(device) -> int:
 
 class Sweeper:
     """Runs stacked plans through the sweep on one device and counts
-    what it ran: launches, grids and wavefront steps."""
+    what it ran: launches, grids and wavefront steps (per launch, the
+    steps of its longest block: on the card the band-local schedule's,
+    on the CPU the reference schedule's that the plain version runs),
+    and the host's seconds spent enqueueing device work (``enqueue_s``:
+    gathers, uploads, sweeps, meets) and waiting on fetches
+    (``fetch_s``)."""
 
     def __init__(self, device="cpu"):
         self.device = torch.device(device)
         self.launches = 0
         self.grids = 0
         self.steps = 0
+        self.enqueue_s = 0.0
+        self.fetch_s = 0.0
 
     def run(self, plans, key, live):
         """plans: {name: [G, ...]} (exact_sweep.PLAN_KEYS), numpy arrays
         or tensors on this device; key = (VR, C, Wmax, use_chain); live =
         (windows, columns) the caller reads.  Returns out [G, windows,
-        columns, 3] on this device."""
+        columns, 3] on this device.  On the card the kernel's schedule is
+        computed here from the plan's numpy rows and goes up with them."""
         VR, C, Wmax, chain = key
+        if self.device.type == "cuda":
+            lp = exact_sweep.launch_plan(VR)
+            lag, span = exact_sweep.schedule(plans, live[1],
+                                             lp.threads * lp.rows)
+            plans = dict(plans, lag=lag, span=span)
+            steps = exact_sweep.steps_run(span)
+        else:
+            steps = exact_sweep.live_steps(VR, C, live[1])
+        t0 = time.perf_counter()
         t = upload(plans, self.device)
         out = exact_sweep.sweep(t, VR, C, Wmax, chain, live)
+        self.enqueue_s += time.perf_counter() - t0
         self.launches += 1
         self.grids += int(plans["seedA"].shape[0])
-        self.steps += exact_sweep.live_steps(VR, C, live[1])
+        self.steps += steps
         return out
 
 
@@ -407,7 +429,7 @@ def _chunks(w, VR, Wmax, by_problem):
     return np.array(chunk, np.int64), np.array(slot, np.int64), c + 1
 
 
-def _plans(ops, w, chunk, slot, nchunks, width, device):
+def _plans(ops, w, chunk, slot, nchunks, width, device, sweeper=None):
     """The stacked plans of the chunks (grid 2c forward, 2c + 1 backward,
     exact_sweep.PLAN_KEYS) with match and bonus ``width`` columns wide:
     the per-row flags, bounds, seeds and addends built here, the match,
@@ -417,7 +439,8 @@ def _plans(ops, w, chunk, slot, nchunks, width, device):
     its rows (forward: sa .. mid - 1; backward: ea - 1 .. mid, in column-
     reversed coordinates q = lb - j); its last row is final and writes its
     slot.  Every chunk of a launch holds one problem's windows, or
-    windows of problems that share their column addends (the pairs)."""
+    windows of problems that share their column addends (the pairs).
+    The device part's host seconds add to sweeper.enqueue_s."""
     VR, Wmax = ops.VR, ops.Wmax
     G = 2 * nchunks
     rows = G * VR
@@ -475,6 +498,7 @@ def _plans(ops, w, chunk, slot, nchunks, width, device):
         msrc[fp] = src + d * ops.nrows
         psrc[fp] = src
     out = {k: v.reshape(G, VR) for k, v in g.items()}
+    t0 = time.perf_counter()
     src = upload({"match": msrc, "p1cnt": psrc}, device)
 
     def rows_of(name, idx, cols):
@@ -488,6 +512,8 @@ def _plans(ops, w, chunk, slot, nchunks, width, device):
     out["p1cnt"] = (rows_of("p1cnt", "p1cnt", NSUB)
                     if ops.p1cnt is not None else zeros(NSUB))
     out.update(ops.colpacks(w.p[first], device))
+    if sweeper is not None:
+        sweeper.enqueue_s += time.perf_counter() - t0
     return out
 
 
@@ -649,17 +675,20 @@ def _margin_sums(nprob, rec):
 
 
 def _sweep_depth(ops, w, sweeper, by_problem):
-    """One recursion step of every window in w: chunked (_chunks), up to
-    _MAX_GRIDS // 2 chunks of one operand form (chain or not) a launch,
-    swept, met.  Returns _meets' arrays in w's order."""
+    """One recursion step of every window in w: chunked (_chunks), the
+    chunks of one operand form (chain or not) split evenly over as few
+    launches as LAUNCH_CELLS allows, swept, met.  Returns _meets' arrays
+    in w's order."""
     chunk, slot, nchunks = _chunks(w, ops.VR, ops.Wmax, by_problem)
     first = np.flatnonzero(np.r_[True, chunk[1:] != chunk[:-1]])
     chain_of = ops.chain[w.p[first]]
     sels, pos, margins = [], [], []
     # launches: the chunks of one form, the form first met first
     forms = chain_of[np.sort(np.unique(chain_of, return_index=True)[1])]
-    per = _MAX_GRIDS // 2
+    most = max(1, LAUNCH_CELLS // (2 * ops.VR * ops.width))
     for cs in (np.flatnonzero(chain_of == ch) for ch in forms):
+        n = -(-len(cs) // most)               # launches of this form
+        per = -(-len(cs) // n)                # chunks a launch, balanced
         for lo in range(0, len(cs), per):
             group = cs[lo:lo + per]
             sel = np.flatnonzero(np.isin(chunk, group))
@@ -669,20 +698,25 @@ def _sweep_depth(ops, w, sweeper, by_problem):
             ch = remap[chunk[sel]]
             width = int(ops.lb[ws.p].max()) + 1
             plans = _plans(ops, ws, ch, slot[sel], len(group), width,
-                           sweeper.device)
+                           sweeper.device, sweeper)
             nslot = int(slot[sel].max()) + 1
             out = sweeper.run(plans, (ops.VR, ops.Cpad, ops.Wmax,
                                       bool(chain_of[group[0]])),
                               (nslot, width))
+            t0 = time.perf_counter()
             p_, m_ = _meets(ops, ws, out, 2 * ch, 2 * ch + 1, slot[sel])
+            sweeper.enqueue_s += time.perf_counter() - t0
             sels.append(sel)
             pos.append(p_)
             margins.append(m_)
     # one fetch for the depth: the card runs a launch while the host
     # builds the next
     sel = np.concatenate(sels)
-    got = _decode(w.take(sel), torch.cat(pos, 1).cpu().numpy(),
-                  torch.cat(margins).cpu().numpy())
+    t0 = time.perf_counter()
+    pos, margins = torch.cat(pos, 1).cpu().numpy(), \
+        torch.cat(margins).cpu().numpy()
+    sweeper.fetch_s += time.perf_counter() - t0
+    got = _decode(w.take(sel), pos, margins)
     res = [np.empty_like(g) for g in got]
     for r_, g_ in zip(res, got):
         r_[sel] = g_
@@ -858,8 +892,8 @@ class ExactPairBatch:
     """All of the consistency pre-pass's N x K pairwise (residues x
     residues) Hirschberg recursions in lockstep: every depth packs the
     live windows of every problem into shared segmented-wavefront grids,
-    up to _MAX_GRIDS // 2 chunks a launch.  Sharing one grid across
-    problems is exact here because rr-mode column penalty addends are
+    as many chunks a launch as LAUNCH_CELLS allows.  Sharing one grid
+    across problems is exact here because rr-mode column penalty addends are
     scalars (the same for every problem); per-window row data and edge
     flags come from each window's own problem."""
 
@@ -1049,11 +1083,13 @@ class ExactDpBackend:
     from the runtime, wraps them as numpy views, and runs the exact
     aligners with their sweeps on ``device``.  A Python exception inside
     a callback makes it return 1, which stops kt_align_msa; its traceback
-    is kept in ``last_error``."""
+    is kept in ``last_error``.  ``hook_s`` adds up the seconds spent
+    inside the callbacks."""
 
     def __init__(self, device="cpu"):
         self.sweeper = Sweeper(device)
         self.calls = 0
+        self.hook_s = 0.0
         self.last_error = None
         self.canary = None
         # the ctypes callback objects stay referenced while installed
@@ -1067,6 +1103,7 @@ class ExactDpBackend:
 
     def _guard(self, fn):
         def callback(*args):
+            t0 = time.perf_counter()
             try:
                 self.calls += 1
                 fn(*args)
@@ -1075,6 +1112,8 @@ class ExactDpBackend:
                 import traceback
                 self.last_error = traceback.format_exc()
                 return 1
+            finally:
+                self.hook_s += time.perf_counter() - t0
         return callback
 
     def run_canary(self):

@@ -3,30 +3,46 @@
 Kernel: csrc/exact_sweep.cu (replaces the XLA device program of
 kalign_tpu/tpu/exact.py, ``_sweep_one`` :65 vmapped by ``_sweep_batch``
 :163; not a Pallas kernel).  One launch sweeps G grids of VR virtual rows
-x C+1 columns over D = VR + C + 1 anti-diagonal steps.  Each Hirschberg
-window of the exact engine occupies a band of virtual rows: one init row
-(the reference's pre-loop boundary initialisation) and its processed
-rows; per-cell penalties arrive as per-row and per-column addends, the
-backward windows in column-reversed coordinates (gpu/exact.py builds the
-plans).  Cell (vr, j) reads (vr, j-1), (vr-1, j) and (vr-1, j-1) only,
-and each cell repeats the reference row sweep's scalar float32
-operations in their order, so the states are bit-identical to the native
-runtime's.
+x C+1 columns.  Each Hirschberg window of the exact engine occupies a
+band of virtual rows: one init row (the reference's pre-loop boundary
+initialisation) and its processed rows; per-cell penalties arrive as
+per-row and per-column addends, the backward windows in column-reversed
+coordinates (gpu/exact.py builds the plans).  Cell (vr, j) reads
+(vr, j-1), (vr-1, j) and (vr-1, j-1) only, and each cell repeats the
+reference row sweep's scalar float32 operations in their order, so the
+states are bit-identical to the native runtime's.
+
+Schedules.  The reference runs row vr at column j = d - vr at step d, so
+a grid takes VR + C + 1 steps whatever its windows.  The kernel runs the
+band-local schedule (``schedule``): row vr reaches column 0 at step
+lag[vr] = (vr - its band's init row) - startq, so every band starts at
+step 0 on its own first column and a grid takes as many steps as its
+tallest band plus its widest column span.  Only the step at which a cell
+is computed changes: a processed row reads only its own band (the init
+row reads no row above), so every cell reads the same three neighbours
+with the same values.  Rows past one block's registers are swept in
+strips of ``launch_plan``'s rows, one after another, each strip's last
+row carried to the next through a global buffer.
 
 The plan is a dict of tensors with a leading grid axis G (the keys of
 ``PLAN_KEYS``, in the reference's layout: the column arrays ``*_p`` and
 ``p2sub_p`` reversed and padded with VR zeros on each side).  ``match``
 and ``bonus`` may be narrower than C+1 columns: the columns past their
 width hold zeros, as the reference's plans do past each problem's width.
+The kernel also takes the schedule (``lag`` [G, VR] and ``span``
+[G, strips, 2]); the engine computes it on the host and uploads it with
+the plan's rows, and ``launch`` computes it when the plan has none.
 
 ``sweep`` launches the kernel for CUDA tensors and runs ``plain`` for CPU
 tensors; ``plain`` follows ``_sweep_one`` operation for operation (shift1
 with NEG fill, colvals on the reversed padded arrays, the maxima in the
 same nesting, the descending c = 22..0 mul-add chain, the selects in the
-same order, the max-scatter of final rows into a -inf output).
+same order, the max-scatter of final rows into a -inf output), on the
+reference's schedule.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,35 +60,78 @@ COL_F32 = ("ga_ext_p", "ga_open_p", "ga_tg_p", "dga_p")
 PLAN_KEYS = (ROW_BOOL + ROW_INT + ROW_F32 + COL_F32
              + ("match", "bonus", "p1cnt", "p2sub_p"))
 
-# rows per thread of the kernel's register instantiations, and its block
-# sizes (csrc/exact_sweep.cu): up to REG_THREADS threads with the rows'
-# state in registers (VR <= 4,096), else WIDE_THREADS threads with it in a
-# global scratch
-ROWS_PER_THREAD = (1, 2, 4, 8, 16)
-REG_THREADS = 256
-WIDE_THREADS = 1024
+# the kernel's block (csrc/exact_sweep.cu): up to THREADS threads of at
+# most ROWS consecutive rows each, their constants and state in
+# registers; taller grids are swept in strips of THREADS x ROWS rows.  One
+# row a thread measured fastest (PERF.md §6: more rows a thread keep
+# more match rows in flight than L1 holds); the kernel also takes 2 and 4
+# (2 in chain form), for scripts/sweep_settings.py
+THREADS = 512
+ROWS = 1
 
 launches = 0
 
 
-def launch_plan(VR: int):
-    """(threads per block, rows per thread) of the kernel for VR virtual
-    rows, a power of two: one thread per row up to 256 rows, then 256
-    threads with up to 16 rows each in registers, then WIDE_THREADS
-    threads with VR / WIDE_THREADS rows each in the global scratch."""
+class SweepLaunch(NamedTuple):
+    threads: int     # threads per block (one block per grid)
+    rows: int        # consecutive rows per thread
+    strips: int      # strips of threads x rows rows, swept in turn
+
+
+def launch_plan(VR: int) -> SweepLaunch:
+    """The kernel's block for VR virtual rows, a power of two: one thread
+    per row up to THREADS rows (ROWS a thread up to THREADS x ROWS), then
+    strips of THREADS x ROWS rows."""
     if VR < 1 or VR & (VR - 1):
         raise ValueError(f"exact_sweep: VR = {VR} is not a power of two")
-    if VR <= REG_THREADS * ROWS_PER_THREAD[-1]:
-        threads = min(VR, REG_THREADS)
-    else:
-        threads = WIDE_THREADS
-    return threads, VR // threads
+    threads = min(VR, THREADS)
+    rows = min(VR // threads, ROWS)
+    return SweepLaunch(threads, rows, VR // (threads * rows))
 
 
 def live_steps(VR: int, C: int, ncols: int) -> int:
-    """Steps that reach the output columns below ncols: a cell (vr, j)
-    runs at step vr + j and reads only columns <= j."""
+    """Steps of the reference's schedule that reach the output columns
+    below ncols: a cell (vr, j) runs at step vr + j and reads only
+    columns <= j."""
     return min(VR + C + 1, VR + ncols)
+
+
+def schedule(plan, ncols: int, strip: int = None, band_local: bool = True):
+    """The kernel's schedule of a plan (numpy arrays or CPU tensors of
+    [G, VR] rows): (lag, span).  Row vr computes column j = d - lag[vr] at
+    step d; span [G, VR // strip, 2] holds each strip's first step and
+    the step past its last, the fewest that reach every in-window cell
+    below ncols (0, 0 for a strip with none).  band_local=False gives the
+    reference's schedule, lag = vr (one strip: strip = VR)."""
+    arr = lambda k: np.asarray(plan[k].cpu() if torch.is_tensor(plan[k])
+                               else plan[k])
+    startq = arr("startq").astype(np.int32, copy=False)
+    endq = arr("endq").astype(np.int32, copy=False)
+    G, VR = startq.shape
+    strip = VR if strip is None else strip
+    vr = np.arange(VR, dtype=np.int32)
+    if band_local:
+        # a row's first cell at the rows since its band's init row (the
+        # last init row at or above)
+        lo = vr - np.maximum.accumulate(np.where(arr("is_init"), vr, 0),
+                                        axis=1)
+    else:
+        lo = vr + startq
+    lag = lo - startq
+    hi = lag + np.minimum(endq, ncols - 1)      # its last one below ncols
+    live = arr("active") & (hi >= lo)
+    lo = np.where(live, lo, np.iinfo(np.int32).max).reshape(G, -1, strip)
+    hi = np.where(live, hi, -1).reshape(G, -1, strip)
+    d0, d1 = lo.min(axis=2), hi.max(axis=2) + 1
+    empty = d1 <= d0
+    span = np.stack([np.where(empty, 0, d0), np.where(empty, 0, d1)], -1)
+    return lag.astype(np.int32, copy=False), span.astype(np.int32)
+
+
+def steps_run(span) -> int:
+    """Steps of the launch's longest block (its strips' steps added)."""
+    span = np.asarray(span)
+    return int((span[..., 1] - span[..., 0]).sum(axis=-1).max(initial=0))
 
 
 def _padded(x, width: int):
@@ -199,27 +258,11 @@ def plain(plan, VR: int, C: int, Wmax: int, use_chain: bool,
     return out[:, :Wmax]
 
 
-def launch(plan, VR: int, C: int, Wmax: int, use_chain: bool, W: int,
-           ncols: int):
-    """Launch csrc/exact_sweep.cu on a plan of CUDA tensors: out
-    [G, W, ncols, 3] float32, the first W windows' first ncols columns of
-    ``plain``'s output.  Raises on a refused launch."""
-    global launches
-    p = plan
-    dev = p["seedA"].device
-    _cuda.require_cuda("exact_sweep", *(p[k] for k in PLAN_KEYS))
-    G = p["seedA"].shape[0]
-    threads, rows = launch_plan(VR)
-    if not 0 < W <= Wmax or not 0 < ncols <= C + 1:
-        raise ValueError(f"exact_sweep: live window ({W}, {ncols}) outside "
-                         f"({Wmax}, {C + 1})")
-    ldm = p["match"].shape[-1]
-    if p["bonus"].shape[-1] != ldm or not 0 < ldm <= C + 1:
-        raise ValueError("exact_sweep: match and bonus must share a width "
-                         "of at most C + 1")
-    # the kernel's operands: per row one int4 (flags, startq, endq, slot)
-    # and 8 floats; per column (unreversed) ga_ext, ga_open, ga_tg, dga
-    # and the 23 p2sub values
+def operands(p, VR: int, C: int, use_chain: bool):
+    """The kernel's packed operands of a plan: per row one int4 (flags,
+    startq, endq, slot) and 8 floats (rowi, rowf); per column
+    (unreversed) ga_ext, ga_open, ga_tg, dga (cols) and the 23 p2sub
+    values (p2sub; cols in match form)."""
     flags = sum(p[k].to(torch.int32) << b for b, k in enumerate(ROW_BOOL))
     rowi = torch.stack([flags] + [p[k].to(torch.int32) for k in ROW_INT],
                        dim=-1).contiguous()
@@ -229,19 +272,52 @@ def launch(plan, VR: int, C: int, Wmax: int, use_chain: bool, W: int,
                        dim=-1).contiguous()
     p2sub = (p["p2sub_p"][:, VR:VR + C + 1].flip(1).contiguous()
              if use_chain else cols)
-    n = live_steps(VR, C, ncols)
+    return rowi, rowf, cols, p2sub
+
+
+def launch(plan, VR: int, C: int, Wmax: int, use_chain: bool, W: int,
+           ncols: int):
+    """Launch csrc/exact_sweep.cu on a plan of CUDA tensors: out
+    [G, W, ncols, 3] float32, the first W windows' first ncols columns of
+    ``plain``'s output.  The schedule is the plan's ``lag`` and ``span``
+    where it has them (``schedule`` at launch_plan's strip and ncols),
+    else computed here from its rows.  Raises on a refused launch."""
+    global launches
+    p = plan
+    dev = p["seedA"].device
+    _cuda.require_cuda("exact_sweep", *(p[k] for k in PLAN_KEYS))
+    G = p["seedA"].shape[0]
+    lp = launch_plan(VR)
+    if not 0 < W <= Wmax or not 0 < ncols <= C + 1:
+        raise ValueError(f"exact_sweep: live window ({W}, {ncols}) outside "
+                         f"({Wmax}, {C + 1})")
+    ldm = p["match"].shape[-1]
+    if p["bonus"].shape[-1] != ldm or not 0 < ldm <= C + 1:
+        raise ValueError("exact_sweep: match and bonus must share a width "
+                         "of at most C + 1")
+    if "lag" in p:
+        lag, span = p["lag"], p["span"]
+    else:
+        lag, span = (torch.from_numpy(x).to(dev) for x in schedule(
+            p, ncols, lp.threads * lp.rows))
+    if span.shape != (G, lp.strips, 2):
+        raise ValueError(f"exact_sweep: a schedule of {tuple(span.shape)} "
+                         f"for {lp.strips} strips")
+    _cuda.require_cuda("exact_sweep", lag, span)
+    rowi, rowf, cols, p2sub = operands(p, VR, C, use_chain)
     out = torch.full((G, W, ncols, 3), float("-inf"), dtype=torch.float32,
                      device=dev)
-    # the wide instantiation's row state: [G, 6, VR] float32
-    scratch = (torch.empty((G, 6, VR), dtype=torch.float32, device=dev)
-               if threads == WIDE_THREADS else None)
+    # a strip's last row, carried to the next strip: [G, 2, 3, C + 1]
+    edge = (torch.empty((G, 2, 3, C + 1), dtype=torch.float32, device=dev)
+            if lp.strips > 1 else None)
     rc = _cuda.lib().kt_exact_sweep(
         rowi.data_ptr(), rowf.data_ptr(), cols.data_ptr(),
         p["match"].data_ptr(), p["bonus"].data_ptr(),
-        p["p1cnt"].data_ptr(), p2sub.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        G, VR, C, ldm, W, ncols, n, int(bool(use_chain)), threads, rows,
-        ctypes.c_void_p(_cuda.stream()))
+        p["p1cnt"].data_ptr(), p2sub.data_ptr(), lag.data_ptr(),
+        span.data_ptr(), out.data_ptr(),
+        None if edge is None else edge.data_ptr(),
+        G, VR, C, ldm, W, ncols, lp.strips, int(bool(use_chain)),
+        lp.threads, lp.rows, ctypes.c_void_p(_cuda.stream()))
     _cuda.check(rc, "exact_sweep")
     launches += 1
     return out

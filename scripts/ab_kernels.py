@@ -6,13 +6,14 @@ on one NVIDIA GPU, in one process.
     python3 scripts/ab_kernels.py --parent _proof/parent
     python3 scripts/ab_kernels.py --variant _proof/variant
 
---parent: the k-means Lloyd kernel of an earlier checkout, called
-through its own C entry point `kt_kmeans_lloyd` as of 9eb9643 (one
-256-thread block per (cluster, try), no blocks argument), against this
-checkout's (a thread-block cluster per (cluster, try)), at the root split
-of chip_smoke.py's large path (16,384 protein sequences x 32 anchors, the
-fused entry's form): the two splits must be the same or tie in SSE to
-chip_smoke.KMEANS_SSE_RTOL (their float orders differ).
+--parent: the exact engine's wavefront sweep of an earlier checkout,
+called through its own C entry point `kt_exact_sweep` as of a0624b2 (one
+block per grid on the reference's schedule, VR + C + 1 steps; 16 rows a
+thread past 256 rows, 1,024 threads with a global scratch past 4,096),
+against this checkout's (the band-local schedule), on the divergent
+path's largest sweep launch of that commit: the pre-pass's pairs packed
+into 64 grids of 4,096 rows (chip_smoke.prepass_plan).  The two outputs
+must be bitwise equal.
 
 --variant: the other checkout has this one's C interfaces (a variant of
 one kernel, say): this checkout's own wrappers launch it, with their
@@ -68,8 +69,8 @@ def main():
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     from kalign_tpu_torch.core import params as P
-    from kalign_tpu_torch.gpu import _cuda, bpm, gotoh_fused, \
-        gotoh_lanewise, gotoh_row, kmeans
+    from kalign_tpu_torch.gpu import _cuda, bpm, exact_sweep, gotoh_fused, \
+        gotoh_lanewise, gotoh_row
     from kalign_tpu_torch.gpu import traceback as tb
     from kalign_tpu_torch.gpu.engine import leaf_operands
     from kalign_tpu_torch.utils.build import build_log
@@ -87,8 +88,9 @@ def main():
                                           "variant_cuda")
         var.lib()
     _cuda.lib()
-    # -Xptxas -v of each library's Lloyd kernel
-    ptxas = {k: cs.ptxas_lines(build_log(m.library_path()), "lloyd_kernel")
+    # -Xptxas -v of each library's sweep kernel
+    ptxas = {k: cs.ptxas_lines(build_log(m.library_path()),
+                               "exact_sweep")
              for k, m in libs.items()}
     print(json.dumps({"ptxas": ptxas}), flush=True)
 
@@ -104,21 +106,26 @@ def main():
                 _cuda.lib = own
         return run
 
-    def old_lloyd(rows, start, size, form):
-        """The earlier checkout's kt_kmeans_lloyd: lloyd's outputs."""
-        N, D = rows.shape
-        C, T = start.shape[0], kmeans.MAX_TRIES
-        score = torch.empty((C, T), dtype=torch.float32, device=dev)
-        degen = torch.empty((C, T), dtype=torch.int8, device=dev)
-        assign = torch.zeros((T, N), dtype=torch.int8, device=dev)
-        iters = torch.empty((C, T), dtype=torch.int32, device=dev)
-        rc = old_lib.kt_kmeans_lloyd(
-            rows.data_ptr(), D, N, start.data_ptr(), size.data_ptr(), C, T,
-            form, kmeans.MAX_ITERS, kmeans.EPS, score.data_ptr(),
-            degen.data_ptr(), assign.data_ptr(), iters.data_ptr(),
-            _cuda.stream())
-        old.check(rc, "earlier lloyd")
-        return assign, score, degen, iters
+    def old_sweep(t, key, live):
+        """The earlier checkout's kt_exact_sweep on the plan t: out."""
+        VR, C, _, chain = key
+        W, ncols = live
+        G = t["seedA"].shape[0]
+        rowi, rowf, cols, p2sub = exact_sweep.operands(t, VR, C, chain)
+        threads = min(VR, 256) if VR <= 4096 else 1024
+        out = torch.full((G, W, ncols, 3), float("-inf"), device=dev)
+        scratch = (torch.empty((G, 6, VR), device=dev) if threads == 1024
+                   else None)
+        rc = old_lib.kt_exact_sweep(
+            rowi.data_ptr(), rowf.data_ptr(), cols.data_ptr(),
+            t["match"].data_ptr(), t["bonus"].data_ptr(),
+            t["p1cnt"].data_ptr(), p2sub.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), G, VR, C,
+            t["match"].shape[-1], W, ncols,
+            exact_sweep.live_steps(VR, C, ncols), int(chain), threads,
+            VR // threads, _cuda.stream())
+        old.check(rc, "earlier exact_sweep")
+        return out
 
     def ab(fn_other, fn_new, reps, other="old"):
         t = {f"{other}_ms": [], "new_ms": [], f"{other}_device_ms": [],
@@ -145,33 +152,26 @@ def main():
     seqs = {"fast": cs.family(2000, seed=0),
             "default": cs.v4_family(2000, seed=2)}
 
-    # the Lloyd kernel at the large path's root split
+    # the sweep at the divergent path's largest launch of the parent
     if old:
-        codes, dm, na = cs.tree_inputs(cs.large_family(), dev)
-        n = len(codes)
-        emb = torch.from_numpy(np.ascontiguousarray(
-            dm[:, :na], np.float32)).to(dev)
-        st = torch.zeros(1, dtype=torch.int32, device=dev)
-        sz = torch.full((1,), n, dtype=torch.int32, device=dev)
-        k_new = lambda: kmeans.lloyd(emb, st, sz, form=1, max_size=n)
-        k_old = lambda: old_lloyd(emb, st, sz, 1)
-        slot = torch.zeros(n, dtype=torch.int64, device=dev)
-        (r_new, _, sse_new), (r_old, _, sse_old) = (
-            kmeans.best_tries(*f()[:3], slot) for f in (k_new, k_old))
-        differ = int((r_new != r_old).sum())
-        sse_new, sse_old = float(sse_new[0]), float(sse_old[0])
-        if differ and abs(sse_new - sse_old) > cs.KMEANS_SSE_RTOL * abs(
-                sse_old):
-            raise AssertionError(f"lloyd: the splits differ ({differ} rows) "
-                                 f"and their SSE do not tie: {sse_new} vs "
-                                 f"{sse_old}")
-        show("kmeans", "root split", f"1 x {kmeans.MAX_TRIES} x {n} x {na}",
-             ab(k_old, k_new, 3), rows_differ=differ, sse_new=sse_new,
-             sse_old=sse_old,
-             iterations_new=k_new()[3].tolist()[0][:40],
-             iterations_old=k_old()[3].tolist()[0][:40],
-             cluster_blocks=kmeans.cluster_blocks(n),
-             ptxas_this=ptxas["this"], ptxas_parent=ptxas["parent"])
+        plans, key, live = cs.prepass_plan(cs.divergent_prepass_pairs(), dev)
+        VR, C, Wmax, chain = key
+        t = cs.sweep_tensors(plans, key, live, dev)
+        s_new = lambda: exact_sweep.launch(t, VR, C, Wmax, chain, *live)
+        s_old = lambda: old_sweep(t, key, live)
+        cs.hold_equal("exact_sweep", s_old().view(torch.int32),
+                      s_new().view(torch.int32), "parent vs new, bitwise")
+        lp = exact_sweep.launch_plan(VR)
+        _, span = exact_sweep.schedule(plans, live[1],
+                                       lp.threads * lp.rows)
+        G = int(plans["seedA"].shape[0])
+        show("exact_sweep", "pre-pass, packed to 4,096 rows",
+             f"{G} x {VR} x {C + 1}", ab(s_old, s_new, 3),
+             cells=cs.sweep_cells(plans, live), live=list(live),
+             steps_new=exact_sweep.steps_run(span),
+             steps_old=exact_sweep.live_steps(VR, C, live[1]),
+             plan_new=lp._asdict(), ptxas_this=ptxas["this"],
+             ptxas_parent=ptxas["parent"])
 
     # BPM at the distance stages' pairs
     for path in ("fast", "default"):

@@ -109,22 +109,26 @@ def test_plain_sweep_matches_reference_sweep(use_chain):
 
 
 def test_launch_plan_covers_every_grid_height():
-    """Every power-of-two height has a block: the register instantiations
-    (at most 256 threads, 1..16 rows each: 16 x 236 registers fill a
-    block's 65,536) up to 4,096 rows, 1,024 threads with the state in the
-    global scratch above, with no top height (a window of la rows takes
-    VR = pow2(la // 2 + 2))."""
+    """Every power-of-two height has a block: one thread per row up to
+    512 rows, then strips of 512 rows swept in turn (one row a thread
+    measured fastest), with no top height (a window of la rows takes
+    VR = pow2(la // 2 + 2)); with more rows a thread allowed (the
+    settings script), a strip holds THREADS x ROWS rows."""
     for k in range(0, 18):
         VR = 1 << k
-        threads, rows = XS.launch_plan(VR)
-        assert threads * rows == VR
-        if VR <= 4096:
-            assert threads <= XS.REG_THREADS and rows in XS.ROWS_PER_THREAD
-        else:
-            assert threads == XS.WIDE_THREADS
-    assert XS.launch_plan(8192) == (1024, 8)
-    assert XS.launch_plan(16384) == (1024, 16)
-    assert XS.launch_plan(65536) == (1024, 64)
+        lp = XS.launch_plan(VR)
+        assert lp.threads * lp.rows * lp.strips == VR
+        assert lp.threads <= XS.THREADS and lp.rows == XS.ROWS == 1
+    assert XS.launch_plan(256) == (256, 1, 1)
+    assert XS.launch_plan(4096) == (512, 1, 8)
+    assert XS.launch_plan(16384) == (512, 1, 32)
+    assert XS.launch_plan(64) == (64, 1, 1)
+    rows, XS.ROWS = XS.ROWS, 4
+    try:
+        assert XS.launch_plan(512) == (512, 1, 1)
+        assert XS.launch_plan(4096) == (512, 4, 2)
+    finally:
+        XS.ROWS = rows
     for bad in (0, 24, 3 * 4096):
         with pytest.raises(ValueError):
             XS.launch_plan(bad)
@@ -444,3 +448,252 @@ def test_canary_passes_on_the_cpu():
     eng = TE.GpuExactEngine("cpu")
     assert eng.stats["canary"]["device"] == "cpu"
     assert eng.stats["engine"] == "gpu" and eng.stats["tree"] == "native"
+
+
+# --------------------------------------------------------------------
+# the kernel's band-local schedule (csrc/exact_sweep.cu), in PyTorch
+# --------------------------------------------------------------------
+
+def band_local_sweep(p, VR, C, Wmax, use_chain, ncols, strip):
+    """The sweep as csrc/exact_sweep.cu schedules it: row vr computes
+    column d - lag[vr] at step d, each strip of ``strip`` rows in turn
+    over its own grid's steps (exact_sweep.schedule), a strip's first row
+    reading the previous strip's last row by column.  Same formulas as
+    exact_sweep.plain; out [G, Wmax, ncols, 3]."""
+    lag, span = XS.schedule(p, ncols, strip)
+    t = {k: torch.as_tensor(np.asarray(v)) for k, v in p.items()}
+    G = t["seedA"].shape[0]
+    lag, span = torch.from_numpy(lag).long(), torch.from_numpy(span).long()
+    cols = {k: t[k][:, VR:VR + C + 1].flip(1) for k in XS.COL_F32}
+    p2 = t["p2sub_p"][:, VR:VR + C + 1].flip(1)
+    match, bonus = (XS._padded(t[k], C + 1) for k in ("match", "bonus"))
+    out = torch.full((G, Wmax, C + 1, 3), float("-inf"))
+    edge = torch.full((3, G, C + 1), float(NEG))
+    gi = torch.arange(G)[:, None]
+    for s in range(VR // strip):
+        rows = torch.arange(s * strip, (s + 1) * strip)
+        r = {k: t[k][:, rows] for k in XS.ROW_BOOL + XS.ROW_INT
+             + XS.ROW_F32}
+        L = lag[:, rows]
+        neg = torch.full((G, strip), float(NEG))
+        S1 = U = torch.full((3, G, strip), float(NEG))
+        nxt = torch.full((3, G, C + 1), float(NEG))
+        d0, d1 = span[:, s, 0], span[:, s, 1]
+        for d in range(int(d0.min()), int(d1.max())):
+            jv = d - L
+            inwin = (r["active"] & (jv >= r["startq"]) & (jv <= r["endq"])
+                     & ((d >= d0) & (d < d1))[:, None])
+            jc = jv.clamp(0, C)
+            if s == 0:
+                up0 = torch.full((3, G, 1), float(NEG))
+            else:
+                up0 = torch.where(inwin[:, :1], edge[:, gi, jc[:, :1]],
+                                  torch.tensor(float(NEG)))
+            Up = torch.cat([up0, S1[:, :, :-1]], dim=2)
+            A_l, GA_l = S1[0], S1[1]
+            A_u, GA_u, GB_u = Up
+            A_d, GA_d, GB_d = U
+            ga_ext, ga_open, ga_tg, dga = (cols[k].gather(1, jc)
+                                           for k in XS.COL_F32)
+            at_start, at_end = jv == r["startq"], jv == r["endq"]
+            ga_chain = torch.maximum(GA_l + ga_ext, A_l + ga_open)
+            ga_chain_tg = torch.maximum(GA_l, A_l) + ga_tg
+            iA = torch.where(at_start, r["seedA"], neg)
+            iGA = torch.where(at_start, r["seedGA"],
+                              torch.where(at_end, neg,
+                                          torch.where(r["init_tg"],
+                                                      ga_chain_tg, ga_chain)))
+            iGB = torch.where(at_start, r["seedGB"], neg)
+            a_int = torch.maximum(torch.maximum(A_d, GA_d + dga),
+                                  GB_d + r["dgb"])
+            if use_chain:
+                prod = t["p1cnt"][:, rows] * p2[gi, jc]
+                for c in range(XS.NSUB - 1, -1, -1):
+                    a_int = a_int + prod[..., c]
+            else:
+                a_int = a_int + match[gi, rows[None], jc]
+            a_int = a_int + bonus[gi, rows[None], jc]
+            pA = torch.where(at_start, neg, a_int)
+            pGA = torch.where(at_start | at_end, neg, ga_chain)
+            gb_std = torch.maximum(GB_u + r["gb_ext"], A_u + r["gb_open"])
+            gb_tgv = torch.maximum(GB_u, A_u) + r["gb_tg"]
+            pGB = torch.where(at_start,
+                              torch.where(r["start_tg"], gb_tgv, gb_std),
+                              torch.where(at_end,
+                                          torch.where(r["end_tg"], gb_tgv,
+                                                      gb_std), gb_std))
+            N = torch.where(inwin, torch.where(r["is_init"],
+                                               torch.stack([iA, iGA, iGB]),
+                                               torch.stack([pA, pGA, pGB])),
+                            torch.tensor(float(NEG)))
+            fin = r["is_final"] & inwin & (jv < ncols) & (r["win_slot"] < Wmax)
+            g, k = torch.nonzero(fin, as_tuple=True)
+            out[g, r["win_slot"][g, k].long(), jc[g, k]] = N[:, g, k].T
+            g = torch.nonzero(inwin[:, -1], as_tuple=True)[0]
+            nxt[:, g, jc[g, -1]] = N[:, g, -1]
+            S1, U = N, Up
+        edge = nxt
+    return out[:, :, :ncols]
+
+
+def assert_schedule_reaches_every_cell(p, ncols, strip):
+    """schedule's lag and spans: every in-window cell below ncols of an
+    active row runs inside its strip's span."""
+    lag, span = XS.schedule(p, ncols, strip)
+    startq, endq = np.asarray(p["startq"]), np.asarray(p["endq"])
+    G, VR = startq.shape
+    for g in range(G):
+        for vr in np.flatnonzero(np.asarray(p["active"])[g]):
+            d0, d1 = span[g, vr // strip]
+            for j in range(startq[g, vr], min(endq[g, vr], ncols - 1) + 1):
+                assert d0 <= lag[g, vr] + j < d1, (g, vr, j)
+
+
+def hold_band_local(plans, key, live, strips=(None,)):
+    """band_local_sweep against exact_sweep.plain on one plan: the live
+    windows' outputs bit for bit, at each strip height."""
+    VR, C, Wmax, chain = key
+    W, ncols = live
+    tp = {k: torch.as_tensor(np.asarray(v)) for k, v in plans.items()}
+    ref = XS.plain(tp, VR, C, Wmax, chain, XS.live_steps(VR, C, ncols))
+    for strip in strips:
+        strip = VR if strip is None else min(strip, VR)
+        assert_schedule_reaches_every_cell(plans, ncols, strip)
+        got = band_local_sweep(plans, VR, C, Wmax, chain, ncols, strip)
+        assert np.array_equal(bits(got[:, :W]), bits(ref[:, :W, :ncols])), \
+            (key, live, strip)
+
+
+@pytest.mark.parametrize("use_chain", [False, True], ids=["match", "chain"])
+@pytest.mark.parametrize("ncols", [32, 17])
+def test_band_local_schedule_matches_plain_on_random_plans(use_chain, ncols):
+    """Random plans (ragged bands, windows with startq > 0, -FLT_MAX
+    seeds), both operand forms: the kernel's band-local schedule gives
+    plain's bits in one strip and in strips of 8 rows (bands crossing
+    strips), at all columns and at a live width."""
+    rng = np.random.default_rng(21 + use_chain)
+    G, VR, C = 3, 32, 31
+    p = random_plan(rng, G, VR, C, use_chain)
+    assert (p["startq"][p["active"]] > 0).any()
+    hold_band_local(p, (VR, C, VR, use_chain), (VR, ncols), (None, 8))
+
+
+def test_schedule_of_the_reference_is_lag_vr():
+    """exact_sweep.schedule with band_local=False is the reference's
+    schedule, lag = vr, within its live steps; the band-local schedule's
+    steps are never more and start every band at step 0."""
+    rng = np.random.default_rng(4)
+    G, VR, C = 2, 32, 31
+    p = random_plan(rng, G, VR, C, False)
+    lag, span = XS.schedule(p, C + 1, band_local=False)
+    assert np.array_equal(lag, np.broadcast_to(np.arange(VR), (G, VR)))
+    assert (span[:, 0, 1] <= XS.live_steps(VR, C, C + 1)).all()
+    assert_schedule_reaches_every_cell(p, C + 1, VR)
+    lag_b, span_b = XS.schedule(p, C + 1)
+    assert (span_b[:, 0, 1] - span_b[:, 0, 0]
+            <= span[:, 0, 1] - span[:, 0, 0]).all()
+    init = p["is_init"] & p["active"]
+    assert (lag_b[init] + p["startq"][init] == 0).all()
+    assert XS.steps_run(span_b) == int((span_b[..., 1]
+                                        - span_b[..., 0]).max())
+
+
+def capture_launches(monkeypatch, keep):
+    """Every sweep launch through exact.Sweeper.run passed to keep(plans,
+    key, live, modes) first, modes the operand modes of its problems."""
+    run, build = X.Sweeper.run, X._plans
+    seen = {}
+
+    def build_rec(ops, w, *args, **kw):
+        seen["modes"] = ("pairs" if ops.kind == "pairs"
+                         else tuple(sorted(set(ops.mode[w.p].tolist()))))
+        return build(ops, w, *args, **kw)
+
+    def run_rec(self, plans, key, live):
+        keep(plans, key, live, seen.get("modes"))
+        return run(self, plans, key, live)
+    monkeypatch.setattr(X, "_plans", build_rec)
+    monkeypatch.setattr(X.Sweeper, "run", run_rec)
+
+
+@pytest.mark.parametrize("budget", [0, 128])
+def test_band_local_schedule_matches_plain_on_packed_pairs(oracle,
+                                                           monkeypatch,
+                                                           budget):
+    """The pre-pass's pairs as ExactPairBatch packs them (one pair a grid,
+    and several pairs a grid at 128 virtual rows): every launch of the
+    recursion, the band-local schedule = plain, in one strip and in
+    strips of 16 rows."""
+    L, subm, g = oracle
+    rng = np.random.default_rng(9)
+    pairs = [(rng.integers(0, 23, int(rng.integers(1, 40))).astype(np.uint8),
+              rng.integers(0, 23, int(rng.integers(20, 60))).astype(np.uint8))
+             for _ in range(10)]
+    launches = []
+    capture_launches(monkeypatch,
+                     lambda *a: launches.append(a[:3]))
+    monkeypatch.setitem(X.PACK_BUDGET, "cpu", budget)
+    batch = X.ExactPairBatch(pairs, subm.reshape(23, 23), *g)
+    batch.run([np.full(len(a) + 2, -1, np.int32) for a, _ in pairs])
+    assert len(launches) > 3
+    assert (batch.VR == 128) == (budget == 128)
+    for plans, key, live in launches:
+        hold_band_local(plans, key, live, (None, 16))
+
+
+def test_band_local_schedule_matches_plain_on_bb12006_merges(oracle,
+                                                             monkeypatch):
+    """BB12006 through the gpu engine in default mode on the CPU: the
+    first merge launch holding each of its operand modes (residues x
+    residues, profile x profile; it has no profile x residues merge, so
+    that one comes from a batch of three random such merges with
+    bonuses), the band-local schedule = plain, in one strip and in strips
+    of 64 rows."""
+    first = {}
+
+    def keep(plans, key, live, modes):
+        for mode in (() if modes == "pairs" else modes):
+            first.setdefault(mode, (plans, key, live))
+    capture_launches(monkeypatch, keep)
+    m = tio.read_alignment(os.path.join(DATA, "BB12006.tfa"))
+    m.quiet = True
+    TE.align_msa(m, consistency_anchors=5, engine="gpu", device="cpu")
+    assert set(first) == {0, 2}
+    rng = np.random.default_rng(13)
+    alns = [X.ExactAligner(*a) for a in _operands(oracle, rng, 1, 3, True)]
+    VR = max(a.VR for a in alns)
+    C = max(a.Cpad for a in alns)
+    for a in alns:
+        a.VR, a.Cpad, a.Wmax = VR, C, VR
+    X.run_merge_batch(alns, [np.full(a.la + 2, -1, np.int32) for a in alns])
+    assert set(first) == {0, 1, 2}
+    for plans, key, live in {id(v[0]): v for v in first.values()}.values():
+        hold_band_local(plans, key, live, (None, 64))
+
+
+def test_exact_split_covers_the_alignment(monkeypatch):
+    """GpuExactEngine's exact_split_s on the CPU: the native runtime,
+    plan building, enqueueing and fetching, none negative, enqueue and
+    fetch seen, together no more than the alignment's wall; sweep_steps
+    counts the reference schedule's live steps that the plain version
+    ran."""
+    import time
+    eng = TE.GpuExactEngine("cpu")
+    launches = []
+    run = X.Sweeper.run
+
+    def rec(self, plans, key, live):
+        launches.append(XS.live_steps(key[0], key[1], live[1]))
+        return run(self, plans, key, live)
+    monkeypatch.setattr(X.Sweeper, "run", rec)
+    msa = tio.read_inputs([os.path.join(DATA, "small.fa")])
+    msa.quiet = True
+    t0 = time.perf_counter()
+    TE.align_msa(msa, consistency_anchors=5, engine=eng)
+    wall = time.perf_counter() - t0
+    sp = eng.stats["exact_split_s"]
+    assert set(sp) == {"native", "plans", "enqueue", "fetch"}
+    assert all(v >= 0 for v in sp.values())
+    assert sp["enqueue"] > 0 and sp["fetch"] > 0 and sp["plans"] > 0
+    assert sum(sp.values()) <= wall
+    assert eng.stats["sweep_steps"] == sum(launches) > 0
