@@ -12,8 +12,12 @@ Phases (any failure raises and the script exits non-zero):
      walk: walks across many windows, pure-gap walks, a short max_steps
      and walks longer than its step buffer; for the fused kernel: nc = 1,
      5, 8, 23 and 32, rows past a strip, one decision word per row; for
-     the tiled row kernel: 8 x 512 x 8,192 and 2 x 256 x 16,384 with full
-     and short lengths, and two tiles of a narrow row; for BPM and its
+     the cluster row kernel: 1 x 128 x 7,296, 8 x 512 x 8,192 with full
+     and short lengths and lb at band edges (also under clusters of 2, 4,
+     8 and 16 blocks), 2 x 256 x 16,384, 1 x 64 x 114,688, and a narrow
+     row in 3 and 4 bands (the last past the row), each launched twice;
+     for the tiled row kernel: 1 x 64 x 131,072 and two tiles of a
+     narrow row; for BPM and its
      mask-table kernel: every instantiation, nblk 1..16, with m = 0, 1,
      64, 65 and 64*nblk, texts past 1,024, P = 1; for the k-means Lloyd
      kernel, in both of its forms: clusters of exactly 50, 51 and 2,048
@@ -31,10 +35,12 @@ Phases (any failure raises and the script exits non-zero):
      launch of a long divergent family
      (LONG_DIVERGENT_*: routed to the exact engine in --fast mode, FASTA
      equal to the host engine's);
-  3. five paths, each aligned on the card with the device-resident
+  3. seven paths, each aligned on the card with the device-resident
      progressive pass (launch counts set to 0 just before and read just
-     after; every kernel of the path must have launched; one fetch per
-     guide-tree level plus one), then with the host-assembled pass
+     after; every kernel of the path must have launched, and none it
+     must not; but for "divergent", the engine gpu-fast, the mean anchor
+     distance below the autoroute's 0.5; one fetch per guide-tree level
+     plus one), then with the host-assembled pass
      (GpuEngine(resident=False)), whose FASTA must be the same; each
      path line gives both walls, the phase split and the progressive
      pass's host split (assembly, bonus, dispatch, merge, weave, fetch):
@@ -51,6 +57,10 @@ Phases (any failure raises and the script exits non-zero):
      mode with refine="confident" (a probe pass, then the flagged merges
      again with three candidates), whose host-assembled pass must give
      the same FASTA or part ways at a near-SP-tie (refine_divergence);
+     "long_default", LONG_GENOMES_N DNA sequences of HIV-1's length
+     (long_genomes: 9,200-9,900 nt) in default mode, resident pass only,
+     every map DP and merge on the cluster row kernel (no tiled launch),
+     the mean anchor distance below the autoroute's 0.5;
      "divergent", DIVERGENT_N protein sequences whose mean anchor
      distance lies in DIVERGENT_DISTANCE, default mode with the default
      gpu-fast engine: it must route to the exact engine "gpu", launch
@@ -75,15 +85,17 @@ Phases (any failure raises and the script exits non-zero):
      FASTA, or equal per-merge scores where a near-tie resolved
      differently; a long family (three fragments of 200-400
      residues and one of ~7,300, merges wider than 7,168 columns) in both
-     modes: identical FASTA, the tiled row kernel launched; and BB11001
+     modes: identical FASTA, the cluster row kernel launched; and BB11001
      with refine="all" in --fast mode: identical FASTA;
   6. main-path shapes: every kernel held bitwise against its plain
      version again, at the shapes and problem lengths the paths gave it
      (its largest launch; for the row kernel also its widest and the
      default path's largest launch of few problems, each under every
-     block size that fits; for the tiled row kernel the long family's
+     block size that fits; for the cluster row kernel the long_default
+     path's largest map-DP and progressive launches, the long family's
      largest launch and 8 x 512 x 8,192 and 2 x 256 x 16,384, with the
-     device memory one wide launch takes; for the prefix sums also the
+     device memory one wide launch takes; for the tiled row kernel,
+     which no path launches, 1 x 64 x 131,072; for the prefix sums also the
      widest row launch's [B, L2p]; for the walk each decision layout
      apart and the widest row launch's walks; for the fused kernel every
      launch shape of the default path), and timed there beside its plain
@@ -165,7 +177,14 @@ KERNELS = {
     "gotoh_row_tiled": ("kalign_tpu_torch/csrc/gotoh_row.cu",
                         "kalign_tpu/tpu/gotoh_pallas.py:272 (_kernel :112) "
                         "past its plan's widths, where kalign_tpu runs "
-                        "tpu/gotoh.py:47 gotoh_forward (XLA, not Pallas)"),
+                        "tpu/gotoh.py:47 gotoh_forward (XLA, not Pallas); "
+                        "here past 114,688 columns"),
+    "gotoh_row_cluster": ("kalign_tpu_torch/csrc/gotoh_row.cu",
+                          "kalign_tpu/tpu/gotoh_pallas.py:272 (_kernel :112)"
+                          " past its plan's widths, where kalign_tpu runs "
+                          "tpu/gotoh.py:47 gotoh_forward (XLA, not Pallas); "
+                          "the design of kalign_tpu/parallel/mesh.py:288 "
+                          "sharded_long_gotoh"),
     "kmeans": ("kalign_tpu_torch/csrc/kmeans.cu",
                "kalign_tpu/tpu/kmeans.py:46 _lloyd_batch / :322 "
                "_fused_splits (XLA, not Pallas)"),
@@ -180,22 +199,35 @@ PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
                  "traceback": "walk_kernel", "prefix_sum": "prefix_sum_kernel",
                  "gotoh_fused": "FusedOperands",
                  "gotoh_row_tiled": "gotoh_row_tiled_kernel",
+                 "gotoh_row_cluster": "gotoh_row_cluster_kernel",
                  "kmeans": "lloyd_kernel",
                  "exact_sweep": "exact_sweep_kernel"}
-# the paths: mode, the kernels the path must launch, refinement, whether
-# the host-assembled pass runs too (it would take minutes at 16,384
-# sequences) and whether a profiled run follows; the long family's cases
-# of phase_gpu_vs_cpu must launch the tiled row kernel
+# the paths: mode, the kernels the path must launch (and those it must
+# not), refinement, whether the host-assembled pass runs too (it would
+# take minutes at 16,384 sequences, and densify a 378 MB bonus per
+# problem some 80 times on the long genomes) and whether a profiled run
+# follows; the long family's cases of phase_gpu_vs_cpu must launch the
+# cluster row kernel
 NARROW = [k for k in KERNELS
-          if k not in ("gotoh_fused", "gotoh_row_tiled", "kmeans",
-                       "exact_sweep")]
+          if k not in ("gotoh_fused", "gotoh_row_tiled", "gotoh_row_cluster",
+                       "kmeans", "exact_sweep")]
+WIDE = ["bpm", "bpm_table", "prefix_sum", "traceback", "gotoh_row_cluster"]
 PATHS = {"fast": dict(mode="fast", launch=NARROW),
          "default": dict(mode="default", launch=NARROW + ["gotoh_fused"]),
          "protein_default": dict(mode="default", launch=NARROW),
          "large_default": dict(mode="default", launch=NARROW + ["kmeans"],
                                host_pass=False),
          "refine_confident": dict(mode="default", launch=NARROW,
-                                  refine="confident", profile=False)}
+                                  refine="confident", profile=False),
+         "long_default": dict(mode="default", launch=WIDE,
+                              forbid=["gotoh_row_tiled"], host_pass=False)}
+# the long_default path: LONG_GENOMES_N DNA sequences of HIV-1's length
+# (the HXB2 reference, GenBank K03455, is 9,719 nt); the mean anchor
+# distance of every path's input must stay below the autoroute's 0.5 (on
+# gpu-fast)
+LONG_GENOMES_N = 128
+LONG_GENOMES_SUBS = (0.06, 0.03)
+AUTOROUTE_DISTANCE = 0.5
 # fp32 operations per cluster member, iteration and try of the k-means
 # Lloyd kernel, at D anchors: two D-long dot products (2D multiplies,
 # 2D - 2 adds), the two squared distances (1 multiply, 2 adds each), the
@@ -398,6 +430,15 @@ def long_family(seed: int, n_short: int = 3, long_len: int = 7300):
         s0 = int(rng.integers(3000, 3200))
         out.append(mutate(root[s0:s0 + L], 0.1, 2))
     return [s.tobytes().decode() for s in out]
+
+
+def long_genomes(n: int = LONG_GENOMES_N, seed: int = 10):
+    """HIV-1-length genomes from a seed: a 9,719-nt root, 16 clades at
+    6 % substitutions, members at 3 % more, indels of 1-3 nt; lengths
+    9,200-9,900, so every map DP and merge is wider than 7,168 columns
+    (the cluster row kernel's widths)."""
+    return family(n, seed, root_len=9719, lo=9200, hi=9900, letters=DNA,
+                  subs=LONG_GENOMES_SUBS, max_indel=3)
 
 
 def v4_family(n: int, seed: int):
@@ -603,7 +644,7 @@ def phase_edge_cases(dev):
     hold_dp_outputs("gotoh_row", False, gotoh_row.forward(*dp_args(w)),
                     gotoh_row.forward_plain(*dp_args(w)), w,
                     f"4x256x2176 under {gotoh_row.launch_config(4, 2176)}")
-    edge_cases_tiled(dev, rng, p, row_ref)
+    edge_cases_cluster(dev, rng, p, row_ref)
 
     # lanewise Gotoh: B=1024 at 128 x 128, lengths 1..128 and 0
     la = rng.integers(1, 129, size=1024)
@@ -697,37 +738,70 @@ def phase_edge_cases(dev):
     emit({"phase": "edge_cases", "ok": True})
 
 
-def tiled_cases(dev, rng):
-    """The tiled row kernel's edge problems: 8 x 512 x 8,192 and
-    2 x 256 x 16,384, with full and short la / lb, lb = 0 and la = 0, lb
-    inside the first tile and just past it."""
-    return [dp_problem(rng, 512, 8192, [512, 300, 0, 512, 1, 511, 200, 512],
-                       [8192, 8192, 5000, 0, 8192, 7169, 4096, 4095], dev),
-            dp_problem(rng, 256, 16384, [256, 100], [16384, 9000], dev)]
+def cluster_cases(dev, rng):
+    """The cluster row kernel's edge problems: 1 x 128 x 7,296 (the
+    narrowest width it takes); 8 x 512 x 8,192 with full and short la /
+    lb, lb = 0 and la = 0, lb at band edges (512, 4,096) and one either
+    side; the same with la / lb at full length; 2 x 256 x 16,384; 1 x 64 x
+    114,688 (the widest, 16 bands of 7,168)."""
+    return [dp_problem(rng, 128, 7296, [128], [7296], dev),
+            dp_problem(rng, 512, 8192, [512, 300, 0, 512, 1, 511, 200, 512],
+                       [8192, 512, 5000, 0, 8192, 513, 4096, 4095], dev),
+            dp_problem(rng, 512, 8192, [512] * 8, [8192] * 8, dev),
+            dp_problem(rng, 256, 16384, [256, 100], [16384, 9000], dev),
+            dp_problem(rng, 64, 114688, [64], [114687], dev)]
 
 
-def edge_cases_tiled(dev, rng, p, ref):
-    """The tiled row kernel against the plain version at its edge widths
-    (tiled_cases), and on the 64 x 384 x 384 problem p (plain outputs
-    ref) under blocks of 32, 64 and 128 threads: two tiles with threads
-    past L2p in the last, and one tile."""
+def hold_twice(name, run, ref, p, what):
+    """A kernel launched twice: each launch bitwise equal to the plain
+    outputs ref (so to each other)."""
+    for k in range(2):
+        hold_dp_outputs(name, False, run(), ref, p, f"{what}, launch {k}")
+
+
+def edge_cases_cluster(dev, rng, p, ref):
+    """The cluster row kernel against the plain version at its edge widths
+    (cluster_cases) under its plan, and the 8,192-wide problems also under
+    clusters of 2, 4, 8 and 16 blocks; on the 64 x 384 x 384 problem p
+    (plain outputs ref) under 3 bands of 128 and 4 (the last band wholly
+    past the row); each launch twice.  Then the tiled row kernel, which
+    stays for rows past 114,688 columns, at 1 x 64 x 131,072 and on p
+    under blocks of 32, 64 and 128 threads."""
     from kalign_tpu_torch.gpu import gotoh_row
-    for w in tiled_cases(dev, rng):
-        cfg = gotoh_row.launch_config(len(w["la"]), w["L2p"])
-        if not cfg.tiled:
-            raise AssertionError(f"{shape_of(w)}: not the tiled plan")
-        hold_dp_outputs("gotoh_row_tiled", False,
-                        gotoh_row.forward(*dp_args(w)),
-                        gotoh_row.forward_plain(*dp_args(w)), w,
-                        f"{shape_of(w)} under {cfg}")
+    for w in cluster_cases(dev, rng):
+        B, W = len(w["la"]), w["L2p"]
+        cfg = gotoh_row.launch_config(B, W)
+        if cfg.route != "cluster":
+            raise AssertionError(f"{shape_of(w)}: not the cluster plan")
+        plain = gotoh_row.forward_plain(*dp_args(w))
+        cfgs = [cfg] + ([gotoh_row.cluster_config(B, W, blocks=s)
+                         for s in gotoh_row.CLUSTER_SIZES] if W == 8192
+                        else [])
+        for c in cfgs:
+            hold_twice("gotoh_row_cluster", lambda: gotoh_row.run_dp(
+                gotoh_row.prepare, lambda *a: gotoh_row.launch(*a, config=c),
+                *dp_args(w)), plain, w, f"{shape_of(w)} under {c}")
+        emit({"phase": "edge_cluster", "shape": shape_of(w),
+              "plan": cfg._asdict(),
+              "max_active_clusters": gotoh_row.cluster_schedulable(cfg)})
+    for c in (gotoh_row.band_config(3, 128, 4),
+              gotoh_row.band_config(4, 128, 4)):
+        hold_twice("gotoh_row_cluster", lambda: gotoh_row.run_dp(
+            gotoh_row.prepare, lambda *a: gotoh_row.launch(*a, config=c),
+            *dp_args(p)), ref, p, f"64x384x384 under {c}")
+    w = dp_problem(rng, 64, 131072, [64], [131000], dev)
+    cfg = gotoh_row.launch_config(1, 131072)
+    if cfg.route != "tiled":
+        raise AssertionError(f"{shape_of(w)}: not the tiled plan")
+    hold_twice("gotoh_row_tiled", lambda: gotoh_row.forward(*dp_args(w)),
+               gotoh_row.forward_plain(*dp_args(w)), w,
+               f"{shape_of(w)} under {cfg}")
     for threads in (32, 64, 128):
-        cfg = gotoh_row.RowLaunch(threads, gotoh_row.TILED_CH,
-                                  gotoh_row.tiled_config(threads * 8).smem,
-                                  True)
+        c = gotoh_row.tiled_config(threads * 8)
         hold_dp_outputs("gotoh_row_tiled", False, gotoh_row.run_dp(
             gotoh_row.prepare,
-            lambda *a: gotoh_row.launch(*a, config=cfg), *dp_args(p)),
-            ref, p, f"64x384x384 under {cfg}")
+            lambda *a: gotoh_row.launch(*a, config=c), *dp_args(p)),
+            ref, p, f"64x384x384 under {c}")
 
 
 def random_tokens(rng, lens):
@@ -1494,6 +1568,7 @@ def counters():
     out = {k: (m, "launches") for k, m in mods.items()}
     out["bpm_table"] = (bpm, "table_launches")
     out["gotoh_row_tiled"] = (gotoh_row, "tiled_launches")
+    out["gotoh_row_cluster"] = (gotoh_row, "cluster_launches")
     return out
 
 
@@ -1643,6 +1718,14 @@ def phase_path(path: str, seqs):
         raise AssertionError(f"kernels not launched on the {path} path: "
                              f"{missing}; buckets per level: "
                              f"{stats['levels']}")
+    stray = [k for k in cfg.get("forbid", ()) if launches[k]]
+    if stray:
+        raise AssertionError(f"{path}: launched {stray}")
+    if not (stats["engine"] == "gpu-fast"
+            and np.mean(msa.seq_distances) < AUTOROUTE_DISTANCE):
+        raise AssertionError(f"{path}: mean anchor distance "
+                             f"{np.mean(msa.seq_distances)} routed it to "
+                             f"{stats['engine']}")
     passes = len(stats["candidate_passes"])
     if stats["fetches"] != len(stats["levels"]) + passes:
         raise AssertionError(f"{path}: the resident pass fetched "
@@ -1959,7 +2042,7 @@ def bpm_stage(dev, seqs):
 
 def launch_memory(dev):
     """Peak device bytes per DP cell of one GpuEngine.launch_bucket on the
-    row route (8 problems of 1,024 x 8,192, the tiled kernel's widths),
+    row route (8 problems of 1,024 x 8,192, the cluster kernel's widths),
     without and with a consistency bonus of 5 anchors, and from each the
     widest square problem (a multiple of 128) of which one launch of 8
     problems, the least GpuEngine.max_launch gives, fits in this card's
@@ -1998,13 +2081,73 @@ def launch_memory(dev):
     return out
 
 
-def phase_main_shapes(dev, stats, stats_default, seqs, stats_long):
+def batch_cells(b):
+    """The DP cells a launch's problems need (la x lb each)."""
+    return int(np.sum(b["la"].astype(np.int64) * b["lb"]))
+
+
+def row_dp_entry(name, p, reps):
+    """The row kernel's wrapper at problem p under its launch_config plan:
+    held bitwise against the plain version, timed, with its bound."""
+    from kalign_tpu_torch.gpu import gotoh_row
+    _, ms, dev_ms, plain_ms = hold_dp(name, gotoh_row, False, p, reps)
+    b_ms, b_by = gotoh_bound(p, 1)
+    return dict(shape=shape_of(p), ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                plan=gotoh_row.launch_config(len(p["la"]),
+                                             p["L2p"])._asdict())
+
+
+def cluster_main_shape(dev, stats_wide, stats_long=None):
+    """The cluster row kernel at the long_default path's largest map-DP
+    launch and its largest progressive launch (by the cells their lengths
+    need), at the long family's largest cluster launch (stats_long), and
+    at 8 x 512 x 8,192 and 2 x 256 x 16,384 at full lengths: each held
+    bitwise against the plain version and timed; with the device memory
+    one wide launch of the engine takes (launch_memory)."""
+    from kalign_tpu_torch.gpu import gotoh_row
+    rng = np.random.default_rng(2)
+
+    def largest(st, maps=None):
+        return max((b for b in st["batches"] if b["route"] == "row"
+                    and maps in (None, b["maps"])
+                    and gotoh_row.launch_config(
+                        len(b["la"]), b["L2p"]).route == "cluster"),
+                   key=batch_cells)
+
+    def problem(b):
+        return dp_problem(rng, b["L1p"], b["L2p"], b["la"], b["lb"], dev)
+    name = "gotoh_row_cluster"
+    out = row_dp_entry(name, problem(largest(stats_wide, True)), 3)
+    out["progressive"] = row_dp_entry(name,
+                                      problem(largest(stats_wide, False)), 3)
+    if stats_long is not None:
+        out["long_family"] = row_dp_entry(name, problem(largest(stats_long)),
+                                          5)
+        out["8192"] = row_dp_entry(name, dp_problem(
+            rng, 512, 8192, [512] * 8, [8192] * 8, dev), 5)
+        out["16384"] = row_dp_entry(name, dp_problem(
+            rng, 256, 16384, [256] * 2, [16384] * 2, dev), 5)
+        out["launch_memory"] = launch_memory(dev)
+    emit({"phase": "main_shape", "kernel": name, **out})
+    return out
+
+
+def tiled_main_shape(dev):
+    """The tiled row kernel, which no path launches (it takes rows past
+    114,688 columns), at 1 x 64 x 131,072: held and timed."""
+    out = row_dp_entry("gotoh_row_tiled", dp_problem(
+        np.random.default_rng(3), 64, 131072, [64], [131072], dev), 5)
+    emit({"phase": "main_shape", "kernel": "gotoh_row_tiled", **out})
+    return out
+
+
+def phase_main_shapes(dev, stats, stats_default, seqs):
     """Each kernel at the shapes and lengths a path gave it: the row,
     lanewise, traceback and prefix-sum kernels at the fast path's, the
-    fused kernel at the default path's, the tiled row kernel at the long
-    family's largest launch and at 8 x 512 x 8,192 and 2 x 256 x 16,384,
-    BPM and its table at both paths' and at one full chunk of
-    raw_distances."""
+    fused kernel at the default path's, BPM and its table at both paths'
+    and at one full chunk of raw_distances (the cluster and tiled row
+    kernels: cluster_main_shape, tiled_main_shape)."""
     import torch
     from kalign_tpu_torch.core import params as P
     from kalign_tpu_torch.gpu import gotoh_fused, gotoh_lanewise, gotoh_row, \
@@ -2019,9 +2162,6 @@ def phase_main_shapes(dev, stats, stats_default, seqs, stats_long):
         return max((b for b in st["batches"] if b["route"] == route),
                    key=key)
 
-    def cells(b):
-        return int(np.sum(b["la"].astype(np.int64) * b["lb"]))
-
     def problem(b):
         return dp_problem(rng, b["L1p"], b["L2p"], b["la"], b["lb"], dev)
 
@@ -2029,7 +2169,7 @@ def phase_main_shapes(dev, stats, stats_default, seqs, stats_long):
     # widest, and the default path's largest launch of few problems (an
     # upper tree level); each timed under launch_config's block and under
     # every other block that fits
-    p = problem(batch(False, cells))
+    p = problem(batch(False, batch_cells))
     row_out, ms, dev_ms, plain_ms = hold_dp("gotoh_row", gotoh_row, False,
                                             p, 20)
     out["gotoh_row"] = dict(ms=ms, plain_ms=plain_ms, shape=shape_of(p),
@@ -2041,7 +2181,7 @@ def phase_main_shapes(dev, stats, stats_default, seqs, stats_long):
         gotoh_bound(p, 1)
     for key, b, reps in (
             ("widest", batch(False, lambda b: (b["L2p"], b["L1p"])), 5),
-            ("few", batch(False, lambda b: (-len(b["la"]), cells(b)),
+            ("few", batch(False, lambda b: (-len(b["la"]), batch_cells(b)),
                           stats_default), 10)):
         pk = problem(b)
         _, k_ms, k_dev_ms, k_plain_ms = hold_dp("gotoh_row", gotoh_row,
@@ -2057,32 +2197,8 @@ def phase_main_shapes(dev, stats, stats_default, seqs, stats_long):
             pw = pk
     emit({"phase": "main_shape", "kernel": "gotoh_row", **out["gotoh_row"]})
 
-    # tiled row kernel: the long family's largest launch, then the edge
-    # widths at full lengths
-    tiled = [b for b in stats_long["batches"] if b["route"] == "row"
-             and gotoh_row.launch_config(len(b["la"]), b["L2p"]).tiled]
-    for key, pk in (("main", problem(max(tiled, key=cells))),
-                    ("8192", dp_problem(rng, 512, 8192, [512] * 8,
-                                        [8192] * 8, dev)),
-                    ("16384", dp_problem(rng, 256, 16384, [256] * 2,
-                                         [16384] * 2, dev))):
-        _, k_ms, k_dev_ms, k_plain_ms = hold_dp("gotoh_row_tiled",
-                                                gotoh_row, False, pk, 5)
-        b_ms, b_by = gotoh_bound(pk, 1)
-        entry = dict(shape=shape_of(pk), ms=k_ms, device_ms=k_dev_ms,
-                     plain_ms=k_plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     block=gotoh_row.launch_config(
-                         len(pk["la"]), pk["L2p"])._asdict())
-        if key == "main":
-            out["gotoh_row_tiled"] = entry
-        else:
-            out["gotoh_row_tiled"][key] = entry
-    out["gotoh_row_tiled"]["launch_memory"] = launch_memory(dev)
-    emit({"phase": "main_shape", "kernel": "gotoh_row_tiled",
-          **out["gotoh_row_tiled"]})
-
     # lanewise kernel: the main path's 1,024-problem leaf bucket
-    q = problem(batch(True, cells))
+    q = problem(batch(True, batch_cells))
     lw_out, ms, dev_ms, plain_ms = hold_dp("gotoh_lanewise", gotoh_lanewise,
                                            True, q, 10)
     out["gotoh_lanewise"] = dict(
@@ -2183,11 +2299,11 @@ def phase_main_shapes(dev, stats, stats_default, seqs, stats_long):
     for b in stats_default["batches"]:
         if b["route"] == "fused":
             key = (len(b["la"]), b["L1p"], b["L2p"])
-            if key not in shapes or cells(b) > cells(shapes[key]):
+            if key not in shapes or batch_cells(b) > batch_cells(shapes[key]):
                 shapes[key] = b
     launches_f = []
     for k, ((B, L1p, L2p), fb) in enumerate(sorted(
-            shapes.items(), key=lambda kv: -cells(kv[1]))):
+            shapes.items(), key=lambda kv: -batch_cells(kv[1]))):
         la_d, lb_d = t(fb["la"]), t(fb["lb"])
         tok = t(rng.integers(0, 4, size=(2 * B, max(L1p, L2p)))
                 .astype(np.uint8))
@@ -2344,8 +2460,8 @@ def phase_gpu_vs_cpu():
                 if not same:
                     raise AssertionError(f"{name}: GPU and CPU alignments "
                                          "differ")
-                if launches[name]["gotoh_row_tiled"] == 0:
-                    raise AssertionError(f"{name}: the tiled row kernel "
+                if launches[name]["gotoh_row_cluster"] == 0:
+                    raise AssertionError(f"{name}: the cluster row kernel "
                                          "did not launch")
     return launches, stats
 
@@ -2359,10 +2475,11 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
     """The phases named in ``--only`` (comma-separated: edge, kmeans_edge,
     kmeans, exact_edge, path:NAME, profile:NAME, vs), for a short call;
     no result lines.  path:divergent also holds and times the sweep at
-    its largest launch."""
+    its largest launch, path:long_default the cluster row kernel at its
+    largest map-DP and progressive launches."""
     protein = lambda: family(2000, seed=0)
     seqs = {"default": lambda: v4_family(2000, seed=2),
-            "large_default": large_family}
+            "large_default": large_family, "long_default": long_genomes}
     for what in only.split(","):
         if what == "edge":
             phase_edge_cases(dev)
@@ -2382,7 +2499,9 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
         elif what.startswith(("path:", "profile:")):
             kind, path = what.split(":")
             s = seqs.get(path, protein)()
-            launches, _ = phase_path(path, s)
+            launches, stats = phase_path(path, s)
+            if path == "long_default":
+                cluster_main_shape(dev, stats)
             if kind == "profile":
                 phase_profile(path, s, launches)
         elif what == "vs":
@@ -2429,7 +2548,7 @@ def main(argv=None):
     protein = family(2000, seed=0)
     seqs = {"fast": protein, "default": v4_family(2000, seed=2),
             "protein_default": protein, "large_default": large_family(),
-            "refine_confident": protein,
+            "refine_confident": protein, "long_default": long_genomes(),
             "divergent": divergent_family(args.divergent_n)}
     launches, stats = {}, {}
     for path in PATHS:
@@ -2443,8 +2562,10 @@ def main(argv=None):
     vs_launches, vs_stats = phase_gpu_vs_cpu()
     launches.update({k: v for k, v in vs_launches.items()
                      if k.startswith(("long", "BB11001"))})
-    shapes = phase_main_shapes(dev, stats["fast"], stats["default"], seqs,
-                               vs_stats["long-fast"])
+    shapes = phase_main_shapes(dev, stats["fast"], stats["default"], seqs)
+    shapes["gotoh_row_cluster"] = cluster_main_shape(
+        dev, stats["long_default"], vs_stats["long-fast"])
+    shapes["gotoh_row_tiled"] = tiled_main_shape(dev)
     shapes["kmeans"] = kmeans_root
     shapes["exact_sweep"] = sweep_main_shape(dev, sweep_largest)
     emit({"phase": "main_shape", "kernel": "exact_sweep",
@@ -2452,7 +2573,8 @@ def main(argv=None):
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = shapes[name]
-        main = {"gotoh_row_tiled": ("long-fast", "long-default"),
+        main = {"gotoh_row_cluster": ("long_default",),
+                "gotoh_row_tiled": (),
                 "kmeans": ("large_default",),
                 "exact_sweep": ("divergent",)}.get(name, ("default",))
         kernels.append({

@@ -46,10 +46,17 @@
  * once and writes one decision byte (~5 B/cell).  Rows past a problem's
  * length are skipped (their decisions are never read).
  *
- * Rows wider than the largest block's registers hold (896 threads x 8
- * columns) take gotoh_row_tiled_kernel below.
+ * The DP of a band of columns (band_rows, with the per-row body
+ * row_step) is shared with gotoh_row_cluster_kernel below, which takes
+ * rows wider than the largest block's registers hold (896 threads x 8
+ * columns) up to 16 such bands; wider rows still take
+ * gotoh_row_tiled_kernel.
  */
 #include "kt_cuda.h"
+
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -133,6 +140,298 @@ __device__ __forceinline__ RowScalars row_scalars(const float* rp,
   return RowScalars{rp[0], rp[1], rp[2], rp[3], rp[4], *rt};
 }
 
+/* What the bands left of a block's band hand it for one row: the prefix
+ * max of u over every column left of the band (-inf where there is none),
+ * the u at the column just left of it, and A, GA, GB there (the band's
+ * diagonal left edge in the next row). */
+struct Halo {
+  float cmax, lu, eA, eGA, eGB;
+};
+
+/* The register kernel's row is one band: nothing comes from the left. */
+struct NoHalo {
+  static constexpr bool kBands = false;
+  __device__ __forceinline__ Halo receive(int, int) const {
+    return Halo{-INFINITY, KT_NEG, KT_NEG, KT_NEG, KT_NEG};
+  }
+  __device__ __forceinline__ void send(int, float, float, float, float,
+                                       float) const {}
+};
+
+/* One thread's place in its band and its DP state. */
+template <int CH>
+struct RowThread {
+  int t, lane, warp, nw;
+  int cols;          // the block's columns (the shared-memory row stride)
+  int j0;            // the first of the thread's CH columns in the row
+  bool real;         // j0 < L2p (L2p % CH == 0: a chunk is all in or out)
+  bool first;        // the thread holds DP column 1 (analytic left edge)
+  const float* inv;  // invariants [4][cols] at the thread's offset
+  float* slots;      // warp slots [2][nw][kSlot]
+  const float* colg; // colpen + the thread's offset (last row's C, gnC)
+  size_t BW;         // B * L2p: colpen's vector stride
+  float Cleft;       // C_norm at column j0 - 1
+  float A[CH], GA[CH], GB[CH], U[CH];
+  float lA, lGA, lGB;  // the previous row's values at column j0 - 1
+};
+
+/* One DP row (row r, DP row r + 1) of one thread's CH columns; m holds
+ * the match row's chunk.  The per-cell order of operations is the plain
+ * version's.  Between the block's prefix max of u and the GA pass the
+ * halo of this row is received (the cluster kernel waits for it there,
+ * after its own A / GB / u pass); after the GA pass the band's own halo
+ * goes to the band on the right. */
+template <int CH, class Edge>
+__device__ __forceinline__ void row_step(RowThread<CH>& x, float (&m)[CH],
+                                         int r, int la, int lb,
+                                         const RowScalars& sc,
+                                         int8_t* dec_row, Edge& edge) {
+  const int row = r + 1;
+  const bool last = row == la;
+  const int cols = x.cols;
+  float gnC[CH];
+  if (last && x.real) {
+    load_chunk(gnC, x.colg + 3 * x.BW);
+  } else {
+    load_chunk(gnC, x.inv + 2 * cols);
+  }
+  if (!x.real) {
+#pragma unroll
+    for (int c = 0; c < CH; c++) m[c] = 0.0f;
+  }
+  if (x.first) {
+    x.lA = (row == 1) ? 0.0f : KT_NEG;
+    x.lGA = KT_NEG;
+    x.lGB = sc.gb0_prev;
+  }
+
+  // A, GB, u and the decision's A / GB bits, left to right; dA, dGA,
+  // dGB hold the previous row's values at the column to the left
+  int d[CH];
+  float dA = x.lA, dGAv = x.lGA, dGBv = x.lGB;
+  float run = -INFINITY, run_but_last = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < CH; c++) {
+    const int col = x.j0 + c + 1;
+    const float mm = m[c] - fabsf(x.inv[c] - sc.rterm);
+    const float diagA = dA;
+    const float dGA = dGAv + x.inv[cols + c];
+    const float dGB = dGBv + sc.goA_prev;
+    const float best01 = fmaxf(diagA, dGA);
+    const float A_row = fmaxf(best01, dGB) + mm;
+    const bool term = col == lb;
+    const float ge_eff = term ? sc.tgeA : sc.geA;
+    const float go_eff = term ? sc.tgeA : sc.goA;
+    const float gb_e = x.GB[c] + ge_eff;
+    const float gb_o = x.A[c] + go_eff;
+    const float u = (col < lb) ? (A_row + gnC[c]) : KT_NEG;
+    d[c] = (dGB >= best01) ? 2 : ((dGA >= diagA) ? 1 : 0);
+    d[c] |= (gb_e > gb_o) ? KT_DEC_GB_EXT : 0;
+    dA = x.A[c];
+    dGAv = x.GA[c];
+    dGBv = x.GB[c];
+    x.A[c] = A_row;
+    x.GB[c] = fmaxf(gb_e, gb_o);
+    x.U[c] = u;
+    if (c == CH - 1) run_but_last = run;
+    run = fmaxf(run, u);
+  }
+
+  // prefix max of u across the block: one barrier
+  const int lane = x.lane, warp = x.warp, nw = x.nw;
+  const float incl = warp_incl_max(run, lane);
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = -INFINITY;
+  float lu = __shfl_up_sync(0xffffffffu, x.U[CH - 1], 1);
+  float cin = -INFINITY;   // max u of the warps left of this one
+  float wex2 = -INFINITY;  // ... of all but the nearest
+  float* slot = x.slots + (r & 1) * nw * kSlot;
+  const float* left = slot + (warp - 1) * kSlot;
+  if (lane == 31) {
+    float* sw = slot + warp * kSlot;
+    sw[0] = incl;
+    sw[1] = fmaxf(excl, run_but_last);
+    sw[2] = x.U[CH - 1];
+    sw[3] = x.A[CH - 1];
+    sw[4] = x.GB[CH - 1];
+  }
+  __syncthreads();
+  if (nw > 1) {
+    float wv = lane < nw ? slot[lane * kSlot] : -INFINITY;
+    for (int off = 1; off < nw; off <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, wv, off);
+      if (lane >= off) wv = fmaxf(wv, o);
+    }
+    if (warp > 0) cin = __shfl_sync(0xffffffffu, wv, warp - 1);
+    if (warp > 1) wex2 = __shfl_sync(0xffffffffu, wv, warp - 2);
+  }
+  if (lane == 0 && warp > 0) lu = left[2];
+  const Halo h = edge.receive(r, x.t);
+  float cm = fmaxf(cin, excl);
+  if constexpr (Edge::kBands) cm = fmaxf(h.cmax, cm);
+  if (x.t == 0) {
+    cm = x.first ? KT_NEG : h.cmax;
+    lu = x.first ? KT_NEG : h.lu;
+  }
+
+  // GA = shifted prefix max + C, and the decision's GA bit
+  float C[CH];
+  if (last && x.real) {
+    load_chunk(C, x.colg + 1 * x.BW);
+  } else {
+    load_chunk(C, x.inv + 3 * cols);
+  }
+#pragma unroll
+  for (int c = 0; c < CH; c++) {
+    const float cm_s = cm;
+    const float u_s = c ? x.U[c - 1] : lu;
+    x.GA[c] = cm_s + C[c];
+    d[c] |= (cm_s > u_s) ? KT_DEC_GA_EXT : 0;
+    cm = fmaxf(cm, x.U[c]);
+  }
+  // the band's last thread: cm is now the prefix max of u over every
+  // column up to the band's right edge
+  if (x.t == (int)blockDim.x - 1)
+    edge.send(r, x.A[CH - 1], x.GA[CH - 1], x.GB[CH - 1], cm, x.U[CH - 1]);
+  if (x.real) store_dec<CH>(dec_row + x.j0, d);
+
+  // the next row's values at column j0 - 1
+  x.lA = __shfl_up_sync(0xffffffffu, x.A[CH - 1], 1);
+  x.lGA = __shfl_up_sync(0xffffffffu, x.GA[CH - 1], 1);
+  x.lGB = __shfl_up_sync(0xffffffffu, x.GB[CH - 1], 1);
+  if (lane == 0 && warp > 0) {
+    float w = fmaxf(wex2, left[1]);
+    if constexpr (Edge::kBands) w = fmaxf(h.cmax, w);
+    x.lA = left[3];
+    x.lGB = left[4];
+    x.lGA = w + x.Cleft;
+  }
+  if constexpr (Edge::kBands) {
+    if (x.t == 0 && !x.first) {
+      x.lA = h.eA;
+      x.lGA = h.eGA;
+      x.lGB = h.eGB;
+    }
+  }
+}
+
+/* The DP of one problem's band of columns [band0, band0 + blockDim.x *
+ * CH) over every row: the invariants and the match ring in shared memory
+ * (smem: [4 + NS][cols] floats, then the warp slots), the rows through
+ * row_step, and the end state from the thread holding column lb - 1 (or
+ * DP column 1 where lb is out of range). */
+template <int CH, class Edge>
+__device__ __forceinline__ void band_rows(
+    float* smem, int band0, int b, const float* __restrict__ match,
+    const float* __restrict__ colpen, const float* __restrict__ ga0,
+    const float* __restrict__ rowpen, const float* __restrict__ cols_eps,
+    const float* __restrict__ row_term, const int32_t* __restrict__ la_arr,
+    const int32_t* __restrict__ lb_arr, int B, int L1p, int L2p,
+    int8_t* __restrict__ dec, float* __restrict__ score_out,
+    int32_t* __restrict__ state_out, Edge& edge) {
+  constexpr int NS = RowCfg<CH>::kStages;
+  RowThread<CH> x;
+  x.t = threadIdx.x;
+  x.lane = x.t & 31;
+  x.warp = x.t >> 5;
+  x.nw = blockDim.x >> 5;
+  x.cols = blockDim.x * CH;
+  x.j0 = band0 + x.t * CH;
+  x.real = x.j0 < L2p;
+  x.first = x.j0 == 0;
+  const int cols = x.cols;
+  const int lo = x.t * CH;  // the thread's offset in shared memory
+
+  // shared memory: invariants [4][cols] (ceps, goB_s, gnC_norm, C_norm),
+  // the match ring [NS][cols], the warp slots [2][nw][kSlot]
+  float* inv = smem + lo;
+  float* ring = smem + 4 * cols + lo;
+  x.inv = inv;
+  x.slots = smem + (4 + NS) * cols;
+
+  const int la = la_arr[b];
+  const int lb = lb_arr[b];
+  x.BW = (size_t)B * L2p;
+  const size_t pb = (size_t)b * L2p + x.j0;
+  x.colg = colpen + pb;
+  const float* mrow0 = match + (size_t)b * L1p * L2p + x.j0;
+
+  x.Cleft = 0.0f;
+  x.lA = KT_NEG;
+  x.lGA = KT_NEG;
+  x.lGB = KT_NEG;
+  {
+    float v[CH];
+#pragma unroll
+    for (int c = 0; c < CH; c++) v[c] = 0.0f;
+    const float* src[4] = {cols_eps + pb, colpen + 4 * x.BW + pb,
+                           colpen + 2 * x.BW + pb, colpen + 0 * x.BW + pb};
+#pragma unroll
+    for (int q = 0; q < 4; q++) {
+      if (x.real) load_chunk(v, src[q]);
+      store_chunk(inv + q * cols, v);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CH; c++) {
+    x.A[c] = KT_NEG;
+    x.GB[c] = KT_NEG;
+    x.GA[c] = KT_NEG;
+    x.U[c] = KT_NEG;
+  }
+  if (x.real) {
+    load_chunk(x.GA, ga0 + pb);
+    if (x.j0 > 0) {
+      x.Cleft = colpen[pb - 1];
+      x.lGA = ga0[pb - 1];
+    }
+  }
+
+  const int rows = la < L1p ? la : L1p;
+#pragma unroll
+  for (int s = 0; s < NS - 1; s++) {
+    if (x.real && s < rows)
+      copy_chunk_async<CH>(ring + s * cols, mrow0 + (size_t)s * L2p);
+    cp_async_commit();
+  }
+  const float* rp0 = rowpen + (size_t)b * L1p * 5;
+  const float* rt0 = row_term + (size_t)b * L1p;
+  int8_t* dec0 = dec + (size_t)b * L1p * L2p;
+  RowScalars nx{};
+  if (rows > 0) nx = row_scalars(rp0, rt0);
+
+  for (int r = 0; r < rows; r++) {
+    const RowScalars sc = nx;
+    if (r + 1 < rows) nx = row_scalars(rp0 + (size_t)(r + 1) * 5, rt0 + r + 1);
+    {
+      const int s = r + NS - 1;
+      if (x.real && s < rows)
+        copy_chunk_async<CH>(ring + (s % NS) * cols, mrow0 + (size_t)s * L2p);
+      cp_async_commit();
+    }
+    cp_async_wait<NS - 1>();
+    float m[CH];
+    load_chunk(m, ring + (r % NS) * cols);
+    row_step<CH>(x, m, r, la, lb, sc, dec0 + (size_t)r * L2p, edge);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  const bool in_range = lb >= 1 && lb <= L2p;
+  if (in_range ? (lb - 1 >= x.j0 && lb - 1 < x.j0 + CH) : x.first) {
+    float ea = KT_NEG, ega = KT_NEG, egb = KT_NEG;
+#pragma unroll
+    for (int c = 0; c < CH; c++) {
+      if (in_range && x.j0 + c == lb - 1) {
+        ea = fmaxf(x.A[c], KT_NEG);
+        ega = fmaxf(x.GA[c], KT_NEG);
+        egb = fmaxf(x.GB[c], KT_NEG);
+      }
+    }
+    score_out[b] = fmaxf(fmaxf(ea, ega), egb);
+    state_out[b] = (ega > ea) ? ((egb > ega) ? 2 : 1) : ((egb > ea) ? 2 : 0);
+  }
+}
+
 template <int CH>
 __global__ void __launch_bounds__(RowCfg<CH>::kMaxThreads)
 gotoh_row_kernel(const float* __restrict__ match,     // [B, L1p, L2p]
@@ -147,215 +446,229 @@ gotoh_row_kernel(const float* __restrict__ match,     // [B, L1p, L2p]
                  int8_t* __restrict__ dec,            // [B, L1p, L2p]
                  float* __restrict__ score_out,
                  int32_t* __restrict__ state_out) {
-  constexpr int NS = RowCfg<CH>::kStages;
   extern __shared__ __align__(16) float smem[];
-  const int T = blockDim.x;
-  const int nw = T >> 5;
-  const int cols = T * CH;
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int j0 = t * CH;
-  const bool real = j0 < L2p;  // L2p % CH == 0: a chunk is all in or out
+  NoHalo edge;
+  band_rows<CH>(smem, 0, blockIdx.x, match, colpen, ga0, rowpen, cols_eps,
+                row_term, la_arr, lb_arr, B, L1p, L2p, dec, score_out,
+                state_out, edge);
+}
 
-  // shared memory: invariants [4][cols] (ceps, goB_s, gnC_norm, C_norm),
-  // the match ring [NS][cols], the warp slots [2][nw][kSlot]
-  float* inv = smem + j0;
-  float* ring = smem + 4 * cols + j0;
-  float* slots = smem + (4 + NS) * cols;
+/* The cluster instantiation, for rows wider than one block's registers
+ * hold (gpu/gotoh_row.py::cluster_config: 7,296 to 16 x 7,168 columns).
+ * Replaces the same TPU kernel and, for these widths, the XLA scan
+ * kalign_tpu falls back to (kalign_tpu/tpu/gotoh.py::gotoh_forward);
+ * the design is the column wavefront of
+ * kalign_tpu/parallel/mesh.py::sharded_long_gotoh, with the blocks of a
+ * thread-block cluster in place of devices.
+ *
+ * One cluster of S blocks per problem (grid B * S, cluster S): block k
+ * owns the band of columns [k * Wb, (k + 1) * Wb), Wb = blockDim.x * CH,
+ * and runs gotoh_row_kernel's design on it (band_rows / row_step).  The
+ * gap prefix sums C are global vectors, so the only thing a band needs
+ * from the left is a halo per row: after its row r, block k - 1 writes
+ * A, GA and GB at its last column, the prefix max of u over every column
+ * up to its right edge and its last u (5 floats) into a ring of kSlots
+ * message slots in block k's shared memory with st.async, whose bytes
+ * complete that slot's full barrier there (mbarrier transaction count).
+ * Block k waits on it (acquire at cluster scope) only after its own A /
+ * GB / u pass and the block's prefix max, so the wait overlaps that
+ * pass: block k runs row r about when block k - 1 runs row r + 1, and
+ * the hand-off costs one distributed-shared-memory trip per band on the
+ * pipeline's fill, not per row.  A slot is written again only after
+ * block k has returned it: once the next row's block barrier shows every
+ * thread has read it, block k's thread 0 re-arms the slot's full barrier
+ * and st.async-writes a credit word that completes the slot's empty
+ * barrier in block k - 1.  No hand-off uses a release fence: a thread
+ * that stores decisions would wait there for its outstanding global
+ * stores, every row (with mbarrier.arrive.release.cluster in place of
+ * st.async the rows took ~1.25 us at any cluster size on the H100,
+ * against ~0.9 without).
+ * Band 0 keeps the analytic column 0; a band wholly past lb still passes
+ * the carry on (its u are all NEG); the end state comes from the block
+ * owning column lb - 1.  The hardware schedules a cluster's blocks
+ * together and no block waits on another cluster, so the hand-off cannot
+ * deadlock; the launch wrapper refuses a plan that
+ * cudaOccupancyMaxActiveClusters says cannot be scheduled.
+ *
+ * Bound: device-memory bytes, as gotoh_row_kernel (~5 B a cell); the
+ * halo is 24 bytes of distributed shared memory per band and row (the
+ * halo and the credit). */
+constexpr int kSlots = 4;      // halo ring slots per block
+constexpr int kHaloFloats = 8; // a slot: A, GA, GB, carry, last u, pad
+constexpr unsigned kHaloBytes = 5 * 4;  // what a hand-off writes
+constexpr unsigned kCreditBytes = 4;
+// shared memory ahead of band_rows' arrays: the full and empty barriers
+// [2][kSlots] (8 bytes each), the halo ring and the credit words
+// [kSlots]; 16-byte aligned
+constexpr int kClusterHeader =
+    2 * kSlots * 8 + kSlots * kHaloFloats * 4 + kSlots * 4;
+static_assert(kClusterHeader % 16 == 0, "band_rows' arrays need 16 bytes");
 
-  const int la = la_arr[b];
-  const int lb = lb_arr[b];
-  const size_t BW = (size_t)B * L2p;
-  const size_t pb = (size_t)b * L2p + j0;
-  const float* mrow0 = match + (size_t)b * L1p * L2p + j0;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 
-  float A[CH], GA[CH], GB[CH], U[CH];
-  float Cleft = 0.0f;
-  float lA = KT_NEG, lGA = KT_NEG, lGB = KT_NEG;  // column j0 - 1
-  {
-    float v[CH];
-#pragma unroll
-    for (int c = 0; c < CH; c++) v[c] = 0.0f;
-    const float* src[4] = {cols_eps + pb, colpen + 4 * BW + pb,
-                           colpen + 2 * BW + pb, colpen + 0 * BW + pb};
-#pragma unroll
-    for (int q = 0; q < 4; q++) {
-      if (real) load_chunk(v, src[q]);
-      store_chunk(inv + q * cols, v);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < CH; c++) {
-    A[c] = KT_NEG;
-    GB[c] = KT_NEG;
-    GA[c] = KT_NEG;
-    U[c] = KT_NEG;
-  }
-  if (real) {
-    load_chunk(GA, ga0 + pb);
-    if (t > 0) {
-      Cleft = colpen[pb - 1];
-      lGA = ga0[pb - 1];
-    }
-  }
+__device__ __forceinline__ unsigned remote_addr(const void* p,
+                                                unsigned rank) {
+  unsigned ra;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(ra) : "r"(smem_addr(p)), "r"(rank));
+  return ra;
+}
 
-  const int rows = la < L1p ? la : L1p;
-#pragma unroll
-  for (int s = 0; s < NS - 1; s++) {
-    if (real && s < rows)
-      copy_chunk_async<CH>(ring + s * cols, mrow0 + (size_t)s * L2p);
-    cp_async_commit();
-  }
-  const float* rp0 = rowpen + (size_t)b * L1p * 5;
-  const float* rt0 = row_term + (size_t)b * L1p;
-  RowScalars nx{};
-  if (rows > 0) nx = row_scalars(rp0, rt0);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
 
-  for (int r = 0; r < rows; r++) {
-    const int row = r + 1;
-    const bool last = row == la;
-    const RowScalars sc = nx;
-    if (r + 1 < rows) nx = row_scalars(rp0 + (size_t)(r + 1) * 5, rt0 + r + 1);
-    {
-      const int s = r + NS - 1;
-      if (real && s < rows)
-        copy_chunk_async<CH>(ring + (s % NS) * cols, mrow0 + (size_t)s * L2p);
-      cp_async_commit();
-    }
-    cp_async_wait<NS - 1>();
-    float m[CH], gnC[CH];
-    load_chunk(m, ring + (r % NS) * cols);
-    if (last && real) {
-      load_chunk(gnC, colpen + 3 * BW + pb);
-    } else {
-      load_chunk(gnC, inv + 2 * cols);
-    }
-    if (!real) {
-#pragma unroll
-      for (int c = 0; c < CH; c++) m[c] = 0.0f;
-    }
-    if (t == 0) {
-      lA = (row == 1) ? 0.0f : KT_NEG;
-      lGA = KT_NEG;
-      lGB = sc.gb0_prev;
-    }
+/* Arm the local barrier's current phase: its one arrival, and `bytes`
+ * to come by st.async. */
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
 
-    // A, GB, u and the decision's A / GB bits, left to right; dA, dGA,
-    // dGB hold the previous row's values at the column to the left
-    int d[CH];
-    float dA = lA, dGAv = lGA, dGBv = lGB;
-    float run = -INFINITY, run_but_last = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < CH; c++) {
-      const int col = j0 + c + 1;
-      const float mm = m[c] - fabsf(inv[c] - sc.rterm);
-      const float diagA = dA;
-      const float dGA = dGAv + inv[cols + c];
-      const float dGB = dGBv + sc.goA_prev;
-      const float best01 = fmaxf(diagA, dGA);
-      const float A_row = fmaxf(best01, dGB) + mm;
-      const bool term = col == lb;
-      const float ge_eff = term ? sc.tgeA : sc.geA;
-      const float go_eff = term ? sc.tgeA : sc.goA;
-      const float gb_e = GB[c] + ge_eff;
-      const float gb_o = A[c] + go_eff;
-      const float u = (col < lb) ? (A_row + gnC[c]) : KT_NEG;
-      d[c] = (dGB >= best01) ? 2 : ((dGA >= diagA) ? 1 : 0);
-      d[c] |= (gb_e > gb_o) ? KT_DEC_GB_EXT : 0;
-      dA = A[c];
-      dGAv = GA[c];
-      dGBv = GB[c];
-      A[c] = A_row;
-      GB[c] = fmaxf(gb_e, gb_o);
-      U[c] = u;
-      if (c == CH - 1) run_but_last = run;
-      run = fmaxf(run, u);
-    }
+/* Has the phase of parity `parity` of the local barrier completed?
+ * Acquire at cluster scope: the bytes another block's st.async counted
+ * on it are visible after it. */
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+      "%2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}\n"
+      : "=r"(ok) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  return ok != 0;
+}
 
-    // prefix max of u across the block: one barrier
-    const float incl = warp_incl_max(run, lane);
-    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (lane == 0) excl = -INFINITY;
-    float lu = __shfl_up_sync(0xffffffffu, U[CH - 1], 1);
-    float cin = -INFINITY;   // max u of the warps left of this one
-    float wex2 = -INFINITY;  // ... of all but the nearest
-    float* slot = slots + (r & 1) * nw * kSlot;
-    const float* left = slot + (warp - 1) * kSlot;
-    if (lane == 31) {
-      float* sw = slot + warp * kSlot;
-      sw[0] = incl;
-      sw[1] = fmaxf(excl, run_but_last);
-      sw[2] = U[CH - 1];
-      sw[3] = A[CH - 1];
-      sw[4] = GB[CH - 1];
-    }
-    __syncthreads();
-    if (nw > 1) {
-      float wv = lane < nw ? slot[lane * kSlot] : -INFINITY;
-      for (int off = 1; off < nw; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, wv, off);
-        if (lane >= off) wv = fmaxf(wv, o);
-      }
-      if (warp > 0) cin = __shfl_sync(0xffffffffu, wv, warp - 1);
-      if (warp > 1) wex2 = __shfl_sync(0xffffffffu, wv, warp - 2);
-    }
-    if (lane == 0 && warp > 0) lu = left[2];
-    float cm = fmaxf(cin, excl);
-    if (t == 0) {
-      cm = KT_NEG;
-      lu = KT_NEG;
-    }
-
-    // GA = shifted prefix max + C, and the decision's GA bit
-    float C[CH];
-    if (last && real) {
-      load_chunk(C, colpen + 1 * BW + pb);
-    } else {
-      load_chunk(C, inv + 3 * cols);
-    }
-#pragma unroll
-    for (int c = 0; c < CH; c++) {
-      const float cm_s = cm;
-      const float u_s = c ? U[c - 1] : lu;
-      GA[c] = cm_s + C[c];
-      d[c] |= (cm_s > u_s) ? KT_DEC_GA_EXT : 0;
-      cm = fmaxf(cm, U[c]);
-    }
-    if (real) store_dec<CH>(dec + ((size_t)b * L1p + r) * L2p + j0, d);
-
-    // the next row's values at column j0 - 1
-    lA = __shfl_up_sync(0xffffffffu, A[CH - 1], 1);
-    lGA = __shfl_up_sync(0xffffffffu, GA[CH - 1], 1);
-    lGB = __shfl_up_sync(0xffffffffu, GB[CH - 1], 1);
-    if (lane == 0 && warp > 0) {
-      lA = left[3];
-      lGB = left[4];
-      lGA = fmaxf(wex2, left[1]) + Cleft;
-    }
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-
-  const bool in_range = lb >= 1 && lb <= L2p;
-  if (in_range ? (lb - 1 >= j0 && lb - 1 < j0 + CH) : t == 0) {
-    float ea = KT_NEG, ega = KT_NEG, egb = KT_NEG;
-#pragma unroll
-    for (int c = 0; c < CH; c++) {
-      if (in_range && j0 + c == lb - 1) {
-        ea = fmaxf(A[c], KT_NEG);
-        ega = fmaxf(GA[c], KT_NEG);
-        egb = fmaxf(GB[c], KT_NEG);
-      }
-    }
-    score_out[b] = fmaxf(fmaxf(ea, ega), egb);
-    state_out[b] = (ega > ea) ? ((egb > ega) ? 2 : 1) : ((egb > ea) ? 2 : 0);
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  while (!mbar_try_wait(bar, parity)) {
   }
 }
 
-/* The tiled instantiation, for rows wider than one block's registers hold
- * (gpu/gotoh_row.py::launch_config takes it past 7,168 columns; it has no
- * width limit of its own).  Replaces the same TPU kernel and, for these
+/* Asynchronous stores into block `rank`'s shared memory at p's offset,
+ * counted on that block's barrier at bar's offset: the sender waits for
+ * nothing (no release fence, which would wait for the thread's
+ * outstanding global stores of decisions). */
+__device__ __forceinline__ void store_async4(float* p, unsigned rank,
+                                             float a, float b, float c,
+                                             float d, uint64_t* bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n"
+      :: "r"(remote_addr(p, rank)), "r"(__float_as_uint(a)),
+         "r"(__float_as_uint(b)), "r"(__float_as_uint(c)),
+         "r"(__float_as_uint(d)), "r"(remote_addr(bar, rank))
+      : "memory");
+}
+
+__device__ __forceinline__ void store_async1(void* p, unsigned rank,
+                                             unsigned v, uint64_t* bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n"
+      :: "r"(remote_addr(p, rank)), "r"(v), "r"(remote_addr(bar, rank))
+      : "memory");
+}
+
+/* The halo hand-off between neighbouring blocks of a cluster.  Every
+ * barrier has one arrival a phase, its owner's arming (mbar_expect), and
+ * completes when the bytes it expects have landed: full[s] the halo of
+ * the rows r = s (mod kSlots), empty[s] the credit for them.  A credit
+ * or a halo is sent only where its receiver will wait for it, so none is
+ * in flight when a block finishes. */
+struct ClusterHalo {
+  static constexpr bool kBands = true;
+  uint64_t* full;    // [kSlots], completed by block rank - 1's halo
+  uint64_t* empty;   // [kSlots], completed by block rank + 1's credit
+  float* ring;       // [kSlots][kHaloFloats], written by block rank - 1
+  unsigned* credit;  // [kSlots], written by block rank + 1 (not read)
+  unsigned rank, S;
+  int rows;
+
+  __device__ __forceinline__ Halo receive(int r, int t) const {
+    if (rank == 0) return Halo{-INFINITY, KT_NEG, KT_NEG, KT_NEG, KT_NEG};
+    // every thread has passed this row's block barrier, so it has read
+    // the previous row's slot: arm the slot for its next halo and return
+    // it to block rank - 1
+    if (t == 0 && r > 0 && r - 1 + kSlots < rows) {
+      const int q = (r - 1) % kSlots;
+      mbar_expect(full + q, kHaloBytes);
+      store_async1(credit + q, rank - 1, 1u, empty + q);
+    }
+    const int s = r % kSlots;
+    mbar_wait(full + s, (unsigned)(r / kSlots) & 1u);
+    const float* h = ring + s * kHaloFloats;
+    return Halo{h[3], h[4], h[0], h[1], h[2]};
+  }
+
+  __device__ __forceinline__ void send(int r, float A, float GA, float GB,
+                                       float cmax, float u) const {
+    if (rank + 1 == S) return;
+    const int s = r % kSlots;
+    if (r >= kSlots) {
+      // the slot's previous halo (row r - kSlots) has been read
+      mbar_wait(empty + s, (unsigned)(r / kSlots - 1) & 1u);
+      if (r + kSlots < rows) mbar_expect(empty + s, kCreditBytes);
+    }
+    float* h = ring + s * kHaloFloats;
+    store_async4(h, rank + 1, A, GA, GB, cmax, full + s);
+    store_async1(h + 4, rank + 1, __float_as_uint(u), full + s);
+  }
+};
+
+template <int CH>
+__global__ void __launch_bounds__(RowCfg<CH>::kMaxThreads)
+gotoh_row_cluster_kernel(const float* __restrict__ match,     // [B, L1p, L2p]
+                         const float* __restrict__ colpen,    // [5, B, L2p]
+                         const float* __restrict__ ga0,       // [B, L2p]
+                         const float* __restrict__ rowpen,    // [B, L1p, 5]
+                         const float* __restrict__ cols_eps,  // [B, L2p]
+                         const float* __restrict__ row_term,  // [B, L1p]
+                         const int32_t* __restrict__ la_arr,
+                         const int32_t* __restrict__ lb_arr,
+                         int B, int L1p, int L2p,
+                         int8_t* __restrict__ dec,            // [B, L1p, L2p]
+                         float* __restrict__ score_out,
+                         int32_t* __restrict__ state_out) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  ClusterHalo edge;
+  edge.full = reinterpret_cast<uint64_t*>(smem);
+  edge.empty = edge.full + kSlots;
+  edge.ring = smem + 2 * kSlots * 2;
+  edge.credit = reinterpret_cast<unsigned*>(edge.ring + kSlots * kHaloFloats);
+  edge.rank = cluster.block_rank();
+  edge.S = cluster.num_blocks();
+  const int b = blockIdx.x / edge.S;
+  edge.rows = la_arr[b] < L1p ? la_arr[b] : L1p;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; s++) {
+      mbar_init(edge.full + s, 1);
+      mbar_init(edge.empty + s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // the first phase of each: the halo of row s, the credit for it
+    for (int s = 0; s < kSlots; s++) {
+      mbar_expect(edge.full + s, kHaloBytes);
+      mbar_expect(edge.empty + s, kCreditBytes);
+    }
+  }
+  // every block's barriers exist before any block arrives on them
+  cluster.sync();
+  band_rows<CH>(smem + kClusterHeader / 4, (int)edge.rank * (int)blockDim.x *
+                CH, b, match, colpen, ga0, rowpen,
+                cols_eps, row_term, la_arr, lb_arr, B, L1p, L2p, dec,
+                score_out, state_out, edge);
+  // no block leaves while its neighbour may still arrive on its barriers
+  cluster.sync();
+}
+
+/* The tiled instantiation, for rows wider than a cluster of 16 bands
+ * holds (gpu/gotoh_row.py::launch_config takes it past 114,688 columns;
+ * it has no width limit of its own).  Replaces the same TPU kernel and, for these
  * widths, the XLA scan kalign_tpu falls back to
  * (kalign_tpu/tpu/gotoh.py::gotoh_forward).
  *
@@ -373,9 +686,10 @@ gotoh_row_kernel(const float* __restrict__ match,     // [B, L1p, L2p]
  * bitwise equal to the plain version too.
  *
  * Bound: the same bytes per cell as gotoh_row_kernel; the scratch traffic
- * (24 bytes per column and row) is L2 traffic.  Simple first: one block
- * per problem leaves most SMs idle at few wide problems (a column
- * wavefront of several blocks per problem is the redesign). */
+ * (24 bytes per column and row) is L2 traffic.  One block per problem
+ * leaves most SMs idle at few wide problems: gotoh_row_cluster_kernel,
+ * a column wavefront of up to 16 blocks per problem, takes every width it
+ * can. */
 constexpr int kTiledCH = 8;
 constexpr int kTiledMaxThreads = 512;
 constexpr int kTSlot = 2;  // per warp: max u, last u
@@ -596,6 +910,91 @@ int launch_tiled(const float* match, const float* colpen, const float* ga0,
   return (int)cudaGetLastError();
 }
 
+template <int CH>
+size_t cluster_smem_bytes(int threads) {
+  return kClusterHeader + smem_bytes<CH>(threads);
+}
+
+/* The cluster kernel's attributes for `threads` threads and clusters of
+ * `blocks`: its dynamic shared memory, and clusters past the portable 8. */
+template <int CH>
+cudaError_t cluster_attributes(int threads, int blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gotoh_row_cluster_kernel<CH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)cluster_smem_bytes<CH>(threads));
+  if (err == cudaSuccess && blocks > 8)
+    err = cudaFuncSetAttribute(gotoh_row_cluster_kernel<CH>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  return err;
+}
+
+/* A launch configuration of grid `grid` and clusters of `blocks`; attr
+ * must outlive it. */
+template <int CH>
+cudaLaunchConfig_t cluster_launch_config(int threads, int blocks, unsigned grid,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid, 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = cluster_smem_bytes<CH>(threads);
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)blocks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+constexpr int kMaxClusterBlocks = 16;
+
+template <int CH>
+bool cluster_plan_ok(int threads, int blocks) {
+  return threads > 0 && threads % 32 == 0 &&
+         threads <= RowCfg<CH>::kMaxThreads && blocks >= 1 &&
+         blocks <= kMaxClusterBlocks;
+}
+
+template <int CH>
+int cluster_max_active(int threads, int blocks, int* out) {
+  *out = 0;
+  if (!cluster_plan_ok<CH>(threads, blocks))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cluster_attributes<CH>(threads, blocks);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_launch_config<CH>(threads, blocks, (unsigned)blocks, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      out, gotoh_row_cluster_kernel<CH>, &cfg);
+}
+
+template <int CH>
+int launch_cluster(const float* match, const float* colpen, const float* ga0,
+                   const float* rowpen, const float* cols_eps,
+                   const float* row_term, const int32_t* la,
+                   const int32_t* lb, int B, int L1p, int L2p, int8_t* dec,
+                   float* score, int32_t* state, int threads, int blocks,
+                   cudaStream_t stream) {
+  if (!cluster_plan_ok<CH>(threads, blocks) ||
+      (long long)threads * CH * blocks < L2p || L2p % CH)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cluster_attributes<CH>(threads, blocks);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_launch_config<CH>(
+      threads, blocks, (unsigned)B * blocks, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, gotoh_row_cluster_kernel<CH>, match, colpen,
+                           ga0, rowpen, cols_eps, row_term, la, lb, B, L1p,
+                           L2p, dec, score, state);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 /* Shared memory of a launch with `threads` threads of `ch` columns each
@@ -644,4 +1043,45 @@ KT_EXPORT int kt_gotoh_row_tiled_forward(
   return launch_tiled(match, colpen, ga0, rowpen, cols_eps, row_term, la, lb,
                       B, L1p, L2p, dec, score, state, scratch, threads,
                       (cudaStream_t)stream);
+}
+
+/* Shared memory of a cluster launch's block (0 for an unsupported ch);
+ * gpu/gotoh_row.py::cluster_config mirrors it. */
+KT_EXPORT size_t kt_gotoh_row_cluster_smem_bytes(int threads, int ch) {
+  switch (ch) {
+    case 4: return cluster_smem_bytes<4>(threads);
+    case 8: return cluster_smem_bytes<8>(threads);
+    default: return 0;
+  }
+}
+
+/* cudaOccupancyMaxActiveClusters of a cluster plan into *out (0: the
+ * card cannot schedule one such cluster). */
+KT_EXPORT int kt_gotoh_row_cluster_max_active(int threads, int ch,
+                                              int blocks, int* out) {
+  switch (ch) {
+    case 4: return cluster_max_active<4>(threads, blocks, out);
+    case 8: return cluster_max_active<8>(threads, blocks, out);
+    default: *out = 0; return (int)cudaErrorInvalidValue;
+  }
+}
+
+/* The cluster row kernel: B clusters of `blocks` blocks of `threads`
+ * threads, ch columns each. */
+KT_EXPORT int kt_gotoh_row_cluster_forward(
+    const float* match, const float* colpen, const float* ga0,
+    const float* rowpen, const float* cols_eps, const float* row_term,
+    const int32_t* la, const int32_t* lb, int B, int L1p, int L2p,
+    int8_t* dec, float* score, int32_t* state, int threads, int ch,
+    int blocks, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (ch) {
+    case 4: return launch_cluster<4>(match, colpen, ga0, rowpen, cols_eps,
+                                     row_term, la, lb, B, L1p, L2p, dec,
+                                     score, state, threads, blocks, s);
+    case 8: return launch_cluster<8>(match, colpen, ga0, rowpen, cols_eps,
+                                     row_term, la, lb, B, L1p, L2p, dec,
+                                     score, state, threads, blocks, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -80,6 +80,13 @@ def lib() -> ctypes.CDLL:
     L.kt_gotoh_row_tiled_forward.restype = _i
     L.kt_gotoh_row_tiled_forward.argtypes = ([_p] * 8 + [_i] * 3 + [_p] * 4
                                              + [_i, _p])
+    L.kt_gotoh_row_cluster_smem_bytes.restype = ctypes.c_size_t
+    L.kt_gotoh_row_cluster_smem_bytes.argtypes = [_i, _i]
+    L.kt_gotoh_row_cluster_max_active.restype = _i
+    L.kt_gotoh_row_cluster_max_active.argtypes = [_i, _i, _i, _p]
+    L.kt_gotoh_row_cluster_forward.restype = _i
+    L.kt_gotoh_row_cluster_forward.argtypes = ([_p] * 8 + [_i] * 3 + [_p] * 3
+                                               + [_i, _i, _i, _p])
     L.kt_gotoh_lanewise_smem_bytes.restype = ctypes.c_size_t
     L.kt_gotoh_lanewise_smem_bytes.argtypes = [_i, _i, _i]
     L.kt_gotoh_lanewise_forward.restype = _i

@@ -3,10 +3,14 @@
 Kernel: csrc/gotoh_row.cu (replaces the TPU kernel
 kalign_tpu/tpu/gotoh_pallas.py::_kernel, gotoh_forward_pallas:272).  The
 note at the top of the CUDA source gives its design and what bounds it.
-Rows wider than one block holds in registers (past 7,168 columns) take
-its tiled instantiation (``tiled_config``), which walks each row in
-column tiles with the previous row's state in a global-memory scratch:
-the widths kalign_tpu gives its XLA scan (tpu/gotoh.py::gotoh_forward).
+Rows wider than one block holds in registers (past 7,168 columns: the
+widths kalign_tpu gives its XLA scan, tpu/gotoh.py::gotoh_forward) take
+its cluster instantiation (``cluster_config``): a thread-block cluster of
+up to 16 blocks per problem, each a band of the row's columns, handing
+a halo to the next band once per row.  Past 16 bands
+(CLUSTER_MAX_WIDTH = 114,688 columns) the tiled instantiation
+(``tiled_config``) walks each row in column tiles with the previous
+row's state in a global-memory scratch; no width raises.
 
 ``forward`` launches the kernel for CUDA tensors and runs ``plain`` — the
 same arithmetic in PyTorch, one row at a time — for CPU tensors.  Both
@@ -25,6 +29,7 @@ c+1; only rows < la are written by the kernel), score [B] f32 and end
 state [B] int32.
 """
 
+import ctypes
 from collections import namedtuple
 
 import torch
@@ -42,11 +47,31 @@ SLOT_FLOATS = 5            # per warp, two row parities
 # the tiled instantiation: most threads of a block, columns per thread,
 # floats per warp slot
 TILED_THREADS, TILED_CH, TILED_SLOT_FLOATS = 512, 8, 2
+# the cluster instantiation: cluster sizes (blocks, one band each), the
+# widest band (one block of the register design), the widest row, the
+# halo ring (slots of floats per block, each with a full and an empty
+# mbarrier of 8 bytes and a 4-byte credit word)
+CLUSTER_SIZES = (2, 4, 8, 16)
+BAND_MAX = 896 * 8
+CLUSTER_MAX_WIDTH = CLUSTER_SIZES[-1] * BAND_MAX
+HALO_SLOTS, HALO_FLOATS = 4, 8
+# the plan: as many bands a problem as keep clusters x blocks within the
+# card's 132 SMs, so every cluster of a launch runs at once; at each
+# shape of the settings sweep (1 to 64 problems) that plan was the
+# fastest, 16 bands even with one wholly past the row (PERF.md)
+FILL_BLOCKS = 132
+# bands wider than this take 8 columns a thread: fewer threads, so more
+# blocks fit on an SM
+BAND_CH4 = 1024
 
 launches = 0
 tiled_launches = 0
+cluster_launches = 0
 
-RowLaunch = namedtuple("RowLaunch", "threads ch smem tiled")
+# route: "row" (one block per problem, ``band`` its columns), "cluster"
+# (``blocks`` blocks per problem, ``band`` columns each) or "tiled" (one
+# block per problem, ``band`` the columns of a tile)
+RowLaunch = namedtuple("RowLaunch", "route threads ch smem blocks band")
 
 
 def smem_bytes(threads, ch):
@@ -63,7 +88,7 @@ def config_for(L2p, ch):
     smem = smem_bytes(threads, ch)
     if threads > CHUNKS[ch][0] or smem > SMEM_LIMIT:
         return None
-    return RowLaunch(threads, ch, smem, False)
+    return RowLaunch("row", threads, ch, smem, 1, threads * ch)
 
 
 def tiled_config(L2p):
@@ -72,14 +97,48 @@ def tiled_config(L2p):
     than the tiles need."""
     tiles = -(-L2p // (TILED_THREADS * TILED_CH))
     threads = -(-L2p // (tiles * TILED_CH * 32)) * 32
-    return RowLaunch(threads, TILED_CH,
-                     4 * 2 * (threads // 32) * TILED_SLOT_FLOATS, True)
+    return RowLaunch("tiled", threads, TILED_CH,
+                     4 * 2 * (threads // 32) * TILED_SLOT_FLOATS, 1,
+                     threads * TILED_CH)
+
+
+def cluster_smem_bytes(threads, ch):
+    """csrc/gotoh_row.cu::cluster_smem_bytes: per halo slot its two
+    barriers, its floats and a credit word; then smem_bytes."""
+    return (HALO_SLOTS * (2 * 8 + 4 * HALO_FLOATS + 4)
+            + smem_bytes(threads, ch))
+
+
+def band_config(blocks, band, ch):
+    """RowLaunch of clusters of ``blocks`` bands of ``band`` columns, ch
+    columns a thread (band a multiple of 32 * ch: whole warps)."""
+    threads = band // ch
+    return RowLaunch("cluster", threads, ch, cluster_smem_bytes(threads, ch),
+                     blocks, band)
+
+
+def cluster_config(B, L2p, blocks=None):
+    """RowLaunch of the cluster instantiation for B problems of width L2p
+    (up to CLUSTER_MAX_WIDTH): clusters of S blocks, S the largest of
+    CLUSTER_SIZES with B * S <= FILL_BLOCKS, but at least the least that
+    keeps a band within BAND_MAX (``blocks`` sets S); bands of
+    ceil(L2p / S) columns rounded up to whole warps of 4 columns a thread
+    (up to BAND_CH4 columns) or 8."""
+    if blocks is None:
+        need = next(s for s in CLUSTER_SIZES if s * BAND_MAX >= L2p)
+        fit = max((s for s in CLUSTER_SIZES if B * s <= FILL_BLOCKS),
+                  default=need)
+        blocks = max(need, fit)
+    band = -(-L2p // blocks)
+    ch = 4 if band <= BAND_CH4 else 8
+    return band_config(blocks, -(-band // (32 * ch)) * 32 * ch, ch)
 
 
 def launch_config(B, L2p):
     """Block size and columns per thread of the row kernel for B problems
     of width L2p: 4 columns per thread (up to 512 threads), 8 beyond
-    that, and past 896 threads of 8 the tiled instantiation."""
+    that; past 896 threads of 8 the cluster instantiation, and past
+    CLUSTER_MAX_WIDTH the tiled one."""
     if L2p <= 0 or L2p % COL_QUANTUM:
         raise ValueError(f"row Gotoh kernel: L2p={L2p} is not a multiple "
                          f"of {COL_QUANTUM}")
@@ -87,6 +146,8 @@ def launch_config(B, L2p):
         cfg = config_for(L2p, ch)
         if cfg is not None:
             return cfg
+    if L2p <= CLUSTER_MAX_WIDTH:
+        return cluster_config(B, L2p)
     return tiled_config(L2p)
 
 
@@ -205,23 +266,51 @@ def plain(match, prep, la, lb):
     return dec, score, state
 
 
+_max_active = {}
+
+
+def cluster_schedulable(cfg):
+    """How many clusters of the plan the card can hold at once
+    (cudaOccupancyMaxActiveClusters, cached per plan); raises where it
+    cannot hold one: the launch would never run, and the tiled kernel is
+    no quiet substitute."""
+    key = (cfg.threads, cfg.ch, cfg.blocks)
+    if key not in _max_active:
+        out = ctypes.c_int(0)
+        _cuda.check(_cuda.lib().kt_gotoh_row_cluster_max_active(
+            cfg.threads, cfg.ch, cfg.blocks, ctypes.byref(out)),
+            "gotoh_row cluster occupancy")
+        _max_active[key] = out.value
+    if _max_active[key] < 1:
+        raise RuntimeError(f"row Gotoh kernel: the card cannot schedule a "
+                           f"cluster of {cfg.blocks} blocks of "
+                           f"{cfg.threads} threads and {cfg.smem} bytes of "
+                           "shared memory")
+    return _max_active[key]
+
+
 def launch(match, prep, la, lb, config=None):
     """Launch csrc/gotoh_row.cu on CUDA tensors, with launch_config's
-    block unless a RowLaunch is given."""
-    global launches
-    global tiled_launches
+    plan unless a RowLaunch is given."""
+    global launches, tiled_launches, cluster_launches
     match = match.contiguous()
     B, L1p, W = match.shape
     cfg = config or launch_config(B, W)
     lib = _cuda.lib()
-    smem = (lib.kt_gotoh_row_tiled_smem_bytes(cfg.threads) if cfg.tiled
-            else lib.kt_gotoh_row_smem_bytes(cfg.threads, cfg.ch))
+    if cfg.route == "tiled":
+        smem = lib.kt_gotoh_row_tiled_smem_bytes(cfg.threads)
+    elif cfg.route == "cluster":
+        smem = lib.kt_gotoh_row_cluster_smem_bytes(cfg.threads, cfg.ch)
+    else:
+        smem = lib.kt_gotoh_row_smem_bytes(cfg.threads, cfg.ch)
     if smem != cfg.smem:
         raise RuntimeError("row Gotoh kernel: shared-memory size differs "
                            "between csrc/gotoh_row.cu and launch_config")
     _cuda.require_cuda("gotoh_row", match, prep["colpen"], prep["ga0"],
                        prep["rowpen"], prep["cols_eps"], prep["row_term"],
                        la, lb)
+    if cfg.route == "cluster":
+        cluster_schedulable(cfg)
     dev = match.device
     dec = torch.empty((B, L1p, W), dtype=torch.int8, device=dev)
     score = torch.empty(B, dtype=torch.float32, device=dev)
@@ -232,17 +321,22 @@ def launch(match, prep, la, lb, config=None):
         "colpen", "ga0", "rowpen", "cols_eps", "row_term")),
         la.data_ptr(), lb.data_ptr(), B, L1p, W, dec.data_ptr(),
         score.data_ptr(), state.data_ptr())
-    if cfg.tiled:
+    if cfg.route == "tiled":
         # the previous row's A, GA and GB, two row parities
         scratch = torch.empty((B, 2, 3, W), dtype=torch.float32, device=dev)
         rc = lib.kt_gotoh_row_tiled_forward(*args, scratch.data_ptr(),
                                             cfg.threads, _cuda.stream())
+    elif cfg.route == "cluster":
+        rc = lib.kt_gotoh_row_cluster_forward(*args, cfg.threads, cfg.ch,
+                                              cfg.blocks, _cuda.stream())
     else:
         rc = lib.kt_gotoh_row_forward(*args, cfg.threads, cfg.ch,
                                       _cuda.stream())
     _cuda.check(rc, "gotoh_row")
-    if cfg.tiled:
+    if cfg.route == "tiled":
         tiled_launches += 1
+    elif cfg.route == "cluster":
+        cluster_launches += 1
     else:
         launches += 1
     return dec, score, state

@@ -5,15 +5,23 @@ on one NVIDIA GPU, in one process.
     git archive <commit> kalign_tpu_torch | tar -x -C _proof/parent
     python3 scripts/ab_kernels.py --parent _proof/parent
     python3 scripts/ab_kernels.py --variant _proof/variant
+    python3 scripts/ab_kernels.py --sweep
 
---parent: the exact engine's wavefront sweep of an earlier checkout,
-called through its own C entry point `kt_exact_sweep` as of a0624b2 (one
-block per grid on the reference's schedule, VR + C + 1 steps; 16 rows a
-thread past 256 rows, 1,024 threads with a global scratch past 4,096),
-against this checkout's (the band-local schedule), on the divergent
-path's largest sweep launch of that commit: the pre-pass's pairs packed
-into 64 grids of 4,096 rows (chip_smoke.prepass_plan).  The two outputs
-must be bitwise equal.
+--parent: the row Gotoh kernel of an earlier checkout past 7,168
+columns, its tiled instantiation called through its own C entry point
+`kt_gotoh_row_tiled_forward` as of 1897761 (one block per problem,
+column tiles, the previous row in a global scratch), against this
+checkout's route there (the cluster instantiation): 8 x 512 x 8,192,
+2 x 256 x 16,384, 64 x 256 x 8,192 (many problems: the cluster sizes'
+fill rule) and 8 x 256 x 7,424 (one real problem: the long family's
+largest launch), and the long_default path's largest launch
+(the path runs once here to give it).  The two outputs must be bitwise
+equal.
+
+--sweep: the cluster instantiation's settings at those shapes: every
+cluster size of gotoh_row.CLUSTER_SIZES that covers the row, each held
+bitwise against launch_config's plan and timed (`device_ms`), with the
+card's cudaOccupancyMaxActiveClusters for the plan.
 
 --variant: the other checkout has this one's C interfaces (a variant of
 one kernel, say): this checkout's own wrappers launch it, with their
@@ -25,7 +33,7 @@ and the fused kernel at the largest launch of each shape the default
 path gave it (the inputs of chip_smoke.py's main-shape phase; the two
 paths run once here to give their launches).
 
---parent and --variant may be given together.  Both versions see the
+--parent, --sweep and --variant may be given together.  Both versions see the
 same tensors, their outputs are held bitwise equal, and each is timed
 in turns (other, this, this, other): CUDA events over back-to-back
 launches (`ms`, the host's launch time included) and chip_smoke.device_ms
@@ -59,9 +67,11 @@ def main():
                     help="an unpacked checkout of the earlier commit")
     ap.add_argument("--variant",
                     help="an unpacked checkout with this one's interfaces")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time the cluster row kernel's settings")
     args = ap.parse_args()
-    if not (args.parent or args.variant):
-        ap.error("give --parent, --variant or both")
+    if not (args.parent or args.variant or args.sweep):
+        ap.error("give --parent, --variant, --sweep or more")
     import torch
     if not torch.cuda.is_available():
         print("ab_kernels: CUDA is not available", file=sys.stderr)
@@ -69,7 +79,7 @@ def main():
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     from kalign_tpu_torch.core import params as P
-    from kalign_tpu_torch.gpu import _cuda, bpm, exact_sweep, gotoh_fused, \
+    from kalign_tpu_torch.gpu import _cuda, bpm, gotoh_fused, \
         gotoh_lanewise, gotoh_row
     from kalign_tpu_torch.gpu import traceback as tb
     from kalign_tpu_torch.gpu.engine import leaf_operands
@@ -88,9 +98,8 @@ def main():
                                           "variant_cuda")
         var.lib()
     _cuda.lib()
-    # -Xptxas -v of each library's sweep kernel
-    ptxas = {k: cs.ptxas_lines(build_log(m.library_path()),
-                               "exact_sweep")
+    # -Xptxas -v of each library's row kernels
+    ptxas = {k: cs.ptxas_lines(build_log(m.library_path()), "gotoh_row")
              for k, m in libs.items()}
     print(json.dumps({"ptxas": ptxas}), flush=True)
 
@@ -106,26 +115,23 @@ def main():
                 _cuda.lib = own
         return run
 
-    def old_sweep(t, key, live):
-        """The earlier checkout's kt_exact_sweep on the plan t: out."""
-        VR, C, _, chain = key
-        W, ncols = live
-        G = t["seedA"].shape[0]
-        rowi, rowf, cols, p2sub = exact_sweep.operands(t, VR, C, chain)
-        threads = min(VR, 256) if VR <= 4096 else 1024
-        out = torch.full((G, W, ncols, 3), float("-inf"), device=dev)
-        scratch = (torch.empty((G, 6, VR), device=dev) if threads == 1024
-                   else None)
-        rc = old_lib.kt_exact_sweep(
-            rowi.data_ptr(), rowf.data_ptr(), cols.data_ptr(),
-            t["match"].data_ptr(), t["bonus"].data_ptr(),
-            t["p1cnt"].data_ptr(), p2sub.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), G, VR, C,
-            t["match"].shape[-1], W, ncols,
-            exact_sweep.live_steps(VR, C, ncols), int(chain), threads,
-            VR // threads, _cuda.stream())
-        old.check(rc, "earlier exact_sweep")
-        return out
+    def old_tiled(match, prep, la, lb):
+        """The earlier checkout's kt_gotoh_row_tiled_forward under its
+        own plan (this checkout's tiled_config, unchanged since)."""
+        B, L1p, W = match.shape
+        cfg = gotoh_row.tiled_config(W)
+        dec = torch.empty((B, L1p, W), dtype=torch.int8, device=dev)
+        score = torch.empty(B, dtype=torch.float32, device=dev)
+        state = torch.empty(B, dtype=torch.int32, device=dev)
+        scratch = torch.empty((B, 2, 3, W), dtype=torch.float32, device=dev)
+        rc = old_lib.kt_gotoh_row_tiled_forward(
+            match.data_ptr(), *(prep[k].data_ptr() for k in (
+                "colpen", "ga0", "rowpen", "cols_eps", "row_term")),
+            la.data_ptr(), lb.data_ptr(), B, L1p, W, dec.data_ptr(),
+            score.data_ptr(), state.data_ptr(), scratch.data_ptr(),
+            cfg.threads, _cuda.stream())
+        old.check(rc, "earlier gotoh_row_tiled")
+        return dec, score, state
 
     def ab(fn_other, fn_new, reps, other="old"):
         t = {f"{other}_ms": [], "new_ms": [], f"{other}_device_ms": [],
@@ -152,26 +158,65 @@ def main():
     seqs = {"fast": cs.family(2000, seed=0),
             "default": cs.v4_family(2000, seed=2)}
 
-    # the sweep at the divergent path's largest launch of the parent
-    if old:
-        plans, key, live = cs.prepass_plan(cs.divergent_prepass_pairs(), dev)
-        VR, C, Wmax, chain = key
-        t = cs.sweep_tensors(plans, key, live, dev)
-        s_new = lambda: exact_sweep.launch(t, VR, C, Wmax, chain, *live)
-        s_old = lambda: old_sweep(t, key, live)
-        cs.hold_equal("exact_sweep", s_old().view(torch.int32),
-                      s_new().view(torch.int32), "parent vs new, bitwise")
-        lp = exact_sweep.launch_plan(VR)
-        _, span = exact_sweep.schedule(plans, live[1],
-                                       lp.threads * lp.rows)
-        G = int(plans["seedA"].shape[0])
-        show("exact_sweep", "pre-pass, packed to 4,096 rows",
-             f"{G} x {VR} x {C + 1}", ab(s_old, s_new, 3),
-             cells=cs.sweep_cells(plans, live), live=list(live),
-             steps_new=exact_sweep.steps_run(span),
-             steps_old=exact_sweep.live_steps(VR, C, live[1]),
-             plan_new=lp._asdict(), ptxas_this=ptxas["this"],
-             ptxas_parent=ptxas["parent"])
+    # the row kernel past 7,168 columns: the parent's tiled instantiation
+    # against this checkout's cluster route, and the cluster settings
+    if old or args.sweep:
+        rng = np.random.default_rng(10)
+        wide = {"8x512x8192": cs.dp_problem(rng, 512, 8192, [512] * 8,
+                                            [8192] * 8, dev),
+                "2x256x16384": cs.dp_problem(rng, 256, 16384, [256] * 2,
+                                             [16384] * 2, dev),
+                "64x256x8192": cs.dp_problem(rng, 256, 8192, [256] * 64,
+                                             [8192] * 64, dev)}
+        long_fast = cs.vs_align("long-fast", "cuda")[3]
+        for label, st, maps in (("long family", long_fast, None),
+                                ("long_default", cs.phase_path(
+                                    "long_default", cs.long_genomes())[1],
+                                 True)):
+            b = max((b for b in st["batches"] if b["route"] == "row"
+                     and b["L2p"] > 7168 and maps in (None, b["maps"])),
+                    key=cs.batch_cells)
+            wide[label] = cs.dp_problem(rng, b["L1p"], b["L2p"], b["la"],
+                                        b["lb"], dev)
+        for label, p in wide.items():
+            prep = gotoh_row.prepare(p["pc"], p["pr"], p["la"], p["lb"],
+                                     p["slope"], p["eps"])
+            args_ = (p["match"], prep, p["la"], p["lb"])
+            r_new = lambda: gotoh_row.launch(*args_)
+            ref = r_new()
+            cfg = gotoh_row.launch_config(len(p["la"]), p["L2p"])
+            b_ms, b_by = cs.gotoh_bound(p, 1)
+            if old:
+                r_old = lambda: old_tiled(*args_)
+                cs.hold_dp_outputs("gotoh_row_cluster", False, r_old(), ref,
+                                   p, f"{label}: parent vs new, bitwise")
+                show("gotoh_row_cluster", label, cs.shape_of(p),
+                     ab(r_old, r_new, 5), against="parent tiled",
+                     bound_ms=b_ms, bound_by=b_by, plan_new=cfg._asdict(),
+                     ptxas_this=ptxas["this"], ptxas_parent=ptxas["parent"])
+            if args.sweep:
+                B, W = len(p["la"]), p["L2p"]
+                plans = []
+                for S in gotoh_row.CLUSTER_SIZES:
+                    if S * gotoh_row.BAND_MAX < W:
+                        continue
+                    base = gotoh_row.cluster_config(B, W, blocks=S)
+                    plans.append(base)
+                    # the other columns per thread, where whole warps fit
+                    for ch, (most, _) in gotoh_row.CHUNKS.items():
+                        band = -(-W // S // (32 * ch)) * 32 * ch
+                        if ch != base.ch and band // ch <= most:
+                            plans.append(gotoh_row.band_config(S, band, ch))
+                for c in plans:
+                    run = lambda: gotoh_row.launch(*args_, config=c)
+                    cs.hold_dp_outputs("gotoh_row_cluster", False, run(), ref,
+                                       p, f"{label} under {c}")
+                    show("gotoh_row_cluster", label, cs.shape_of(p),
+                         {"device_ms": cs.device_ms(run, 5)},
+                         against="settings", plan=c._asdict(),
+                         chosen=c == cfg, bound_ms=b_ms,
+                         max_active_clusters=gotoh_row.cluster_schedulable(
+                             c))
 
     # BPM at the distance stages' pairs
     for path in ("fast", "default"):

@@ -198,7 +198,7 @@ def test_non_dyadic_divergence_is_a_near_tie(monkeypatch, tmp_path):
 def test_long_sequence_family_matches_tpu_fast(monkeypatch):
     """Short fragments and one sequence of ~7,300 residues (chip_smoke's
     long family), --fast mode: the merges whose column side is the long
-    sequence are wider than 7,168 columns (the tiled row kernel's widths,
+    sequence are wider than 7,168 columns (the cluster row kernel's widths,
     kalign_tpu's XLA scan); FASTA byte-identical to kalign_tpu's, scores
     bitwise."""
     import chip_smoke

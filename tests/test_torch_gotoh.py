@@ -79,7 +79,7 @@ def test_single_problem_dp_matches_xla():
                                    (16, 256, 128), (2, 64, 8192)])
 def test_row_plain_matches_xla_scores_and_paths(shape):
     """tests/test_pallas_kernel.py:52 for the port: scores within rel
-    1e-5 and identical paths; 8,192 columns are a width of the tiled
+    1e-5 and identical paths; 8,192 columns are a width of the cluster
     kernel, which kalign_tpu gives its XLA scan."""
     B, L1p, L2p = shape
     rng = np.random.default_rng(sum(shape))
@@ -162,30 +162,31 @@ def test_row_launch_config_covers_every_width_of_the_old_kernel(B):
     within Hopper's limits: whole warps, enough columns, at most the
     instantiation's threads and 232,448 bytes of shared memory, sized by
     the kernel's own formula; every wider L2p (7,296 to 32,768) gets the
-    tiled instantiation, whose tiles cover the row; an L2p that is no
-    multiple of 128 raises."""
+    cluster instantiation, whose bands (whole warps of at most 896 threads,
+    at most 16 bands) cover the row; an L2p that is no multiple of 128
+    raises."""
     old_max = (gotoh_row.SMEM_LIMIT - 16) // 33 // 128 * 128
     assert old_max == 7040
     for L2p in range(128, old_max + 1, 128):
         cfg = gotoh_row.launch_config(B, L2p)
         max_threads, stages = gotoh_row.CHUNKS[cfg.ch]
-        assert not cfg.tiled
+        assert cfg.route == "row" and cfg.blocks == 1
         assert cfg.threads % 32 == 0 and cfg.threads <= max_threads
         assert L2p <= cfg.threads * cfg.ch < L2p + 32 * cfg.ch
         assert cfg.ch == (4 if L2p <= 4 * 512 else 8)
         assert cfg.smem == 4 * ((4 + stages) * cfg.threads * cfg.ch
                                 + cfg.threads // 32 * 2 * 5)
         assert cfg.smem <= gotoh_row.SMEM_LIMIT == 232448
-    assert not gotoh_row.launch_config(B, 7168).tiled
+    assert gotoh_row.launch_config(B, 7168).route == "row"
     for L2p in range(7296, 32768 + 1, 128):
         cfg = gotoh_row.launch_config(B, L2p)
-        assert cfg.tiled and cfg.ch == gotoh_row.TILED_CH == 8
+        assert cfg.route == "cluster"
         assert cfg.threads % 32 == 0
-        assert cfg.threads <= gotoh_row.TILED_THREADS == 512
-        tiles = -(-L2p // (cfg.threads * cfg.ch))
-        assert tiles == -(-L2p // (512 * 8))
-        assert L2p <= tiles * cfg.threads * cfg.ch < L2p + tiles * 32 * 8
-        assert cfg.smem == 4 * 2 * (cfg.threads // 32) * 2
+        assert cfg.threads <= gotoh_row.CHUNKS[cfg.ch][0]
+        assert cfg.band == cfg.threads * cfg.ch
+        assert 2 <= cfg.blocks <= 16
+        assert L2p <= cfg.blocks * cfg.band < L2p + cfg.blocks * 32 * 8
+        assert cfg.smem <= gotoh_row.SMEM_LIMIT
     for bad in (64, 200):
         with pytest.raises(ValueError, match="row Gotoh kernel"):
             gotoh_row.launch_config(B, bad)
