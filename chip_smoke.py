@@ -35,12 +35,13 @@ Phases (any failure raises and the script exits non-zero):
      launch of a long divergent family
      (LONG_DIVERGENT_*: routed to the exact engine in --fast mode, FASTA
      equal to the host engine's);
-  3. seven paths, each aligned on the card with the device-resident
+  3. eight paths, each aligned on the card with the device-resident
      progressive pass (launch counts set to 0 just before and read just
      after; every kernel of the path must have launched, and none it
-     must not; but for "divergent", the engine gpu-fast, the mean anchor
-     distance below the autoroute's 0.5; one fetch per guide-tree level
-     plus one), then with the host-assembled pass
+     must not; but for "divergent" and "precise", the engine gpu-fast,
+     the mean anchor distance below the autoroute's 0.5; one fetch per
+     guide-tree level plus one), then, but for "precise", with the
+     host-assembled pass
      (GpuEngine(resident=False)), whose FASTA must be the same; each
      path line gives both walls, the phase split and the progressive
      pass's host split (assembly, bonus, dispatch, merge, weave, fetch):
@@ -67,6 +68,13 @@ Phases (any failure raises and the script exits non-zero):
      bpm and exact_sweep, and give the host engine's FASTA byte for byte
      (the host engine's wall beside it, and gpu-fast's with the route
      off);
+     "precise", PRECISE_N protein sequences of the family's kind with
+     align_msa(mode="precise"): three ensemble runs, each realigned once,
+     POAR selection or consensus and, after a selection, a
+     REFINE_CONFIDENT run (phase_precise: the kernels of
+     PRECISE["launch"] launched, none of PRECISE["forbid"], every run on
+     gpu-fast, confidences in [0, 1]; the wall, its split, the winner;
+     its largest row launch held bitwise against the plain version);
   4. the paths but the refined one once more under torch.profiler:
      device time by kernel and by part of the progressive pass, each
      kernel's total device time and launches (the trace must hold every
@@ -85,8 +93,15 @@ Phases (any failure raises and the script exits non-zero):
      FASTA, or equal per-merge scores where a near-tie resolved
      differently; a long family (three fragments of 200-400
      residues and one of ~7,300, merges wider than 7,168 columns) in both
-     modes: identical FASTA, the cluster row kernel launched; and BB11001
-     with refine="all" in --fast mode: identical FASTA;
+     modes: identical FASTA, the cluster row kernel launched; BB11001
+     with refine="all" in --fast mode, small.fa with mode "precise" and
+     as a 3-run ensemble without realign (tree noise on runs 1 and 2),
+     and post-realign of the golden BB11001 alignment (refine confident,
+     2 iterations): identical FASTA;
+  5b. the bit-exact engine "gpu" on the card against golden files
+     (CARD_GOLDENS): small.fa as a 3-run ensemble with realign 1
+     (small.precise.afa) and big_prot.fa with realign 1
+     (big_prot.realign.afa), byte for byte;
   6. main-path shapes: every kernel held bitwise against its plain
      version again, at the shapes and problem lengths the paths gave it
      (its largest launch; for the row kernel also its widest and the
@@ -221,6 +236,22 @@ PATHS = {"fast": dict(mode="fast", launch=NARROW),
                                   refine="confident", profile=False),
          "long_default": dict(mode="default", launch=WIDE,
                               forbid=["gotoh_row_tiled"], host_pass=False)}
+# the precise path: mode "precise" (an ensemble of 3 runs, each with one
+# realign pass, consistency K = 5) on PRECISE_N proteins of the protein
+# family's kind; its POAR tables are host work over N (N - 1) / 2 pairs
+# per run, so N stays at a family's size, not thousands; its map DPs
+# (PRECISE_N x 5) fill 1,024-problem launches of the match stream
+PRECISE_N = 400
+PRECISE_SEED = 11
+PRECISE = dict(mode="precise",
+               launch=["bpm", "bpm_table", "prefix_sum", "traceback",
+                       "gotoh_row", "gotoh_lanewise"],
+               forbid=["gotoh_row_tiled", "gotoh_row_cluster",
+                       "exact_sweep"])
+# golden files the bit-exact engine "gpu" must give on the card: (input,
+# ensemble runs, realign passes), default mode
+CARD_GOLDENS = {"small.precise.afa": ("small.fa", 3, 1),
+                "big_prot.realign.afa": ("big_prot.fa", 0, 1)}
 # the long_default path: LONG_GENOMES_N DNA sequences of HIV-1's length
 # (the HXB2 reference, GenBank K03455, is 9,719 nt); the mean anchor
 # distance of every path's input must stay below the autoroute's 0.5 (on
@@ -1461,6 +1492,115 @@ def phase_divergent(seqs):
     return launches, largest["launch"]
 
 
+def precise_family():
+    """The precise path's input: PRECISE_N proteins of 270-330 residues."""
+    return family(PRECISE_N, seed=PRECISE_SEED)
+
+
+def phase_precise(dev, seqs):
+    """The precise path: seqs through align_msa(mode="precise") on the
+    card (its runs share one GpuEngine, passed as ``engine``, whose stats
+    then hold every launch batch), every launch count set to 0 just
+    before and read just after: each kernel of PRECISE["launch"] must
+    have launched, none of PRECISE["forbid"]; every run on gpu-fast (no
+    autoroute); rows that dealign to the inputs; confidences in [0, 1],
+    one per column.  Prints the wall, the phase split (runs and the
+    realign passes among them, POAR extraction and scoring, consensus,
+    the post-selection run, confidences), which of selection or
+    consensus won, and the launches; then holds the path's largest row
+    launch bitwise against the plain version (row_dp_entry).  Returns
+    (launches, that launch's entry)."""
+    import torch
+    import kalign_tpu_torch
+    from kalign_tpu_torch.gpu import gotoh_row
+    from kalign_tpu_torch.gpu.engine import GpuEngine
+    eng = GpuEngine(dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    msa = kalign_tpu_torch.align_msa(seqs, mode="precise", engine=eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    rows = msa.aligned_rows()
+    width = check_alignment(rows, seqs)
+    ens = msa.engine_stats["ensemble"]
+    col = np.asarray(msa.col_confidence, np.float64)
+    routes = {}
+    for b in eng.stats["batches"]:
+        key = f"{'maps' if b['maps'] else 'merges'} {b['route']}"
+        routes[key] = routes.get(key, 0) + 1
+    emit({"phase": "path", "path": "precise", "mode": "precise",
+          "sequences": len(seqs),
+          "lengths": [min(map(len, seqs)), max(map(len, seqs))],
+          "width": width, "wall_s": round(wall, 3),
+          "phase_s": {k: round(v, 3) for k, v in msa.phase_times.items()},
+          "winner": ens["winner"], "best_run": ens["best_run"],
+          "scores": ens["scores"], "consensus_score":
+          ens["consensus_score"], "refined_score": ens["refined_score"],
+          "run_engines": ens["run_engines"], "map_pairs":
+          eng.stats["map_pairs"], "launch_batch_counts": routes,
+          "passes": len(eng.stats["candidate_passes"]),
+          "launches": launches})
+    missing = [k for k in PRECISE["launch"] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the precise path: "
+                             f"{missing}")
+    stray = [k for k in PRECISE["forbid"] if launches[k]]
+    if stray:
+        raise AssertionError(f"precise: launched {stray}")
+    if set(ens["run_engines"]) != {"gpu-fast"}:
+        raise AssertionError(f"precise: runs aligned by "
+                             f"{ens['run_engines']}, not gpu-fast")
+    if col.shape != (width,) or not np.all(np.isfinite(col)) \
+            or col.min() < 0.0 or col.max() > 1.0:
+        raise AssertionError("precise: column confidences out of [0, 1] "
+                             "or of another width")
+    largest = max((b for b in eng.stats["batches"] if b["route"] == "row"
+                   and gotoh_row.launch_config(
+                       len(b["la"]), b["L2p"]).route == "row"),
+                  key=batch_cells)
+    entry = row_dp_entry("gotoh_row", dp_problem(
+        np.random.default_rng(11), largest["L1p"], largest["L2p"],
+        largest["la"], largest["lb"], dev), 5)
+    emit({"phase": "main_shape", "kernel": "gotoh_row", "path": "precise",
+          "maps": bool(largest["maps"]), **entry})
+    return launches, entry
+
+
+def phase_goldens(dev):
+    """CARD_GOLDENS through the bit-exact engine "gpu" on the card, every
+    launch count set to 0 just before each: the golden file's bytes, the
+    sweep kernel launched."""
+    from kalign_tpu_torch import engine as E
+    from kalign_tpu_torch import ensemble as ens
+    from kalign_tpu_torch.core import io as kio
+    for golden, (inp, runs, realign) in CARD_GOLDENS.items():
+        msa = kio.read_inputs([os.path.join(HERE, "tests", "data", inp)])
+        msa.quiet = True
+        reset_counts()
+        t0 = time.perf_counter()
+        if runs:
+            out = ens.ensemble_align(msa, n_runs=runs, realign=realign,
+                                     consistency_anchors=5, engine="gpu",
+                                     device=dev)
+        else:
+            out = E.align_msa(msa, consistency_anchors=5, realign=realign,
+                              engine="gpu", device=dev)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(HERE, "tests", "golden", golden)) as fh:
+            same = kio.write_fasta(out) == fh.read()
+        emit({"phase": "golden", "golden": golden, "engine": "gpu",
+              "ensemble": runs, "realign": realign, "wall_s": round(wall, 3),
+              "golden_fasta": same, "launches": launches})
+        if not same:
+            raise AssertionError(f"{golden}: engine gpu on the card did not "
+                                 "give the golden bytes")
+        if launches["exact_sweep"] == 0:
+            raise AssertionError(f"{golden}: the sweep kernel did not launch")
+
+
 class _Stop(Exception):
     """Ends a run once a capture has what it needs."""
 
@@ -1750,7 +1890,8 @@ def phase_profile(path: str, seqs, launches):
     most."""
     from torch.autograd import DeviceType
     import kalign_tpu_torch
-    mode = PATHS[path]["mode"] if path in PATHS else "default"
+    mode = PATHS[path]["mode"] if path in PATHS else \
+        PRECISE["mode"] if path == "precise" else "default"
     # the exact engine's path has no progressive.<part> ranges: its trace
     # keeps the card's activity only (its CPU side's ~100 operations a
     # sweep launch made that trace's processing take minutes)
@@ -2358,7 +2499,14 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
 # anchor distance ~0.55) routes to the exact engine in both modes.
 VS_CASES = {"BB30014": 0, "family150": 0, "BB30014-autoroute": 5,
             "dna250-default": 5, "long-fast": 0, "long-default": 5,
-            "BB11001-refine-all": 0, "BB12006-gpu": 5}
+            "BB11001-refine-all": 0, "BB12006-gpu": 5, "small-precise": 5,
+            "small-ensemble3": 5, "BB11001-postrealign2": 0}
+# cases of the ensemble (mode "precise": 3 runs with one realign pass;
+# without realign runs 1 and 2 take tree noise) and of post-realign (of
+# the golden default alignment, refine confident, 2 iterations); these
+# must give the same bytes on the card and on the CPU
+VS_ENSEMBLE = {"small-precise": 1, "small-ensemble3": 0}
+VS_POST = {"BB11001-postrealign2": ("BB11001.default.afa", "confident", 2)}
 VS_REFINE = {"BB11001-refine-all": "all"}
 VS_ENGINE = {"BB12006-gpu": "gpu"}
 VS_GOLDEN = {"BB30014-autoroute": "BB30014.default.afa",
@@ -2369,7 +2517,13 @@ def vs_input(name):
     """The input Msa of a gpu_vs_cpu case."""
     from kalign_tpu_torch.core import io as kio
     from kalign_tpu_torch.core.msa import Msa
-    if name.startswith("BB"):
+    if name in VS_POST:
+        msa = kio.read_alignment(os.path.join(HERE, "tests", "golden",
+                                              VS_POST[name][0]))
+    elif name.startswith("small"):
+        msa = kio.read_inputs([os.path.join(HERE, "tests", "data",
+                                            "small.fa")])
+    elif name.startswith("BB"):
         msa = kio.read_alignment(os.path.join(HERE, "tests", "data",
                                               name.split("-")[0] + ".tfa"))
     elif name == "family150":
@@ -2387,17 +2541,37 @@ def vs_input(name):
 
 
 def vs_align(name, device):
-    """(FASTA, per-merge scores, fused launch sizes) of a gpu_vs_cpu case
-    aligned on device; on the CPU in a worker process of one thread."""
+    """(FASTA, per-merge scores, fused launch sizes, engine stats) of a
+    gpu_vs_cpu case aligned on device; on the CPU in a worker process of
+    one thread.  An ensemble case gives its column confidences for the
+    scores and its runs' engine for the engine."""
     import torch
     from kalign_tpu_torch import api
     from kalign_tpu_torch import engine as E
+    from kalign_tpu_torch import ensemble as ens
     from kalign_tpu_torch.core import io as kio
     if device == "cpu":
         torch.set_num_threads(1)
-    msa = E.align_msa(vs_input(name), consistency_anchors=VS_CASES[name],
-                      refine=api._resolve_refine(VS_REFINE.get(name)),
-                      engine=VS_ENGINE.get(name, "gpu-fast"), device=device)
+    engine = VS_ENGINE.get(name, "gpu-fast")
+    if name in VS_ENSEMBLE:
+        msa = ens.ensemble_align(vs_input(name), n_runs=3,
+                                 realign=VS_ENSEMBLE[name],
+                                 consistency_anchors=VS_CASES[name],
+                                 engine=engine, device=device)
+        runs = msa.engine_stats["ensemble"]["run_engines"]
+        return (kio.format_alignment(msa, "fasta"),
+                np.asarray(msa.col_confidence, np.float64), [],
+                {"engine": ",".join(sorted(set(runs)))})
+    if name in VS_POST:
+        _, refine, iters = VS_POST[name]
+        msa = E.post_realign_msa(vs_input(name),
+                                 refine=api._resolve_refine(refine),
+                                 realign_iterations=iters, engine=engine,
+                                 device=device)
+    else:
+        msa = E.align_msa(vs_input(name), consistency_anchors=VS_CASES[name],
+                          refine=api._resolve_refine(VS_REFINE.get(name)),
+                          engine=engine, device=device)
     fused = [len(b["la"]) for b in msa.engine_stats.get("batches", [])
              if b["route"] == "fused"]
     return (kio.format_alignment(msa, "fasta"),
@@ -2445,8 +2619,8 @@ def phase_gpu_vs_cpu():
             if not same and rel.max() > 1e-5:
                 raise AssertionError(f"{name}: GPU and CPU alignments "
                                      "differ with unequal merge scores")
-            if (name in VS_REFINE or "gpu" in engines.values()) \
-                    and not same:
+            if (name in VS_REFINE or name in VS_ENSEMBLE or name in VS_POST
+                    or "gpu" in engines.values()) and not same:
                 raise AssertionError(f"{name}: GPU and CPU alignments "
                                      "differ")
             if name.startswith("BB30014") and \
@@ -2473,8 +2647,8 @@ def large_family():
 
 def run_only(dev, only, divergent_n=DIVERGENT_N):
     """The phases named in ``--only`` (comma-separated: edge, kmeans_edge,
-    kmeans, exact_edge, path:NAME, profile:NAME, vs), for a short call;
-    no result lines.  path:divergent also holds and times the sweep at
+    kmeans, exact_edge, path:NAME, profile:NAME, vs, goldens), for a
+    short call; no result lines.  path:precise runs phase_precise.  path:divergent also holds and times the sweep at
     its largest launch, path:long_default the cluster row kernel at its
     largest map-DP and progressive launches."""
     protein = lambda: family(2000, seed=0)
@@ -2496,6 +2670,13 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
             edge_cases_kmeans(dev, np.random.default_rng(7))
         elif what == "kmeans":
             phase_kmeans(dev, large_family())
+        elif what in ("path:precise", "profile:precise"):
+            s = precise_family()
+            launches, _ = phase_precise(dev, s)
+            if what.startswith("profile"):
+                phase_profile("precise", s, launches)
+        elif what == "goldens":
+            phase_goldens(dev)
         elif what.startswith(("path:", "profile:")):
             kind, path = what.split(":")
             s = seqs.get(path, protein)()
@@ -2555,14 +2736,17 @@ def main(argv=None):
         launches[path], stats[path] = phase_path(path, seqs[path])
     launches["divergent"], sweep_largest = phase_divergent(
         seqs["divergent"])
+    launches["precise"], precise_row = phase_precise(dev, precise_family())
     for path in list(PATHS) + ["divergent"]:
         if PATHS.get(path, {}).get("profile", True):
             phase_profile(path, seqs[path], launches[path])
     kmeans_root = phase_kmeans(dev, seqs["large_default"])
     vs_launches, vs_stats = phase_gpu_vs_cpu()
+    phase_goldens(dev)
     launches.update({k: v for k, v in vs_launches.items()
                      if k.startswith(("long", "BB11001"))})
     shapes = phase_main_shapes(dev, stats["fast"], stats["default"], seqs)
+    shapes["gotoh_row"]["precise"] = precise_row
     shapes["gotoh_row_cluster"] = cluster_main_shape(
         dev, stats["long_default"], vs_stats["long-fast"])
     shapes["gotoh_row_tiled"] = tiled_main_shape(dev)

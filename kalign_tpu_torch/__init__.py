@@ -6,12 +6,15 @@ hand-written bit-parallel (Myers) kernel, the native guide-tree builder,
 and level-batched Gotoh merges through hand-written row and
 problem-per-lane kernels with the traceback walked on the card.
 
-This release runs ``--fast`` mode (no consistency, no refinement).  It
-imports nothing of JAX or of kalign_tpu: kalign_tpu stays the reference
-its tests compare against.
+It runs the default, ``--fast`` and ``--precise`` modes (an ensemble of
+runs with POAR selection or consensus, each run realigned once), with
+refinement, realignment, post-realignment of an existing alignment
+(``post_realign``) and Stockholm output with confidences.  It imports
+nothing of JAX or of kalign_tpu: kalign_tpu stays the reference its
+tests compare against.
 """
 
 from kalign_tpu_torch.version import __version__
-from kalign_tpu_torch.api import align, align_msa
+from kalign_tpu_torch.api import align, align_msa, post_realign
 
-__all__ = ["__version__", "align", "align_msa"]
+__all__ = ["__version__", "align", "align_msa", "post_realign"]

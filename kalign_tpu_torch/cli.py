@@ -1,23 +1,34 @@
 """Command line of the PyTorch/CUDA port:
 
-    python -m kalign_tpu_torch.cli -i IN -o OUT [-f fasta|msf|clu] [--fast]
-        [--consistency K] [--consistency-weight W] [--type T] [--gpo X]
-        [--gpe X] [--tgpe X] [--vsm-amax X] [--refine MODE]
+    python -m kalign_tpu_torch.cli -i IN -o OUT [-f fasta|msf|clu|sto]
+        [--fast | --precise] [--consistency K] [--consistency-weight W]
+        [--type T] [--gpo X] [--gpe X] [--tgpe X] [--vsm-amax X]
+        [--refine MODE] [--realign N] [--adaptive-budget]
+        [--ensemble [N]] [--ensemble-seed S] [--min-support M]
+        [--save-poar F] [--load-poar F] [--ensemble-scratch DIR
+        --ensemble-worker W --ensemble-workers K | --ensemble-merge]
+        [--save-checkpoint DIR] [--resume-checkpoint DIR] [-n N]
         [--engine gpu-fast|gpu|host] [--no-autoroute] [--device cuda|cpu]
 
 The flags are kalign_tpu/cli.py's (and so the reference binary's,
-src/run_kalign.c) for what this package runs: the default mode (anchor
-consistency with K = 5 anchors) or, with --fast, none; the scoring
-model; refinement (--refine all or confident; any other value,
-"inline" among them, is none, as kalign_tpu/cli.py:189-191 parses it);
-and the engine (kalign_tpu/cli.py:87 --engine; here gpu-fast, gpu or
-host), with --no-autoroute to keep a divergent family on gpu-fast.
+src/run_kalign.c): the default mode (anchor consistency with K = 5
+anchors), --fast (none) and --precise (an ensemble of 3 runs with one
+realign pass, cli.py:195-203); the scoring model; refinement (--refine
+all or confident; any other value, "inline" among them, is none, as
+kalign_tpu/cli.py:189-191 parses it); the ensemble, its distributed
+worker and merge steps and its POAR files; checkpoints; --set (parsed,
+unused) and --showw; and the engine (kalign_tpu/cli.py:87 --engine;
+here gpu-fast, gpu or host), with --no-autoroute to keep a divergent
+family on gpu-fast.  --adaptive-budget reaches the native runtime of
+"host" and "gpu"; "gpu-fast" ignores it, as kalign_tpu's "tpu-fast"
+does.  Not ported: --trace, --server, engine "auto".
 """
 
 import argparse
 import sys
 
 from kalign_tpu_torch import engine as E
+from kalign_tpu_torch import ensemble as ens
 from kalign_tpu_torch.core import io as kio
 from kalign_tpu_torch.core import params as P
 from kalign_tpu_torch.version import KALIGN_COMPAT_VERSION, __version__
@@ -66,10 +77,41 @@ def build_parser():
     p.add_argument("--gpe", type=float, default=-1.0)
     p.add_argument("--tgpe", type=float, default=-1.0)
     p.add_argument("--refine", default=None)
-    p.add_argument("--vsm-amax", type=float, default=-1.0)
+    p.add_argument("--adaptive-budget", action="store_true")
+    p.add_argument("--ensemble", nargs="?", const=5, type=int, default=0)
+    p.add_argument("--ensemble-seed", type=int, default=42)
+    # distributed ensemble: each worker process aligns runs
+    # k % workers == worker into --ensemble-scratch; a final
+    # --ensemble-merge invocation combines POAR tables and finalises
+    p.add_argument("--ensemble-scratch", default=None,
+                   help="shared directory for distributed ensemble "
+                        "partials (worker + merge modes)")
+    p.add_argument("--ensemble-worker", type=int, default=None,
+                   help="this process's worker id (0-based)")
+    p.add_argument("--ensemble-workers", type=int, default=None,
+                   help="total number of worker processes")
+    p.add_argument("--ensemble-merge", action="store_true",
+                   help="merge worker partials from --ensemble-scratch "
+                        "and write the final alignment")
+    p.add_argument("--min-support", type=int, default=0)
+    p.add_argument("--save-poar", default=None)
+    p.add_argument("--load-poar", default=None)
+    p.add_argument("--save-checkpoint", default=None, metavar="DIR",
+                   help="persist distance/guide-tree artifacts")
+    p.add_argument("--resume-checkpoint", default=None, metavar="DIR",
+                   help="resume from --save-checkpoint artifacts")
     p.add_argument("--consistency", type=int, default=5)
     p.add_argument("--consistency-weight", type=float, default=2.0)
     p.add_argument("--fast", action="store_true")
+    p.add_argument("--precise", action="store_true")
+    p.add_argument("--realign", type=int, default=0)
+    p.add_argument("--vsm-amax", type=float, default=-1.0)
+    p.add_argument("-n", "--nthreads", type=int, default=1)
+    p.add_argument("--set", dest="param_set", type=int, default=-1,
+                   help="parameter-set id (parsed for reference CLI "
+                        "compatibility; unused, run_kalign.c:158,206)")
+    p.add_argument("--showw", action="store_true",
+                   help="print the warranty disclaimer and exit")
     p.add_argument("--engine", default="gpu-fast", choices=E.ENGINES,
                    help="gpu-fast (default), gpu (bit-exact, the host "
                         "engine's bytes) or host (native only)")
@@ -85,11 +127,43 @@ def build_parser():
     return p
 
 
+# kalign_tpu/cli.py:166-180 (run_kalign.c:306-310)
+WARRANTY = ("Disclaimer of Warranty (Apache License, Version 2.0, "
+            "Section 7):\n\n"
+            "Unless required by applicable law or agreed to in writing, "
+            "Licensor\nprovides the Work (and each Contributor provides "
+            "its Contributions)\non an \"AS IS\" BASIS, WITHOUT "
+            "WARRANTIES OR CONDITIONS OF ANY KIND,\neither express or "
+            "implied, including, without limitation, any\nwarranties or "
+            "conditions of TITLE, NON-INFRINGEMENT,\nMERCHANTABILITY, or "
+            "FITNESS FOR A PARTICULAR PURPOSE.\n\n"
+            "See the COPYING file for the full Apache License, "
+            "Version 2.0.")
+
+
+def resolve_modes(args):
+    """(consistency, ensemble, realign) of the mode presets
+    (kalign_tpu/cli.py:195-203, run_kalign.c:370-383)."""
+    consistency, ensemble, realign = (args.consistency, args.ensemble,
+                                      args.realign)
+    if args.fast and consistency == 5:
+        consistency = 0
+    if args.precise:
+        if ensemble == 0:
+            ensemble = 3
+        if realign == 0:
+            realign = 1
+    return consistency, ensemble, realign
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.version:
         print(f"kalign-tpu-torch {__version__} "
               f"(kalign {KALIGN_COMPAT_VERSION} compatible)")
+        return 0
+    if args.showw:
+        print(WARRANTY)
         return 0
     infiles = list(args.infile or []) + list(args.files)
     if not infiles:
@@ -99,20 +173,50 @@ def main(argv=None):
     infiles = [None if f == "-" else f for f in infiles]
     type_ = _resolve_type(args.type)
     refine = _resolve_refine(args.refine)
+    consistency, ensemble, realign = resolve_modes(args)
     msa = kio.read_inputs(infiles)
     msa.quiet = args.quiet
-    # mode preset (run_kalign.c:370-383): --fast turns the default
-    # consistency off
-    consistency = args.consistency
-    if args.fast and consistency == 5:
-        consistency = 0
-    msa = E.align_msa(msa, type_=type_, gpo=args.gpo, gpe=args.gpe,
-                      tgpe=args.tgpe, refine=refine,
-                      vsm_amax=args.vsm_amax,
-                      consistency_anchors=consistency,
-                      consistency_weight=args.consistency_weight,
-                      engine=args.engine, device=args.device,
-                      autoroute=not args.no_autoroute)
+    run = dict(n_threads=args.nthreads, type_=type_, gpo=args.gpo,
+               gpe=args.gpe, tgpe=args.tgpe, vsm_amax=args.vsm_amax,
+               consistency_anchors=consistency,
+               consistency_weight=args.consistency_weight,
+               engine=args.engine, device=args.device,
+               autoroute=not args.no_autoroute)
+    if args.load_poar:
+        msa = ens.consensus_from_poar(
+            msa, args.load_poar,
+            args.min_support if args.min_support > 0 else 2)
+    elif ensemble > 0 and args.ensemble_worker is not None:
+        if not args.ensemble_scratch:
+            raise SystemExit("--ensemble-worker requires --ensemble-scratch")
+        workers = args.ensemble_workers or 1
+        done = ens.ensemble_worker(
+            msa, args.ensemble_worker, workers, args.ensemble_scratch,
+            n_runs=ensemble, seed=args.ensemble_seed, refine=refine,
+            realign=realign, **run)
+        if not args.quiet:
+            print(f"worker {args.ensemble_worker}/{workers}: runs {done} "
+                  f"written to {args.ensemble_scratch}", file=sys.stderr)
+        return 0
+    elif ensemble > 0 and args.ensemble_merge:
+        if not args.ensemble_scratch:
+            raise SystemExit("--ensemble-merge requires --ensemble-scratch")
+        msa = ens.ensemble_merge(msa, args.ensemble_scratch, n_runs=ensemble,
+                                 seed=args.ensemble_seed,
+                                 min_support=args.min_support,
+                                 save_poar=args.save_poar, **run)
+    elif ensemble > 0:
+        msa = ens.ensemble_align(msa, n_runs=ensemble,
+                                 seed=args.ensemble_seed,
+                                 min_support=args.min_support,
+                                 save_poar=args.save_poar, refine=refine,
+                                 realign=realign, **run)
+    else:
+        msa = E.align_msa(msa, refine=refine,
+                          adaptive_budget=int(args.adaptive_budget),
+                          realign=realign,
+                          save_checkpoint=args.save_checkpoint,
+                          resume_checkpoint=args.resume_checkpoint, **run)
     kio.write_alignment_file(msa, args.outfile, args.format)
     return 0
 

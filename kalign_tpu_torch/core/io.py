@@ -305,7 +305,7 @@ def read_msf_lines(lines: List[str]) -> Msa:
 def read_stockholm_lines(lines: List[str]) -> Msa:
     """Stockholm 1.0 reader (sequence lines + multi-block continuation;
     #= annotation lines are skipped, // terminates).  The reference has
-    no Stockholm reader; this package has no Stockholm writer yet."""
+    no Stockholm reader; the writer lives in kalign_tpu_torch/io.py."""
     msa = Msa()
     order: List[str] = []
     parts = {}
@@ -476,8 +476,16 @@ def format_alignment(msa: Msa, fmt: Optional[str] = None, outfile: Optional[str]
     if "fa" in fmt:
         return write_fasta(msa)
     if "sto" in fmt:
-        raise NotImplementedError(
-            "Stockholm output is not available in kalign_tpu_torch yet")
+        import io as _io
+        from kalign_tpu_torch.io import write_stockholm
+        buf = _io.StringIO()
+        conf = [sq.confidence for sq in msa.sequences]
+        write_stockholm([sq.seq for sq in msa.sequences], buf,
+                        ids=[sq.name for sq in msa.sequences],
+                        column_confidence=msa.col_confidence,
+                        residue_confidence=conf
+                        if any(c is not None for c in conf) else None)
+        return buf.getvalue()
     raise ValueError(f"Format {fmt} not recognized.")
 
 

@@ -1,14 +1,16 @@
 """Pipeline driver: ties the data model to the GPU engine.
 
-Counterpart of kalign_tpu/engine.py (align_msa :281-434) for the
-default (anchor consistency) and ``--fast`` modes of the reference's
-kalign_run_seeded (lib/src/aln_wrap.c:133-537):
+Counterpart of kalign_tpu/engine.py (align_msa :281-434,
+post_realign_msa :437-508) and so of the reference's kalign_run_seeded /
+kalign_run_realign / kalign_post_realign (lib/src/aln_wrap.c:133-669):
 
   input check -> dealign -> sort len/name -> encode reduced -> anchors
-  -> anchor distances -> guide tree (native, or the device k-means tree
-  from 2,048 sequences on the card) -> encode full -> params
-  -> consistency maps (default mode) -> progressive align (with
-  refinement candidates when asked) -> finalise -> restore rank order
+  -> anchor distances [-> tree noise] -> guide tree (native, or the
+  device k-means tree from 2,048 sequences on the card; or both resumed
+  from a checkpoint) -> encode full -> params -> consistency maps
+  (default mode) -> progressive align (with refinement candidates when
+  asked) -> [realign: identity distances -> UPGMA tree -> progressive
+  align, per iteration] -> finalise -> restore rank order
 
 Engines (kalign_tpu's "tpu-fast", "tpu" and "host"):
   * "gpu-fast" (gpu/engine.py): hand-written CUDA kernels on the card,
@@ -26,6 +28,7 @@ The entry points run on ``cuda`` unless the caller passes
 instead; without a card they raise.
 """
 
+import os
 import threading
 import time
 from typing import List, Optional
@@ -33,6 +36,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from kalign_tpu_torch import checkpoint as ckpt
 from kalign_tpu_torch import native
 from kalign_tpu_torch.core import alphabet as alpha
 from kalign_tpu_torch.core import params as P
@@ -43,6 +47,7 @@ from kalign_tpu_torch.gpu.consistency import ConsistencyTable
 from kalign_tpu_torch.gpu.engine import GpuEngine
 from kalign_tpu_torch.gpu.exact import ExactDpBackend
 from kalign_tpu_torch.utils.logging import PhaseTimes, log, timer
+from kalign_tpu_torch.utils.rng import XoshiroRng
 from kalign_tpu_torch.utils.sorting import glibc_msort
 
 ENGINES = ("gpu-fast", "gpu", "host")
@@ -84,7 +89,7 @@ def pick_anchors(msa: Msa) -> List[int]:
 
 class HostEngine:
     """Engine "host" (kalign_tpu/engine.py::HostEngine :48): the native
-    runtime's anchor distances, guide tree and progressive alignment,
+    runtime's anchor distances, guide trees and progressive alignment,
     consistency table and refinement included."""
 
     name = "host"
@@ -98,6 +103,12 @@ class HostEngine:
 
     def build_tree(self, codes, dm, n_anchors):
         return native.build_tree(codes, dm, n_anchors)
+
+    def build_tree_pairwise(self, dm):
+        return native.build_tree_pairwise(dm)
+
+    def aln_pairwise_dist(self, rows):
+        return native.aln_pairwise_dist(rows)
 
     def align(self, codes, tasks, ap: P.AlnParam, seq_distances,
               refine_mode: int = P.REFINE_NONE, cons_seq_distances=None):
@@ -194,18 +205,19 @@ class GpuExactEngine(HostEngine):
                     enqueue=enq, fetch=fetch)
 
 
-def get_engine(name="gpu-fast", device=None):
+def get_engine(name="gpu-fast", device=None, n_threads: int = 1):
     """The engine of a name of ENGINES, on ``device``; an engine object
     passed as the name is used as it is (``GpuEngine(device,
-    resident=False)`` runs the host-assembled progressive pass)."""
+    resident=False)`` runs the host-assembled progressive pass).
+    n_threads goes to the native runtime of "host" and "gpu"."""
     if isinstance(name, (GpuEngine, HostEngine)):
         return name
     if name not in ENGINES:
         raise ValueError(f"unknown engine {name!r} (have {ENGINES})")
     if name == "host":
-        return HostEngine()
+        return HostEngine(n_threads)
     if name == "gpu":
-        return GpuExactEngine(resolve_device(device))
+        return GpuExactEngine(resolve_device(device), n_threads)
     return GpuEngine(resolve_device(device))
 
 
@@ -221,9 +233,64 @@ def resolve_params(msa: Msa, type_: int, gpo: float, gpe: float,
     return P.aln_param_init(msa.biotype, type_, gpo, gpe, tgpe, n_threads)
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not available in kalign_tpu_torch "
-                              "yet (default and --fast modes are)")
+def perturb_distances(dm: np.ndarray, n_anchors: int, rng: XoshiroRng,
+                      sigma: float) -> None:
+    """Ensemble tree noise (kalign_tpu/engine.py::_build_guide_tree
+    :258-266, bisectingKmeans.c:104-116): each (sequence, anchor)
+    distance times a gaussian factor N(1, sigma) clamped at 0.1, drawn
+    row-major, one float32 multiply each; in place."""
+    noise = np.empty((dm.shape[0], n_anchors), np.float32)
+    for i in range(dm.shape[0]):
+        for j in range(n_anchors):
+            g = rng.gaussian(1.0, float(sigma))
+            noise[i, j] = 0.1 if g < 0.1 else g
+    dm[:, :n_anchors] *= noise
+
+
+def _pass_refine(refine: int, last: bool) -> int:
+    """A pass's refinement (kalign_tpu/engine.py:386-402, aln_wrap.c:
+    440-509): inline in every pass, ALL / CONFIDENT in the last one only."""
+    if refine == P.REFINE_INLINE or last:
+        return refine
+    return P.REFINE_NONE
+
+
+def _align_pass(msa: Msa, eng, codes, tasks, ap: P.AlnParam, ct,
+                cons_seq_distances, refine_mode: int):
+    """One progressive pass of eng over codes on msa.seq_distances' tree
+    weights, its gaps set on msa; returns the per-merge scores.  A
+    GpuEngine takes the consistency table ct; the native runtime builds
+    its own inside kt_align_msa from cons_seq_distances."""
+    if isinstance(eng, GpuEngine):
+        eng.set_alphabet(codes, ap.subm)
+        gaps, conf = eng.align(codes, tasks, ap, msa.seq_distances, ct,
+                               refine_mode=refine_mode)
+    else:
+        gaps, conf = eng.align(codes, tasks, ap, msa.seq_distances,
+                               refine_mode=refine_mode,
+                               cons_seq_distances=cons_seq_distances)
+    for sq, g in zip(msa.sequences, gaps):
+        sq.gaps = g
+    msa.aligned = ALN_STATUS_ALIGNED
+    return conf
+
+
+def _realign_tree(msa: Msa, eng):
+    """One realign iteration's guide tree (kalign_tpu/engine.py:408-420):
+    identity distances of the finalised alignment, the sequences
+    stripped and encoded again, UPGMA over those distances.  Returns
+    (codes, tasks); msa.seq_distances takes the tree's distances."""
+    if msa.aligned != 3:  # not FINAL yet
+        msa.finalise()
+    dm = eng.aln_pairwise_dist(msa.aligned_rows())
+    msa.strip_gaps()
+    codes = _encoded(msa, alpha.ALPHA_DEFAULT_DNA
+                     if msa.biotype == BIOTYPE_DNA
+                     else alpha.ALPHA_AMBIGUOUS_PROTEIN)
+    msa.set_sip_nsip()
+    tasks, seq_dist = eng.build_tree_pairwise(dm)
+    msa.seq_distances = seq_dist
+    return codes, tasks
 
 
 def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
@@ -241,22 +308,24 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
               autoroute_max: int = AUTOROUTE_MAX) -> Msa:
     """Full alignment pipeline: default mode with consistency_anchors > 0
     (the reference's default is 5), --fast mode with 0; refine one of
-    P.REFINE_NONE, REFINE_ALL, REFINE_CONFIDENT, REFINE_INLINE.  Options
-    of the reference pipeline that this package does not run yet raise
-    NotImplementedError.  ``engine`` is a name of ENGINES or an engine
-    object (get_engine).  With ``autoroute`` (kalign_tpu's
-    KALIGN_TPU_NO_AUTOROUTE unset), a "gpu-fast" run of at most
-    ``autoroute_max`` sequences (KALIGN_TPU_AUTOROUTE_MAX) whose mean
-    anchor distance exceeds 0.5 aligns with "gpu" on the same device,
-    keeping the tree already built.  engine_stats["engine"] names the
-    engine that aligned."""
-    if realign > 0:
-        _not_ported("realignment")
-    if save_checkpoint is not None or resume_checkpoint is not None:
-        _not_ported("checkpointing")
-    if tree_noise > 0.0:
-        _not_ported("guide-tree noise")
-    eng = get_engine(engine, device)
+    P.REFINE_NONE, REFINE_ALL, REFINE_CONFIDENT, REFINE_INLINE.
+    ``engine`` is a name of ENGINES or an engine object (get_engine).
+    With ``autoroute`` (kalign_tpu's KALIGN_TPU_NO_AUTOROUTE unset), a
+    "gpu-fast" run of at most ``autoroute_max`` sequences
+    (KALIGN_TPU_AUTOROUTE_MAX) whose mean anchor distance exceeds 0.5
+    aligns with "gpu" on the same device, keeping the tree already
+    built.  engine_stats["engine"] names the engine that aligned.
+
+    tree_noise > 0 with tree_seed != 0 perturbs the anchor distances
+    before the tree (perturb_distances; without a seed no noise, as in
+    the reference).  save_checkpoint=DIR writes the guide tree and the
+    distances (checkpoint.py, kalign_tpu's format); resume_checkpoint=DIR
+    reads them in place of the distances and the tree.  realign=R runs R
+    more passes, each on a UPGMA tree of the previous alignment's
+    identity distances; the consistency maps stay those of the BPM
+    distances, and refine ALL / CONFIDENT applies to the last pass only
+    (inline to every pass)."""
+    eng = get_engine(engine, device, n_threads)
     quiet = msa.quiet
 
     msa.essential_input_check()
@@ -274,14 +343,28 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
         raise ValueError("Unable to determine what alphabet to use.")
 
     phases = PhaseTimes()
-    log("Calculating pairwise distances", quiet)
-    with timer("Distances + guide tree", quiet):
-        anchors = pick_anchors(msa)
-        codes = [sq.s for sq in msa.sequences]
-        with phases.phase("distances"):
-            dm = eng.anchor_distances(codes, anchors)
-        with phases.phase("tree"):
-            tasks, seq_dist = eng.build_tree(codes, dm, len(anchors))
+    if resume_checkpoint is not None:
+        tasks = ckpt.read_tasks(os.path.join(resume_checkpoint, "tasks.txt"))
+        _, seq_dist, _ = ckpt.load_distances(
+            os.path.join(resume_checkpoint, "distances.npz"),
+            expect_fingerprint=ckpt.input_fingerprint(
+                [sq.seq for sq in msa.sequences]))
+        if len(tasks) != msa.numseq - 1 or len(seq_dist) != msa.numseq:
+            raise ValueError("checkpoint does not match the input (expected "
+                             f"{msa.numseq} sequences)")
+        log("Resumed distances + guide tree from checkpoint", quiet)
+    else:
+        log("Calculating pairwise distances", quiet)
+        with timer("Distances + guide tree", quiet):
+            anchors = pick_anchors(msa)
+            codes = [sq.s for sq in msa.sequences]
+            with phases.phase("distances"):
+                dm = eng.anchor_distances(codes, anchors)
+                if tree_seed != 0 and tree_noise > 0.0:
+                    perturb_distances(dm, len(anchors),
+                                      XoshiroRng(tree_seed), tree_noise)
+            with phases.phase("tree"):
+                tasks, seq_dist = eng.build_tree(codes, dm, len(anchors))
     msa.seq_distances = seq_dist
     # Divergent-family autoroute (kalign_tpu/engine.py:345-364): the
     # throughput engine's tie-breaking loses column accuracy where
@@ -294,11 +377,18 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
             log(f"Divergent family (mean distance {mean_sd:.2f}): using "
                 "the exact engine", quiet)
             tree_stats = eng.stats
-            eng = GpuExactEngine(eng.device)
+            eng = GpuExactEngine(eng.device, n_threads)
             eng.stats.update(tree=tree_stats["tree"],
                              tree_s=tree_stats.get("tree_s"),
                              routed_from="gpu-fast",
                              mean_seq_distance=mean_sd)
+    if save_checkpoint is not None:
+        os.makedirs(save_checkpoint, exist_ok=True)
+        ckpt.write_tasks(tasks, os.path.join(save_checkpoint, "tasks.txt"))
+        ckpt.save_distances(os.path.join(save_checkpoint, "distances.npz"),
+                            np.zeros((0, 0), np.float32), seq_dist,
+                            fingerprint=ckpt.input_fingerprint(
+                                [sq.seq for sq in msa.sequences]))
 
     if msa.biotype == BIOTYPE_PROTEIN:
         _encoded(msa, alpha.ALPHA_AMBIGUOUS_PROTEIN)
@@ -315,37 +405,88 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
         ap.consistency_anchors = consistency_anchors
         ap.consistency_weight = consistency_weight
 
+    # the anchors of the consistency maps stay the BPM distances' in
+    # every pass (kalign_tpu/engine.py:403)
+    bpm_seq_dist = msa.seq_distances
     codes = [sq.s for sq in msa.sequences]
-    # refinement scheduling (kalign_tpu/engine.py:389-402): with no
-    # realignment the first pass takes the refine mode itself
-    first_mode = refine
-    if isinstance(eng, GpuEngine):
-        eng.set_alphabet(codes, ap.subm)
-        ct = None
-        if ap.consistency_anchors > 0:
-            # the anchors of the consistency maps come from the BPM
-            # distances
-            with phases.phase("consistency"):
-                ct = ConsistencyTable.build(eng, codes, ap,
-                                            msa.seq_distances,
-                                            ap.consistency_anchors,
-                                            ap.consistency_weight)
-        log("Aligning", quiet)
-        with timer("Alignment", quiet), phases.phase("progressive"):
-            gaps, conf = eng.align(codes, tasks, ap, msa.seq_distances, ct,
-                                   refine_mode=first_mode)
-    else:
-        # the native runtime builds the consistency table inside
-        # kt_align_msa (so "progressive" covers it), from the BPM
-        # distances (kalign_tpu/engine.py:395-403)
-        log("Aligning", quiet)
-        with timer("Alignment", quiet), phases.phase("progressive"):
-            gaps, conf = eng.align(codes, tasks, ap, msa.seq_distances,
-                                   refine_mode=first_mode,
-                                   cons_seq_distances=msa.seq_distances)
-    for sq, g in zip(msa.sequences, gaps):
-        sq.gaps = g
-    msa.aligned = ALN_STATUS_ALIGNED
+    ct = None
+    if isinstance(eng, GpuEngine) and ap.consistency_anchors > 0:
+        # kalign_tpu's TpuEngine.align builds this table in every pass
+        # from the same codes and distances; built once here, since a
+        # realign pass's codes are the first pass's
+        # (tests/test_torch_realign.py holds the two tables equal)
+        with phases.phase("consistency"):
+            eng.set_alphabet(codes, ap.subm)
+            ct = ConsistencyTable.build(eng, codes, ap, bpm_seq_dist,
+                                        ap.consistency_anchors,
+                                        ap.consistency_weight)
+
+    log("Aligning", quiet)
+    # (on "host" and "gpu", "progressive" covers the native runtime's
+    # consistency table)
+    with timer("Alignment", quiet), phases.phase("progressive"):
+        conf = _align_pass(msa, eng, codes, tasks, ap, ct, bpm_seq_dist,
+                           _pass_refine(refine, realign == 0))
+    for it in range(realign):
+        with phases.phase("realign"):
+            codes, tasks = _realign_tree(msa, eng)
+            conf = _align_pass(msa, eng, codes, tasks, ap, ct, bpm_seq_dist,
+                               _pass_refine(refine, it == realign - 1))
+
+    msa.finalise()
+    msa.sort_rank()
+    msa.task_confidence = conf
+    msa.engine_stats = eng.stats
+    msa.phase_times = dict(phases)
+    return msa
+
+
+def post_realign_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
+                     gpo: float = -1.0, gpe: float = -1.0,
+                     tgpe: float = -1.0, refine: int = P.REFINE_NONE,
+                     adaptive_budget: int = 0, dist_scale: float = 0.0,
+                     vsm_amax: float = -1.0, realign_iterations: int = 1,
+                     use_seq_weights: float = -1.0, engine="gpu-fast",
+                     device=None) -> Msa:
+    """Realign an existing alignment (kalign_tpu/engine.py::
+    post_realign_msa :437-508, kalign_post_realign, aln_wrap.c:539-669):
+    each iteration a UPGMA tree of the alignment's identity distances and
+    a progressive pass, with no anchor consistency.  The input must be
+    aligned, its rows of one width; the rows are not sorted, and their
+    input order comes back at the end.  ``engine`` and ``device`` as
+    align_msa takes them (no autoroute)."""
+    if realign_iterations < 1:
+        raise ValueError("Need at least 1 realign iteration")
+    if msa.aligned not in (2, 3):  # ALIGNED or FINAL
+        raise ValueError("post_realign requires an aligned MSA")
+    widths = {sq.len + sum(sq.gaps) for sq in msa.sequences}
+    if len(widths) > 1:  # UNKNOWN shares FINAL's value in the reference
+        raise ValueError(
+            "post_realign requires equal-length aligned rows "
+            f"(got widths {sorted(widths)})")
+    eng = get_engine(engine, device, n_threads)
+    quiet = msa.quiet
+
+    if msa.biotype == 2:  # BIOTYPE_UNDEF
+        msa.detect_alphabet()
+    ap = resolve_params(msa, type_, gpo, gpe, tgpe, n_threads)
+    ap.adaptive_budget = adaptive_budget
+    if use_seq_weights >= 0.0:
+        ap.use_seq_weights = use_seq_weights
+    ap.dist_scale = dist_scale
+    if vsm_amax >= 0.0:
+        ap.vsm_amax = vsm_amax
+
+    log("Post-realign (%d iterations, vsm_amax=%.2f)"
+        % (realign_iterations, ap.vsm_amax), quiet)
+    phases = PhaseTimes()
+    conf = None
+    with timer("Post-realign", quiet), phases.phase("realign"):
+        for it in range(realign_iterations):
+            codes, tasks = _realign_tree(msa, eng)
+            conf = _align_pass(msa, eng, codes, tasks, ap, None,
+                               msa.seq_distances, _pass_refine(
+                                   refine, it == realign_iterations - 1))
 
     msa.finalise()
     msa.sort_rank()

@@ -314,6 +314,15 @@ class GpuEngine:
         self.stats["tree_s"] = dict(kmeans.timings)
         return res
 
+    # realign's guide tree and identity distances stay on the host, as
+    # kalign_tpu's TpuEngine delegates them (tpu/engine.py:354-358): no
+    # kernel of the reference computes them
+    def build_tree_pairwise(self, dm):
+        return native.build_tree_pairwise(dm)
+
+    def aln_pairwise_dist(self, rows):
+        return native.aln_pairwise_dist(rows)
+
     # ------------------------------------------------------------------
     @staticmethod
     def live_nc(subm, max_code: int) -> int:

@@ -1,9 +1,10 @@
 """ctypes binding for the native runtime (libkt_native.so).
 
 The library is the Kalign 3 compute core in C++ (native/src, copied from
-the reference runtime): anchor distances, the guide tree, and the
-progressive alignment with consistency and refinement
-(``kt_align_msa``), whose Hirschberg DPs go through process-wide hooks
+the reference runtime): anchor distances, the guide tree (and realign's
+tree from alignment identities), the progressive alignment with
+consistency and refinement (``kt_align_msa``), and the ensemble's POAR
+consensus columns (``kt_consensus_columns``); whose Hirschberg DPs go through process-wide hooks
 when an external backend is installed (gpu/exact.py drives them).  It is
 built from ``native/src`` at first use (g++ with the reference's float
 contract: no FMA contraction; no OpenMP, whose runtime the machine with
@@ -22,7 +23,8 @@ from kalign_tpu_torch.utils.build import build_library
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 SOURCES = [os.path.join(_SRC, f) for f in
            ("kt_tree.cpp", "kt_distance.cpp", "kt_gotoh.cpp",
-            "kt_profile.cpp", "kt_align.cpp", "kt_single.cpp")]
+            "kt_profile.cpp", "kt_align.cpp", "kt_single.cpp",
+            "kt_consensus.cpp")]
 HEADERS = [os.path.join(_SRC, f) for f in ("kt_api.h", "kt_gotoh.h")]
 CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-ffp-contract=off"]
 
@@ -51,6 +53,14 @@ def lib() -> ctypes.CDLL:
     L.kt_build_tree.restype = _i32
     L.kt_build_tree.argtypes = [
         _i8p, _i64p, _i32p, _i32, _f32p, _i32, _i32p, _f32p,
+    ]
+    L.kt_build_tree_pairwise.restype = _i32
+    L.kt_build_tree_pairwise.argtypes = [_f32p, _i32, _i32p, _f32p]
+    L.kt_aln_pairwise_dist.restype = None
+    L.kt_aln_pairwise_dist.argtypes = [_i8p, _i32, _i32, _f32p]
+    L.kt_consensus_columns.restype = _i32
+    L.kt_consensus_columns.argtypes = [
+        _i32p, _i32, _i64p, _i64p, _i32p, ctypes.c_int64, _i32p,
     ]
     L.kt_dist_to_anchors.restype = None
     L.kt_dist_to_anchors.argtypes = [
@@ -222,3 +232,29 @@ def anchor_distances(codes, anchors, n_threads: int = 1) -> np.ndarray:
                              np.asarray(anchors, dtype=np.int32), K,
                              out.reshape(-1), n_threads)
     return out
+
+
+def build_tree_pairwise(dm: np.ndarray):
+    """UPGMA guide tree over a full [N, N] distance matrix (realign's tree,
+    kt_build_tree_pairwise): (tasks [N-1, 3] int32, seq_dist [N] f32)."""
+    n = dm.shape[0]
+    tasks = np.zeros(3 * (n - 1), dtype=np.int32)
+    seq_dist = np.zeros(n, dtype=np.float32)
+    # the native side works on its copy in place
+    dmc = np.ascontiguousarray(dm.astype(np.float32).reshape(-1))
+    cnt = lib().kt_build_tree_pairwise(dmc, n, tasks, seq_dist)
+    if cnt != n - 1:
+        raise RuntimeError(f"kt_build_tree_pairwise returned {cnt} tasks "
+                           f"for {n} sequences")
+    return tasks.reshape(-1, 3), seq_dist
+
+
+def aln_pairwise_dist(rows) -> np.ndarray:
+    """[N, N] float32 identity distances of a finalised alignment's rows
+    (kt_aln_pairwise_dist)."""
+    n = len(rows)
+    alnlen = len(rows[0])
+    buf = np.frombuffer("".join(rows).encode("ascii"), dtype=np.uint8).copy()
+    dm = np.zeros(n * n, dtype=np.float32)
+    lib().kt_aln_pairwise_dist(buf, n, alnlen, dm)
+    return dm.reshape(n, n)

@@ -203,6 +203,16 @@ int32_t kt_merge_profiles(const float* pa, const float* pb,
                           float tgpe, const int32_t* steps, int32_t sipa,
                           int32_t sipb, float use_seq_weights, float* out);
 
+/* POAR consensus column assignment (union-find + cycle-safe topo sort,
+ * consensus_msa.c:372-554; kt_consensus.cpp).  Candidates are
+ * pre-filtered by min_support in (pair, key) order; counting sort by
+ * descending support happens inside.  out_colpos[total_residues]
+ * receives each residue's column.  Returns the number of columns. */
+int32_t kt_consensus_columns(const int32_t* seq_lengths, int32_t numseq,
+                             const int64_t* cand_ei, const int64_t* cand_ej,
+                             const int32_t* cand_support, int64_t n_cand,
+                             int32_t* out_colpos);
+
 /* Pairwise identity distance matrix from a finalized alignment
  * (1 - matches/aligned_cols; aln_apair_dist.c:9-82).
  * rows: numseq gapped rows, each alnlen chars ('-' for gap, residue

@@ -29,7 +29,11 @@ def test_import_leaves_jax_and_kalign_tpu_unloaded():
     code = ("import sys\n"
             "import kalign_tpu_torch, kalign_tpu_torch.cli, "
             "kalign_tpu_torch.gpu.engine, kalign_tpu_torch.gpu.distances, "
-            "kalign_tpu_torch.gpu.exact, kalign_tpu_torch.gpu.exact_sweep\n"
+            "kalign_tpu_torch.gpu.exact, kalign_tpu_torch.gpu.exact_sweep, "
+            "kalign_tpu_torch.ensemble, kalign_tpu_torch.consensus, "
+            "kalign_tpu_torch.poar, kalign_tpu_torch.checkpoint, "
+            "kalign_tpu_torch.io, kalign_tpu_torch.utils.rng\n"
+            "kalign_tpu_torch.native.lib().kt_consensus_columns\n"
             "bad = [m for m in sys.modules if m in ('jax', 'kalign_tpu') "
             "or m.startswith(('jax.', 'kalign_tpu.'))]\n"
             "print(','.join(bad))\n")
@@ -42,7 +46,10 @@ def test_import_leaves_jax_and_kalign_tpu_unloaded():
 
 def test_no_jax_or_kalign_tpu_import_in_port_sources():
     files = _port_files()
-    assert len(files) > 15
+    names = {os.path.relpath(f, PKG) for f in files}
+    assert {"ensemble.py", "consensus.py", "poar.py", "checkpoint.py",
+            "io.py", os.path.join("utils", "rng.py")} <= names
+    assert len(files) > 20
     for path in files:
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)
@@ -72,23 +79,25 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_options_raise():
+    """What the port does not run raises: engine "auto" (kalign_tpu's
+    resolve_auto_engine) and an unknown mode.  Realign, checkpoints,
+    tree noise and mode "precise" are ported: they align."""
     import kalign_tpu_torch
     from kalign_tpu_torch import engine as E
     from kalign_tpu_torch.core.msa import Msa
-    seqs = ["MKVLAAGIVGLLLAA", "MKVLSAGIVGLLAA"]
-    with pytest.raises(NotImplementedError):
-        kalign_tpu_torch.align(seqs, mode="precise", device="cpu")
+    seqs = ["MKVLAAGIVGLLLAA", "MKVLSAGIVGLLAA", "MKILAAGVVGLLLA"]
     with pytest.raises(ValueError):
         kalign_tpu_torch.align(seqs, mode="quick", device="cpu")
-    for kw in (dict(realign=1), dict(save_checkpoint="x"),
-               dict(tree_seed=3, tree_noise=0.1)):
-        with pytest.raises(NotImplementedError):
-            E.align_msa(Msa.from_sequences(seqs), device="cpu", **kw)
-    # refinement is ported: it aligns
-    m = Msa.from_sequences(seqs)
-    m.quiet = True
-    out = E.align_msa(m, device="cpu", refine=1)
-    assert [r.replace("-", "") for r in out.aligned_rows()] == seqs
+    with pytest.raises(ValueError):
+        kalign_tpu_torch.align(seqs, engine="auto", device="cpu")
+    rows = kalign_tpu_torch.align(seqs, mode="precise", device="cpu")
+    assert [r.replace("-", "") for r in rows] == seqs
+    for kw in (dict(realign=1), dict(tree_seed=3, tree_noise=0.1),
+               dict(refine=1)):
+        m = Msa.from_sequences(seqs)
+        m.quiet = True
+        out = E.align_msa(m, device="cpu", **kw)
+        assert [r.replace("-", "") for r in out.aligned_rows()] == seqs
 
 
 def test_wrappers_take_plain_versions_on_cpu_without_launching():
