@@ -75,6 +75,21 @@ Phases (any failure raises and the script exits non-zero):
      PRECISE["launch"] launched, none of PRECISE["forbid"], every run on
      gpu-fast, confidences in [0, 1]; the wall, its split, the winner;
      its largest row launch held bitwise against the plain version);
+  3b. the serve path (phase_serve): a warm server (serve.serve, its
+     warmup on) in a thread of this process answers a request stream
+     (serve_requests: BAliBASE families in default and --fast mode,
+     BB30014 routed to the exact engine, small.fa --precise -f sto, the
+     2,000-protein and 2,000-DNA families, engine "auto" on tiny.fa and
+     on the protein family, a missing input, BB11001 three more times,
+     two --trace requests) sent with relative paths from a scratch
+     directory; launch counts set to 0 once the warmup is done and read
+     after the last request (the warmup's apart); every output equal to
+     the same argv run one-shot through cli.main here, BB30014 and
+     tiny.fa to their golden files; the --trace request's trace naming
+     its kernels, its device seconds in (0, wall]; then the cold start
+     in fresh processes: a one-shot CLI call, a --server-start call
+     (the spawned server's ready time and first request), a --server
+     call to the warm server, and the import of the aligner;
   4. the paths but the refined one once more under torch.profiler:
      device time by kernel and by part of the progressive pass, each
      kernel's total device time and launches (the trace must hold every
@@ -1601,6 +1616,406 @@ def phase_goldens(dev):
             raise AssertionError(f"{golden}: the sweep kernel did not launch")
 
 
+# ---------------------------------------------------------------------------
+# the serve path: a warm server in this process answering a request stream
+SERVE_LAUNCH = ["bpm", "bpm_table", "gotoh_lanewise", "gotoh_fused",
+                "gotoh_row", "traceback", "prefix_sum", "exact_sweep"]
+SERVE_FORBID = ["gotoh_row_tiled"]
+# seconds the in-process server, and the server a --server-start spawns,
+# may take to answer
+SERVE_READY_TIMEOUT_S = 300
+
+
+def serve_requests():
+    """The request stream: (name, argv, golden file or None, the engines
+    its alignments must resolve to or None).  Relative paths, in the
+    client's working directory; -q keeps the server's stderr quiet."""
+    BB11001 = ["-i", "BB11001.tfa", "-o", "r1.afa", "-q"]
+    prot = ["-i", "prot2000.fa", "-q"]
+    return [
+        ("BB11001", BB11001, None, ["gpu-fast"]),
+        ("BB12006-fast", ["-i", "BB12006.tfa", "-o", "r2.afa", "--fast",
+                          "-q"], None, ["gpu-fast"]),
+        ("BB30014", ["-i", "BB30014.tfa", "-o", "r3.afa", "-q"],
+         "BB30014.default.afa", ["gpu"]),
+        ("small-precise-sto", ["-i", "small.fa", "-o", "r4.sto",
+                               "--precise", "-f", "sto", "-q"], None, None),
+        ("protein2000", prot + ["-o", "r5.afa"], None, ["gpu-fast"]),
+        ("dna2000", ["-i", "dna2000.fa", "-o", "r6.afa", "-q"], None,
+         ["gpu-fast"]),
+        ("tiny-auto", ["-i", "tiny.fa", "-o", "r7.afa", "--engine", "auto",
+                       "-q"], "tiny.default.afa", ["host"]),
+        ("protein2000-auto", prot + ["-o", "r8.afa", "--engine", "auto"],
+         None, ["gpu-fast"]),
+        ("missing-input", ["-i", "missing.fa", "-o", "r9.afa", "-q"], None,
+         None),
+        ("BB11001-warm1", BB11001, None, ["gpu-fast"]),
+        ("BB11001-warm2", BB11001, None, ["gpu-fast"]),
+        ("BB11001-warm3", BB11001, None, ["gpu-fast"]),
+        ("protein2000-trace", prot + ["-o", "r11.afa", "--trace",
+                                      "trace11"], None, ["gpu-fast"]),
+        ("protein2000-trace2", prot + ["-o", "r12.afa", "--trace",
+                                       "trace12"], None, ["gpu-fast"]),
+    ]
+
+
+def serve_workdir():
+    """A scratch directory for the stream's files and sockets, with the
+    inputs: the BAliBASE families, small.fa and tiny.fa, and the two
+    full-width families as FASTA (family(2000, seed=0), the
+    protein_default path's input; v4_family(2000, seed=2), the default
+    path's).  A unix socket's path must stay under 108 bytes."""
+    import shutil
+    import tempfile
+    work = tempfile.mkdtemp(prefix="kts")
+    if len(work) > 80:
+        shutil.rmtree(work)
+        work = tempfile.mkdtemp(prefix="kts", dir="/tmp")
+    for f in ("BB11001.tfa", "BB12006.tfa", "BB30014.tfa", "small.fa",
+              "tiny.fa"):
+        shutil.copy(os.path.join(HERE, "tests", "data", f), work)
+    for name, seqs in (("prot2000.fa", family(2000, seed=0)),
+                       ("dna2000.fa", v4_family(2000, seed=2))):
+        with open(os.path.join(work, name), "w") as fh:
+            fh.write("".join(f">s{i}\n{s}\n" for i, s in enumerate(seqs)))
+    return work
+
+
+@contextmanager
+def watched_align_msa(seen):
+    """engine.align_msa wrapped so that each alignment appends (the
+    engine that aligned, whether it ran off the main thread, its current
+    CUDA device and stream) to seen."""
+    import threading
+    from kalign_tpu_torch import engine as E
+    from kalign_tpu_torch.gpu import _cuda
+    import torch
+    orig = E.align_msa
+
+    def wrapped(*a, **k):
+        out = orig(*a, **k)
+        seen.append((out.engine_stats.get("engine"),
+                     threading.current_thread() is not threading.main_thread(),
+                     torch.cuda.current_device(), _cuda.stream()))
+        return out
+    E.align_msa = wrapped
+    try:
+        yield
+    finally:
+        E.align_msa = orig
+
+
+def trace_summary(trace_dir, launched):
+    """What the --trace request's trace holds: each process's name and
+    labels, the processes of its kernel records, and per kernel of the
+    request the records of its name (PROFILE_NAMES)."""
+    import glob
+    names, procs, kernel_pids, by_cat = {}, {}, set(), {}
+    for path in glob.glob(os.path.join(trace_dir, "*.pt.trace.json")):
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        for e in events:
+            if e.get("ph") == "M" and e.get("name") in ("process_name",
+                                                        "process_labels"):
+                arg = "labels" if e["name"] == "process_labels" else "name"
+                procs.setdefault(str(e.get("pid")), []).append(
+                    (e.get("args") or {}).get(arg))
+            elif e.get("ph") == "X" and e.get("cat") == "kernel":
+                names[e["name"]] = names.get(e["name"], 0) + 1
+                kernel_pids.add(str(e.get("pid")))
+            if e.get("ph") == "X" and str(e.get("pid")) in kernel_pids:
+                cat = str(e.get("cat"))
+                by_cat[cat] = by_cat.get(cat, 0.0) + e.get("dur", 0) / 1e3
+    records = {k: sum(c for n, c in names.items() if PROFILE_NAMES[k] in n)
+               for k, v in launched.items() if v}
+    return procs, sorted(kernel_pids), records, by_cat
+
+
+def served_stream(work, sock, problems):
+    """The stream through serve.serve in a thread of this process (launch
+    counts set to 0 once the warmup is done, read after the last
+    request).  Returns (warmup launches, the stream's launches, the
+    in-process ready seconds, per-request records, served output
+    bytes)."""
+    import threading
+    import torch
+    from kalign_tpu_torch import serve
+    from kalign_tpu_torch.gpu import _cuda
+    box, ready = {}, threading.Event()
+
+    def on_ready():
+        box["warmup"] = read_counts()
+        box["ready_s"] = time.perf_counter() - t0
+        reset_counts()
+        ready.set()
+
+    def run():
+        try:
+            serve.serve(sock, warmup=True, ready_cb=on_ready)
+        except BaseException as e:  # raised again in the main thread
+            box["error"] = e
+            ready.set()
+
+    main_stream = (torch.cuda.current_device(), _cuda.stream())
+    reset_counts()
+    t0 = time.perf_counter()
+    th = threading.Thread(target=run, name="kalign-serve", daemon=True)
+    th.start()
+    if not ready.wait(SERVE_READY_TIMEOUT_S):
+        raise AssertionError("the in-process server did not come up")
+    if "error" in box:
+        raise box["error"]
+    records, outputs, seen = [], {}, []
+    try:
+        with watched_align_msa(seen):
+            for name, argv, golden, engines in serve_requests():
+                seen.clear()
+                before = read_counts()
+                resp = serve.request(sock, argv)
+                after = read_counts()
+                rec = dict(name=name, argv=argv, **resp,
+                           engines=[s[0] for s in seen],
+                           launches={k: after[k] - before[k]
+                                     for k in after if after[k] > before[k]})
+                if any(not s[1] or (s[2], s[3]) != main_stream
+                       for s in seen):
+                    problems.append(f"{name}: aligned off a handler thread "
+                                    f"or on another device or stream: "
+                                    f"{seen} (main: {main_stream})")
+                if name == "missing-input":
+                    if resp["rc"] == 0 or not resp["error"]:
+                        problems.append(f"{name}: answered {resp}")
+                elif resp["rc"] != 0 or resp["error"]:
+                    problems.append(f"{name}: answered {resp}")
+                else:
+                    out = argv[argv.index("-o") + 1]
+                    with open(os.path.join(work, out), "rb") as fh:
+                        outputs[name] = fh.read()
+                if engines is not None and rec["engines"] != engines:
+                    problems.append(f"{name}: aligned by {rec['engines']}, "
+                                    f"not {engines}")
+                records.append(rec)
+        launches = read_counts()
+    finally:
+        serve.shutdown(sock)
+        th.join(60)
+    if th.is_alive():
+        raise AssertionError("the in-process server did not stop")
+    return box["warmup"], launches, box["ready_s"], records, outputs
+
+
+def cold_start(work, problems):
+    """The cold start as users pay it, in fresh processes (the libraries
+    already built): one one-shot CLI call on BB11001 (cold_cli_s); then
+    one CLI call with --server=SOCK --server-start, which spawns the
+    server: ready_s from its start until the socket answers, first_s
+    from then until the call exits (the call polls the socket every
+    0.1 s); then one more --server call to that server (client_s: what
+    each call of a warm deployment pays, the client's own start-up
+    included); then shutdown, and the spawned server must exit; last,
+    import_s, a process that only imports the aligner (kalign_tpu_torch.api,
+    torch among its imports).  Returns
+    ({those seconds}, {output file: bytes})."""
+    import socket
+    from kalign_tpu_torch import serve
+    env = dict(os.environ, PYTHONPATH=HERE)
+    cli = [sys.executable, "-m", "kalign_tpu_torch.cli", "-i", "BB11001.tfa",
+           "-q"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cli + ["-o", "cold.afa"], cwd=work, env=env,
+                         capture_output=True, text=True,
+                         timeout=SERVE_READY_TIMEOUT_S)
+    cold_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"the one-shot CLI failed: {res.stderr[-2000:]}")
+    sock = os.path.join(work, "spawned.sock")
+
+    def answers():
+        with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+            try:
+                s.connect(sock)
+                return True
+            except OSError:
+                return False
+
+    def server_pids():
+        pids = []
+        for p in os.listdir("/proc"):
+            try:
+                with open(f"/proc/{p}/cmdline", "rb") as fh:
+                    cmd = fh.read().split(b"\0")
+            except OSError:
+                continue
+            if b"kalign_tpu_torch.serve" in cmd and sock.encode() in cmd:
+                pids.append(int(p))
+        return pids
+
+    def running(pid):
+        try:
+            with open(f"/proc/{pid}/stat") as fh:
+                return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+        except OSError:
+            return False
+
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(cli + ["-o", "first.afa", f"--server={sock}",
+                                   "--server-start"], cwd=work, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    pids = []
+    try:
+        while not answers():
+            if time.perf_counter() - t_start > SERVE_READY_TIMEOUT_S \
+                    or proc.poll() is not None:
+                raise AssertionError("the spawned server did not answer: "
+                                     f"{proc.poll()}")
+            time.sleep(0.01)
+        t_ready = time.perf_counter()
+        pids = server_pids()
+        _, err = proc.communicate(timeout=SERVE_READY_TIMEOUT_S)
+        t_done = time.perf_counter()
+        if proc.returncode != 0:
+            raise AssertionError(f"the --server-start call failed: "
+                                 f"{err[-2000:]}")
+        if len(pids) != 1:
+            raise AssertionError(f"spawned servers found: {pids}")
+        t0 = time.perf_counter()
+        res = subprocess.run(cli + ["-o", "client.afa", f"--server={sock}"],
+                             cwd=work, env=env, capture_output=True,
+                             text=True, timeout=SERVE_READY_TIMEOUT_S)
+        client_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"a --server call failed: "
+                                 f"{res.stderr[-2000:]}")
+        serve.shutdown(sock)
+        t_stop = time.perf_counter()
+        while running(pids[0]) and time.perf_counter() - t_stop < 60:
+            time.sleep(0.05)
+        if running(pids[0]):
+            problems.append("the spawned server did not exit after "
+                            "shutdown")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for pid in pids:
+            if running(pid):
+                os.kill(pid, 9)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import kalign_tpu_torch.api"],
+                   cwd=work, env=env, check=True,
+                   timeout=SERVE_READY_TIMEOUT_S)
+    import_s = time.perf_counter() - t0
+    outs = {}
+    for f in ("cold.afa", "first.afa", "client.afa"):
+        with open(os.path.join(work, f), "rb") as fh:
+            outs[f] = fh.read()
+    return dict(cold_cli_s=cold_s, ready_s=t_ready - t_start,
+                first_s=t_done - t_ready, client_s=client_s,
+                import_s=import_s), outs
+
+
+def phase_serve(dev):
+    """The serve path: a warm server (serve.serve, warmup on) in a thread
+    of this process answers serve_requests() sent through serve.request
+    from a scratch directory with relative paths; every launch count is
+    set to 0 once the warmup is done and read after the last request.
+    Every output must equal the same argv run one-shot through
+    cli.main in this process, BB30014 and tiny.fa also their golden
+    files; "auto" must resolve to host on tiny.fa and to gpu-fast on the
+    2,000-protein family (whose bytes it must give); the missing input
+    must get rc != 0 with its error, and the server must answer on; the
+    stream must launch SERVE_LAUNCH and no SERVE_FORBID; the --trace
+    request's trace must name its kernels, its device seconds in
+    (0, wall].  Then the cold start (cold_start).  Prints the path line;
+    returns the stream's launches."""
+    import shutil
+    from kalign_tpu_torch import cli
+    from kalign_tpu_torch.utils import devtime
+    problems = []
+    work = serve_workdir()
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        warm, launches, inproc_ready_s, records, served = served_stream(
+            work, os.path.join(work, "inproc.sock"), problems)
+        by_name = {r["name"]: r for r in records}
+        trace_dir = os.path.join(work, "trace11")
+        procs, kernel_pids, records_in_trace, by_cat = trace_summary(
+            trace_dir, by_name["protein2000-trace"]["launches"])
+        device_s = devtime.device_seconds(trace_dir)
+        trace = dict(processes=procs, kernel_pids=kernel_pids,
+                     device_ms_by_category=by_cat, device_s=device_s,
+                     second_device_s=devtime.device_seconds(
+                         os.path.join(work, "trace12")),
+                     kernel_records=records_in_trace,
+                     launches=by_name["protein2000-trace"]["launches"])
+        if not 0.0 < device_s <= by_name["protein2000-trace"]["wall_s"]:
+            problems.append(f"trace: device_seconds {device_s} outside "
+                            "(0, wall]")
+        lost = {k: (c, trace["launches"][k])
+                for k, c in records_in_trace.items() if c == 0}
+        if lost:
+            problems.append(f"trace: no record of {lost}")
+        # the same argv one-shot, in this process, from the same directory
+        oneshot = {}
+        for name, argv, golden, _ in serve_requests():
+            if name == "missing-input":
+                try:
+                    cli.main(argv)
+                    problems.append("missing-input: the one-shot run "
+                                    "did not fail")
+                except (OSError, SystemExit):
+                    pass
+                continue
+            if name not in served:
+                continue
+            key = " ".join(argv)
+            if key not in oneshot:
+                t0 = time.perf_counter()
+                if cli.main(argv) != 0:
+                    problems.append(f"{name}: the one-shot run failed")
+                with open(argv[argv.index("-o") + 1], "rb") as fh:
+                    oneshot[key] = (fh.read(), time.perf_counter() - t0)
+            same = served[name] == oneshot[key][0]
+            by_name[name]["same_as_oneshot"] = same
+            by_name[name]["oneshot_s"] = round(oneshot[key][1], 3)
+            if not same:
+                problems.append(f"{name}: served bytes differ from the "
+                                "one-shot run's")
+            if golden is not None:
+                with open(os.path.join(HERE, "tests", "golden", golden),
+                          "rb") as fh:
+                    by_name[name]["golden"] = served[name] == fh.read()
+                if not by_name[name]["golden"]:
+                    problems.append(f"{name}: not {golden}")
+        if served.get("protein2000-auto") != served.get("protein2000"):
+            problems.append("protein2000-auto: not protein2000's bytes")
+        cold, cold_outs = cold_start(work, problems)
+        for f, b in cold_outs.items():
+            if b != served["BB11001"]:
+                problems.append(f"cold start: {f} differs from the served "
+                                "BB11001 bytes")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    warm_walls = [by_name[f"BB11001-warm{i}"]["wall_s"] for i in (1, 2, 3)]
+    emit({"phase": "path", "path": "serve", **cold,
+          "inprocess_ready_s": inproc_ready_s,
+          "warm_bb11001_median_s": float(np.median(warm_walls)),
+          "requests": records, "trace": trace,
+          "launches": launches, "warmup_launches": warm})
+    missing = [k for k in SERVE_LAUNCH if launches[k] == 0]
+    if missing:
+        problems.append(f"kernels not launched on the serve path: {missing}")
+    stray = [k for k in SERVE_FORBID if launches[k]]
+    if stray:
+        problems.append(f"serve: launched {stray}")
+    if problems:
+        raise AssertionError("serve: " + "; ".join(problems))
+    return launches
+
+
 class _Stop(Exception):
     """Ends a run once a capture has what it needs."""
 
@@ -2648,7 +3063,8 @@ def large_family():
 def run_only(dev, only, divergent_n=DIVERGENT_N):
     """The phases named in ``--only`` (comma-separated: edge, kmeans_edge,
     kmeans, exact_edge, path:NAME, profile:NAME, vs, goldens), for a
-    short call; no result lines.  path:precise runs phase_precise.  path:divergent also holds and times the sweep at
+    short call; no result lines.  path:precise runs phase_precise,
+    path:serve phase_serve.  path:divergent also holds and times the sweep at
     its largest launch, path:long_default the cluster row kernel at its
     largest map-DP and progressive launches."""
     protein = lambda: family(2000, seed=0)
@@ -2677,6 +3093,8 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
                 phase_profile("precise", s, launches)
         elif what == "goldens":
             phase_goldens(dev)
+        elif what == "path:serve":
+            phase_serve(dev)
         elif what.startswith(("path:", "profile:")):
             kind, path = what.split(":")
             s = seqs.get(path, protein)()
@@ -2737,6 +3155,7 @@ def main(argv=None):
     launches["divergent"], sweep_largest = phase_divergent(
         seqs["divergent"])
     launches["precise"], precise_row = phase_precise(dev, precise_family())
+    launches["serve"] = phase_serve(dev)
     for path in list(PATHS) + ["divergent"]:
         if PATHS.get(path, {}).get("profile", True):
             phase_profile(path, seqs[path], launches[path])

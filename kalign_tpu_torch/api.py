@@ -1,6 +1,12 @@
 """Public Python API of the PyTorch/CUDA port.
 
-Mirrors kalign_tpu/api.py's ``align`` and ``post_realign``: the modes
+Mirrors kalign_tpu/api.py (and so python-kalign's surface): ``align``
+(``fmt="plain"|"biopython"|"skbio"``, ``ids=``), ``align_from_file``,
+``align_file_to_file``, ``read_alignment``, ``write_alignment``,
+``generate_test_sequences``, ``compare``, ``compare_detailed``,
+``compare_with_mask``, ``set_num_threads`` / ``get_num_threads`` (the
+native runtime's threads; ``n_threads=None`` takes this default) and
+``post_realign``, with the modes
 (default: anchor consistency with 5 anchors; fast: none; precise: a
 3-run ensemble with one realign pass), the scoring model's arguments
 (seq_type, gap_open, gap_extend, terminal_gap_extend, vsm_amax,
@@ -9,19 +15,23 @@ dist_scale), refinement (refine=None, "none", "all", "confident",
 and adaptive_budget (read by the native runtime of "host" and "gpu";
 "gpu-fast" ignores it, as kalign_tpu's "tpu-fast" does).  ``engine`` is
 one of engine.ENGINES ("gpu-fast", the default; "gpu", bit-exact;
-"host", native only), with the divergent-family autoroute of "gpu-fast"
+"host", native only; "auto", engine.resolve_auto_engine's choice), with
+the divergent-family autoroute of "gpu-fast"
 (``autoroute``, ``autoroute_max``; an ensemble's runs take the default
 cap).  ``device`` defaults to ``cuda``; ``device="cpu"`` runs every
 kernel's plain PyTorch version.
 """
 
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 from kalign_tpu_torch import engine as _engine
 from kalign_tpu_torch import ensemble as _ensemble
 from kalign_tpu_torch.core import io as kio
 from kalign_tpu_torch.core import params as P
 from kalign_tpu_torch.core.msa import Msa
+# a confidence's posterior-probability character (kalign_tpu/api.py:185):
+# the Stockholm writer's rule
+from kalign_tpu_torch.io import _conf_to_pp_char as _conf_to_pp
 
 # kalign_tpu/api.py:16-35
 _TYPE_NAMES = {
@@ -44,6 +54,21 @@ _REFINE_NAMES = {
     "confident": P.REFINE_CONFIDENT,
     "inline": P.REFINE_INLINE,
 }
+
+# kalign_tpu/api.py:38-50
+_DEFAULT_THREADS = 1
+
+
+def set_num_threads(n: int) -> None:
+    """Set the default worker-thread count for the native runtime."""
+    global _DEFAULT_THREADS
+    if n < 1:
+        raise ValueError("Thread count must be >= 1")
+    _DEFAULT_THREADS = n
+
+
+def get_num_threads() -> int:
+    return _DEFAULT_THREADS
 
 
 def _resolve_type(seq_type) -> int:
@@ -111,7 +136,7 @@ def align_msa(sequences: Sequence[str],
               ensemble: int = 0, ensemble_seed: int = 42,
               min_support: int = 0, realign: int = 0,
               dist_scale: float = 0.0, adaptive_budget: bool = False,
-              n_threads: int = 1) -> Msa:
+              n_threads: Optional[int] = None) -> Msa:
     """Align and return the finalised Msa (input order restored);
     ``engine``, ``autoroute`` and ``autoroute_max`` as engine.align_msa
     takes them.  With ensemble > 0 (mode "precise": 3) the runs go
@@ -119,6 +144,8 @@ def align_msa(sequences: Sequence[str],
     takes neither dist_scale nor adaptive_budget."""
     consistency, ensemble, realign = _resolve_mode(mode, consistency,
                                                    ensemble, realign)
+    if n_threads is None:
+        n_threads = get_num_threads()
     type_ = _resolve_type(seq_type)
     refine_ = _resolve_refine(refine)
     _validate_sequences(sequences)
@@ -159,20 +186,154 @@ def align(sequences: Sequence[str], mode: Optional[str] = None,
           autoroute_max: int = _engine.AUTOROUTE_MAX,
           ensemble: int = 0, ensemble_seed: int = 42, min_support: int = 0,
           realign: int = 0, dist_scale: float = 0.0,
-          adaptive_budget: bool = False, n_threads: int = 1):
-    """Align sequences; returns the aligned rows in input order."""
-    return align_msa(sequences, names=names, mode=mode, device=device,
-                     consistency=consistency,
-                     consistency_weight=consistency_weight,
-                     seq_type=seq_type, gap_open=gap_open,
-                     gap_extend=gap_extend,
-                     terminal_gap_extend=terminal_gap_extend, refine=refine,
-                     vsm_amax=vsm_amax, engine=engine, autoroute=autoroute,
-                     autoroute_max=autoroute_max, ensemble=ensemble,
-                     ensemble_seed=ensemble_seed, min_support=min_support,
-                     realign=realign, dist_scale=dist_scale,
-                     adaptive_budget=adaptive_budget,
-                     n_threads=n_threads).aligned_rows()
+          adaptive_budget: bool = False, n_threads: Optional[int] = None,
+          fmt: str = "plain", ids: Optional[Sequence[str]] = None):
+    """Align sequences (kalign_tpu/api.py::align :132-182).  fmt:
+    "plain" (the aligned rows in input order), "biopython"
+    (Bio.Align.MultipleSeqAlignment, with PP annotations when the
+    ensemble gave confidences) or "skbio" (TabularMSA).  ids names the
+    sequences when names is not given."""
+    if ids is not None and names is None:
+        names = ids
+    msa = align_msa(sequences, names=names, mode=mode, device=device,
+                    consistency=consistency,
+                    consistency_weight=consistency_weight,
+                    seq_type=seq_type, gap_open=gap_open,
+                    gap_extend=gap_extend,
+                    terminal_gap_extend=terminal_gap_extend, refine=refine,
+                    vsm_amax=vsm_amax, engine=engine, autoroute=autoroute,
+                    autoroute_max=autoroute_max, ensemble=ensemble,
+                    ensemble_seed=ensemble_seed, min_support=min_support,
+                    realign=realign, dist_scale=dist_scale,
+                    adaptive_budget=adaptive_budget, n_threads=n_threads)
+    rows = msa.aligned_rows()
+    if fmt == "plain":
+        return rows
+    out_names = [sq.name for sq in msa.sequences]
+    if fmt == "biopython":
+        return _to_biopython(msa, rows, out_names)
+    if fmt == "skbio":
+        return _to_skbio(msa, rows, out_names)
+    raise ValueError(f"Unknown fmt {fmt!r}")
+
+
+# kalign_tpu/api.py:185-233
+def _to_biopython(msa, rows, names):
+    try:
+        from Bio.Align import MultipleSeqAlignment
+        from Bio.Seq import Seq
+        from Bio.SeqRecord import SeqRecord
+    except ImportError as e:
+        raise ImportError(
+            "Biopython required for fmt='biopython'. "
+            "Run: pip install biopython") from e
+    records = []
+    for i, (row, name) in enumerate(zip(rows, names)):
+        rec = SeqRecord(Seq(row), id=name, description="")
+        conf = msa.sequences[i].confidence
+        if conf is not None:
+            pp = "".join("." if ch in "-." else _conf_to_pp(c)
+                         for ch, c in zip(row, conf))
+            rec.letter_annotations["posterior_probability"] = pp
+        records.append(rec)
+    aln = MultipleSeqAlignment(records)
+    if msa.col_confidence is not None:
+        aln.column_annotations = {
+            "posterior_probability":
+                "".join(_conf_to_pp(c) for c in msa.col_confidence)}
+    return aln
+
+
+def _to_skbio(msa, rows, names):
+    try:
+        from skbio import DNA, Protein, RNA, TabularMSA
+    except ImportError as e:
+        raise ImportError(
+            "scikit-bio required for fmt='skbio'. "
+            "Run: pip install scikit-bio") from e
+    alphabet = set("".join(rows).upper().replace("-", ""))
+    if alphabet.issubset(set("ACGTN")):
+        cls = DNA
+    elif alphabet.issubset(set("ACGUN")):
+        cls = RNA
+    else:
+        cls = Protein
+    seqs = [cls(row, metadata={"id": name})
+            for row, name in zip(rows, names)]
+    return TabularMSA(seqs)
+
+
+# kalign_tpu/api.py:236-316
+def align_from_file(path: str, out_format: str = "plain", **kw):
+    """Align the sequences of a file; ``out_format`` is align's fmt, the
+    other keywords are align's."""
+    msa = kio.read_inputs([path])
+    return align([sq.seq for sq in msa.sequences],
+                 names=[sq.name for sq in msa.sequences], fmt=out_format,
+                 **kw)
+
+
+def align_file_to_file(in_path: str, out_path: str,
+                       out_format: str = "fasta", **kw) -> None:
+    """Align the sequences of in_path into out_path (a format of
+    core/io.py: fasta, msf, clu, sto); the other keywords are
+    align_msa's."""
+    msa = kio.read_inputs([in_path])
+    out = align_msa([sq.seq for sq in msa.sequences],
+                    names=[sq.name for sq in msa.sequences], **kw)
+    kio.write_alignment_file(out, out_path, out_format)
+
+
+def read_alignment(path: str) -> Msa:
+    return kio.read_alignment(path)
+
+
+def write_alignment(msa_or_rows, path: str, fmt: str = "fasta",
+                    names: Optional[List[str]] = None):
+    if isinstance(msa_or_rows, Msa):
+        msa = msa_or_rows
+    else:
+        msa = Msa.from_sequences(list(msa_or_rows), names)
+        msa.finalise()
+    kio.write_alignment_file(msa, path, fmt)
+
+
+def generate_test_sequences(n_seq: int = 20, n_obs: int = 10,
+                            dna: bool = False, length: int = 250,
+                            seed: int = 42):
+    """Profile-HMM simulated families (bit-exact DSSim port):
+    (sequences, names)."""
+    from kalign_tpu_torch.dssim import generate_test_sequences as gen
+    return gen(n_seq, n_obs, dna, length, seed)
+
+
+def compare(reference, test, ref_names=None, test_names=None) -> float:
+    """SP agreement %.  Accepts file paths or row lists."""
+    from kalign_tpu_torch.core.cmp import msa_compare
+    ref_rows, ref_names = _rows_arg(reference, ref_names)
+    test_rows, test_names = _rows_arg(test, test_names)
+    return msa_compare(ref_rows, test_rows, ref_names, test_names)
+
+
+def compare_detailed(reference, test, ref_names=None, test_names=None,
+                     max_gap_frac: float = 1.0, column_mask=None):
+    """Recall, precision, F1 and TC (core/cmp.py::DetailedScore).
+    ``column_mask`` (0/1 per reference column, kalign_msa_compare_with_mask,
+    msa_cmp.c:449-480) replaces the gap-fraction rule for the core
+    columns; its length must equal the reference alignment's."""
+    from kalign_tpu_torch.core.cmp import msa_compare_detailed
+    ref_rows, ref_names = _rows_arg(reference, ref_names)
+    test_rows, test_names = _rows_arg(test, test_names)
+    return msa_compare_detailed(ref_rows, test_rows, ref_names, test_names,
+                                max_gap_frac, scored_cols=column_mask)
+
+
+def compare_with_mask(reference, test, column_mask,
+                      ref_names=None, test_names=None):
+    """Score only the reference columns whose mask entry is truthy;
+    ValueError when the mask length is not the reference alignment's."""
+    return compare_detailed(reference, test, ref_names, test_names,
+                            column_mask=column_mask)
 
 
 def post_realign(msa_or_path, out_path: Optional[str] = None,
@@ -182,7 +343,7 @@ def post_realign(msa_or_path, out_path: Optional[str] = None,
                  refine=None, adaptive_budget: int = 0,
                  dist_scale: float = 0.0, vsm_amax: float = -1.0,
                  realign_iterations: int = 1, use_seq_weights: float = -1.0,
-                 n_threads: int = 1, engine="gpu-fast",
+                 n_threads: Optional[int] = None, engine="gpu-fast",
                  device=None) -> Msa:
     """Realign an existing alignment (kalign_tpu/api.py::post_realign
     :319-353, kalign_post_realign): rebuild the guide tree from the
@@ -192,7 +353,8 @@ def post_realign(msa_or_path, out_path: Optional[str] = None,
     msa = kio.read_alignment(msa_or_path) \
         if isinstance(msa_or_path, str) else msa_or_path
     msa = _engine.post_realign_msa(
-        msa, n_threads=n_threads, type_=_resolve_type(seq_type),
+        msa, n_threads=n_threads or get_num_threads(),
+        type_=_resolve_type(seq_type),
         gpo=gap_open, gpe=gap_extend, tgpe=terminal_gap_extend,
         refine=_resolve_refine(refine), adaptive_budget=adaptive_budget,
         dist_scale=dist_scale, vsm_amax=vsm_amax,
@@ -201,3 +363,14 @@ def post_realign(msa_or_path, out_path: Optional[str] = None,
     if out_path is not None:
         kio.write_alignment_file(msa, out_path, out_format)
     return msa
+
+
+def _rows_arg(arg, names):
+    """(rows, names) of a path (read, finalised) or of rows as given."""
+    if isinstance(arg, str):
+        msa = kio.read_alignment(arg)
+        if msa.aligned == 2:
+            msa.finalise()
+        return ([sq.seq for sq in msa.sequences],
+                [sq.name for sq in msa.sequences])
+    return list(arg), names

@@ -8,7 +8,9 @@
         [--save-poar F] [--load-poar F] [--ensemble-scratch DIR
         --ensemble-worker W --ensemble-workers K | --ensemble-merge]
         [--save-checkpoint DIR] [--resume-checkpoint DIR] [-n N]
-        [--engine gpu-fast|gpu|host] [--no-autoroute] [--device cuda|cpu]
+        [--engine gpu-fast|gpu|host|auto] [--no-autoroute]
+        [--device cuda|cpu] [--trace DIR] [--server[=SOCKET]
+        [--server-start]]
 
 The flags are kalign_tpu/cli.py's (and so the reference binary's,
 src/run_kalign.c): the default mode (anchor consistency with K = 5
@@ -18,18 +20,20 @@ all or confident; any other value, "inline" among them, is none, as
 kalign_tpu/cli.py:189-191 parses it); the ensemble, its distributed
 worker and merge steps and its POAR files; checkpoints; --set (parsed,
 unused) and --showw; and the engine (kalign_tpu/cli.py:87 --engine;
-here gpu-fast, gpu or host), with --no-autoroute to keep a divergent
-family on gpu-fast.  --adaptive-budget reaches the native runtime of
-"host" and "gpu"; "gpu-fast" ignores it, as kalign_tpu's "tpu-fast"
-does.  Not ported: --trace, --server, engine "auto".
+here gpu-fast, gpu, host or auto, engine.resolve_auto_engine's choice),
+with --no-autoroute to keep a divergent family on gpu-fast.
+--adaptive-budget reaches the native runtime of "host" and "gpu";
+"gpu-fast" ignores it, as kalign_tpu's "tpu-fast" does.  --trace DIR
+writes a torch.profiler trace of the alignment into DIR
+(utils/devtime.py reads its device time).  --server[=SOCKET] sends the
+invocation to a warm server (serve.py) instead of running it here;
+--server-start spawns that server first when the socket does not answer.
 """
 
 import argparse
+import contextlib
 import sys
 
-from kalign_tpu_torch import engine as E
-from kalign_tpu_torch import ensemble as ens
-from kalign_tpu_torch.core import io as kio
 from kalign_tpu_torch.core import params as P
 from kalign_tpu_torch.version import KALIGN_COMPAT_VERSION, __version__
 
@@ -112,19 +116,84 @@ def build_parser():
                         "compatibility; unused, run_kalign.c:158,206)")
     p.add_argument("--showw", action="store_true",
                    help="print the warranty disclaimer and exit")
-    p.add_argument("--engine", default="gpu-fast", choices=E.ENGINES,
+    p.add_argument("--engine", default="gpu-fast", choices=P.ENGINES,
                    help="gpu-fast (default), gpu (bit-exact, the host "
-                        "engine's bytes) or host (native only)")
+                        "engine's bytes), host (native only) or auto "
+                        "(host without a card or below 256 sequences, "
+                        "else gpu-fast)")
     p.add_argument("--no-autoroute", action="store_true",
                    help="keep divergent families on gpu-fast")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch versions of the kernels)")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the alignment "
+                        "into DIR (Chrome-trace JSON; open with "
+                        "TensorBoard or chrome://tracing)")
+    p.add_argument("--server", default=None, metavar="SOCKET",
+                   help="send this invocation to a running warm "
+                        "alignment server (python -m kalign_tpu_torch.serve)"
+                        " instead of paying the process's start-up; bare "
+                        "--server uses the default socket, "
+                        "--server=SOCKET an explicit one (the separate-"
+                        "token form is rejected so an input file can "
+                        "never be mistaken for a socket path)")
+    p.add_argument("--server-start", action="store_true",
+                   help="with --server: spawn the warm server in the "
+                        "background if the socket is not answering, "
+                        "wait for it, then submit")
     p.add_argument("-q", "--quiet", action="store_true")
     p.add_argument("-v", "-V", "--version", action="store_true",
                    dest="version")
     p.add_argument("files", nargs="*")
     return p
+
+
+def _ensure_server(sock: str, timeout: float = 900.0) -> None:
+    """Spawn the warm server detached if the socket is not answering,
+    then wait for it to come up (kalign_tpu/cli.py::_ensure_server
+    :109-139; the socket is polled every 0.1 s)."""
+    import socket as socklib
+    import subprocess
+    import time
+
+    def _alive():
+        try:
+            with socklib.socket(socklib.AF_UNIX,
+                                socklib.SOCK_STREAM) as s:
+                s.settimeout(5.0)
+                s.connect(sock)
+            return True
+        except OSError:
+            return False
+
+    if _alive():
+        return
+    subprocess.Popen(
+        [sys.executable, "-m", "kalign_tpu_torch.serve", "--socket", sock],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+        start_new_session=True)
+    t0 = time.time()
+    while time.time() - t0 < timeout:
+        if _alive():
+            return
+        time.sleep(0.1)
+    raise SystemExit(f"server on {sock} did not come up in {timeout:.0f}s")
+
+
+def _via_server(raw, args) -> int:
+    """Send the invocation, stripped of its --server flags, to the
+    server on args.server (kalign_tpu/cli.py:143-161)."""
+    from kalign_tpu_torch.serve import DEFAULT_SOCKET, request
+    sock = DEFAULT_SOCKET if args.server == "__default__" else args.server
+    out = [tok for tok in raw
+           if tok != "--server-start" and not tok.startswith("--server=")]
+    if args.server_start:
+        _ensure_server(sock)
+    resp = request(sock, out)
+    if resp.get("error"):
+        print(resp["error"], file=sys.stderr)
+    return int(resp.get("rc", 1))
 
 
 # kalign_tpu/cli.py:166-180 (run_kalign.c:306-310)
@@ -157,7 +226,15 @@ def resolve_modes(args):
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    raw = list(sys.argv[1:]) if argv is None else list(argv)
+    # A bare --server means "the default socket".  Rewriting it to the
+    # =-form before parsing keeps argparse from consuming a following
+    # input file as the socket path (`--server in.fa -o out`).
+    raw = ["--server=__default__" if tok == "--server" else tok
+           for tok in raw]
+    args = build_parser().parse_args(raw)
+    if args.server is not None:
+        return _via_server(raw, args)
     if args.version:
         print(f"kalign-tpu-torch {__version__} "
               f"(kalign {KALIGN_COMPAT_VERSION} compatible)")
@@ -170,6 +247,10 @@ def main(argv=None):
         build_parser().print_help()
         print("No input files", file=sys.stderr)
         return 0
+    # the aligner's modules (torch among them) load here, after the
+    # --server branch: a client of the warm server does not import them
+    from kalign_tpu_torch.core import io as kio
+    from kalign_tpu_torch.utils import devtime
     infiles = [None if f == "-" else f for f in infiles]
     type_ = _resolve_type(args.type)
     refine = _resolve_refine(args.refine)
@@ -182,6 +263,23 @@ def main(argv=None):
                consistency_weight=args.consistency_weight,
                engine=args.engine, device=args.device,
                autoroute=not args.no_autoroute)
+    with (devtime.trace(args.trace) if args.trace
+          else contextlib.nullcontext()):
+        msa = _run(msa, args, run, type_, refine, consistency, ensemble,
+                   realign)
+        if msa is None:
+            return 0
+    if args.trace and not args.quiet:
+        print(f"device trace written to {args.trace}", file=sys.stderr)
+    kio.write_alignment_file(msa, args.outfile, args.format)
+    return 0
+
+
+def _run(msa, args, run, type_, refine, consistency, ensemble, realign):
+    """The alignment the flags ask for (kalign_tpu/cli.py:215-271): the
+    aligned Msa, or None after an ensemble worker's step."""
+    from kalign_tpu_torch import engine as E
+    from kalign_tpu_torch import ensemble as ens
     if args.load_poar:
         msa = ens.consensus_from_poar(
             msa, args.load_poar,
@@ -197,7 +295,7 @@ def main(argv=None):
         if not args.quiet:
             print(f"worker {args.ensemble_worker}/{workers}: runs {done} "
                   f"written to {args.ensemble_scratch}", file=sys.stderr)
-        return 0
+        return None
     elif ensemble > 0 and args.ensemble_merge:
         if not args.ensemble_scratch:
             raise SystemExit("--ensemble-merge requires --ensemble-scratch")
@@ -217,8 +315,7 @@ def main(argv=None):
                           realign=realign,
                           save_checkpoint=args.save_checkpoint,
                           resume_checkpoint=args.resume_checkpoint, **run)
-    kio.write_alignment_file(msa, args.outfile, args.format)
-    return 0
+    return msa
 
 
 if __name__ == "__main__":

@@ -42,6 +42,10 @@ REFINE_ALL = 1
 REFINE_CONFIDENT = 2
 REFINE_INLINE = 3
 
+# the engines the API and the CLI take (engine.py; here so that the CLI
+# parses its flags without importing torch)
+ENGINES = ("gpu-fast", "gpu", "host", "auto")
+
 _PFASUM43_ROWS = """
  4 -1 -1 -1  0  0 -1  0 -2 -1 -1 -1  0 -2 -1  1  0 -2 -2  0  0  0  0
 -1  6  0  0 -3  2  1 -2  1 -3 -3  3 -2 -3 -1  0  0 -2 -2 -3  0  0  0

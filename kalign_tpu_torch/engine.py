@@ -22,7 +22,10 @@ Engines (kalign_tpu's "tpu-fast", "tpu" and "host"):
   * "gpu": bit-exact — the native runtime orchestrates and every
     Hirschberg DP runs its O(L^2) sweeps on the card (gpu/exact.py, the
     wavefront kernel csrc/exact_sweep.cu); gives the "host" bytes;
-  * "host": the native C++ runtime alone (native/).
+  * "host": the native C++ runtime alone (native/);
+  * "auto": the user's request for kalign_tpu's documented policy
+    (resolve_auto_engine), resolved before the engine is built; the
+    choice is recorded in engine_stats["engine"].
 The entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``, which runs every kernel's plain PyTorch version
 instead; without a card they raise.
@@ -50,7 +53,10 @@ from kalign_tpu_torch.utils.logging import PhaseTimes, log, timer
 from kalign_tpu_torch.utils.rng import XoshiroRng
 from kalign_tpu_torch.utils.sorting import glibc_msort
 
-ENGINES = ("gpu-fast", "gpu", "host")
+ENGINES = P.ENGINES
+# engine "auto" takes the native runtime below this many sequences
+# (kalign_tpu/engine.py:201)
+AUTO_MIN_SEQUENCES = 256
 # the divergent-family autoroute (kalign_tpu/engine.py:201-212,345-364):
 # mean anchor distance above this, up to AUTOROUTE_MAX sequences
 AUTOROUTE_DISTANCE = 0.5
@@ -72,6 +78,22 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def resolve_auto_engine(msa: Optional[Msa] = None, device=None) -> str:
+    """engine="auto" (kalign_tpu/engine.py::resolve_auto_engine
+    :189-204): "host" when the device is not a CUDA card that is there,
+    or below AUTO_MIN_SEQUENCES sequences (the native runtime gives the
+    exact engines' bytes and is faster on small inputs); "gpu-fast" on
+    ``device`` otherwise.  kalign_tpu picks "tpu-mesh" when it sees more
+    than one device; multi-GPU is not ported, so on several cards this
+    picks "gpu-fast" on the given device."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return "host"
+    if msa is not None and msa.numseq < AUTO_MIN_SEQUENCES:
+        return "host"
+    return "gpu-fast"
 
 
 def pick_anchors(msa: Msa) -> List[int]:
@@ -205,15 +227,19 @@ class GpuExactEngine(HostEngine):
                     enqueue=enq, fetch=fetch)
 
 
-def get_engine(name="gpu-fast", device=None, n_threads: int = 1):
-    """The engine of a name of ENGINES, on ``device``; an engine object
-    passed as the name is used as it is (``GpuEngine(device,
-    resident=False)`` runs the host-assembled progressive pass).
-    n_threads goes to the native runtime of "host" and "gpu"."""
+def get_engine(name="gpu-fast", device=None, n_threads: int = 1,
+               msa: Optional[Msa] = None):
+    """The engine of a name of ENGINES, on ``device`` ("auto" resolved
+    on msa, resolve_auto_engine); an engine object passed as the name is
+    used as it is (``GpuEngine(device, resident=False)`` runs the
+    host-assembled progressive pass).  n_threads goes to the native
+    runtime of "host" and "gpu"."""
     if isinstance(name, (GpuEngine, HostEngine)):
         return name
     if name not in ENGINES:
         raise ValueError(f"unknown engine {name!r} (have {ENGINES})")
+    if name == "auto":
+        name = resolve_auto_engine(msa, device)
     if name == "host":
         return HostEngine(n_threads)
     if name == "gpu":
@@ -324,8 +350,9 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
     more passes, each on a UPGMA tree of the previous alignment's
     identity distances; the consistency maps stay those of the BPM
     distances, and refine ALL / CONFIDENT applies to the last pass only
-    (inline to every pass)."""
-    eng = get_engine(engine, device, n_threads)
+    (inline to every pass).  engine="auto" resolves on this input
+    (resolve_auto_engine)."""
+    eng = get_engine(engine, device, n_threads, msa)
     quiet = msa.quiet
 
     msa.essential_input_check()
@@ -464,7 +491,7 @@ def post_realign_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
         raise ValueError(
             "post_realign requires equal-length aligned rows "
             f"(got widths {sorted(widths)})")
-    eng = get_engine(engine, device, n_threads)
+    eng = get_engine(engine, device, n_threads, msa)
     quiet = msa.quiet
 
     if msa.biotype == 2:  # BIOTYPE_UNDEF

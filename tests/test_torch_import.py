@@ -32,7 +32,11 @@ def test_import_leaves_jax_and_kalign_tpu_unloaded():
             "kalign_tpu_torch.gpu.exact, kalign_tpu_torch.gpu.exact_sweep, "
             "kalign_tpu_torch.ensemble, kalign_tpu_torch.consensus, "
             "kalign_tpu_torch.poar, kalign_tpu_torch.checkpoint, "
-            "kalign_tpu_torch.io, kalign_tpu_torch.utils.rng\n"
+            "kalign_tpu_torch.io, kalign_tpu_torch.utils.rng, "
+            "kalign_tpu_torch.serve, kalign_tpu_torch.warmup, "
+            "kalign_tpu_torch.reformat, kalign_tpu_torch.dssim, "
+            "kalign_tpu_torch.core.cmp, kalign_tpu_torch.utils.devtime\n"
+            "kalign_tpu_torch.align, kalign_tpu_torch.compare\n"
             "kalign_tpu_torch.native.lib().kt_consensus_columns\n"
             "bad = [m for m in sys.modules if m in ('jax', 'kalign_tpu') "
             "or m.startswith(('jax.', 'kalign_tpu.'))]\n"
@@ -48,7 +52,11 @@ def test_no_jax_or_kalign_tpu_import_in_port_sources():
     files = _port_files()
     names = {os.path.relpath(f, PKG) for f in files}
     assert {"ensemble.py", "consensus.py", "poar.py", "checkpoint.py",
-            "io.py", os.path.join("utils", "rng.py")} <= names
+            "io.py", os.path.join("utils", "rng.py"), "serve.py",
+            "warmup.py", "reformat.py", "dssim.py", os.path.join("core",
+                                                                 "cmp.py"),
+            os.path.join("utils", "devtime.py"),
+            os.path.join("utils", "__init__.py")} <= names
     assert len(files) > 20
     for path in files:
         with open(path) as fh:
@@ -79,9 +87,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_options_raise():
-    """What the port does not run raises: engine "auto" (kalign_tpu's
-    resolve_auto_engine) and an unknown mode.  Realign, checkpoints,
-    tree noise and mode "precise" are ported: they align."""
+    """What the port does not run raises: an unknown mode, and an engine
+    that is not one of its own (kalign_tpu's "tpu-mesh": multi-GPU is not
+    ported).  Engine "auto" is ported: it aligns, on the CPU through
+    "host", and records its choice.  Realign, checkpoints, tree noise and
+    mode "precise" are ported: they align."""
     import kalign_tpu_torch
     from kalign_tpu_torch import engine as E
     from kalign_tpu_torch.core.msa import Msa
@@ -89,7 +99,10 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         kalign_tpu_torch.align(seqs, mode="quick", device="cpu")
     with pytest.raises(ValueError):
-        kalign_tpu_torch.align(seqs, engine="auto", device="cpu")
+        kalign_tpu_torch.align(seqs, engine="tpu-mesh", device="cpu")
+    msa = kalign_tpu_torch.align_msa(seqs, engine="auto", device="cpu")
+    assert msa.engine_stats["engine"] == "host"
+    assert [r.replace("-", "") for r in msa.aligned_rows()] == seqs
     rows = kalign_tpu_torch.align(seqs, mode="precise", device="cpu")
     assert [r.replace("-", "") for r in rows] == seqs
     for kw in (dict(realign=1), dict(tree_seed=3, tree_noise=0.1),
@@ -98,6 +111,23 @@ def test_unported_options_raise():
         m.quiet = True
         out = E.align_msa(m, device="cpu", **kw)
         assert [r.replace("-", "") for r in out.aligned_rows()] == seqs
+
+
+def test_a_server_client_imports_no_torch():
+    """The CLI parses its flags and forwards a --server call without the
+    aligner's modules: a call to the warm server does not pay the torch
+    import, nor does importing the package."""
+    code = ("import sys\n"
+            "import kalign_tpu_torch\n"
+            "from kalign_tpu_torch import cli, serve\n"
+            "serve.request = lambda sock, argv: {'rc': 0, 'error': None}\n"
+            "rc = cli.main(['--server=/nonexistent.sock', '-i', 'x.fa'])\n"
+            "print(rc, 'torch' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["0", "False"]
 
 
 def test_wrappers_take_plain_versions_on_cpu_without_launching():
