@@ -90,6 +90,25 @@ Phases (any failure raises and the script exits non-zero):
      in fresh processes: a one-shot CLI call, a --server-start call
      (the spawned server's ready time and first request), a --server
      call to the warm server, and the import of the aligner;
+  3c. the mesh (the engine gpu-mesh; shards: every visible card where
+     there are several, else MESH_SHARDS on cuda:0, each on its own
+     stream): mesh_edge, the band kernel (csrc/gotoh_mesh.cu) bitwise
+     against its plain version and the unsplit row DP at 2, 3 and 4
+     shards (MESH_EDGE, and a leading gap run of exactly one band);
+     "mesh_default", the protein family in default mode on gpu-mesh
+     (bpm, bpm_table, prefix_sum, traceback and gotoh_row launched, no
+     lanewise or fused launch), and "mesh_long", the long genomes in
+     default mode on gpu-mesh (the cluster row kernel and the band
+     kernel launched), each with launch counts set to 0 just before and
+     read just after, FASTA equal to one shard's and to gpu-fast's (the
+     protein_default / long_default paths'); the mesh_long path's root
+     merge rebuilt as the engine builds it, the band kernel held against
+     its plain version and against the cluster row kernel on the same
+     match, timed beside them and its bound; mesh_procs, MESH_PROCS
+     processes under init_distributed with two shards each: their
+     sharded distances and bucket equal to one process's, and small.fa's
+     3-run ensemble split by my_ensemble_runs and merged equal to the
+     CLI's sequential --ensemble 3;
   4. the paths but the refined one once more under torch.profiler:
      device time by kernel and by part of the progressive pass, each
      kernel's total device time and launches (the trace must hold every
@@ -112,7 +131,9 @@ Phases (any failure raises and the script exits non-zero):
      with refine="all" in --fast mode, small.fa with mode "precise" and
      as a 3-run ensemble without realign (tree noise on runs 1 and 2),
      and post-realign of the golden BB11001 alignment (refine confident,
-     2 iterations): identical FASTA;
+     2 iterations): identical FASTA; BB12006 in default mode on gpu-mesh
+     over 4 shards of one device (cuda:0, the CPU) with every merge on
+     the column-sharded route: identical FASTA;
   5b. the bit-exact engine "gpu" on the card against golden files
      (CARD_GOLDENS): small.fa as a 3-run ensemble with realign 1
      (small.precise.afa) and big_prot.fa with realign 1
@@ -221,6 +242,9 @@ KERNELS = {
     "exact_sweep": ("kalign_tpu_torch/csrc/exact_sweep.cu",
                     "kalign_tpu/tpu/exact.py:65 _sweep_one / :163 "
                     "_sweep_batch (XLA, not Pallas)"),
+    "gotoh_mesh": ("kalign_tpu_torch/csrc/gotoh_mesh.cu",
+                   "kalign_tpu/parallel/mesh.py:288 sharded_long_gotoh "
+                   "(shard_map + lax.ppermute; XLA, not Pallas)"),
 }
 # a substring of each kernel's name in a torch.profiler trace
 PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
@@ -231,7 +255,8 @@ PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
                  "gotoh_row_tiled": "gotoh_row_tiled_kernel",
                  "gotoh_row_cluster": "gotoh_row_cluster_kernel",
                  "kmeans": "lloyd_kernel",
-                 "exact_sweep": "exact_sweep_kernel"}
+                 "exact_sweep": "exact_sweep_kernel",
+                 "gotoh_mesh": "gotoh_band_block_kernel"}
 # the paths: mode, the kernels the path must launch (and those it must
 # not), refinement, whether the host-assembled pass runs too (it would
 # take minutes at 16,384 sequences, and densify a 378 MB bonus per
@@ -240,7 +265,7 @@ PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
 # cluster row kernel
 NARROW = [k for k in KERNELS
           if k not in ("gotoh_fused", "gotoh_row_tiled", "gotoh_row_cluster",
-                       "kmeans", "exact_sweep")]
+                       "kmeans", "exact_sweep", "gotoh_mesh")]
 WIDE = ["bpm", "bpm_table", "prefix_sum", "traceback", "gotoh_row_cluster"]
 PATHS = {"fast": dict(mode="fast", launch=NARROW),
          "default": dict(mode="default", launch=NARROW + ["gotoh_fused"]),
@@ -1696,7 +1721,7 @@ def watched_align_msa(seen):
         out = orig(*a, **k)
         seen.append((out.engine_stats.get("engine"),
                      threading.current_thread() is not threading.main_thread(),
-                     torch.cuda.current_device(), _cuda.stream()))
+                     torch.cuda.current_device(), _cuda.stream("cuda")))
         return out
     E.align_msa = wrapped
     try:
@@ -1756,7 +1781,7 @@ def served_stream(work, sock, problems):
             box["error"] = e
             ready.set()
 
-    main_stream = (torch.cuda.current_device(), _cuda.stream())
+    main_stream = (torch.cuda.current_device(), _cuda.stream("cuda"))
     reset_counts()
     t0 = time.perf_counter()
     th = threading.Thread(target=run, name="kalign-serve", daemon=True)
@@ -2114,12 +2139,12 @@ def sweep_main_shape(dev, launch):
 def counters():
     """{kernel: (wrapper module, name of its launch count)}"""
     from kalign_tpu_torch.gpu import bpm, exact_sweep, gotoh_fused, \
-        gotoh_lanewise, gotoh_row, kmeans, scan
+        gotoh_lanewise, gotoh_mesh, gotoh_row, kmeans, scan
     from kalign_tpu_torch.gpu import traceback as tb
     mods = {"gotoh_row": gotoh_row, "gotoh_lanewise": gotoh_lanewise,
             "bpm": bpm, "traceback": tb, "prefix_sum": scan,
             "gotoh_fused": gotoh_fused, "kmeans": kmeans,
-            "exact_sweep": exact_sweep}
+            "exact_sweep": exact_sweep, "gotoh_mesh": gotoh_mesh}
     out = {k: (m, "launches") for k, m in mods.items()}
     out["bpm_table"] = (bpm, "table_launches")
     out["gotoh_row_tiled"] = (gotoh_row, "tiled_launches")
@@ -2231,12 +2256,14 @@ def phase_path(path: str, seqs):
     launches = read_counts()
     rows = msa.aligned_rows()
     width = check_alignment(rows, seqs)
+    FASTA[path] = kio.format_alignment(msa, "fasta")
     stats = msa.engine_stats
     line = {"phase": "path", "path": path, "mode": mode, "refine": refine,
             "sequences": len(seqs),
             "lengths": [min(map(len, seqs)), max(map(len, seqs))],
             "width": width, "tree": stats["tree"],
             "tree_s": stats.get("tree_s"),
+            "shards": stats.get("shards", 1), "cards": stats.get("cards", 1),
             **pass_summary(msa, wall)}
     same, divergence = True, None
     if cfg.get("host_pass", True):
@@ -2432,7 +2459,7 @@ def memory_latencies_ms(dev):
                 t0.record()
                 _cuda.check(lib.kt_probe_chase(
                     shared, nxt.data_ptr(), n, next(starts), h,
-                    sink.data_ptr(), _cuda.stream()), "latency probe")
+                    sink.data_ptr(), _cuda.stream(dev)), "latency probe")
                 t1.record()
                 torch.cuda.synchronize()
                 best[h] = min(best.get(h, 1e9), t0.elapsed_time(t1))
@@ -2915,7 +2942,8 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
 VS_CASES = {"BB30014": 0, "family150": 0, "BB30014-autoroute": 5,
             "dna250-default": 5, "long-fast": 0, "long-default": 5,
             "BB11001-refine-all": 0, "BB12006-gpu": 5, "small-precise": 5,
-            "small-ensemble3": 5, "BB11001-postrealign2": 0}
+            "small-ensemble3": 5, "BB11001-postrealign2": 0,
+            "BB12006-mesh-long": 5}
 # cases of the ensemble (mode "precise": 3 runs with one realign pass;
 # without realign runs 1 and 2 take tree noise) and of post-realign (of
 # the golden default alignment, refine confident, 2 iterations); these
@@ -2924,6 +2952,10 @@ VS_ENSEMBLE = {"small-precise": 1, "small-ensemble3": 0}
 VS_POST = {"BB11001-postrealign2": ("BB11001.default.afa", "confident", 2)}
 VS_REFINE = {"BB11001-refine-all": "all"}
 VS_ENGINE = {"BB12006-gpu": "gpu"}
+# cases on the engine gpu-mesh, its shards on one device (cuda:0 on the
+# card, the CPU there) and every merge on the column-sharded route (the
+# width rule forced, as test_mesh_engine_long_seq_route forces kalign_tpu's)
+VS_MESH = {"BB12006-mesh-long": 4}
 VS_GOLDEN = {"BB30014-autoroute": "BB30014.default.afa",
              "BB12006-gpu": "BB12006.default.afa"}
 
@@ -2968,6 +3000,21 @@ def vs_align(name, device):
     if device == "cpu":
         torch.set_num_threads(1)
     engine = VS_ENGINE.get(name, "gpu-fast")
+    if name in VS_MESH:
+        from kalign_tpu_torch.gpu.engine import GpuEngine
+        from kalign_tpu_torch.parallel.mesh import make_mesh
+        engine = GpuEngine(mesh=make_mesh(devices=[device] * VS_MESH[name]))
+        row_feasible = GpuEngine.__dict__["row_feasible"]
+        GpuEngine.row_feasible = staticmethod(lambda B, L2p: False)
+        try:
+            msa = E.align_msa(vs_input(name),
+                              consistency_anchors=VS_CASES[name],
+                              engine=engine)
+        finally:
+            GpuEngine.row_feasible = row_feasible
+        return (kio.format_alignment(msa, "fasta"),
+                np.asarray(msa.task_confidence, np.float64), [],
+                msa.engine_stats)
     if name in VS_ENSEMBLE:
         msa = ens.ensemble_align(vs_input(name), n_runs=3,
                                  realign=VS_ENSEMBLE[name],
@@ -3044,6 +3091,15 @@ def phase_gpu_vs_cpu():
                                      f"engine ({engines})")
             if golden is False:
                 raise AssertionError(f"{name}: not the golden alignment")
+            if name in VS_MESH:
+                # every merge on the band kernel, on the card and the CPU
+                if not same:
+                    raise AssertionError(f"{name}: GPU and CPU alignments "
+                                         "differ")
+                if launches[name]["gotoh_mesh"] == 0 or \
+                        outs["cpu"][3]["long_merges"] == 0:
+                    raise AssertionError(f"{name}: the column-sharded route "
+                                         "did not run")
             if name.startswith("long"):
                 # wider than 7,168 columns: card and CPU must agree exactly
                 if not same:
@@ -3055,6 +3111,465 @@ def phase_gpu_vs_cpu():
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# the mesh: the engine gpu-mesh, its column-sharded DP (the band kernel)
+# and several processes.  Shards: every visible card where there are
+# several, else MESH_SHARDS shards on cuda:0, each on its own stream.
+MESH_SHARDS = 4
+# what the mesh paths must launch and must not: their consistency maps and
+# merges take the row kernel (the lanewise and fused routes are off on a
+# mesh, tpu/engine.py:264-270); long_default's last levels the band kernel
+MESH_PATHS = {
+    "mesh_default": dict(launch=["bpm", "bpm_table", "prefix_sum",
+                                 "traceback", "gotoh_row"],
+                         forbid=["gotoh_lanewise", "gotoh_fused"],
+                         gpu_fast="protein_default"),
+    "mesh_long": dict(launch=["bpm", "bpm_table", "prefix_sum", "traceback",
+                              "gotoh_row_cluster", "gotoh_mesh"],
+                      forbid=["gotoh_lanewise", "gotoh_fused",
+                              "gotoh_row_tiled"],
+                      gpu_fast="long_default")}
+# the band kernel's edge cases: (shards, L1, W, la, lb, rows a block)
+MESH_EDGE = [(2, 600, 1536, 600, 1536, 256),   # L1 not a multiple of R
+             (3, 600, 1000, 555, 1000, 256),   # W not a multiple, la < L1
+             (4, 520, 2048, 517, 2000, 128),   # lb < W
+             (4, 300, 1024, 300, 100, 64),     # lb inside the first band
+             (3, 200, 700, 0, 700, 64),        # la = 0
+             (2, 200, 512, 150, 0, 64)]        # lb = 0
+# mesh_procs: processes on the card, each with two shards
+MESH_PROCS = 2
+MESH_PROCS_TIMEOUT_S = 300
+# the gpu-fast FASTA of each path run in this process (phase_path)
+FASTA = {}
+
+
+def mesh_devices(n=None):
+    """The mesh's devices: every visible card (cycled to n shards), or n
+    (MESH_SHARDS) shards on cuda:0 on a one-card machine."""
+    import torch
+    cards = torch.cuda.device_count()
+    n = n or (cards if cards > 1 else MESH_SHARDS)
+    return [f"cuda:{i % cards}" for i in range(n)]
+
+
+def mesh_of(n=None):
+    from kalign_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(devices=mesh_devices(n))
+
+
+def band_problem(rng, L1, W):
+    """Random match scores and dyadic penalties of one L1 x W problem."""
+    match = rng.standard_normal((L1, W), dtype=np.float32) * 3
+    pc = (-rng.integers(16, 96, size=(3, W + 1)) / 32).astype(np.float32)
+    pr = (-rng.integers(16, 96, size=(3, L1 + 1)) / 32).astype(np.float32)
+    return match, pc, pr
+
+
+def band_operands(mesh, match, pc, pr, la, lb, eps=1e-3):
+    """gotoh_mesh.forward's inputs of one problem: W padded to a multiple
+    of the shard count, the centering bias left to the kernel (slope lb /
+    la, eps), each band on its shard."""
+    import torch
+    from kalign_tpu_torch.gpu import gotoh_mesh, gotoh_row
+    from kalign_tpu_torch.parallel.mesh import put
+    shards = mesh.shards
+    L1, W = match.shape
+    Wd = gotoh_mesh.band_width(W, len(shards))
+    Wp = Wd * len(shards)
+    sh0 = shards[0]
+    with gotoh_mesh.on(sh0):
+        la_d, lb_d = (put(np.array([x], np.int32), sh0) for x in (la, lb))
+        slope = lb_d.float() / torch.clamp(la_d.float(), min=1.0)
+        prep = gotoh_row.prepare(
+            put(np.pad(pc, ((0, 0), (0, Wp - W)))[None], sh0),
+            put(pr[None], sh0), la_d, lb_d, slope,
+            put(np.array([eps], np.float32), sh0))
+    mp = np.pad(match, ((0, 0), (0, Wp - W)))
+    bands = []
+    for d, sh in enumerate(shards):
+        with gotoh_mesh.on(sh):
+            bands.append(put(mp[:, d * Wd:(d + 1) * Wd], sh))
+    return bands, prep, Wp
+
+
+def band_run(mesh, bands, prep, Wp, la, lb, rows=None, plain=False):
+    """gotoh_mesh.forward (kernel, or plain on the card), the decisions
+    gathered: (dec [L1, Wp16], score [1], state [1]), the card drained."""
+    import torch
+    from kalign_tpu_torch.gpu import gotoh_mesh
+    bands, score, st = gotoh_mesh.forward(
+        mesh.shards, bands, prep, la, lb,
+        rows or gotoh_mesh.BLOCK_ROWS, use_plain=plain)
+    dec = gotoh_mesh.gather_dec(mesh.shards, bands, -(-Wp // 16) * 16)
+    torch.cuda.synchronize()
+    return dec[0], score, st
+
+
+def hold_band(what, got, want, la, lb):
+    """Decisions equal on rows < la, columns < lb; score bitwise; state."""
+    import torch
+    (da, sa, sta), (db, sb, stb) = got, want
+    ok = (torch.equal(da[:la, :lb].cpu(), db[:la, :lb].cpu())
+          and torch.equal(sa.cpu().view(torch.int32),
+                          sb.cpu().view(torch.int32))
+          and torch.equal(sta.cpu(), stb.cpu()))
+    hold("gotoh_mesh", ok, abs_err(sa.cpu(), sb.cpu()), what)
+
+
+def row_plain_of(match, pc, pr, la, lb, dev, eps=1e-3):
+    """The unsplit row kernel's plain version on the card (any width)."""
+    import torch
+    from kalign_tpu_torch.gpu import gotoh_row
+    t = lambda x, dt=np.float32: torch.from_numpy(
+        np.asarray(x, dt)).to(dev)
+    la_d, lb_d = t([la], np.int32), t([lb], np.int32)
+    slope = lb_d.float() / torch.clamp(la_d.float(), min=1.0)
+    d, s, st = gotoh_row.forward_plain(
+        t(match[None]), t(pc[None]), t(pr[None]), la_d, lb_d, slope,
+        t([eps]))
+    return d[0], s, st
+
+
+def phase_mesh_edge(dev):
+    """The band kernel against its plain version on the card, bitwise
+    (decisions in the valid region, score, end state), and both against
+    the unsplit row DP's plain version: MESH_EDGE at 2, 3 and 4 shards
+    (W a multiple of the shard count and not, L1 not a multiple of the
+    block's rows, la < L1, lb inside the first band, la = 0, lb = 0) and
+    the leading gap run of exactly one band (test_mesh_engine.py:114-150)
+    at 2 and 4 shards, blocks of 5 rows."""
+    import torch
+    from kalign_tpu_torch.gpu import gotoh_mesh
+    from kalign_tpu_torch.gpu import traceback as tb
+    rng = np.random.default_rng(13)
+    cases = [(n, L1, W, la, lb, rows, band_problem(rng, L1, W))
+             for n, L1, W, la, lb, rows in MESH_EDGE]
+    for n in (2, 4):
+        Wd, la = 64, 24
+        W = Wd * n
+        match = np.full((la, W), -10.0, np.float32)
+        for i in range(la):
+            match[i, Wd + i] = 50.0
+        pc = np.tile(np.array([[-8.0], [-4.0], [-0.5]], np.float32),
+                     (1, W + 1))
+        pr = np.tile(np.array([[-8.0], [-4.0], [-0.5]], np.float32),
+                     (1, la + 1))
+        cases.append((n, la, W, la, W, 5, (match, pc, pr)))
+    before = gotoh_mesh.launches
+    out = []
+    for n, L1, W, la, lb, rows, (match, pc, pr) in cases:
+        mesh = mesh_of(n)
+        eps = 0.0 if rows == 5 else 1e-3
+        ops = band_operands(mesh, match, pc, pr, la, lb, eps)
+        got = band_run(mesh, *ops, la, lb, rows)
+        what = f"{n} shards {L1}x{W} la={la} lb={lb} rows={rows}"
+        hold_band(what + " vs plain", got,
+                  band_run(mesh, *ops, la, lb, rows, plain=True), la, lb)
+        hold_band(what + " vs the unsplit row DP", got,
+                  row_plain_of(match, pc, pr, la, lb, dev, eps), la, lb)
+        if rows == 5:
+            t = lambda x: torch.tensor([x], dtype=torch.int32, device=dev)
+            steps, k = tb.walk_rows(got[0][None].contiguous(), t(la), t(lb),
+                                    got[2].to(dev), L1 + W + 2)
+            path = steps[0, :int(k[0])].tolist()
+            Wd = W // n
+            if path[:Wd] != [1] * Wd or path[Wd] != 0:
+                raise AssertionError(f"{what}: the leading gap run is not "
+                                     f"one band wide: {path[:Wd + 1]}")
+        out.append(what)
+    emit({"phase": "mesh_edge", "cases": out,
+          "launches": gotoh_mesh.launches - before,
+          "devices": mesh_devices()})
+
+
+def align_on_mesh(seqs, mode, mesh):
+    """(Msa, wall seconds) of one alignment on the engine gpu-mesh."""
+    from kalign_tpu_torch.gpu.engine import GpuEngine
+    return align_on_card(seqs, mode, GpuEngine(mesh=mesh))
+
+
+@contextmanager
+def recorded_long_merges(seen):
+    """parallel/mesh.py::long_merge's arguments appended to seen."""
+    from kalign_tpu_torch.parallel import mesh as M
+    orig = M.long_merge
+
+    def rec(*args, **kw):
+        seen.append(args)
+        return orig(*args, **kw)
+    M.long_merge = rec
+    try:
+        yield
+    finally:
+        M.long_merge = orig
+
+
+def phase_mesh_path(name, seqs, mode="default"):
+    """seqs on the engine gpu-mesh (mesh_devices()), in one run with every
+    launch count set to 0 just before and read just after: the kernels of
+    MESH_PATHS[name] launched, none it forbids; the same FASTA on one
+    shard and from gpu-fast (this run's path MESH_PATHS[name]["gpu_fast"],
+    else aligned here).  Returns (launches, stats, the long merges'
+    arguments)."""
+    from kalign_tpu_torch.core import io as kio
+    cfg = MESH_PATHS[name]
+    mesh = mesh_of()
+    seen = []
+    reset_counts()
+    with recorded_long_merges(seen):
+        msa, wall = align_on_mesh(seqs, mode, mesh)
+    launches = read_counts()
+    width = check_alignment(msa.aligned_rows(), seqs)
+    fasta = kio.format_alignment(msa, "fasta")
+    one, one_wall = align_on_mesh(seqs, mode, mesh_of(1))
+    ref = cfg["gpu_fast"]
+    if ref not in FASTA:
+        FASTA[ref] = kio.format_alignment(align_on_card(seqs, mode)[0],
+                                          "fasta")
+    st = msa.engine_stats
+    line = {"phase": "path", "path": name, "mode": mode,
+            "sequences": len(seqs), "width": width,
+            "engine": st["engine"], "shards": st["shards"],
+            "cards": st["cards"], "tree": st["tree"],
+            "long_merges": st["long_merges"], "row_merges": st["row_merges"],
+            "map_pairs": st["map_pairs"],
+            "one_shard_wall_s": round(one_wall, 3),
+            "identical_fasta_one_shard":
+                kio.format_alignment(one, "fasta") == fasta,
+            "identical_fasta_gpu_fast": FASTA[ref] == fasta,
+            "launches": launches, **pass_summary(msa, wall)}
+    emit(line)
+    missing = [k for k in cfg["launch"] if launches[k] == 0]
+    stray = [k for k in cfg["forbid"] if launches[k]]
+    if missing or stray:
+        raise AssertionError(f"{name}: kernels not launched {missing}, "
+                             f"launched {stray}")
+    if st["engine"] != "gpu-mesh" or st["shards"] != mesh.size:
+        raise AssertionError(f"{name}: aligned on {st['engine']} over "
+                             f"{st.get('shards')} shards")
+    if not (line["identical_fasta_one_shard"]
+            and line["identical_fasta_gpu_fast"]):
+        raise AssertionError(f"{name}: the mesh's FASTA is not the one "
+                             "shard's and gpu-fast's")
+    return launches, st, seen
+
+
+def mesh_device_ms(mesh, run):
+    """Device ms of run(), work queued on the mesh's streams: every shard
+    held behind a spin kernel on the first shard's stream (doubled until
+    it outlasts the host's enqueueing), then joined back onto it; CUDA
+    events around it there."""
+    import torch
+    from kalign_tpu_torch.gpu import gotoh_mesh
+    shards = mesh.shards
+    s0 = shards[0].stream
+    cycles = 1 << 25
+    for _ in range(8):
+        spin, t0, t1 = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+        h0 = time.perf_counter()
+        with torch.cuda.device(shards[0].device), torch.cuda.stream(s0):
+            spin.record(s0)
+            torch.cuda._sleep(cycles)
+            t0.record(s0)
+        for sh in shards[1:]:
+            sh.stream.wait_event(t0)
+        run()
+        for sh in shards[1:]:
+            s0.wait_event(gotoh_mesh.event(sh))
+        t1.record(s0)
+        host_ms = (time.perf_counter() - h0) * 1e3
+        torch.cuda.synchronize()
+        if spin.elapsed_time(t0) > host_ms:
+            return t0.elapsed_time(t1)
+        cycles *= 2
+    raise AssertionError("the spin kernel never outlasted the host's "
+                         "enqueueing")
+
+
+def mesh_root_merge(dev, seen):
+    """The mesh_long path's widest column-sharded merge (its root) rebuilt
+    from its recorded arguments as long_merge builds it: the band kernel
+    held against its plain version on the card and against the cluster
+    row kernel on the same match (the bands gathered; dec in the valid
+    region, score, end state); the pipeline's wall and device time
+    (mesh_device_ms) beside the cluster kernel's device time on that
+    match (device_ms) and the bytes bound (a match read and a decision
+    written per cell)."""
+    import torch
+    from kalign_tpu_torch.gpu import gotoh_row
+    from kalign_tpu_torch.parallel import mesh as M
+    args = max(seen, key=lambda a: int(a[5]) * int(a[6]))
+    mesh, lhs, rhs, pc, pr, la, lb, eps, bonus = args[:9]
+    L1p, L2p = lhs.shape[0], rhs.shape[0]
+    bands, prep, Wp = M.long_operands(mesh, lhs, rhs, pc, pr, la, lb, eps,
+                                      bonus)
+    got, ms = timed_once(lambda: band_run(mesh, bands, prep, Wp, la, lb))
+    plain, plain_ms = timed_once(
+        lambda: band_run(mesh, bands, prep, Wp, la, lb, plain=True))
+    shape = f"1x{L1p}x{L2p} la={la} lb={lb} over {mesh.size} shards"
+    hold_band(shape + " vs plain", got, plain, la, lb)
+    # the same match on one card, through the cluster row kernel
+    full = torch.cat([b.to(dev) for b in bands], dim=1)[None, :, :L2p]
+    full = full.contiguous()
+    t = lambda x, dt: torch.from_numpy(np.asarray(x, dt)).to(dev)
+    la_d, lb_d = t([la], np.int32), t([lb], np.int32)
+    zero = torch.zeros(1, dtype=torch.float32, device=dev)
+    if bonus is None:
+        slope = lb_d.float() / torch.clamp(la_d.float(), min=1.0)
+        e = t([eps], np.float32)
+    else:
+        slope, e = zero, zero
+    prep1 = gotoh_row.prepare(t(pc[None], np.float32),
+                              t(pr[None], np.float32), la_d, lb_d, slope, e)
+    cfg = gotoh_row.launch_config(1, L2p)
+    cluster = gotoh_row.launch(full, prep1, la_d, lb_d)
+    hold_band(shape + " vs the cluster row kernel", got,
+              (cluster[0][0], cluster[1], cluster[2]), la, lb)
+    dev_ms = mesh_device_ms(mesh, lambda: M.gotoh_mesh.forward(
+        mesh.shards, bands, prep, la, lb))
+    cluster_ms = device_ms(lambda: gotoh_row.launch(full, prep1, la_d, lb_d),
+                           reps=3)
+    b_ms, b_by = gotoh_bound(dict(la=la_d, lb=lb_d), 1)
+    out = dict(shape=shape, ms=round(ms, 3), device_ms=round(dev_ms, 3),
+               plain_ms=round(plain_ms, 3), bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, shards=mesh.size, cards=mesh.cards,
+               rows_per_block=M.gotoh_mesh.BLOCK_ROWS,
+               launches_per_shard=-(-la // M.gotoh_mesh.BLOCK_ROWS),
+               threads=M.gotoh_mesh.threads_for(Wp // mesh.size),
+               cluster_device_ms=round(cluster_ms, 3),
+               cluster_plan=cfg._asdict())
+    emit({"phase": "main_shape", "kernel": "gotoh_mesh", **out})
+    return out
+
+
+def mesh_proc(rank, nproc, port, work, device):
+    """One process of phase_mesh_procs (spawned): joins the gloo group,
+    runs mesh_case on its two shards of the processes' mesh (rank 0
+    saves the result), then its my_ensemble_runs share of small.fa's
+    3-run ensemble into work/scratch (the CLI's worker step)."""
+    import torch.distributed as dist
+    from kalign_tpu_torch import cli
+    from kalign_tpu_torch.parallel.distributed import init_distributed, \
+        my_ensemble_runs
+    from kalign_tpu_torch.parallel.mesh import make_mesh
+    init_distributed(f"127.0.0.1:{port}", nproc, rank)
+    mesh = make_mesh(devices=[device] * 2)
+    if mesh.size != 2 * nproc or not mesh.spans_processes:
+        raise AssertionError(f"process {rank}: a mesh of {mesh.size}")
+    dm, steps, scores = mesh_case(mesh)
+    if rank == 0:
+        np.savez(os.path.join(work, "procs.npz"), dm=dm, scores=scores,
+                 **{f"steps{i}": s for i, s in enumerate(steps)})
+    # the CLI's worker step aligns the runs k % workers == worker
+    if my_ensemble_runs(3) != [k for k in range(3) if k % nproc == rank]:
+        raise AssertionError(f"process {rank}: runs {my_ensemble_runs(3)}")
+    rc = cli.main(["-i", os.path.join(HERE, "tests", "data", "small.fa"),
+                   "-o", os.path.join(work, f"w{rank}.afa"), "--ensemble",
+                   "3", "--ensemble-scratch", os.path.join(work, "scratch"),
+                   "--ensemble-worker", str(rank), "--ensemble-workers",
+                   str(nproc), "--device", device, "--quiet"])
+    dist.destroy_process_group()
+    if rc:
+        raise AssertionError(f"process {rank}: the worker step returned {rc}")
+
+
+def mesh_case(mesh):
+    """The mesh's sharded anchor distances of the protein family (its
+    first 1,000 sequences, encoded and sorted as align_msa does, against
+    its anchors) and one sharded merge bucket of 8 random 128 x 128
+    problems (test_distributed.py:139-190's case)."""
+    from kalign_tpu_torch import engine as TE
+    from kalign_tpu_torch.core import alphabet as alpha
+    from kalign_tpu_torch.core.msa import Msa
+    from kalign_tpu_torch.gpu.distances import token_table
+    from kalign_tpu_torch.parallel import mesh as M
+    msa = Msa.from_sequences(family(1000, seed=0))
+    msa.quiet = True
+    msa.sort_len_name()
+    codes = TE._encoded(msa, alpha.ALPHA_REDUCED_PROTEIN)
+    toks, lens = token_table(codes)
+    dm = M.sharded_anchor_distances(mesh, toks, lens, TE.pick_anchors(msa))
+    rng = np.random.default_rng(0)
+    B, L = 8, 128
+    lhs = rng.normal(size=(B, L, 23)).astype(np.float32)
+    rhs = rng.normal(size=(B, L, 23)).astype(np.float32)
+    pens = np.tile(np.array([-7.0, -1.25, -1.0], np.float32)[None, :, None],
+                   (B, 1, L + 1))
+    la = np.full(B, L - 5, np.int32)
+    lb = np.full(B, L - 3, np.int32)
+    eps = np.full(B, 1e-3, np.float32)
+    steps, scores = M.sharded_bucket_step(mesh, lhs, rhs, pens, pens, la, lb,
+                                          eps)
+    return dm, steps, scores
+
+
+def phase_mesh_procs(device="cuda:0"):
+    """MESH_PROCS processes on the card under init_distributed, each with
+    two shards of one mesh: their sharded distances and bucket must equal
+    this process's on a mesh of as many shards, and the 3-run ensemble
+    of small.fa split by my_ensemble_runs, then merged, must give the
+    sequential `--ensemble 3` bytes (the CLI's).  The processes' shards
+    are on ``device``."""
+    import multiprocessing
+    import shutil
+    import socket
+    import tempfile
+    from kalign_tpu_torch import cli
+    work = tempfile.mkdtemp(prefix="ktm")
+    try:
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        ctx = multiprocessing.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=mesh_proc,
+                             args=(r, MESH_PROCS, port, work, device))
+                 for r in range(MESH_PROCS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(MESH_PROCS_TIMEOUT_S)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        procs_s = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * MESH_PROCS:
+            raise AssertionError(f"mesh_procs: exit codes {codes}")
+        got = np.load(os.path.join(work, "procs.npz"))
+        dm, steps, scores = mesh_case(mesh_of(2 * MESH_PROCS))
+        same = (np.array_equal(got["dm"], dm)
+                and np.array_equal(got["scores"], scores)
+                and all(np.array_equal(got[f"steps{i}"], s)
+                        for i, s in enumerate(steps)))
+        small = os.path.join(HERE, "tests", "data", "small.fa")
+        outs = {}
+        for kind, extra in (("merged", ["--ensemble-scratch",
+                                        os.path.join(work, "scratch"),
+                                        "--ensemble-merge"]),
+                            ("sequential", [])):
+            outs[kind] = os.path.join(work, kind + ".afa")
+            rc = cli.main(["-i", small, "-o", outs[kind], "--ensemble", "3",
+                           "--device", device, "--quiet", *extra])
+            if rc:
+                raise AssertionError(f"mesh_procs: the {kind} CLI call "
+                                     f"returned {rc}")
+        with open(outs["merged"]) as a, open(outs["sequential"]) as b:
+            ens_same = a.read() == b.read()
+        emit({"phase": "mesh_procs", "processes": MESH_PROCS,
+              "shards": 2 * MESH_PROCS, "procs_s": round(procs_s, 3),
+              "identical_distances_and_bucket": same,
+              "identical_ensemble_fasta": ens_same})
+        if not (same and ens_same):
+            raise AssertionError("mesh_procs: the processes' results differ "
+                                 "from one process's")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def large_family():
     """The large_default path's input: 16,384 protein sequences."""
     return family(16384, seed=4)
@@ -3062,8 +3577,9 @@ def large_family():
 
 def run_only(dev, only, divergent_n=DIVERGENT_N):
     """The phases named in ``--only`` (comma-separated: edge, kmeans_edge,
-    kmeans, exact_edge, path:NAME, profile:NAME, vs, goldens), for a
-    short call; no result lines.  path:precise runs phase_precise,
+    kmeans, exact_edge, path:NAME, profile:NAME, vs, goldens, mesh_edge,
+    path:mesh_default, path:mesh_long, mesh_procs), for a short call; no
+    result lines.  path:precise runs phase_precise,
     path:serve phase_serve.  path:divergent also holds and times the sweep at
     its largest launch, path:long_default the cluster row kernel at its
     largest map-DP and progressive launches."""
@@ -3095,6 +3611,12 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
             phase_goldens(dev)
         elif what == "path:serve":
             phase_serve(dev)
+        elif what in ("path:mesh_default", "path:mesh_long"):
+            name = what.split(":")[1]
+            _, _, seen = phase_mesh_path(
+                name, long_genomes() if name == "mesh_long" else protein())
+            if name == "mesh_long":
+                mesh_root_merge(dev, seen)
         elif what.startswith(("path:", "profile:")):
             kind, path = what.split(":")
             s = seqs.get(path, protein)()
@@ -3105,6 +3627,10 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
                 phase_profile(path, s, launches)
         elif what == "vs":
             phase_gpu_vs_cpu()
+        elif what == "mesh_edge":
+            phase_mesh_edge(dev)
+        elif what == "mesh_procs":
+            phase_mesh_procs()
         else:
             raise ValueError(f"--only: unknown phase {what!r}")
     emit({"phase": "partial", "only": only})
@@ -3156,6 +3682,12 @@ def main(argv=None):
         seqs["divergent"])
     launches["precise"], precise_row = phase_precise(dev, precise_family())
     launches["serve"] = phase_serve(dev)
+    phase_mesh_edge(dev)
+    for name, path in (("mesh_default", "protein_default"),
+                       ("mesh_long", "long_default")):
+        launches[name], stats[name], seen = phase_mesh_path(name, seqs[path])
+    mesh_root = mesh_root_merge(dev, seen)
+    phase_mesh_procs()
     for path in list(PATHS) + ["divergent"]:
         if PATHS.get(path, {}).get("profile", True):
             phase_profile(path, seqs[path], launches[path])
@@ -3171,6 +3703,7 @@ def main(argv=None):
     shapes["gotoh_row_tiled"] = tiled_main_shape(dev)
     shapes["kmeans"] = kmeans_root
     shapes["exact_sweep"] = sweep_main_shape(dev, sweep_largest)
+    shapes["gotoh_mesh"] = mesh_root
     emit({"phase": "main_shape", "kernel": "exact_sweep",
           **shapes["exact_sweep"]})
     kernels = []
@@ -3179,7 +3712,8 @@ def main(argv=None):
         main = {"gotoh_row_cluster": ("long_default",),
                 "gotoh_row_tiled": (),
                 "kmeans": ("large_default",),
-                "exact_sweep": ("divergent",)}.get(name, ("default",))
+                "exact_sweep": ("divergent",),
+                "gotoh_mesh": ("mesh_long",)}.get(name, ("default",))
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,

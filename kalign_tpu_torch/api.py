@@ -15,8 +15,9 @@ dist_scale), refinement (refine=None, "none", "all", "confident",
 and adaptive_budget (read by the native runtime of "host" and "gpu";
 "gpu-fast" ignores it, as kalign_tpu's "tpu-fast" does).  ``engine`` is
 one of engine.ENGINES ("gpu-fast", the default; "gpu", bit-exact;
-"host", native only; "auto", engine.resolve_auto_engine's choice), with
-the divergent-family autoroute of "gpu-fast"
+"gpu-mesh", sharded over every visible card; "host", native only;
+"auto", engine.resolve_auto_engine's choice) or an engine object, with
+the divergent-family autoroute of "gpu-fast" and "gpu-mesh"
 (``autoroute``, ``autoroute_max``; an ensemble's runs take the default
 cap).  ``device`` defaults to ``cuda``; ``device="cpu"`` runs every
 kernel's plain PyTorch version.

@@ -8,7 +8,7 @@
         [--save-poar F] [--load-poar F] [--ensemble-scratch DIR
         --ensemble-worker W --ensemble-workers K | --ensemble-merge]
         [--save-checkpoint DIR] [--resume-checkpoint DIR] [-n N]
-        [--engine gpu-fast|gpu|host|auto] [--no-autoroute]
+        [--engine gpu-fast|gpu|gpu-mesh|host|auto] [--no-autoroute]
         [--device cuda|cpu] [--trace DIR] [--server[=SOCKET]
         [--server-start]]
 
@@ -20,7 +20,8 @@ all or confident; any other value, "inline" among them, is none, as
 kalign_tpu/cli.py:189-191 parses it); the ensemble, its distributed
 worker and merge steps and its POAR files; checkpoints; --set (parsed,
 unused) and --showw; and the engine (kalign_tpu/cli.py:87 --engine;
-here gpu-fast, gpu, host or auto, engine.resolve_auto_engine's choice),
+here gpu-fast, gpu, gpu-mesh (every visible card), host or auto,
+engine.resolve_auto_engine's choice),
 with --no-autoroute to keep a divergent family on gpu-fast.
 --adaptive-budget reaches the native runtime of "host" and "gpu";
 "gpu-fast" ignores it, as kalign_tpu's "tpu-fast" does.  --trace DIR
@@ -118,9 +119,11 @@ def build_parser():
                    help="print the warranty disclaimer and exit")
     p.add_argument("--engine", default="gpu-fast", choices=P.ENGINES,
                    help="gpu-fast (default), gpu (bit-exact, the host "
-                        "engine's bytes), host (native only) or auto "
+                        "engine's bytes), gpu-mesh (sharded over every "
+                        "visible card), host (native only) or auto "
                         "(host without a card or below 256 sequences, "
-                        "else gpu-fast)")
+                        "else gpu-mesh on several cards, gpu-fast on "
+                        "one)")
     p.add_argument("--no-autoroute", action="store_true",
                    help="keep divergent families on gpu-fast")
     p.add_argument("--device", default="cuda",

@@ -44,7 +44,7 @@ REFINE_INLINE = 3
 
 # the engines the API and the CLI take (engine.py; here so that the CLI
 # parses its flags without importing torch)
-ENGINES = ("gpu-fast", "gpu", "host", "auto")
+ENGINES = ("gpu-fast", "gpu", "gpu-mesh", "host", "auto")
 
 _PFASUM43_ROWS = """
  4 -1 -1 -1  0  0 -1  0 -2 -1 -1 -1  0 -2 -1  1  0 -2 -2  0  0  0  0

@@ -12,7 +12,7 @@ kalign_run_realign / kalign_post_realign (lib/src/aln_wrap.c:133-669):
   asked) -> [realign: identity distances -> UPGMA tree -> progressive
   align, per iteration] -> finalise -> restore rank order
 
-Engines (kalign_tpu's "tpu-fast", "tpu" and "host"):
+Engines (kalign_tpu's "tpu-fast", "tpu", "tpu-mesh" and "host"):
   * "gpu-fast" (gpu/engine.py): hand-written CUDA kernels on the card,
     level-batched merges and map DPs; score-optimal per merge, may differ
     from the reference's Hirschberg midpoints on near-ties.  Divergent
@@ -22,6 +22,12 @@ Engines (kalign_tpu's "tpu-fast", "tpu" and "host"):
   * "gpu": bit-exact — the native runtime orchestrates and every
     Hirschberg DP runs its O(L^2) sweeps on the card (gpu/exact.py, the
     wavefront kernel csrc/exact_sweep.cu); gives the "host" bytes;
+  * "gpu-mesh": "gpu-fast" with the anchor distances and the merge
+    buckets sharded over every visible card (parallel/mesh.py; pass
+    ``mesh=`` to get_engine for another layout, such as shards on one
+    card or on the CPU), the host-assembled progressive pass, and merges
+    too wide for one block's registers split by columns over the cards;
+    divergent families switch to "gpu" as on "gpu-fast";
   * "host": the native C++ runtime alone (native/);
   * "auto": the user's request for kalign_tpu's documented policy
     (resolve_auto_engine), resolved before the engine is built; the
@@ -49,6 +55,7 @@ from kalign_tpu_torch.gpu import distances
 from kalign_tpu_torch.gpu.consistency import ConsistencyTable
 from kalign_tpu_torch.gpu.engine import GpuEngine
 from kalign_tpu_torch.gpu.exact import ExactDpBackend
+from kalign_tpu_torch.parallel import mesh as mesh_mod
 from kalign_tpu_torch.utils.logging import PhaseTimes, log, timer
 from kalign_tpu_torch.utils.rng import XoshiroRng
 from kalign_tpu_torch.utils.sorting import glibc_msort
@@ -84,16 +91,14 @@ def resolve_auto_engine(msa: Optional[Msa] = None, device=None) -> str:
     """engine="auto" (kalign_tpu/engine.py::resolve_auto_engine
     :189-204): "host" when the device is not a CUDA card that is there,
     or below AUTO_MIN_SEQUENCES sequences (the native runtime gives the
-    exact engines' bytes and is faster on small inputs); "gpu-fast" on
-    ``device`` otherwise.  kalign_tpu picks "tpu-mesh" when it sees more
-    than one device; multi-GPU is not ported, so on several cards this
-    picks "gpu-fast" on the given device."""
+    exact engines' bytes and is faster on small inputs); "gpu-mesh" when
+    more than one card is visible; "gpu-fast" on ``device`` otherwise."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda" or not torch.cuda.is_available():
         return "host"
     if msa is not None and msa.numseq < AUTO_MIN_SEQUENCES:
         return "host"
-    return "gpu-fast"
+    return "gpu-mesh" if torch.cuda.device_count() > 1 else "gpu-fast"
 
 
 def pick_anchors(msa: Msa) -> List[int]:
@@ -192,8 +197,13 @@ class GpuExactEngine(HostEngine):
         self.stats["canary"] = self.backend.run_canary()
 
     def anchor_distances(self, codes, anchors):
+        """Native on the CPU; on the card sharded over every visible card
+        when there are several (kalign_tpu/engine.py:147-165)."""
         if self.device.type == "cpu":
             return super().anchor_distances(codes, anchors)
+        if torch.cuda.device_count() > 1:
+            return mesh_mod.anchor_distances(mesh_mod.make_mesh(), codes,
+                                             anchors)
         return distances.anchor_distances(codes, anchors, self.device)
 
     def align(self, codes, tasks, ap: P.AlnParam, seq_distances,
@@ -228,12 +238,14 @@ class GpuExactEngine(HostEngine):
 
 
 def get_engine(name="gpu-fast", device=None, n_threads: int = 1,
-               msa: Optional[Msa] = None):
+               msa: Optional[Msa] = None, mesh=None):
     """The engine of a name of ENGINES, on ``device`` ("auto" resolved
     on msa, resolve_auto_engine); an engine object passed as the name is
     used as it is (``GpuEngine(device, resident=False)`` runs the
     host-assembled progressive pass).  n_threads goes to the native
-    runtime of "host" and "gpu"."""
+    runtime of "host" and "gpu".  "gpu-mesh" runs on ``mesh``, by default
+    make_mesh() over every visible card (kalign_tpu/engine.py:221-240;
+    without a card it raises)."""
     if isinstance(name, (GpuEngine, HostEngine)):
         return name
     if name not in ENGINES:
@@ -244,6 +256,8 @@ def get_engine(name="gpu-fast", device=None, n_threads: int = 1,
         return HostEngine(n_threads)
     if name == "gpu":
         return GpuExactEngine(resolve_device(device), n_threads)
+    if name == "gpu-mesh":
+        return GpuEngine(mesh=mesh_mod.make_mesh() if mesh is None else mesh)
     return GpuEngine(resolve_device(device))
 
 
@@ -407,7 +421,7 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
             eng = GpuExactEngine(eng.device, n_threads)
             eng.stats.update(tree=tree_stats["tree"],
                              tree_s=tree_stats.get("tree_s"),
-                             routed_from="gpu-fast",
+                             routed_from=tree_stats["engine"],
                              mean_seq_distance=mean_sd)
     if save_checkpoint is not None:
         os.makedirs(save_checkpoint, exist_ok=True)

@@ -25,7 +25,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 SOURCES = [os.path.join(CSRC, f) for f in
            ("gotoh_row.cu", "gotoh_lanewise.cu", "traceback.cu", "bpm.cu",
-            "scan.cu", "kmeans.cu", "exact_sweep.cu", "errors.cu")]
+            "scan.cu", "kmeans.cu", "exact_sweep.cu", "gotoh_mesh.cu",
+            "errors.cu")]
 HEADERS = [os.path.join(CSRC, "kt_cuda.h")]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -109,6 +110,8 @@ def lib() -> ctypes.CDLL:
                                   + [_i, _p])
     L.kt_exact_sweep.restype = _i
     L.kt_exact_sweep.argtypes = [_p] * 11 + [_i] * 10 + [_p]
+    L.kt_gotoh_band_block.restype = _i
+    L.kt_gotoh_band_block.argtypes = [_p] * 9 + [_i] * 8 + [_p]
     return L
 
 
@@ -118,17 +121,29 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def stream() -> int:
-    """The current CUDA stream's handle, from torch's raw-stream query
-    (no torch.cuda.Stream object is built on every launch)."""
-    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+def stream(device) -> int:
+    """The handle of ``device``'s current CUDA stream, from torch's
+    raw-stream query (no torch.cuda.Stream object is built on every
+    launch).  A launch takes the stream of its inputs' device, which is
+    not the current device's unless the wrapper entered it."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Kernel inputs must be contiguous tensors on one CUDA device."""
+    """Kernel inputs must be contiguous tensors on one CUDA device, and
+    that device must be the current one: the entry points set kernel
+    attributes and launch on the current device, so a wrapper runs them
+    under ``torch.cuda.device(inputs' device)``."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or not t.is_cuda:
             raise ValueError(f"{name}: all inputs must be on one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+    current = torch.cuda.current_device()
+    if dev.index is not None and dev.index != current:
+        raise ValueError(f"{name}: inputs on {dev} but the current device "
+                         f"is cuda:{current}")

@@ -79,8 +79,13 @@ def plain_table(tok, m_seq, nblk: int):
 
 def launch_table(tok, m_seq, nblk: int):
     """Launch csrc/bpm.cu's table kernel on CUDA tensors."""
-    global table_launches
     launch_plan(nblk)
+    with torch.cuda.device(tok.device):
+        return _launch_table(tok, m_seq, nblk)
+
+
+def _launch_table(tok, m_seq, nblk: int):
+    global table_launches
     _cuda.require_cuda("bpm table", tok, m_seq)
     if tok.dtype != torch.uint8 or m_seq.dtype != torch.int32:
         raise ValueError("bpm table: takes uint8 tokens, int32 lengths")
@@ -93,7 +98,8 @@ def launch_table(tok, m_seq, nblk: int):
     if N == 0:
         return table
     rc = _cuda.lib().kt_bpm_table(tok.data_ptr(), L, m_seq.data_ptr(), N,
-                                  nblk, table.data_ptr(), _cuda.stream())
+                                  nblk, table.data_ptr(),
+                                  _cuda.stream(tok.device))
     _cuda.check(rc, "bpm table")
     table_launches += 1
     return table
@@ -201,9 +207,14 @@ def plain(tok, text_idx, pat_idx, n, m, peq_seq, count_work: bool = False):
 
 def launch(tok, text_idx, pat_idx, n, m, peq_seq):
     """Launch csrc/bpm.cu on CUDA tensors."""
+    plan = launch_plan(peq_seq.shape[2])
+    with torch.cuda.device(tok.device):
+        return _launch(plan, tok, text_idx, pat_idx, n, m, peq_seq)
+
+
+def _launch(plan, tok, text_idx, pat_idx, n, m, peq_seq):
     global launches
     P = text_idx.shape[0]
-    plan = launch_plan(peq_seq.shape[2])
     _cuda.require_cuda("bpm", tok, text_idx, pat_idx, n, m, peq_seq)
     if (tok.dtype != torch.uint8 or peq_seq.dtype != torch.int64
             or peq_seq.shape[1] != SIGMA
@@ -219,7 +230,7 @@ def launch(tok, text_idx, pat_idx, n, m, peq_seq):
     rc = _cuda.lib().kt_bpm_batch(
         tok.data_ptr(), tok.shape[1], text_idx.data_ptr(), pat_idx.data_ptr(),
         n.data_ptr(), m.data_ptr(), peq_seq.data_ptr(), P, plan.nblk,
-        out.data_ptr(), _cuda.stream())
+        out.data_ptr(), _cuda.stream(tok.device))
     _cuda.check(rc, "bpm")
     launches += 1
     return out

@@ -62,13 +62,22 @@ class PairBatch:
                 put(self.tlen), put(self.plen), self.peq)
 
 
-def raw_distances(tokens: np.ndarray, lengths: np.ndarray, anchors,
-                  device, chunk: int = 262144) -> np.ndarray:
-    """Integer edit distances [N, K] (no length bias)."""
+def raw_distances_device(tokens: np.ndarray, lengths: np.ndarray, anchors,
+                         device, chunk: int = 262144) -> torch.Tensor:
+    """Integer edit distances [N * K] int32 on device, queued (no length
+    bias)."""
     pairs = PairBatch(tokens, lengths, anchors, device)
     out = [bpm.bpm_batch(*pairs.inputs(lo, min(lo + chunk, pairs.n_pairs)))
            for lo in range(0, pairs.n_pairs, chunk)]
-    return torch.cat(out).cpu().numpy().reshape(len(tokens), len(anchors))
+    return torch.cat(out)
+
+
+def raw_distances(tokens: np.ndarray, lengths: np.ndarray, anchors,
+                  device, chunk: int = 262144) -> np.ndarray:
+    """Integer edit distances [N, K] (no length bias)."""
+    return raw_distances_device(tokens, lengths, anchors, device,
+                                chunk).cpu().numpy().reshape(len(tokens),
+                                                             len(anchors))
 
 
 def length_bias(lengths: np.ndarray, anchors) -> np.ndarray:
@@ -80,18 +89,26 @@ def length_bias(lengths: np.ndarray, anchors) -> np.ndarray:
         np.float32)
 
 
-def anchor_distances(codes, anchors, device) -> np.ndarray:
-    """Biased distances in the native tree builder's layout
-    [N, ceil(K/8)*8] float32 (columns past K are 0)."""
-    n = len(codes)
+def token_table(codes):
+    """(tokens [N, Lmax] uint8 zero-padded, lengths [N] int32)."""
     lens = np.array([len(c) for c in codes], np.int32)
-    Lmax = max(1, int(lens.max()))
-    tokens = np.zeros((n, Lmax), np.uint8)
+    tokens = np.zeros((len(codes), max(1, int(lens.max()))), np.uint8)
     for i, c in enumerate(codes):
         tokens[i, :len(c)] = c
-    dm = raw_distances(tokens, lens, anchors, device)
-    K = len(anchors)
-    stride = ((K + 7) // 8) * 8
-    out = np.zeros((n, stride), dtype=np.float32)
-    out[:, :K] = dm.astype(np.float32) + length_bias(lens, anchors)
+    return tokens, lens
+
+
+def tree_layout(dm: np.ndarray) -> np.ndarray:
+    """Biased distances [N, K] in the native tree builder's layout
+    [N, ceil(K/8)*8] float32 (columns past K are 0)."""
+    n, K = dm.shape
+    out = np.zeros((n, ((K + 7) // 8) * 8), dtype=np.float32)
+    out[:, :K] = dm
     return out
+
+
+def anchor_distances(codes, anchors, device) -> np.ndarray:
+    """Biased distances in the native tree builder's layout."""
+    tokens, lens = token_table(codes)
+    dm = raw_distances(tokens, lens, anchors, device)
+    return tree_layout(dm.astype(np.float32) + length_bias(lens, anchors))

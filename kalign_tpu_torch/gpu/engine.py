@@ -140,18 +140,21 @@ def fused_feasible(B: int, L1p: int, L2p: int, nc: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
-def bonus_match(match, la, lb, bias_eps, bonus):
+def bonus_match(match, la, lb, bias_eps, bonus, col0: int = 0):
     """Centering bias and consistency bonus added to a bucket's match on
     its device, in the float order of kalign_tpu's _prepare_match
     (tpu/engine.py:71-100): the bias in the form |j - i*slope| * eps, then
     the bonus accumulated anchor by anchor into zeros and added once.
     bonus = (per_w, apos_r [B, K, L1p], conf_r, apos_c [B, K, L2p], conf_c)
-    with per_w a float32 scalar tensor."""
+    with per_w a float32 scalar tensor.  A band of columns starting at
+    col0 (gets the same bits as those columns of the whole match) takes
+    apos_c / conf_c cut to it."""
     B, L1p, L2p = match.shape
     dev = match.device
     slope = lb.to(torch.float32) / torch.clamp(la.to(torch.float32), min=1.0)
     ii = torch.arange(1, L1p + 1, device=dev).to(torch.float32)[None, :, None]
-    jj = torch.arange(1, L2p + 1, device=dev).to(torch.float32)[None, None, :]
+    jj = torch.arange(col0 + 1, col0 + L2p + 1,
+                      device=dev).to(torch.float32)[None, None, :]
     dev_ = torch.abs(jj - ii * slope[:, None, None])
     match = match - dev_ * bias_eps[:, None, None]
     per_w, apr, cfr, apc, cfc = bonus
@@ -163,6 +166,48 @@ def bonus_match(match, la, lb, bias_eps, bonus):
         term = (per_w * cfr[:, k, :, None]) * cfc[:, k, None, :]
         acc = acc + torch.where(eq, term, zero)
     return match + acc
+
+
+def bucket_match(lhs, rhs, la, lb, eps, bonus):
+    """A launch batch's fp32 match product and the (slope, eps) of the
+    centering bias its DP kernel subtracts: with a bonus, the bias and the
+    bonus are added to the match (bonus_match) and the kernel adds none."""
+    slope = lb.to(torch.float32) / torch.clamp(la.to(torch.float32), min=1.0)
+    match = torch.bmm(lhs, rhs.transpose(1, 2))       # fp32
+    if bonus is None:
+        return match, slope, eps
+    return (bonus_match(match, la, lb, eps, bonus), torch.zeros_like(slope),
+            torch.zeros_like(eps))
+
+
+def row_route(lhs, rhs, pc, pr, la, lb, eps, bonus):
+    """One launch batch through the row kernel (tpu/engine.py:441-491 at
+    the row plan): bucket_match, the forward and the walk.  Returns
+    (steps, n, score) on the tensors' device."""
+    L1p, L2p = lhs.shape[1], rhs.shape[1]
+    match, slope, eps = bucket_match(lhs, rhs, la, lb, eps, bonus)
+    dec, score, st = gotoh_row.forward(match, pc, pr, la, lb, slope, eps)
+    steps, n = tb.walk_rows(dec, la, lb, st, L1p + L2p + 2)
+    return steps, n, score
+
+
+def pad_batch(lhs, rhs, pc, pr, la, lb, eps, bonus, pad: int):
+    """A launch batch of host arrays and pad more problems: 8 x 8 with the
+    last problem's penalties, eps 0 and no bonus (tpu/engine.py:
+    424-437)."""
+    if not pad:
+        return lhs, rhs, pc, pr, la, lb, eps, bonus
+
+    def padn(x, fill=0):
+        return np.concatenate(
+            [x, np.full((pad,) + x.shape[1:], fill, x.dtype)])
+    if bonus is not None:
+        bonus = (bonus[0], padn(bonus[1], -1), padn(bonus[2]),
+                 padn(bonus[3], -1), padn(bonus[4]))
+    return (padn(lhs), padn(rhs), np.concatenate([pc, np.repeat(
+        pc[-1:], pad, axis=0)]), np.concatenate([pr, np.repeat(
+            pr[-1:], pad, axis=0)]), padn(la, 8), padn(lb, 8), padn(eps),
+            bonus)
 
 
 def leaf_operands(tok, subm, penv, rows, cols, la, lb, L1p: int, L2p: int):
@@ -226,9 +271,24 @@ class GpuEngine:
     # the fused tree up to this many sequences (KALIGN_TPU_FUSED_TREE_MAX)
     FUSED_TREE_MAX = 32768
 
-    def __init__(self, device, resident: bool = True, device_tree=None,
-                 fused_tree_max: int = FUSED_TREE_MAX):
+    def __init__(self, device=None, resident: bool = True, device_tree=None,
+                 fused_tree_max: int = FUSED_TREE_MAX, mesh=None):
+        # a mesh (parallel/mesh.py) of more than one shard shards the
+        # anchor distances and the merge buckets (tpu/engine.py:215-229):
+        # the progressive pass is the host-assembled one, the lanewise and
+        # fused routes are off, and the consistency maps run on the first
+        # shard's device, the engine's device
+        if mesh is not None:
+            if mesh.spans_processes:
+                raise ValueError("GpuEngine takes a mesh within one process")
+            first = mesh.shards[0].device
+            if device is not None and torch.device(device) != first:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"shard ({first})")
+            device = first
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.sharded = mesh is not None and mesh.size > 1
         # the progressive pass: device-resident, or host-assembled
         self.resident = resident
         # the guide tree (KALIGN_TPU_DEVICE_TREE): None routes by device
@@ -244,10 +304,14 @@ class GpuEngine:
         # per-run routing counts: problems (merges and map DPs, padding
         # included) per route, map DPs, bucket sizes per level, and each
         # launch batch's route, shape and lengths
-        self.stats = {"engine": "gpu-fast", "row_merges": 0,
-                      "lanewise_merges": 0,
+        self.stats = {"engine": "gpu-fast" if mesh is None else "gpu-mesh",
+                      "row_merges": 0, "lanewise_merges": 0,
                       "fused_merges": 0, "map_pairs": 0, "levels": [],
                       "batches": []}
+        if mesh is not None:
+            # merges through the column-sharded DP (long_merge)
+            self.stats.update(shards=mesh.size, cards=mesh.cards,
+                              long_merges=0)
         # the progressive pass's host seconds by part (``split``) and its
         # transfers to the host (``fetch``)
         self.stats["progressive_split_s"] = {}
@@ -279,6 +343,9 @@ class GpuEngine:
 
     # ------------------------------------------------------------------
     def anchor_distances(self, codes, anchors):
+        if self.sharded:
+            from kalign_tpu_torch.parallel import mesh as M
+            return M.anchor_distances(self.mesh, codes, anchors)
         return distances.anchor_distances(codes, anchors, self.device)
 
     def tree_route(self, n: int) -> str:
@@ -352,6 +419,22 @@ class GpuEngine:
         """The fused route's shape rule (tpu/engine.py:165-168)."""
         return nc > 0 and fused_feasible(Bp, L1p, L2p, nc)
 
+    @staticmethod
+    def row_feasible(B: int, L2p: int) -> bool:
+        """The register row kernel holds the width (the counterpart of
+        pick_plan's feasible, tpu/engine.py:409-411): no cluster or tiled
+        instantiation."""
+        return gotoh_row.launch_config(B, L2p).route == "row"
+
+    def pad_to_launch(self, B: int) -> int:
+        """Launch batch size (tpu/engine.py:287-296): a power of two (min
+        8), on a mesh also at least and a multiple of the shard count."""
+        Bp = _pow2_batch(B)
+        if self.sharded:
+            n = self.mesh.size
+            Bp = -(-max(Bp, n) // n) * n
+        return Bp
+
     def max_launch(self, L1p: int, L2p: int) -> int:
         cap = max(8, self.MAX_MATCH_BYTES // (L1p * L2p * 4))
         p = 8
@@ -368,7 +451,8 @@ class GpuEngine:
         # another
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def dispatch_bucket(self, lhs, rhs, pc, pr, la, lb, eps, bonus=None):
+    def dispatch_bucket(self, lhs, rhs, pc, pr, la, lb, eps, bonus=None,
+                        merges=None):
         """Queue one bucket of host arrays on the device (nothing is
         fetched): chunks of at most max_launch problems, each padded to a
         power of two, uploaded and launched (tpu/engine.py::
@@ -376,8 +460,12 @@ class GpuEngine:
         padded already, a multi-candidate one as its K tiles).  A pad
         problem is 8 x 8 with the last problem's penalties, eps 0 and no
         bonus.  bonus is None or the compact tuple (per_w, apos_r, conf_r,
-        apos_c, conf_c).  Returns a handle for collect_bucket."""
+        apos_c, conf_c); merges counts the real problems (the first ones;
+        default all).  On a mesh each chunk takes dispatch_long's route or
+        is sharded on its batch axis (padded as pad_to_launch pads).
+        Returns a handle for collect_bucket."""
         B = lhs.shape[0]
+        merges = B if merges is None else merges
         cap = self.max_launch(lhs.shape[1], rhs.shape[1])
         if B > cap:
             def part(x, lo):
@@ -388,20 +476,25 @@ class GpuEngine:
                 return x[lo:lo + cap]
             return ("multi", [
                 self.dispatch_bucket(*(part(x, lo) for x in (
-                    lhs, rhs, pc, pr, la, lb, eps, bonus)))
+                    lhs, rhs, pc, pr, la, lb, eps, bonus)),
+                    merges=min(cap, max(0, merges - lo)))
                 for lo in range(0, B, cap)])
-        pad = _pow2_batch(B) - B
-        if pad:
-            def padn(x, fill=0):
-                return np.concatenate(
-                    [x, np.full((pad,) + x.shape[1:], fill, x.dtype)])
-            lhs, rhs, eps = padn(lhs), padn(rhs), padn(eps)
-            pc = np.concatenate([pc, np.repeat(pc[-1:], pad, axis=0)])
-            pr = np.concatenate([pr, np.repeat(pr[-1:], pad, axis=0)])
-            la, lb = padn(la, 8), padn(lb, 8)
-            if bonus is not None:
-                bonus = (bonus[0], padn(bonus[1], -1), padn(bonus[2]),
-                         padn(bonus[3], -1), padn(bonus[4]))
+        if (self.sharded and merges <= self.mesh.size
+                and not self.row_feasible(B, rhs.shape[1])):
+            return self.dispatch_long(lhs, rhs, pc, pr, la, lb, eps, bonus,
+                                      merges)
+        lhs, rhs, pc, pr, la, lb, eps, bonus = pad_batch(
+            lhs, rhs, pc, pr, la, lb, eps, bonus, self.pad_to_launch(B) - B)
+        if self.sharded:
+            # the batch axis over the mesh (tpu/engine.py:424-439)
+            from kalign_tpu_torch.parallel import mesh as M
+            self.stats["row_merges"] += len(la)
+            self.stats["batches"].append(
+                {"route": "row", "maps": False, "L1p": lhs.shape[1],
+                 "L2p": rhs.shape[1], "la": np.array(la),
+                 "lb": np.array(lb)})
+            return ("sharded", M.dispatch_bucket_step(
+                self.mesh, lhs, rhs, pc, pr, la, lb, eps, bonus), B)
         bonus_d = None
         if bonus is not None:
             bonus_d = (torch.tensor(np.float32(bonus[0])).to(self.device),) \
@@ -422,35 +515,53 @@ class GpuEngine:
         B, L1p, _ = lhs.shape
         L2p = rhs.shape[1]
         max_steps = L1p + L2p + 2
-        lanewise = self.lanewise_ok(B, L1p, L2p)
+        lanewise = not self.sharded and self.lanewise_ok(B, L1p, L2p)
         fused = (lanewise and bonus is None
                  and self.fused_ok(B, L1p, L2p, self.nc))
         route = "fused" if fused else "lanewise" if lanewise else "row"
         self.stats["batches"].append(
             {"route": route, "maps": maps, "L1p": L1p, "L2p": L2p,
              "la": np.array(la_h), "lb": np.array(lb_h)})
-        slope = lb.to(torch.float32) / torch.clamp(la.to(torch.float32),
-                                                   min=1.0)
+        self.stats[route + "_merges"] += B
+        if route == "row":
+            return ("walked", *row_route(lhs, rhs, pc, pr, la, lb, eps,
+                                         bonus), B)
         if fused:
             nc = self.nc
+            slope = lb.to(torch.float32) / torch.clamp(
+                la.to(torch.float32), min=1.0)
             dec, score, st = gotoh_fused.forward(
                 lhs[:, :, :nc].contiguous(), rhs[:, :, :nc].contiguous(),
                 pc, pr, la, lb, slope, eps)
         else:
-            match = torch.bmm(lhs, rhs.transpose(1, 2))       # fp32
-            if bonus is not None:
-                # bias and bonus are in the match: the kernel adds none
-                match = bonus_match(match, la, lb, eps, bonus)
-                slope = torch.zeros_like(slope)
-                eps = torch.zeros_like(eps)
-            dp = gotoh_lanewise if lanewise else gotoh_row
-            dec, score, st = dp.forward(match, pc, pr, la, lb, slope, eps)
-        if lanewise:
-            steps, n = tb.walk_lanewise(dec, la, lb, st, max_steps)
-        else:
-            steps, n = tb.walk_rows(dec, la, lb, st, max_steps)
-        self.stats[route + "_merges"] += B
+            match, slope, eps = bucket_match(lhs, rhs, la, lb, eps, bonus)
+            dec, score, st = gotoh_lanewise.forward(match, pc, pr, la, lb,
+                                                    slope, eps)
+        steps, n = tb.walk_lanewise(dec, la, lb, st, max_steps)
         return ("walked", steps, n, score, B)
+
+    def dispatch_long(self, lhs, rhs, pc, pr, la, lb, eps, bonus,
+                      merges: int):
+        """A launch batch of at most as many merges as shards, too wide for
+        the register row kernel (row_feasible), on the mesh
+        (tpu/engine.py:409-423): each merge with its columns in bands over
+        the mesh (parallel/mesh.py::long_merge).  kalign_tpu compares its
+        padded batch with the device count; this counts the real
+        merges."""
+        from kalign_tpu_torch.parallel import mesh as M
+        handles = []
+        for k in range(merges):
+            bk = None if bonus is None else \
+                (bonus[0],) + tuple(a[k] for a in bonus[1:])
+            handles.append(M.long_merge(
+                self.mesh, lhs[k], rhs[k], pc[k], pr[k], int(la[k]),
+                int(lb[k]), float(eps[k]), bk))
+        self.stats["long_merges"] += merges
+        self.stats["batches"].append(
+            {"route": "long", "maps": False, "L1p": lhs.shape[1],
+             "L2p": rhs.shape[1], "la": np.array(la[:merges]),
+             "lb": np.array(lb[:merges])})
+        return ("long", handles, merges)
 
     def collect_bucket(self, handle):
         """Fetch one bucket's step lists: ([steps per merge], scores)."""
@@ -461,6 +572,22 @@ class GpuEngine:
                 steps.extend(s)
                 scores.append(sc)
             return steps, np.concatenate(scores)
+        if handle[0] == "sharded":
+            from kalign_tpu_torch.parallel import mesh as M
+            self.stats["fetches"] += self.mesh.size
+            steps, scores = M.collect_bucket_step(self.mesh, handle[1])
+            B = handle[2]
+            return steps[:B], scores[:B]
+        if handle[0] == "long":
+            from kalign_tpu_torch.gpu.gotoh_mesh import on
+            steps, scores = [], []
+            # queued on the first shard's stream: fetched there
+            with on(self.mesh.shards[0]):
+                for st, n, sc in handle[1]:
+                    st, n, sc = self.fetch(st), self.fetch(n), self.fetch(sc)
+                    steps.append(st[0, :n[0]])
+                    scores.append(float(sc[0]))
+            return steps, np.asarray(scores, np.float64)
         _, steps, n, score, B = handle
         steps = self.fetch(steps[:B])
         n = self.fetch(n[:B])
@@ -591,7 +718,7 @@ class GpuEngine:
         order, task_index, levels = sched
         self.stats["candidates"] = {}
         self.stats["candidate_passes"].append(self.stats["candidates"])
-        if self.resident:
+        if self.resident and not self.sharded:
             # imported here: gpu/resident.py imports this module
             from kalign_tpu_torch.gpu.resident import ResidentPass
             return ResidentPass(self, codes, ap, sd, ct, cand_for).run(
@@ -662,7 +789,7 @@ class GpuEngine:
                     B = len(items)
                     # a multi-candidate bucket is tiled K times, then
                     # padded by dispatch_bucket
-                    Ba = _pow2_batch(B) if K == 1 else B
+                    Ba = self.pad_to_launch(B) if K == 1 else B
                     pc = np.zeros((Ba, 3, L2p + 1), np.float32)
                     pr = np.zeros((Ba, 3, L1p + 1), np.float32)
                     la = np.full(Ba, 8, np.int32)
@@ -718,7 +845,8 @@ class GpuEngine:
                     eps = np.repeat(np.asarray(cands, np.float32), B)
                 with split("dispatch"):
                     dispatched.append((items, K, self.dispatch_bucket(
-                        lhs, rhs, pc, pr, la, lb, eps, bonus)))
+                        lhs, rhs, pc, pr, la, lb, eps, bonus,
+                        merges=B * K)))
 
             for items, K, handle in dispatched:
                 with split("fetch"):

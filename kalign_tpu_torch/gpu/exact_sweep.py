@@ -282,6 +282,11 @@ def launch(plan, VR: int, C: int, Wmax: int, use_chain: bool, W: int,
     ``plain``'s output.  The schedule is the plan's ``lag`` and ``span``
     where it has them (``schedule`` at launch_plan's strip and ncols),
     else computed here from its rows.  Raises on a refused launch."""
+    with torch.cuda.device(plan["seedA"].device):
+        return _launch(plan, VR, C, Wmax, use_chain, W, ncols)
+
+
+def _launch(plan, VR, C, Wmax, use_chain, W, ncols):
     global launches
     p = plan
     dev = p["seedA"].device
@@ -317,7 +322,7 @@ def launch(plan, VR: int, C: int, Wmax: int, use_chain: bool, W: int,
         span.data_ptr(), out.data_ptr(),
         None if edge is None else edge.data_ptr(),
         G, VR, C, ldm, W, ncols, lp.strips, int(bool(use_chain)),
-        lp.threads, lp.rows, ctypes.c_void_p(_cuda.stream()))
+        lp.threads, lp.rows, ctypes.c_void_p(_cuda.stream(dev)))
     _cuda.check(rc, "exact_sweep")
     launches += 1
     return out

@@ -69,9 +69,11 @@ def launch(lhs, rhs, prep, la, lb):
                          f"of {gotoh_lanewise.PACK}")
     if lhs.dtype != torch.float32 or rhs.dtype != torch.float32:
         raise ValueError("fused Gotoh kernel: float32 operands are required")
-    _cuda.require_cuda("gotoh_fused", lhs, rhs, prep["colpen"],
-                       prep["cols_eps"], prep["rowpen"], prep["row_term"],
-                       prep["gb0"], prep["ga0"], la, lb)
+    with torch.cuda.device(lhs.device):
+        _cuda.require_cuda("gotoh_fused", lhs, rhs, prep["colpen"],
+                           prep["cols_eps"], prep["rowpen"],
+                           prep["row_term"], prep["gb0"], prep["ga0"], la,
+                           lb)
     out = gotoh_lanewise.launch_kernel(
         "kt_gotoh_fused_forward", "gotoh_fused",
         (lhs.data_ptr(), rhs.data_ptr(), nc), B, L1p, L2p, nc, prep, la, lb)

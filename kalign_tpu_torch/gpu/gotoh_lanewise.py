@@ -83,11 +83,13 @@ def launch_kernel(entry, name, args, B, L1p, L2p, nc, prep, la, lb):
     if lib.kt_gotoh_lanewise_smem_bytes(L2p, nc, plan.warps) != plan.smem:
         raise RuntimeError(f"{name}: shared-memory size differs between "
                            "csrc/gotoh_lanewise.cu and launch_plan")
-    rc = getattr(lib, entry)(
-        *args, *(prep[k].data_ptr() for k in (
-            "colpen", "cols_eps", "rowpen", "row_term", "gb0", "ga0")),
-        la.data_ptr(), lb.data_ptr(), B, L1p, L2p, plan.warps,
-        dec.data_ptr(), score.data_ptr(), state.data_ptr(), _cuda.stream())
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(
+            *args, *(prep[k].data_ptr() for k in (
+                "colpen", "cols_eps", "rowpen", "row_term", "gb0", "ga0")),
+            la.data_ptr(), lb.data_ptr(), B, L1p, L2p, plan.warps,
+            dec.data_ptr(), score.data_ptr(), state.data_ptr(),
+            _cuda.stream(dev))
     _cuda.check(rc, name)
     return dec, score, state
 
@@ -218,9 +220,10 @@ def launch(match, prep, la, lb):
     if L2p % PACK:
         raise ValueError(f"lanewise Gotoh kernel: L2p={L2p} is not a "
                          f"multiple of {PACK}")
-    _cuda.require_cuda("gotoh_lanewise", match, prep["colpen"],
-                       prep["cols_eps"], prep["rowpen"], prep["row_term"],
-                       prep["gb0"], prep["ga0"], la, lb)
+    with torch.cuda.device(match.device):
+        _cuda.require_cuda("gotoh_lanewise", match, prep["colpen"],
+                           prep["cols_eps"], prep["rowpen"], prep["row_term"],
+                           prep["gb0"], prep["ga0"], la, lb)
     out = launch_kernel("kt_gotoh_lanewise_forward", "gotoh_lanewise",
                         (match.data_ptr(),), B, L1p, L2p, 0, prep, la, lb)
     if B:

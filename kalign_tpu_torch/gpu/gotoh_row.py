@@ -306,33 +306,35 @@ def launch(match, prep, la, lb, config=None):
     if smem != cfg.smem:
         raise RuntimeError("row Gotoh kernel: shared-memory size differs "
                            "between csrc/gotoh_row.cu and launch_config")
-    _cuda.require_cuda("gotoh_row", match, prep["colpen"], prep["ga0"],
-                       prep["rowpen"], prep["cols_eps"], prep["row_term"],
-                       la, lb)
-    if cfg.route == "cluster":
-        cluster_schedulable(cfg)
     dev = match.device
-    dec = torch.empty((B, L1p, W), dtype=torch.int8, device=dev)
-    score = torch.empty(B, dtype=torch.float32, device=dev)
-    state = torch.empty(B, dtype=torch.int32, device=dev)
-    if B == 0:
-        return dec, score, state
-    args = (match.data_ptr(), *(prep[k].data_ptr() for k in (
-        "colpen", "ga0", "rowpen", "cols_eps", "row_term")),
-        la.data_ptr(), lb.data_ptr(), B, L1p, W, dec.data_ptr(),
-        score.data_ptr(), state.data_ptr())
-    if cfg.route == "tiled":
-        # the previous row's A, GA and GB, two row parities
-        scratch = torch.empty((B, 2, 3, W), dtype=torch.float32, device=dev)
-        rc = lib.kt_gotoh_row_tiled_forward(*args, scratch.data_ptr(),
-                                            cfg.threads, _cuda.stream())
-    elif cfg.route == "cluster":
-        rc = lib.kt_gotoh_row_cluster_forward(*args, cfg.threads, cfg.ch,
-                                              cfg.blocks, _cuda.stream())
-    else:
-        rc = lib.kt_gotoh_row_forward(*args, cfg.threads, cfg.ch,
-                                      _cuda.stream())
-    _cuda.check(rc, "gotoh_row")
+    with torch.cuda.device(dev):
+        _cuda.require_cuda("gotoh_row", match, prep["colpen"], prep["ga0"],
+                           prep["rowpen"], prep["cols_eps"], prep["row_term"],
+                           la, lb)
+        if cfg.route == "cluster":
+            cluster_schedulable(cfg)
+        dec = torch.empty((B, L1p, W), dtype=torch.int8, device=dev)
+        score = torch.empty(B, dtype=torch.float32, device=dev)
+        state = torch.empty(B, dtype=torch.int32, device=dev)
+        if B == 0:
+            return dec, score, state
+        args = (match.data_ptr(), *(prep[k].data_ptr() for k in (
+            "colpen", "ga0", "rowpen", "cols_eps", "row_term")),
+            la.data_ptr(), lb.data_ptr(), B, L1p, W, dec.data_ptr(),
+            score.data_ptr(), state.data_ptr())
+        stream = _cuda.stream(dev)
+        if cfg.route == "tiled":
+            # the previous row's A, GA and GB, two row parities
+            scratch = torch.empty((B, 2, 3, W), dtype=torch.float32,
+                                  device=dev)
+            rc = lib.kt_gotoh_row_tiled_forward(*args, scratch.data_ptr(),
+                                                cfg.threads, stream)
+        elif cfg.route == "cluster":
+            rc = lib.kt_gotoh_row_cluster_forward(*args, cfg.threads, cfg.ch,
+                                                  cfg.blocks, stream)
+        else:
+            rc = lib.kt_gotoh_row_forward(*args, cfg.threads, cfg.ch, stream)
+        _cuda.check(rc, "gotoh_row")
     if cfg.route == "tiled":
         tiled_launches += 1
     elif cfg.route == "cluster":

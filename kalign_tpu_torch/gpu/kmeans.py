@@ -112,7 +112,9 @@ def lloyd(rows, start, size, form: int, T: int = MAX_TRIES,
     rows = rows.contiguous()
     start = start.to(torch.int32).contiguous()
     size = size.to(torch.int32).contiguous()
-    _cuda.require_cuda("kmeans.lloyd", rows, start, size)
+    if not (rows.device == start.device == size.device):
+        raise ValueError("kmeans.lloyd: all inputs must be on one CUDA "
+                         "device")
     C = start.shape[0]
     dev = rows.device
     score = torch.empty((C, T), dtype=torch.float32, device=dev)
@@ -123,10 +125,13 @@ def lloyd(rows, start, size, form: int, T: int = MAX_TRIES,
         if max_size is None:
             max_size = int(size.max())
         blocks = cluster_blocks(max_size)
-        rc = _cuda.lib().kt_kmeans_lloyd(
-            rows.data_ptr(), D, N, start.data_ptr(), size.data_ptr(), C, T,
-            form, max_iters, EPS, score.data_ptr(), degen.data_ptr(),
-            assign.data_ptr(), iters.data_ptr(), blocks, _cuda.stream())
+        with torch.cuda.device(dev):
+            _cuda.require_cuda("kmeans.lloyd", rows, start, size)
+            rc = _cuda.lib().kt_kmeans_lloyd(
+                rows.data_ptr(), D, N, start.data_ptr(), size.data_ptr(), C,
+                T, form, max_iters, EPS, score.data_ptr(), degen.data_ptr(),
+                assign.data_ptr(), iters.data_ptr(), blocks,
+                _cuda.stream(dev))
         _cuda.check(rc, "kmeans.lloyd")
         launches += 1
     return assign, score, degen, iters

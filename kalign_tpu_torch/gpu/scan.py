@@ -63,8 +63,13 @@ def launch(*xs):
     if not sets:
         return tuple(outs)
     desc = descriptors(sets)
-    rc = _cuda.lib().kt_prefix_sums_f32(
-        len(sets), (ctypes.c_longlong * len(desc))(*desc), _cuda.stream())
+    dev = sets[0][0].device
+    if any(x.device != dev for x, _ in sets):
+        raise ValueError("prefix_sum: all tensors on one CUDA device")
+    with torch.cuda.device(dev):
+        rc = _cuda.lib().kt_prefix_sums_f32(
+            len(sets), (ctypes.c_longlong * len(desc))(*desc),
+            _cuda.stream(dev))
     _cuda.check(rc, "prefix_sum")
     launches += 1
     return tuple(outs)

@@ -115,6 +115,12 @@ def launch(lanewise: bool, dec, la, lb, st, max_steps: int, L1p: int,
            L2p: int, count_windows: bool = False):
     """Launch csrc/traceback.cu on CUDA tensors; with count_windows, also
     return the windows each walk staged ([B] int32)."""
+    with torch.cuda.device(dec.device):
+        return _launch(lanewise, dec, la, lb, st, max_steps, L1p, L2p,
+                       count_windows)
+
+
+def _launch(lanewise, dec, la, lb, st, max_steps, L1p, L2p, count_windows):
     global launches
     B = la.shape[0]
     _cuda.require_cuda("traceback", dec, la, lb, st)
@@ -135,7 +141,8 @@ def launch(lanewise: bool, dec, la, lb, st, max_steps: int, L1p: int,
         int(lanewise), dec.data_ptr(), la.data_ptr(), lb.data_ptr(),
         st.data_ptr(), B, L1p, L2p, max_steps, plan.warps, plan.win_rows,
         plan.win_cols, plan.buf, steps.data_ptr(), n.data_ptr(),
-        win.data_ptr() if count_windows else None, _cuda.stream())
+        win.data_ptr() if count_windows else None,
+        _cuda.stream(dec.device))
     _cuda.check(rc, "traceback")
     launches += 1
     return out

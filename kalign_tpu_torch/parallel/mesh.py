@@ -1,0 +1,412 @@
+"""Multi-GPU sharding for the MSA pipeline.
+
+Counterpart of kalign_tpu/parallel/mesh.py.  The parallel axes are the
+reference's:
+
+  * anchor distances — the N x K bit-parallel problems, sequence rows
+    sharded over every shard (``sharded_anchor_distances``);
+  * guide-tree levels — a merge bucket's problems sharded on their batch
+    axis (``sharded_bucket_step``);
+  * one merge too wide for the row kernel's registers — its columns in
+    bands over the shards (``long_merge``, ``sharded_long_gotoh``: the
+    band kernel of gpu/gotoh_mesh.py, csrc/gotoh_mesh.cu).
+
+A mesh is a [data, model] array of torch devices (``make_mesh``, the
+reference's factorisation).  Every shard keeps its own CUDA stream on
+its card, so a list that repeats one card (``["cuda:0"] * 4``) runs four
+shards side by side on it; ``["cpu"] * n`` runs the kernels' plain
+versions shard after shard.  Each sharded call queues every shard's work
+on its stream (inputs copied from pinned host memory with
+``non_blocking``) before it fetches any result, one fetch per shard.
+
+Across processes (parallel/distributed.py): after ``init_distributed``
+``make_mesh`` gathers every process's devices into one mesh; a process
+runs the shards it owns and the host results reach every process
+through gloo's ``all_gather_object``, as the reference's _from_global
+gathers to every host (the gathers are host-side there too).  The
+column-sharded DP and the engine take a mesh within one process.
+"""
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from kalign_tpu_torch.gpu import distances, gotoh_mesh, gotoh_row
+from kalign_tpu_torch.gpu import traceback as tb
+from kalign_tpu_torch.gpu.gotoh_mesh import Shard, on
+
+
+def _world():
+    """(rank, world size) of the process group, (0, 1) without one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _device(d) -> torch.device:
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", 0)
+    if d.type not in ("cuda", "cpu"):
+        raise ValueError(f"make_mesh: unsupported device {d}")
+    return d
+
+
+class Mesh:
+    """Shards over a [data, model] array of devices.  ``ranks`` holds the
+    process that owns each shard; ``shards`` the flattened mesh, each
+    with its stream (None on the CPU and for another process's shards);
+    ``local`` the flat indices this process runs."""
+
+    def __init__(self, devices: np.ndarray, ranks: np.ndarray, rank: int):
+        self.devices = devices
+        self.ranks = ranks
+        self.rank = rank
+        self.shape = devices.shape
+        flat = list(devices.reshape(-1))
+        owners = list(ranks.reshape(-1))
+        self.local = [k for k, r in enumerate(owners) if r == rank]
+        self.shards = []
+        for k, d in enumerate(flat):
+            mine = owners[k] == rank and d.type == "cuda"
+            self.shards.append(Shard(
+                d, torch.cuda.Stream(device=d) if mine else None))
+
+    @property
+    def size(self) -> int:
+        return self.devices.size
+
+    @property
+    def spans_processes(self) -> bool:
+        return len(set(self.ranks.reshape(-1).tolist())) > 1
+
+    @property
+    def cards(self) -> int:
+        """Distinct devices of the mesh."""
+        return len({str(d) for d in self.devices.reshape(-1)})
+
+
+def make_mesh(n_devices: Optional[int] = None, data: Optional[int] = None,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A mesh over every visible CUDA card, or over ``devices`` (which may
+    repeat a card, or be ["cpu"] * n); the first n_devices of them.
+    model = the largest power of two <= sqrt(n) that divides n and data
+    the rest, unless data is given (mesh.py:31-49).  Raises without a
+    card: there is no CPU fallback.  Under init_distributed every
+    process's devices join one mesh, in rank order."""
+    if devices is None:
+        if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
+            raise RuntimeError("make_mesh: no CUDA card is visible (pass "
+                               "devices=['cpu'] * n to run the plain "
+                               "versions)")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [_device(d) for d in devices]
+    if any(d.type == "cuda" for d in devices) and \
+            not torch.cuda.is_available():
+        raise RuntimeError("make_mesh: CUDA is not available")
+    rank, world = _world()
+    ranks = [rank] * len(devices)
+    if world > 1:
+        import torch.distributed as dist
+        every = [None] * world
+        dist.all_gather_object(every, [str(d) for d in devices])
+        devices = [torch.device(d) for part in every for d in part]
+        ranks = [r for r, part in enumerate(every) for _ in part]
+    if n_devices is not None:
+        devices, ranks = devices[:n_devices], ranks[:n_devices]
+    n = len(devices)
+    if n == 0:
+        raise ValueError("make_mesh: no devices")
+    if data is None:
+        model = 1
+        while (model * 2) * (model * 2) <= n:
+            model *= 2
+        while n % model:
+            model //= 2
+        data = n // model
+    else:
+        model = n // data
+    cut = data * model
+    arr = np.empty(cut, dtype=object)
+    arr[:] = devices[:cut]
+    return Mesh(arr.reshape(data, model),
+                np.asarray(ranks[:cut]).reshape(data, model), rank)
+
+
+def pad_rows(a: np.ndarray, to: int, fill=0) -> np.ndarray:
+    if a.shape[0] == to:
+        return a
+    pad = np.full((to - a.shape[0],) + a.shape[1:], fill, dtype=a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
+def put(x, shard: Shard) -> torch.Tensor:
+    """A host array on the shard's device: pinned and asynchronous on its
+    stream (call inside ``on(shard)``)."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if shard.device.type != "cuda":
+        return t
+    return t.pin_memory().to(shard.device, non_blocking=True)
+
+
+def fetch(mesh: Mesh, outs: dict) -> dict:
+    """{shard: tensor or tuple of tensors} of this process's shards to
+    host numpy, one transfer per tensor on each shard's stream; across
+    processes the results of every shard reach every process."""
+    host = {}
+    for k, out in outs.items():
+        with on(mesh.shards[k]):
+            host[k] = (tuple(x.cpu().numpy() for x in out)
+                       if isinstance(out, tuple) else out.cpu().numpy())
+    return gather(mesh, host)
+
+
+def gather(mesh: Mesh, local: dict) -> dict:
+    """Host results keyed by shard, from every process of the mesh."""
+    if not mesh.spans_processes:
+        return local
+    import torch.distributed as dist
+    every = [None] * _world()[1]
+    dist.all_gather_object(every, local)
+    merged = {}
+    for part in every:
+        merged.update(part)
+    return merged
+
+
+# ---------------------------------------------------------------------------
+# sharded distance matrix
+# ---------------------------------------------------------------------------
+
+def sharded_anchor_distances(mesh: Mesh, tokens: np.ndarray,
+                             lengths: np.ndarray,
+                             anchors: Sequence[int]) -> np.ndarray:
+    """Distance of every sequence to every anchor, the sequence rows
+    sharded over the mesh (mesh.py:183-263): rows padded to a multiple of
+    the shard count (length 1), each shard running the BPM kernels on its
+    rows' N_d x K pairs (gpu/distances.py: the longer side the text),
+    the integer distances gathered, then the length bias added in
+    float64 and narrowed.  tokens [N, Lmax] uint8, lengths [N].  The
+    same bits as the one-card distances."""
+    N = tokens.shape[0]
+    n = mesh.size
+    Np = -(-N // n) * n
+    per = Np // n
+    lengths = np.asarray(lengths, np.int32)
+    anchors = np.asarray(anchors, np.int64)
+    tokens_p = pad_rows(tokens, Np)
+    lengths_p = pad_rows(lengths, Np, fill=1)
+    outs = {}
+    for k in mesh.local:
+        rows = slice(k * per, (k + 1) * per)
+        # the shard's rows, then the anchors' rows, whose indices follow
+        tok_k = np.concatenate([tokens_p[rows], tokens[anchors]])
+        len_k = np.concatenate([lengths_p[rows], lengths[anchors]])
+        with on(mesh.shards[k]):
+            # (the anchors' own rows against the anchors are not kept)
+            outs[k] = distances.raw_distances_device(
+                tok_k, len_k, np.arange(per, per + len(anchors)),
+                mesh.shards[k].device)[:per * len(anchors)]
+    host = fetch(mesh, outs)
+    dm = np.concatenate([host[k].reshape(per, len(anchors))
+                         for k in range(n)])[:N]
+    return dm.astype(np.float32) + distances.length_bias(lengths, anchors)
+
+
+def anchor_distances(mesh: Mesh, codes, anchors) -> np.ndarray:
+    """sharded_anchor_distances of encoded sequences, in the native tree
+    builder's layout (tpu/engine.py:298-315)."""
+    tokens, lens = distances.token_table(codes)
+    return distances.tree_layout(
+        sharded_anchor_distances(mesh, tokens, lens, list(anchors)))
+
+
+# ---------------------------------------------------------------------------
+# batched level-synchronous DP
+# ---------------------------------------------------------------------------
+
+def _batch_slices(mesh: Mesh, B: int):
+    if B % mesh.size:
+        raise ValueError(f"batch of {B} is not a multiple of the "
+                         f"{mesh.size} shards")
+    per = B // mesh.size
+    return {k: slice(k * per, (k + 1) * per) for k in mesh.local}
+
+
+def batched_gotoh(mesh: Mesh, match, pens_cols, pens_rows, la, lb):
+    """A batch of padded problems sharded over the mesh (mesh.py:270-285):
+    each shard runs gotoh_row.forward on its problems.  Returns (dec
+    [B, L1p, L2p] int8 in the row kernel's layout, score [B], end state
+    [B]) as numpy."""
+    outs = {}
+    for k, sl in _batch_slices(mesh, match.shape[0]).items():
+        sh = mesh.shards[k]
+        with on(sh):
+            outs[k] = gotoh_row.forward(*(put(x[sl], sh) for x in (
+                match, pens_cols, pens_rows, np.asarray(la, np.int32),
+                np.asarray(lb, np.int32))))
+    host = fetch(mesh, outs)
+    return tuple(np.concatenate([host[k][i] for k in range(mesh.size)])
+                 for i in range(3))
+
+
+def dispatch_bucket_step(mesh: Mesh, lhs, rhs, pc, pr, la, lb, eps,
+                         bonus=None) -> dict:
+    """Queue one merge bucket with its batch axis sharded over the mesh
+    (mesh.py:490-546): on each shard the match product, the centering
+    bias and the compact consistency bonus (built on the card by
+    gpu/engine.py::bonus_match), gotoh_row.forward and the walk
+    (gpu/engine.py::row_route).  Host numpy inputs, the batch a multiple
+    of the shard count; bonus None or (per_w, apos_r, conf_r, apos_c,
+    conf_c).  Returns {shard: (steps, n, score)} on the shards' devices."""
+    from kalign_tpu_torch.gpu.engine import row_route
+    outs = {}
+    for k, sl in _batch_slices(mesh, lhs.shape[0]).items():
+        sh = mesh.shards[k]
+        with on(sh):
+            args = [put(x[sl], sh) for x in (lhs, rhs, pc, pr, la, lb, eps)]
+            bonus_d = None
+            if bonus is not None:
+                bonus_d = (torch.tensor(np.float32(bonus[0])).to(sh.device),
+                           *(put(a[sl], sh) for a in bonus[1:]))
+            outs[k] = row_route(*args, bonus_d)
+    return outs
+
+
+def collect_bucket_step(mesh: Mesh, outs: dict):
+    """Fetch a dispatched bucket: ([steps per problem], scores float64),
+    in batch order."""
+    host = fetch(mesh, outs)
+    steps, scores = [], []
+    for k in range(mesh.size):
+        s, n, sc = host[k]
+        steps.extend(s[b, :n[b]] for b in range(len(n)))
+        scores.append(sc)
+    return steps, np.concatenate(scores).astype(np.float64)
+
+
+def sharded_bucket_step(mesh: Mesh, lhs, rhs, pc, pr, la, lb, eps,
+                        bonus=None):
+    """dispatch_bucket_step, then collect_bucket_step."""
+    return collect_bucket_step(mesh, dispatch_bucket_step(
+        mesh, lhs, rhs, pc, pr, la, lb, eps, bonus))
+
+
+# ---------------------------------------------------------------------------
+# one problem with its columns sharded
+# ---------------------------------------------------------------------------
+
+def _one_process(mesh: Mesh):
+    if mesh.spans_processes:
+        raise ValueError("the column-sharded DP takes a mesh within one "
+                         "process")
+    return mesh.shards
+
+
+def sharded_long_gotoh(mesh: Mesh, match, pens_cols, pens_rows, la: int,
+                       lb: int, rows: int = gotoh_mesh.BLOCK_ROWS):
+    """One Gotoh problem with its column axis in bands over the mesh
+    (mesh.py:288-487), the bands' blocks of rows pipelined by
+    gotoh_mesh.forward.  match [L1, W] f32 (the bias in it; W a multiple
+    of the shard count), pens_cols [3, W + 1], pens_rows [3, L1 + 1].
+    Returns (dec [L1, W] int8 in the row kernel's layout, rows >= la
+    zero, score, end state).  rows: the rows of a block."""
+    shards = _one_process(mesh)
+    L1, W = match.shape
+    n = len(shards)
+    if W % n:
+        raise ValueError(f"width {W} is not a multiple of {n} shards")
+    Wd = W // n
+    with on(shards[0]):
+        z = torch.zeros(1, dtype=torch.float32, device=shards[0].device)
+        prep = gotoh_row.prepare(
+            put(np.asarray(pens_cols, np.float32)[None], shards[0]),
+            put(np.asarray(pens_rows, np.float32)[None], shards[0]),
+            put(np.array([la], np.int32), shards[0]),
+            put(np.array([lb], np.int32), shards[0]), z, z)
+    bands = []
+    for d, sh in enumerate(shards):
+        with on(sh):
+            bands.append(put(np.asarray(match, np.float32)
+                             [:, d * Wd:(d + 1) * Wd], sh))
+    bands, score, st = gotoh_mesh.forward(shards, bands, prep, la, lb, rows)
+    dec = np.concatenate([fetch(mesh, {d: b["dec"]})[d]
+                          for d, b in enumerate(bands)], axis=1)
+    with on(shards[0]):
+        return dec, float(score.cpu()[0]), int(st.cpu()[0])
+
+
+def long_operands(mesh: Mesh, lhs, rhs, pc, pr, la: int, lb: int,
+                  eps: float, bonus=None):
+    """The column-sharded route's inputs of one merge, queued: W padded to
+    a multiple of the shard count (pc with zeros, as tpu/engine.py:
+    516-521 pads it), the row-invariant vectors over the padded width on
+    the first shard (gotoh_row.prepare), and on each shard only its band
+    of the match — the product, then the bias and the bonus where there
+    is a bonus (bonus_match on the band), as gpu/engine.py::bucket_match
+    builds the whole match; without a bonus the kernel subtracts the
+    bias.  Returns (match bands, prep, Wp)."""
+    from kalign_tpu_torch.gpu.engine import bonus_match
+    shards = _one_process(mesh)
+    n = len(shards)
+    L2p = rhs.shape[0]
+    Wd = gotoh_mesh.band_width(L2p, n)
+    Wp = Wd * n
+    sh0 = shards[0]
+    with on(sh0):
+        la_d = put(np.array([la], np.int32), sh0)
+        lb_d = put(np.array([lb], np.int32), sh0)
+        slope = lb_d.to(torch.float32) / torch.clamp(
+            la_d.to(torch.float32), min=1.0)
+        eps_k = put(np.array([eps], np.float32), sh0)
+        if bonus is not None:
+            # bias and bonus are in the match: the kernel adds none
+            slope, eps_k = torch.zeros_like(slope), torch.zeros_like(eps_k)
+        prep = gotoh_row.prepare(
+            put(np.pad(pc, ((0, 0), (0, Wp - L2p)))[None], sh0),
+            put(pr[None], sh0), la_d, lb_d, slope, eps_k)
+    rhs_p = pad_rows(np.ascontiguousarray(rhs), Wp)
+    if bonus is not None:
+        per_w, apr, cfr, apc, cfc = bonus
+        apc = np.pad(apc, ((0, 0), (0, Wp - L2p)), constant_values=-1)
+        cfc = np.pad(cfc, ((0, 0), (0, Wp - L2p)))
+    bands = []
+    for d, sh in enumerate(shards):
+        c0, c1 = d * Wd, (d + 1) * Wd
+        with on(sh):
+            m = torch.bmm(put(lhs[None], sh),
+                          put(rhs_p[None, c0:c1], sh).transpose(1, 2))
+            if bonus is not None:
+                one = [put(np.array([x], dt), sh) for x, dt in (
+                    (la, np.int32), (lb, np.int32), (eps, np.float32))]
+                b = (torch.tensor(np.float32(per_w)).to(sh.device),
+                     put(apr[None], sh), put(cfr[None], sh),
+                     put(apc[None, :, c0:c1], sh),
+                     put(cfc[None, :, c0:c1], sh))
+                m = bonus_match(m, *one, b, col0=c0)
+            bands.append(m[0])
+    return bands, prep, Wp
+
+
+def long_merge(mesh: Mesh, lhs, rhs, pc, pr, la: int, lb: int, eps: float,
+               bonus=None, rows: int = gotoh_mesh.BLOCK_ROWS):
+    """Queue one merge whose width the register row kernel cannot hold
+    with its columns in bands over the mesh (tpu/engine.py:409-423,
+    _long_seq_mesh :509-532): long_operands, the band kernel's pipeline,
+    the decision bands gathered onto the first shard's card and walked
+    there (max_steps = L1p + Wp + 2).  lhs [L1p, 23], rhs [L2p, 23], pc
+    [3, L2p + 1], pr [3, L1p + 1] host numpy; bonus None or the compact
+    (per_w, apos_r [K, L1p], conf_r, apos_c [K, L2p], conf_c).  Returns
+    (steps [1, S], n [1], score [1]) on the first shard's device."""
+    shards = _one_process(mesh)
+    bands, prep, Wp = long_operands(mesh, lhs, rhs, pc, pr, la, lb, eps,
+                                    bonus)
+    bands, score, st = gotoh_mesh.forward(shards, bands, prep, la, lb, rows)
+    dec = gotoh_mesh.gather_dec(shards, bands, -(-Wp // 16) * 16)
+    with on(shards[0]):
+        t = [put(np.array([x], np.int32), shards[0]) for x in (la, lb)]
+        steps, nst = tb.walk_rows(dec, *t, st, lhs.shape[0] + Wp + 2)
+    return steps, nst, score

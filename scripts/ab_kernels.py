@@ -129,7 +129,7 @@ def main():
                 "colpen", "ga0", "rowpen", "cols_eps", "row_term")),
             la.data_ptr(), lb.data_ptr(), B, L1p, W, dec.data_ptr(),
             score.data_ptr(), state.data_ptr(), scratch.data_ptr(),
-            cfg.threads, _cuda.stream())
+            cfg.threads, _cuda.stream(dev))
         old.check(rc, "earlier gotoh_row_tiled")
         return dec, score, state
 

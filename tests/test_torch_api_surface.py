@@ -238,9 +238,13 @@ def test_auto_resolves_by_the_reference_policy(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert tE.resolve_auto_engine(small) == "host"
+    # several cards: kalign_tpu's "tpu-mesh" (engine.py:204)
+    assert tE.resolve_auto_engine(big, "cuda") == "gpu-mesh"
+    assert tE.resolve_auto_engine(None, torch.device("cuda")) == "gpu-mesh"
+    assert tE.resolve_auto_engine(big, "cpu") == "host"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert tE.resolve_auto_engine(big, "cuda") == "gpu-fast"
     assert tE.resolve_auto_engine(None, torch.device("cuda")) == "gpu-fast"
-    assert tE.resolve_auto_engine(big, "cpu") == "host"
 
 
 @pytest.mark.parametrize("name", ["BB11001.tfa", "small.fa"])

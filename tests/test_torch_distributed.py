@@ -1,0 +1,184 @@
+"""kalign_tpu_torch/parallel/distributed.py in real processes: local gloo
+process groups (init_distributed), each process aligning its
+my_ensemble_runs share or running its shards of one mesh that spans the
+processes; the results must be the one-process run's, byte for byte
+(kalign_tpu's tests/test_distributed.py, on the port)."""
+
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from kalign_tpu_torch.core import io as tio
+from kalign_tpu_torch.ensemble import ensemble_align, ensemble_merge
+from kalign_tpu_torch.parallel import distributed as D
+from kalign_tpu_torch.parallel import mesh as TM
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = os.path.join(ROOT, "tests", "data")
+TIMEOUT_S = 300
+
+_CHILD_ENSEMBLE = r"""
+import os, sys
+coord, pid, nproc, nruns, inp, scratch = (sys.argv[1], int(sys.argv[2]),
+    int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6])
+from kalign_tpu_torch.parallel.distributed import init_distributed, \
+    my_ensemble_runs, process_count, process_index
+init_distributed(coordinator_address=coord, num_processes=nproc,
+                 process_id=pid)
+assert (process_count(), process_index()) == (nproc, pid)
+runs = my_ensemble_runs(nruns)
+assert runs == [k for k in range(nruns) if k % nproc == pid], runs
+from kalign_tpu_torch.core import io as kio
+from kalign_tpu_torch.ensemble import ensemble_worker
+msa = kio.read_inputs([inp])
+msa.quiet = True
+assert ensemble_worker(msa, pid, nproc, scratch, n_runs=nruns, realign=1,
+                       consistency_anchors=5, device="cpu") == runs
+print("child", pid, "done", runs)
+"""
+
+_CHILD_MESH = r"""
+import os, sys
+import numpy as np
+coord, pid, nproc, out = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
+                          sys.argv[4])
+from kalign_tpu_torch.parallel.distributed import init_distributed
+init_distributed(coordinator_address=coord, num_processes=nproc,
+                 process_id=pid)
+sys.path.insert(0, os.path.join(sys.argv[5], "tests"))
+from test_torch_distributed import mesh_case
+from kalign_tpu_torch.parallel.mesh import make_mesh
+mesh = make_mesh(devices=["cpu"] * (8 // nproc))
+assert mesh.size == 8 and mesh.spans_processes
+assert mesh.local == list(range(pid * (8 // nproc), (pid + 1) * (8 // nproc)))
+dm, steps, scores = mesh_case(mesh)
+if pid == 0:
+    np.savez(out, dm=dm, scores=scores,
+             **{f"steps{i}": s for i, s in enumerate(steps)})
+print("child", pid, "ok")
+"""
+
+
+def mesh_case(mesh):
+    """The sharded distances of BB11001 and one sharded merge bucket on
+    deterministic data (test_distributed.py:139-190's case)."""
+    from kalign_tpu_torch import engine as TE
+    from kalign_tpu_torch.core import alphabet as alpha
+    m = tio.read_alignment(os.path.join(DATA, "BB11001.tfa"))
+    m.quiet = True
+    m.essential_input_check()
+    m.dealign()
+    m.sort_len_name()
+    codes = TE._encoded(m, alpha.ALPHA_REDUCED_PROTEIN)
+    lens = np.array([len(c) for c in codes], np.int32)
+    toks = np.zeros((len(codes), lens.max()), np.uint8)
+    for i, c in enumerate(codes):
+        toks[i, :len(c)] = c
+    dm = TM.sharded_anchor_distances(mesh, toks, lens, list(range(4)))
+    rng = np.random.default_rng(0)
+    B, L = 8, 128
+    lhs = rng.normal(size=(B, L, 23)).astype(np.float32)
+    rhs = rng.normal(size=(B, L, 23)).astype(np.float32)
+    pens = np.tile(np.array([-7.0, -1.25, -1.0], np.float32)[None, :, None],
+                   (B, 1, L + 1))
+    la = np.full(B, L - 5, np.int32)
+    lb = np.full(B, L - 3, np.int32)
+    eps = np.full(B, 1e-3, np.float32)
+    steps, scores = TM.sharded_bucket_step(mesh, lhs, rhs, pens, pens, la,
+                                           lb, eps)
+    return dm, steps, scores
+
+
+def _free_port():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _run(code, nproc, *args):
+    """nproc processes of code joined by one gloo group; each must exit
+    0 within TIMEOUT_S."""
+    coord = f"127.0.0.1:{_free_port()}"
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, coord, str(pid), str(nproc),
+         *map(str, args)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for pid in range(nproc)]
+    try:
+        outs = [p.communicate(timeout=TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, o in zip(procs, outs):
+        assert p.returncode == 0, o[-3000:]
+
+
+@pytest.mark.parametrize("nproc,nruns", [(2, 3), (4, 6)])
+def test_processes_split_the_ensemble_and_merge_to_its_bytes(nproc, nruns,
+                                                             tmp_path):
+    """Each process aligns its my_ensemble_runs share; the OR-merged POAR
+    tables give the sequential ensemble's FASTA."""
+    inp = os.path.join(DATA, "small.fa")
+    scratch = str(tmp_path / "scratch")
+    _run(_CHILD_ENSEMBLE, nproc, nruns, inp, scratch)
+    msa = tio.read_inputs([inp])
+    msa.quiet = True
+    got = tio.write_fasta(ensemble_merge(msa, scratch, n_runs=nruns,
+                                         consistency_anchors=5,
+                                         device="cpu"))
+    msa2 = tio.read_inputs([inp])
+    msa2.quiet = True
+    want = tio.write_fasta(ensemble_align(msa2, n_runs=nruns, realign=1,
+                                          consistency_anchors=5,
+                                          device="cpu"))
+    assert got == want
+
+
+@pytest.mark.parametrize("nproc", [2, 4])
+def test_a_mesh_across_processes_equals_one_process(nproc, tmp_path):
+    """nproc processes x 8 / nproc CPU shards form one 8-shard mesh; its
+    sharded distances and bucket equal the one-process 8-shard run's."""
+    out = str(tmp_path / "child.npz")
+    _run(_CHILD_MESH, nproc, out, ROOT)
+    got = np.load(out)
+    dm, steps, scores = mesh_case(TM.make_mesh(devices=["cpu"] * 8))
+    assert np.array_equal(got["dm"], dm)
+    assert np.array_equal(got["scores"], scores)
+    for i, s in enumerate(steps):
+        assert np.array_equal(got[f"steps{i}"], s)
+
+
+def test_one_process_needs_no_group():
+    """init_distributed is a no-op in one process; the run partition and
+    the POAR merge are kalign_tpu's."""
+    from kalign_tpu_torch import poar
+    D.init_distributed()
+    D.init_distributed("127.0.0.1:1", num_processes=1, process_id=0)
+    assert (D.process_index(), D.process_count()) == (0, 1)
+    assert D.my_ensemble_runs(5) == [0, 1, 2, 3, 4]
+    assert D.my_ensemble_runs(7, process_id=1, num_processes=3) == [1, 4]
+    assert D.merge_poar_tables is poar.merge_poar_tables
+    with pytest.raises(ValueError):
+        D.init_distributed(num_processes=2)
+
+
+def test_the_engine_and_the_column_sharded_dp_take_one_process(monkeypatch):
+    """A mesh that spans processes shards distances and buckets; the
+    column-sharded DP and the engine refuse it."""
+    from kalign_tpu_torch.gpu.engine import GpuEngine
+    mesh = TM.make_mesh(devices=["cpu"] * 2)
+    mesh.ranks = np.array([[0, 1]])
+    assert mesh.spans_processes
+    with pytest.raises(ValueError, match="one process"):
+        GpuEngine(mesh=mesh)
+    with pytest.raises(ValueError, match="one process"):
+        TM.sharded_long_gotoh(mesh, np.zeros((4, 4), np.float32),
+                              np.zeros((3, 5), np.float32),
+                              np.zeros((3, 5), np.float32), 4, 4)

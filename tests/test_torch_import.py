@@ -35,7 +35,10 @@ def test_import_leaves_jax_and_kalign_tpu_unloaded():
             "kalign_tpu_torch.io, kalign_tpu_torch.utils.rng, "
             "kalign_tpu_torch.serve, kalign_tpu_torch.warmup, "
             "kalign_tpu_torch.reformat, kalign_tpu_torch.dssim, "
-            "kalign_tpu_torch.core.cmp, kalign_tpu_torch.utils.devtime\n"
+            "kalign_tpu_torch.core.cmp, kalign_tpu_torch.utils.devtime, "
+            "kalign_tpu_torch.parallel.mesh, "
+            "kalign_tpu_torch.parallel.distributed, "
+            "kalign_tpu_torch.gpu.gotoh_mesh\n"
             "kalign_tpu_torch.align, kalign_tpu_torch.compare\n"
             "kalign_tpu_torch.native.lib().kt_consensus_columns\n"
             "bad = [m for m in sys.modules if m in ('jax', 'kalign_tpu') "
@@ -56,7 +59,10 @@ def test_no_jax_or_kalign_tpu_import_in_port_sources():
             "warmup.py", "reformat.py", "dssim.py", os.path.join("core",
                                                                  "cmp.py"),
             os.path.join("utils", "devtime.py"),
-            os.path.join("utils", "__init__.py")} <= names
+            os.path.join("utils", "__init__.py"),
+            os.path.join("parallel", "mesh.py"),
+            os.path.join("parallel", "distributed.py"),
+            os.path.join("gpu", "gotoh_mesh.py")} <= names
     assert len(files) > 20
     for path in files:
         with open(path) as fh:
@@ -88,8 +94,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 def test_unported_options_raise():
     """What the port does not run raises: an unknown mode, and an engine
-    that is not one of its own (kalign_tpu's "tpu-mesh": multi-GPU is not
-    ported).  Engine "auto" is ported: it aligns, on the CPU through
+    that is not one of its own (kalign_tpu's name "tpu-mesh"; the port's
+    multi-GPU engine is "gpu-mesh", which aligns, here on two CPU
+    shards).  Engine "auto" is ported: it aligns, on the CPU through
     "host", and records its choice.  Realign, checkpoints, tree noise and
     mode "precise" are ported: they align."""
     import kalign_tpu_torch
@@ -100,6 +107,12 @@ def test_unported_options_raise():
         kalign_tpu_torch.align(seqs, mode="quick", device="cpu")
     with pytest.raises(ValueError):
         kalign_tpu_torch.align(seqs, engine="tpu-mesh", device="cpu")
+    from kalign_tpu_torch.parallel.mesh import make_mesh
+    mesh_eng = E.get_engine("gpu-mesh", mesh=make_mesh(devices=["cpu"] * 2))
+    msa = kalign_tpu_torch.align_msa(seqs, engine=mesh_eng)
+    assert msa.engine_stats["engine"] == "gpu-mesh"
+    assert msa.engine_stats["shards"] == 2
+    assert [r.replace("-", "") for r in msa.aligned_rows()] == seqs
     msa = kalign_tpu_torch.align_msa(seqs, engine="auto", device="cpu")
     assert msa.engine_stats["engine"] == "host"
     assert [r.replace("-", "") for r in msa.aligned_rows()] == seqs
