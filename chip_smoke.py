@@ -94,7 +94,9 @@ Phases (any failure raises and the script exits non-zero):
      there are several, else MESH_SHARDS on cuda:0, each on its own
      stream): mesh_edge, the band kernel (csrc/gotoh_mesh.cu) bitwise
      against its plain version and the unsplit row DP at 2, 3 and 4
-     shards (MESH_EDGE, and a leading gap run of exactly one band);
+     shards (MESH_EDGE: clusters of one block and of several, of 4 and
+     of 8 columns a thread, and the block route past 114,688 columns,
+     timed there, and a leading gap run of exactly one band);
      "mesh_default", the protein family in default mode on gpu-mesh
      (bpm, bpm_table, prefix_sum, traceback and gotoh_row launched, no
      lanewise or fused launch), and "mesh_long", the long genomes in
@@ -103,8 +105,10 @@ Phases (any failure raises and the script exits non-zero):
      read just after, FASTA equal to one shard's and to gpu-fast's (the
      protein_default / long_default paths'); the mesh_long path's root
      merge rebuilt as the engine builds it, the band kernel held against
-     its plain version and against the cluster row kernel on the same
-     match, timed beside them and its bound; mesh_procs, MESH_PROCS
+     its plain version, the cluster row kernel on the same match and PR
+     13's block route forced at its widths, timed beside them with its
+     bound and the host's enqueue (the sweeps that chose the plan run
+     only under --only mesh_sweep); mesh_procs, MESH_PROCS
      processes under init_distributed with two shards each: their
      sharded distances and bucket equal to one process's, and small.fa's
      3-run ensemble split by my_ensemble_runs and merged equal to the
@@ -244,7 +248,13 @@ KERNELS = {
                     "_sweep_batch (XLA, not Pallas)"),
     "gotoh_mesh": ("kalign_tpu_torch/csrc/gotoh_mesh.cu",
                    "kalign_tpu/parallel/mesh.py:288 sharded_long_gotoh "
-                   "(shard_map + lax.ppermute; XLA, not Pallas)"),
+                   "(shard_map + lax.ppermute; XLA, not Pallas); the "
+                   "block route, bands past 114,688 columns"),
+    "gotoh_mesh_cluster": ("kalign_tpu_torch/csrc/gotoh_mesh.cu",
+                           "kalign_tpu/parallel/mesh.py:288 "
+                           "sharded_long_gotoh (shard_map + lax.ppermute; "
+                           "XLA, not Pallas); bands up to 114,688 columns "
+                           "(a thread-block cluster)"),
 }
 # a substring of each kernel's name in a torch.profiler trace
 PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
@@ -256,7 +266,8 @@ PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
                  "gotoh_row_cluster": "gotoh_row_cluster_kernel",
                  "kmeans": "lloyd_kernel",
                  "exact_sweep": "exact_sweep_kernel",
-                 "gotoh_mesh": "gotoh_band_block_kernel"}
+                 "gotoh_mesh": "gotoh_band_block_kernel",
+                 "gotoh_mesh_cluster": "gotoh_band_cluster_kernel"}
 # the paths: mode, the kernels the path must launch (and those it must
 # not), refinement, whether the host-assembled pass runs too (it would
 # take minutes at 16,384 sequences, and densify a 378 MB bonus per
@@ -265,7 +276,8 @@ PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
 # cluster row kernel
 NARROW = [k for k in KERNELS
           if k not in ("gotoh_fused", "gotoh_row_tiled", "gotoh_row_cluster",
-                       "kmeans", "exact_sweep", "gotoh_mesh")]
+                       "kmeans", "exact_sweep", "gotoh_mesh",
+                       "gotoh_mesh_cluster")]
 WIDE = ["bpm", "bpm_table", "prefix_sum", "traceback", "gotoh_row_cluster"]
 PATHS = {"fast": dict(mode="fast", launch=NARROW),
          "default": dict(mode="default", launch=NARROW + ["gotoh_fused"]),
@@ -2149,6 +2161,7 @@ def counters():
     out["bpm_table"] = (bpm, "table_launches")
     out["gotoh_row_tiled"] = (gotoh_row, "tiled_launches")
     out["gotoh_row_cluster"] = (gotoh_row, "cluster_launches")
+    out["gotoh_mesh_cluster"] = (gotoh_mesh, "cluster_launches")
     return out
 
 
@@ -3096,7 +3109,8 @@ def phase_gpu_vs_cpu():
                 if not same:
                     raise AssertionError(f"{name}: GPU and CPU alignments "
                                          "differ")
-                if launches[name]["gotoh_mesh"] == 0 or \
+                if launches[name]["gotoh_mesh"] + \
+                        launches[name]["gotoh_mesh_cluster"] == 0 or \
                         outs["cpu"][3]["long_merges"] == 0:
                     raise AssertionError(f"{name}: the column-sharded route "
                                          "did not run")
@@ -3118,24 +3132,39 @@ def phase_gpu_vs_cpu():
 MESH_SHARDS = 4
 # what the mesh paths must launch and must not: their consistency maps and
 # merges take the row kernel (the lanewise and fused routes are off on a
-# mesh, tpu/engine.py:264-270); long_default's last levels the band kernel
+# mesh, tpu/engine.py:264-270); long_default's last levels the band
+# kernel's cluster route (bands of ~2,500 columns on 4 shards)
 MESH_PATHS = {
     "mesh_default": dict(launch=["bpm", "bpm_table", "prefix_sum",
                                  "traceback", "gotoh_row"],
                          forbid=["gotoh_lanewise", "gotoh_fused"],
                          gpu_fast="protein_default"),
     "mesh_long": dict(launch=["bpm", "bpm_table", "prefix_sum", "traceback",
-                              "gotoh_row_cluster", "gotoh_mesh"],
+                              "gotoh_row_cluster", "gotoh_mesh_cluster"],
                       forbid=["gotoh_lanewise", "gotoh_fused",
-                              "gotoh_row_tiled"],
+                              "gotoh_row_tiled", "gotoh_mesh"],
                       gpu_fast="long_default")}
 # the band kernel's edge cases: (shards, L1, W, la, lb, rows a block)
-MESH_EDGE = [(2, 600, 1536, 600, 1536, 256),   # L1 not a multiple of R
+MESH_EDGE = [(2, 600, 1536, 600, 1536, 256),   # L1 not a multiple of R;
+                                               # clusters of 3
              (3, 600, 1000, 555, 1000, 256),   # W not a multiple, la < L1
              (4, 520, 2048, 517, 2000, 128),   # lb < W
-             (4, 300, 1024, 300, 100, 64),     # lb inside the first band
+             (4, 300, 1024, 300, 100, 64),     # lb inside the first band;
+                                               # clusters of 1
              (3, 200, 700, 0, 700, 64),        # la = 0
-             (2, 200, 512, 150, 0, 64)]        # lb = 0
+             (2, 200, 512, 150, 0, 64),        # lb = 0
+             # bands of 2,496 columns (not a multiple of 128) padded to
+             # 2,560, the root merge's
+             (4, 300, 9984, 290, 9890, 256),
+             # bands of 8,192: clusters of 16 blocks of 512 columns
+             (2, 300, 16384, 297, 12000, 128),
+             # bands of 20,480: clusters of 16 blocks of 1,280 columns,
+             # 8 a thread
+             (2, 64, 40960, 64, 40000, 64),
+             # bands of 114,816: the block route
+             (2, 64, 229632, 64, 229000, 64)]
+# the band kernel's instantiations by route: their names in KERNELS
+MESH_ROUTES = {"cluster": "gotoh_mesh_cluster", "block": "gotoh_mesh"}
 # mesh_procs: processes on the card, each with two shards
 MESH_PROCS = 2
 MESH_PROCS_TIMEOUT_S = 300
@@ -3205,15 +3234,21 @@ def band_run(mesh, bands, prep, Wp, la, lb, rows=None, plain=False):
     return dec[0], score, st
 
 
-def hold_band(what, got, want, la, lb):
+def hold_band(what, got, want, la, lb, name="gotoh_mesh"):
     """Decisions equal on rows < la, columns < lb; score bitwise; state."""
     import torch
     (da, sa, sta), (db, sb, stb) = got, want
-    ok = (torch.equal(da[:la, :lb].cpu(), db[:la, :lb].cpu())
+    diff = (da[:la, :lb].cpu() != db[:la, :lb].cpu()).nonzero()
+    ok = (len(diff) == 0
           and torch.equal(sa.cpu().view(torch.int32),
                           sb.cpu().view(torch.int32))
           and torch.equal(sta.cpu(), stb.cpu()))
-    hold("gotoh_mesh", ok, abs_err(sa.cpu(), sb.cpu()), what)
+    if not ok:
+        what += (f" ({len(diff)} decisions differ, the first at "
+                 f"{diff[:3].tolist()}; scores {sa.tolist()} / "
+                 f"{sb.tolist()}, end states {sta.tolist()} / "
+                 f"{stb.tolist()})")
+    hold(name, ok, abs_err(sa.cpu(), sb.cpu()), what)
 
 
 def row_plain_of(match, pc, pr, la, lb, dev, eps=1e-3):
@@ -3234,10 +3269,13 @@ def phase_mesh_edge(dev):
     """The band kernel against its plain version on the card, bitwise
     (decisions in the valid region, score, end state), and both against
     the unsplit row DP's plain version: MESH_EDGE at 2, 3 and 4 shards
-    (W a multiple of the shard count and not, L1 not a multiple of the
-    block's rows, la < L1, lb inside the first band, la = 0, lb = 0) and
-    the leading gap run of exactly one band (test_mesh_engine.py:114-150)
-    at 2 and 4 shards, blocks of 5 rows."""
+    (W a multiple of the shard count and not, bands padded to 128
+    columns, L1 not a multiple of the block's rows, la < L1, lb inside
+    the first band, la = 0, lb = 0, a cluster-route and a block-route
+    case) and the leading gap run of exactly one band
+    (test_mesh_engine.py:114-150) at 2 and 4 shards, blocks of 5 rows.
+    Each case is held under its route's name (MESH_ROUTES).  Returns the
+    block route's timing at its case (band_timing)."""
     import torch
     from kalign_tpu_torch.gpu import gotoh_mesh
     from kalign_tpu_torch.gpu import traceback as tb
@@ -3245,7 +3283,7 @@ def phase_mesh_edge(dev):
     cases = [(n, L1, W, la, lb, rows, band_problem(rng, L1, W))
              for n, L1, W, la, lb, rows in MESH_EDGE]
     for n in (2, 4):
-        Wd, la = 64, 24
+        Wd, la = 128, 24
         W = Wd * n
         match = np.full((la, W), -10.0, np.float32)
         for i in range(la):
@@ -3255,18 +3293,23 @@ def phase_mesh_edge(dev):
         pr = np.tile(np.array([[-8.0], [-4.0], [-0.5]], np.float32),
                      (1, la + 1))
         cases.append((n, la, W, la, W, 5, (match, pc, pr)))
-    before = gotoh_mesh.launches
-    out = []
+    before = read_counts()
+    out, timed = [], None
     for n, L1, W, la, lb, rows, (match, pc, pr) in cases:
         mesh = mesh_of(n)
         eps = 0.0 if rows == 5 else 1e-3
         ops = band_operands(mesh, match, pc, pr, la, lb, eps)
+        cfg = gotoh_mesh.band_config(ops[2] // n)
+        name = MESH_ROUTES[cfg.route]
         got = band_run(mesh, *ops, la, lb, rows)
-        what = f"{n} shards {L1}x{W} la={la} lb={lb} rows={rows}"
-        hold_band(what + " vs plain", got,
-                  band_run(mesh, *ops, la, lb, rows, plain=True), la, lb)
+        what = (f"{n} shards {L1}x{W} la={la} lb={lb} rows={rows} "
+                f"({cfg.route}, bands of {ops[2] // n})")
+        plain, plain_ms = timed_once(
+            lambda: band_run(mesh, *ops, la, lb, rows, plain=True))
+        hold_band(what + " vs plain", got, plain, la, lb, name)
         hold_band(what + " vs the unsplit row DP", got,
-                  row_plain_of(match, pc, pr, la, lb, dev, eps), la, lb)
+                  row_plain_of(match, pc, pr, la, lb, dev, eps), la, lb,
+                  name)
         if rows == 5:
             t = lambda x: torch.tensor([x], dtype=torch.int32, device=dev)
             steps, k = tb.walk_rows(got[0][None].contiguous(), t(la), t(lb),
@@ -3276,10 +3319,35 @@ def phase_mesh_edge(dev):
             if path[:Wd] != [1] * Wd or path[Wd] != 0:
                 raise AssertionError(f"{what}: the leading gap run is not "
                                      f"one band wide: {path[:Wd + 1]}")
+        if cfg.route == "block" and timed is None:
+            timed = band_timing(mesh, ops, la, lb, rows, plain_ms)
+            timed["shape"] = what
         out.append(what)
     emit({"phase": "mesh_edge", "cases": out,
-          "launches": gotoh_mesh.launches - before,
-          "devices": mesh_devices()})
+          "launches": {k: v - before[k] for k, v in read_counts().items()
+                       if k in MESH_ROUTES.values()},
+          "devices": mesh_devices(), "block_route": timed})
+    return timed
+
+
+def band_timing(mesh, ops, la, lb, rows, plain_ms):
+    """A band case's main_shape entry: one call's wall (ms), the
+    pipeline's device time and the host's enqueue time (mesh_device_ms),
+    the plain version's wall, the bytes bound of its la x lb cells."""
+    import torch
+    from kalign_tpu_torch.gpu import gotoh_mesh
+    bands, prep, Wp = ops
+    _, ms = timed_once(lambda: band_run(mesh, *ops, la, lb, rows))
+    dev_ms, enqueue_ms = mesh_device_ms(mesh, lambda: gotoh_mesh.forward(
+        mesh.shards, bands, prep, la, lb, rows))
+    t = lambda x: torch.tensor([x], dtype=torch.int32)
+    b_ms, b_by = gotoh_bound(dict(la=t(la), lb=t(lb)), 1)
+    cfg = gotoh_mesh.band_config(Wp // mesh.size)
+    return dict(ms=round(ms, 3), device_ms=round(dev_ms, 3),
+                enqueue_ms=round(enqueue_ms, 3), plain_ms=round(plain_ms, 3),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                shards=mesh.size, cards=mesh.cards, rows_per_block=rows,
+                launches_per_shard=-(-la // rows), plan=cfg._asdict())
 
 
 def align_on_mesh(seqs, mode, mesh):
@@ -3355,10 +3423,10 @@ def phase_mesh_path(name, seqs, mode="default"):
 
 
 def mesh_device_ms(mesh, run):
-    """Device ms of run(), work queued on the mesh's streams: every shard
-    held behind a spin kernel on the first shard's stream (doubled until
-    it outlasts the host's enqueueing), then joined back onto it; CUDA
-    events around it there."""
+    """(device ms, the host's enqueue ms) of run(), work queued on the
+    mesh's streams: every shard held behind a spin kernel on the first
+    shard's stream (doubled until it outlasts the host's enqueueing),
+    then joined back onto it; CUDA events around it there."""
     import torch
     from kalign_tpu_torch.gpu import gotoh_mesh
     shards = mesh.shards
@@ -3374,41 +3442,101 @@ def mesh_device_ms(mesh, run):
             t0.record(s0)
         for sh in shards[1:]:
             sh.stream.wait_event(t0)
+        h1 = time.perf_counter()
         run()
+        enqueue_ms = (time.perf_counter() - h1) * 1e3
         for sh in shards[1:]:
             s0.wait_event(gotoh_mesh.event(sh))
         t1.record(s0)
         host_ms = (time.perf_counter() - h0) * 1e3
         torch.cuda.synchronize()
         if spin.elapsed_time(t0) > host_ms:
-            return t0.elapsed_time(t1)
+            return t0.elapsed_time(t1), enqueue_ms
         cycles *= 2
     raise AssertionError("the spin kernel never outlasted the host's "
                          "enqueueing")
 
 
-def mesh_root_merge(dev, seen):
+@contextmanager
+def forced_plan(plan):
+    """gotoh_mesh.band_config forced to plan(Wd) at every width, for an
+    A/B of the routes on one merge."""
+    from kalign_tpu_torch.gpu import gotoh_mesh
+    orig = gotoh_mesh.band_config
+    gotoh_mesh.band_config = plan
+    try:
+        yield
+    finally:
+        gotoh_mesh.band_config = orig
+
+
+def block_plan(Wd):
+    """The block route (the first design's kernel) at any width."""
+    from kalign_tpu_torch.gpu import gotoh_mesh
+    from kalign_tpu_torch.gpu.gotoh_row import RowLaunch
+    return RowLaunch("block", gotoh_mesh.threads_for(Wd), 1, 0, 1, Wd)
+
+
+def cluster_plan(blocks, ch):
+    """The cluster route with clusters of ``blocks`` and ch columns a
+    thread at any width they cover exactly (with the strip ring)."""
+    from kalign_tpu_torch.gpu import gotoh_mesh, gotoh_row
+
+    def plan(Wd):
+        return gotoh_mesh.with_ring(
+            gotoh_row.band_config(blocks, Wd // blocks, ch))
+    return plan
+
+
+def widest_merge(seen):
     """The mesh_long path's widest column-sharded merge (its root) rebuilt
-    from its recorded arguments as long_merge builds it: the band kernel
-    held against its plain version on the card and against the cluster
-    row kernel on the same match (the bands gathered; dec in the valid
-    region, score, end state); the pipeline's wall and device time
-    (mesh_device_ms) beside the cluster kernel's device time on that
-    match (device_ms) and the bytes bound (a match read and a decision
-    written per cell)."""
-    import torch
-    from kalign_tpu_torch.gpu import gotoh_row
+    from its recorded arguments as long_merge builds it: (the arguments,
+    (bands, prep, Wp), its shape's name)."""
     from kalign_tpu_torch.parallel import mesh as M
     args = max(seen, key=lambda a: int(a[5]) * int(a[6]))
     mesh, lhs, rhs, pc, pr, la, lb, eps, bonus = args[:9]
-    L1p, L2p = lhs.shape[0], rhs.shape[0]
-    bands, prep, Wp = M.long_operands(mesh, lhs, rhs, pc, pr, la, lb, eps,
-                                      bonus)
-    got, ms = timed_once(lambda: band_run(mesh, bands, prep, Wp, la, lb))
+    ops = M.long_operands(mesh, lhs, rhs, pc, pr, la, lb, eps, bonus)
+    return args, ops, (f"1x{lhs.shape[0]}x{rhs.shape[0]} la={la} lb={lb} "
+                       f"over {mesh.size} shards")
+
+
+def band_device_ms(mesh, ops, la, lb, rows=None):
+    """(device ms, the host's enqueue ms) of one gotoh_mesh.forward."""
+    from kalign_tpu_torch.gpu import gotoh_mesh
+    bands, prep, _ = ops
+    return mesh_device_ms(mesh, lambda: gotoh_mesh.forward(
+        mesh.shards, bands, prep, la, lb, rows or gotoh_mesh.BLOCK_ROWS))
+
+
+def mesh_root_merge(dev, seen):
+    """The mesh_long path's root merge (widest_merge): the band kernel
+    held against its plain version on the card, against the cluster row
+    kernel on the same match (the bands gathered; dec in the valid
+    region, score, end state) and against the block route (PR 13's
+    kernel) forced at the same widths; the pipeline's wall, device time
+    and host enqueue time (mesh_device_ms) beside the block route's, the
+    cluster row kernel's device time on that match (device_ms) and the
+    bytes bound (a match read and a decision written per cell).  Returns
+    the main_shape entries of the route taken and of the block route."""
+    import torch
+    from kalign_tpu_torch.gpu import gotoh_row
+    from kalign_tpu_torch.parallel import mesh as M
+    G = M.gotoh_mesh
+    args, ops, shape = widest_merge(seen)
+    mesh, _, rhs, pc, pr, la, lb, eps, bonus = args[:9]
+    bands, prep, Wp = ops
+    L2p = rhs.shape[0]
+    cfg = G.band_config(Wp // mesh.size)
+    name = MESH_ROUTES[cfg.route]
+    got, ms = timed_once(lambda: band_run(mesh, *ops, la, lb))
     plain, plain_ms = timed_once(
-        lambda: band_run(mesh, bands, prep, Wp, la, lb, plain=True))
-    shape = f"1x{L1p}x{L2p} la={la} lb={lb} over {mesh.size} shards"
-    hold_band(shape + " vs plain", got, plain, la, lb)
+        lambda: band_run(mesh, *ops, la, lb, plain=True))
+    hold_band(shape + " vs plain", got, plain, la, lb, name)
+    with forced_plan(block_plan):
+        old, old_wall = timed_once(lambda: band_run(mesh, *ops, la, lb))
+        old_ms, old_enqueue = band_device_ms(mesh, ops, la, lb)
+    hold_band(shape + " vs the block route", old, plain, la, lb,
+              "gotoh_mesh")
     # the same match on one card, through the cluster row kernel
     full = torch.cat([b.to(dev) for b in bands], dim=1)[None, :, :L2p]
     full = full.contiguous()
@@ -3422,25 +3550,119 @@ def mesh_root_merge(dev, seen):
         slope, e = zero, zero
     prep1 = gotoh_row.prepare(t(pc[None], np.float32),
                               t(pr[None], np.float32), la_d, lb_d, slope, e)
-    cfg = gotoh_row.launch_config(1, L2p)
+    row_cfg = gotoh_row.launch_config(1, L2p)
     cluster = gotoh_row.launch(full, prep1, la_d, lb_d)
     hold_band(shape + " vs the cluster row kernel", got,
-              (cluster[0][0], cluster[1], cluster[2]), la, lb)
-    dev_ms = mesh_device_ms(mesh, lambda: M.gotoh_mesh.forward(
-        mesh.shards, bands, prep, la, lb))
+              (cluster[0][0], cluster[1], cluster[2]), la, lb, name)
+    dev_ms, enqueue_ms = band_device_ms(mesh, ops, la, lb)
     cluster_ms = device_ms(lambda: gotoh_row.launch(full, prep1, la_d, lb_d),
                            reps=3)
     b_ms, b_by = gotoh_bound(dict(la=la_d, lb=lb_d), 1)
-    out = dict(shape=shape, ms=round(ms, 3), device_ms=round(dev_ms, 3),
-               plain_ms=round(plain_ms, 3), bound_ms=b_ms, bound_by=b_by,
-               library_ms=None, shards=mesh.size, cards=mesh.cards,
-               rows_per_block=M.gotoh_mesh.BLOCK_ROWS,
-               launches_per_shard=-(-la // M.gotoh_mesh.BLOCK_ROWS),
-               threads=M.gotoh_mesh.threads_for(Wp // mesh.size),
+    common = dict(shape=shape, plain_ms=round(plain_ms, 3), bound_ms=b_ms,
+                  bound_by=b_by, library_ms=None, shards=mesh.size,
+                  cards=mesh.cards, band=Wp // mesh.size,
+                  rows_per_block=G.BLOCK_ROWS,
+                  launches_per_shard=-(-la // G.BLOCK_ROWS))
+    out = dict(ms=round(ms, 3), device_ms=round(dev_ms, 3),
+               enqueue_ms=round(enqueue_ms, 3), **common,
+               route=cfg.route, ch=cfg.ch, threads=cfg.threads,
+               cluster_blocks=cfg.blocks,
+               block_route_device_ms=round(old_ms, 3),
                cluster_device_ms=round(cluster_ms, 3),
-               cluster_plan=cfg._asdict())
-    emit({"phase": "main_shape", "kernel": "gotoh_mesh", **out})
+               cluster_plan=row_cfg._asdict())
+    block = dict(ms=round(old_wall, 3), device_ms=round(old_ms, 3),
+                 enqueue_ms=round(old_enqueue, 3), **common, route="block",
+                 threads=G.threads_for(Wp // mesh.size))
+    emit({"phase": "main_shape", "kernel": name, **out})
+    emit({"phase": "main_shape", "kernel": "gotoh_mesh", **block})
+    return out, block
+
+
+# the sweeps that chose band_config and BLOCK_ROWS (--only mesh_sweep):
+# rows a block (the pipeline's fill is (shards - 1) blocks; each launch
+# costs the host an enqueue), and cluster plans (blocks, columns a thread)
+# at the root merge's bands of 2,560 columns and at bands of SWEEP_WIDTH
+BLOCK_ROWS_SWEEP = (256, 512, 1024)
+CLUSTER_SWEEP = {2560: ((1, 8), (2, 4), (4, 4), (5, 4), (10, 4)),
+                 8192: ((2, 8), (4, 8), (8, 4), (16, 4))}
+SWEEP_ROWS, SWEEP_SHARDS = 2048, 2
+
+
+def sweep_band(mesh, ops, la, lb, shape):
+    """Device ms (and the host's enqueue ms) of the band pipeline on one
+    problem under band_config's plan at each of BLOCK_ROWS_SWEEP and under
+    each CLUSTER_SWEEP plan of its band width at BLOCK_ROWS, each forced
+    plan held bitwise against band_config's."""
+    from kalign_tpu_torch.gpu import gotoh_mesh
+    Wd = ops[2] // mesh.size
+    cfg = gotoh_mesh.band_config(Wd)
+    got = band_run(mesh, *ops, la, lb)
+    rows = {}
+    for r in BLOCK_ROWS_SWEEP:
+        d_ms, e_ms = band_device_ms(mesh, ops, la, lb, r)
+        rows[r] = dict(device_ms=round(d_ms, 3), enqueue_ms=round(e_ms, 3),
+                       launches_per_shard=-(-la // r))
+    plans = {}
+    for blocks, ch in CLUSTER_SWEEP[Wd]:
+        with forced_plan(cluster_plan(blocks, ch)):
+            other = band_run(mesh, *ops, la, lb)
+            d_ms, _ = band_device_ms(mesh, ops, la, lb)
+        hold_band(f"{shape} under clusters of {blocks} x {ch}", other, got,
+                  la, lb, "gotoh_mesh_cluster")
+        plans[f"{blocks}x{Wd // blocks}x{ch}"] = round(d_ms, 3)
+    out = dict(shape=shape, band=Wd, plan=cfg._asdict(), rows_sweep=rows,
+               cluster_sweep_device_ms=plans)
+    emit({"phase": "mesh_sweep", **out})
     return out
+
+
+def phase_mesh_sweep(seen):
+    """sweep_band at the mesh_long root merge (widest_merge) and on a
+    random SWEEP_ROWS-row problem of SWEEP_SHARDS bands of 8,192 columns
+    (the second width of CLUSTER_SWEEP)."""
+    args, ops, shape = widest_merge(seen)
+    sweep_band(args[0], ops, args[5], args[6], shape)
+    mesh = mesh_of(SWEEP_SHARDS)
+    W = 8192 * SWEEP_SHARDS
+    match, pc, pr = band_problem(np.random.default_rng(17), SWEEP_ROWS, W)
+    ops = band_operands(mesh, match, pc, pr, SWEEP_ROWS, W)
+    sweep_band(mesh, ops, SWEEP_ROWS, W,
+               f"1x{SWEEP_ROWS}x{W} over {SWEEP_SHARDS} shards")
+
+
+def profile_mesh_host(top=30):
+    """The host side of the mesh_long path (the long genomes on gpu-mesh,
+    default mode) under cProfile, after a warm-up on 8 of them: the
+    wall, the progressive pass's host split and the functions that took
+    the most host time (their own, tottime, and with their callees,
+    cumtime).  cProfile slows the Python side, so the wall is longer
+    than an unprofiled run's."""
+    import cProfile
+    import pstats
+    seqs = long_genomes()
+    mesh = mesh_of()
+    align_on_mesh(seqs[:8], "default", mesh)
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    msa, _ = align_on_mesh(seqs, "default", mesh)
+    prof.disable()
+    wall = time.perf_counter() - t0
+    rows = []
+    for (path, line, fn), (_, nc, tt, ct, _) in \
+            pstats.Stats(prof).stats.items():
+        rows.append(dict(fn=f"{os.path.relpath(path, HERE)}:{line}:{fn}"
+                         if path.startswith(HERE) else f"{path}:{fn}",
+                         calls=nc, tottime=round(tt, 3),
+                         cumtime=round(ct, 3)))
+    es = msa.engine_stats
+    emit({"phase": "profile_host", "path": "mesh_long",
+          "sequences": len(seqs), "wall_s": wall, "shards": mesh.size,
+          "cards": mesh.cards,
+          **{k: es.get(k) for k in ("engine", "long_merges", "row_merges",
+                                    "progressive_split_s")},
+          "by_tottime": sorted(rows, key=lambda r: -r["tottime"])[:top],
+          "by_cumtime": sorted(rows, key=lambda r: -r["cumtime"])[:top]})
 
 
 def mesh_proc(rank, nproc, port, work, device):
@@ -3578,14 +3800,17 @@ def large_family():
 def run_only(dev, only, divergent_n=DIVERGENT_N):
     """The phases named in ``--only`` (comma-separated: edge, kmeans_edge,
     kmeans, exact_edge, path:NAME, profile:NAME, vs, goldens, mesh_edge,
-    path:mesh_default, path:mesh_long, mesh_procs), for a short call; no
-    result lines.  path:precise runs phase_precise,
+    path:mesh_default, path:mesh_long, mesh_sweep, profile:mesh_long,
+    mesh_procs), for a short call; no result lines.  mesh_sweep runs
+    phase_mesh_sweep on the merges of path:mesh_long (run here first
+    where it was not named before it).  path:precise runs phase_precise,
     path:serve phase_serve.  path:divergent also holds and times the sweep at
     its largest launch, path:long_default the cluster row kernel at its
     largest map-DP and progressive launches."""
     protein = lambda: family(2000, seed=0)
     seqs = {"default": lambda: v4_family(2000, seed=2),
             "large_default": large_family, "long_default": long_genomes}
+    seen = None
     for what in only.split(","):
         if what == "edge":
             phase_edge_cases(dev)
@@ -3611,12 +3836,17 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
             phase_goldens(dev)
         elif what == "path:serve":
             phase_serve(dev)
-        elif what in ("path:mesh_default", "path:mesh_long"):
-            name = what.split(":")[1]
-            _, _, seen = phase_mesh_path(
-                name, long_genomes() if name == "mesh_long" else protein())
-            if name == "mesh_long":
-                mesh_root_merge(dev, seen)
+        elif what == "path:mesh_default":
+            phase_mesh_path("mesh_default", protein())
+        elif what == "path:mesh_long":
+            _, _, seen = phase_mesh_path("mesh_long", long_genomes())
+            mesh_root_merge(dev, seen)
+        elif what == "mesh_sweep":
+            if seen is None:
+                _, _, seen = phase_mesh_path("mesh_long", long_genomes())
+            phase_mesh_sweep(seen)
+        elif what == "profile:mesh_long":
+            profile_mesh_host()
         elif what.startswith(("path:", "profile:")):
             kind, path = what.split(":")
             s = seqs.get(path, protein)()
@@ -3682,11 +3912,11 @@ def main(argv=None):
         seqs["divergent"])
     launches["precise"], precise_row = phase_precise(dev, precise_family())
     launches["serve"] = phase_serve(dev)
-    phase_mesh_edge(dev)
+    block_own = phase_mesh_edge(dev)
     for name, path in (("mesh_default", "protein_default"),
                        ("mesh_long", "long_default")):
         launches[name], stats[name], seen = phase_mesh_path(name, seqs[path])
-    mesh_root = mesh_root_merge(dev, seen)
+    mesh_root, mesh_block = mesh_root_merge(dev, seen)
     phase_mesh_procs()
     for path in list(PATHS) + ["divergent"]:
         if PATHS.get(path, {}).get("profile", True):
@@ -3703,7 +3933,8 @@ def main(argv=None):
     shapes["gotoh_row_tiled"] = tiled_main_shape(dev)
     shapes["kmeans"] = kmeans_root
     shapes["exact_sweep"] = sweep_main_shape(dev, sweep_largest)
-    shapes["gotoh_mesh"] = mesh_root
+    shapes[MESH_ROUTES[mesh_root["route"]]] = mesh_root
+    shapes["gotoh_mesh"] = dict(mesh_block, own_width=block_own)
     emit({"phase": "main_shape", "kernel": "exact_sweep",
           **shapes["exact_sweep"]})
     kernels = []
@@ -3713,7 +3944,8 @@ def main(argv=None):
                 "gotoh_row_tiled": (),
                 "kmeans": ("large_default",),
                 "exact_sweep": ("divergent",),
-                "gotoh_mesh": ("mesh_long",)}.get(name, ("default",))
+                "gotoh_mesh": ("mesh_long",),
+                "gotoh_mesh_cluster": ("mesh_long",)}.get(name, ("default",))
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,

@@ -1,51 +1,64 @@
-/* Column-band Gotoh kernel: one block of rows of one DP problem whose
+/* Column-band Gotoh kernels: one block of rows of one DP problem whose
  * columns are split over several shards (cards, or streams of one card).
  *
- * Replaces kalign_tpu/parallel/mesh.py::sharded_long_gotoh (:288), a
+ * Replace kalign_tpu/parallel/mesh.py::sharded_long_gotoh (:288), a
  * shard_map program that hands a 4-float halo to the next device once
  * per DP row by lax.ppermute.  Here the handoff is per block of R rows:
  * shard d owns the columns [c0, c0 + Wd) and, at host step s, runs its
- * block s - d on its own stream (gpu/gotoh_mesh.py::forward).  A block
+ * block s - d on its own stream (gpu/gotoh_mesh.py::schedule).  A block
  * reads the left neighbour's strip [R + 1][5] — for the row above the
  * block and each row in it: A, GA and GB at the neighbour's last column,
  * the prefix max of u over every column up to it, and u there — and
  * writes its own strip for the shard on its right.  The band's last-row
  * state A, GA, GB stays on its card between launches in a [2][3][Wd]
- * buffer (one slot per row parity).
+ * buffer: a launch reads slot r0 & 1 and leaves its last row in slot
+ * (r0 + nr) & 1.
  *
  * The arithmetic is the row kernel's (csrc/gotoh_row.cu, gpu/gotoh_row.py
  * ::plain) cell by cell, on the same row-invariant vectors (the prefix
- * sums of gotoh_row.prepare, sliced to the band): the diagonal
- * candidates, A, GB and u = A + (go[j+1] - C[j+1]) left to right, the
- * prefix max of u seeded by the strip's carry, GA = shifted prefix max +
- * C, the decision bits.  A prefix max is exact in any association, so
- * with -fmad=false every band gives the bits the unsplit row kernel
- * gives.  The first band injects the analytic DP column 0 (A = 0 on row
- * 1, GA = NEG, GB the terminal column-0 gap run); the strip of a block's
- * row above carries row 0's state [NEG, GA0, NEG] for block 0, the
- * step-0 packet of mesh.py:456-464.
+ * sums of gotoh_row.prepare, sliced to the band).  A prefix max is exact
+ * in any association, so with -fmad=false every band gives the bits the
+ * unsplit row kernel gives.  The first band keeps the analytic DP column
+ * 0; the strip of a block's row above carries row 0's state [NEG, GA0,
+ * NEG] for block 0, the step-0 packet of mesh.py:456-464.
  *
- * Design (simple first): one block per band, a thread per column of a
- * tile of blockDim.x columns; a row walks the band's tiles left to right
- * with a warp-shuffle scan of u per tile and the warp maxima in shared
- * memory (one barrier a tile, two slot parities), the running carry
- * handed from tile to tile in registers; the previous row's state is
- * read from the global state buffer (L1/L2-resident), so every row ends
- * with a barrier.
+ * Design: the row kernel's body (gotoh_row_body.cuh: the state of a
+ * thread's CH columns in registers, the match through a cp.async ring,
+ * the invariants in shared memory, one barrier per row) with a third
+ * edge, StripHalo: thread 0 takes its diagonal left neighbour and the
+ * prefix-max carry from the left band's strip (copied rows ahead into a
+ * shared-memory ring), and the thread holding the band's last column
+ * writes this band's strip row.  A launch loads the band's state from
+ * the state buffer into registers once and stores it back once.  Routes,
+ * by the band's width alone (gpu/gotoh_mesh.py::band_config):
+ *   - gotoh_band_cluster_kernel, up to 16 x 7,168 = 114,688 columns: one
+ *     thread-block cluster of S <= 16 blocks per band (S = 1 up to 256
+ *     columns), the blocks covering the band exactly, each a band of
+ *     its own handing a halo to block k + 1 every row through
+ *     distributed shared memory (the cluster row kernel's ClusterHalo),
+ *     block 0 reading the left band's strip, block S - 1 writing this
+ *     one's.  Narrow blocks make a short row: one block of 2,560 columns
+ *     took 1.7 us a row on an H100, ten of 256 0.77 (PERF.md);
+ *   - gotoh_band_block_kernel, past 114,688 columns: one block walks
+ *     each row in tiles of up to 1,024 columns, a thread per column, the
+ *     previous row's state read from the global state buffer, a barrier
+ *     per tile and per row (the first design, kept so that no width
+ *     raises).
  *
  * Bound: device-memory bytes — each cell's 4-byte match value read once
- * and its decision byte written once (the state buffer stays in L2).
- * What the design leaves on the table: a barrier per tile and per row
- * on a dependent chain of rows, and one block per band on a card of 132
- * SMs.  A cluster per band, or a persistent kernel with peer stores and
- * flags in place of one launch per block of rows, is later work.
+ * and its decision byte written once.  What bounds the register routes
+ * is the latency of a row on the dependent chain (one barrier, the
+ * block's prefix max, for a cluster the halo), as for the row kernel,
+ * plus a launch's start (the state, the invariants, the ring's first
+ * rows) every R rows.
  */
-#include "kt_cuda.h"
+#include "gotoh_row_body.cuh"
 
 namespace {
 
 constexpr int kStrip = 5;          // floats per strip row
-constexpr int kMaxThreads = 1024;
+constexpr int kStripSlot = 8;      // floats per slot of the strip ring
+constexpr int kMaxThreads = 1024;  // gotoh_band_block_kernel
 constexpr unsigned kFull = 0xffffffffu;
 
 struct BandArgs {
@@ -54,22 +67,159 @@ struct BandArgs {
   const float* rowpen;    // [L1p][5] goA, geA, tgeA, goA_prev, gb0_prev
   const float* cols_eps;  // [Wd]
   const float* row_term;  // [L1p]
-  float* state;           // [2][3][Wd] A, GA, GB by row parity
+  float* state;           // [2][3][Wd] A, GA, GB (see above)
   const float* strip_in;  // [R + 1][kStrip] (unused on the first band)
   float* strip_out;       // [R + 1][kStrip]
   int8_t* dec;            // [L1p][Wd]
   int Wd, r0, nr, la, lb, c0, first;
 };
 
-__device__ __forceinline__ float warp_incl_max(float v, int lane) {
+/* The edge of a band whose left neighbour is another launch's band: its
+ * strip, rows r0 .. r0 + nr.  Thread 0 copies strip row q + 1 (what row
+ * q of the launch receives) into a ring of kRing slots in shared memory
+ * with cp.async as the match row q is copied ahead, in the same commit
+ * group; its wait on that group and the row's barrier make the slot
+ * visible to every thread, so the receive on the row's dependent chain
+ * is a shared-memory read.  A slot is written again kRing rows later,
+ * two barriers after every thread has read it. */
+template <int CH>
+struct StripHalo {
+  static constexpr int kRing = RowCfg<CH>::kStages + 1;
+  static constexpr int kRingFloats = kRing * kStripSlot;  // 16-byte multiple
+  const float* in;  // the left band's strip; nullptr: none (the first band)
+  float* out;       // this band's strip (written by the band's last thread)
+  float* ring;      // [kRing][kStripSlot] in shared memory
+  int r0;
+
+  __device__ __forceinline__ void prefetch(int q) const {
+    if (in != nullptr && threadIdx.x == 0) {
+      const float* e = in + (size_t)(q + 1) * kStrip;
+      float* d = ring + (q % kRing) * kStripSlot;
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(kFull, v, off);
-    if (lane >= off) v = fmaxf(v, o);
+      for (int i = 0; i < kStrip; i++) copy_float_async(d + i, e + i);
+    }
   }
-  return v;
+
+  __device__ __forceinline__ Halo receive(int r, int) const {
+    if (in == nullptr) return Halo{-INFINITY, KT_NEG, KT_NEG, KT_NEG, KT_NEG};
+    const float* h = ring + ((r - r0) % kRing) * kStripSlot;
+    return Halo{h[3], h[4], h[0], h[1], h[2]};
+  }
+
+  __device__ __forceinline__ void send(int r, float A, float GA, float GB,
+                                       float cm, float u) const {
+    float* o = out + (size_t)(r - r0 + 1) * kStrip;
+    o[0] = A;
+    o[1] = GA;
+    o[2] = GB;
+    o[3] = cm;
+    o[4] = u;
+  }
+};
+
+/* A cluster's band: block 0 takes the left band's strip, block S - 1
+ * writes this band's, the blocks between pass the halo on through
+ * distributed shared memory (rows counted from the launch's first). */
+template <int CH>
+struct StripClusterHalo {
+  static constexpr bool kBands = true;
+  ClusterHalo cl;
+  StripHalo<CH> st;
+
+  // every block has loaded its start state and its barriers exist
+  __device__ __forceinline__ void start() { cg::this_cluster().sync(); }
+
+  __device__ __forceinline__ void prefetch(int q) const { st.prefetch(q); }
+
+  __device__ __forceinline__ Halo receive(int r, int t) const {
+    return cl.rank == 0 ? st.receive(r, t) : cl.receive(r - st.r0, t);
+  }
+
+  __device__ __forceinline__ void send(int r, float A, float GA, float GB,
+                                       float cm, float u) const {
+    if (cl.rank + 1 == cl.S) {
+      st.send(r, A, GA, GB, cm, u);
+    } else {
+      cl.send(r - st.r0, A, GA, GB, cm, u);
+    }
+  }
+};
+
+/* Rows r0 + 1 .. r0 + nr of the band columns [band0, band0 + blockDim.x
+ * * CH) (band-local): the start state from the state buffer (and, at the
+ * band's first column, the strip's row 0), strip row 0 from the band's
+ * last thread, edge.start(), the rows (band_span), the last row's state
+ * back into the buffer.  Every load of the buffer comes before
+ * edge.start(), every store after it, so no block of a cluster
+ * overwrites a slot another still reads. */
+template <int CH, class Edge>
+__device__ __forceinline__ void band_block(float* smem, int band0,
+                                           const BandArgs& a, Edge& edge) {
+  RowThread<CH> x;
+  float* ring = band_thread(x, smem, band0);
+  const int Wd = a.Wd, j0 = x.j0;
+  x.real = true;  // the blocks cover the band exactly
+  x.first = a.first && j0 == 0;
+  x.BW = (size_t)Wd;
+  x.colg = a.colpen + j0;
+  band_invariants(x, smem + x.t * CH, a.cols_eps + j0, a.colpen + j0);
+
+  const size_t W3 = (size_t)3 * Wd;
+  const float* prev = a.state + (size_t)(a.r0 & 1) * W3;
+  load_chunk(x.A, prev + j0);
+  load_chunk(x.GA, prev + Wd + j0);
+  load_chunk(x.GB, prev + 2 * Wd + j0);
+  if (j0 > 0) {
+    x.Cleft = a.colpen[j0 - 1];
+    x.lA = prev[j0 - 1];
+    x.lGA = prev[Wd + j0 - 1];
+    x.lGB = prev[2 * Wd + j0 - 1];
+  } else if (!a.first) {
+    x.lA = a.strip_in[0];
+    x.lGA = a.strip_in[1];
+    x.lGB = a.strip_in[2];
+  }
+  if (j0 + CH == Wd) {
+    // strip row 0: the row above the block at the band's last column
+    a.strip_out[0] = x.A[CH - 1];
+    a.strip_out[1] = x.GA[CH - 1];
+    a.strip_out[2] = x.GB[CH - 1];
+    a.strip_out[3] = KT_NEG;
+    a.strip_out[4] = KT_NEG;
+  }
+  edge.start();
+  band_span<CH>(x, ring, a.match + j0, Wd, a.rowpen, a.row_term, a.dec, Wd,
+                a.r0, a.r0 + a.nr, a.la, a.lb - a.c0, edge);
+  float* cur = a.state + (size_t)((a.r0 + a.nr) & 1) * W3;
+  store_chunk(cur + j0, x.A);
+  store_chunk(cur + Wd + j0, x.GA);
+  store_chunk(cur + 2 * Wd + j0, x.GB);
 }
 
+template <int CH>
+__global__ void __launch_bounds__(RowCfg<CH>::kMaxThreads)
+gotoh_band_cluster_kernel(BandArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  StripClusterHalo<CH> edge;
+  edge.cl = cluster_halo(smem, rank, cluster.num_blocks(), a.nr);
+  float* ring = smem + kClusterHeader / 4;
+  edge.st = StripHalo<CH>{rank == 0 && !a.first ? a.strip_in : nullptr,
+                          a.strip_out, ring, a.r0};
+  band_block<CH>(ring + StripHalo<CH>::kRingFloats,
+                 (int)rank * (int)blockDim.x * CH, a, edge);
+  // no block leaves while its neighbour may still arrive on its barriers
+  cluster.sync();
+}
+
+/* The first design, for bands past 114,688 columns: one block per band,
+ * a thread per column of a tile of blockDim.x columns; a row walks the
+ * band's tiles left to right with a warp-shuffle scan of u per tile and
+ * the warp maxima in shared memory (one barrier a tile, two slot
+ * parities), the running carry handed from tile to tile in registers;
+ * the previous row's state is read from the state buffer by row parity
+ * (slot row & 1), so every row ends with a barrier. */
 __global__ void __launch_bounds__(kMaxThreads)
 gotoh_band_block_kernel(BandArgs a) {
   __shared__ float wmax[2][32];   // per tile parity: each warp's max u
@@ -197,7 +347,111 @@ gotoh_band_block_kernel(BandArgs a) {
   }
 }
 
+
+/* A block's shared memory: the cluster's halo header, the strip ring,
+ * band_thread's arrays. */
+template <int CH>
+size_t band_smem_bytes(int threads) {
+  return kClusterHeader + StripHalo<CH>::kRingFloats * sizeof(float) +
+         smem_bytes<CH>(threads);
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+/* A band the blocks cover exactly, 16-byte aligned rows for cp.async
+ * and the chunk loads, a strip on every band but the first. */
+int check_args(const BandArgs& a, int covered) {
+  if (a.Wd <= 0 || a.r0 < 0 || covered != a.Wd || a.Wd % 4 ||
+      (!a.first && a.strip_in == nullptr) || !aligned16(a.match) ||
+      !aligned16(a.colpen) || !aligned16(a.cols_eps) ||
+      !aligned16(a.state) || !aligned16(a.dec))
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+template <int CH>
+int launch_cluster(const BandArgs& a, int threads, int blocks,
+                   cudaStream_t stream) {
+  if (!cluster_plan_ok<CH>(threads, blocks)) return (int)cudaErrorInvalidValue;
+  int rc = check_args(a, threads * CH * blocks);
+  if (rc) return rc;
+  const size_t smem = band_smem_bytes<CH>(threads);
+  cudaError_t err =
+      cluster_attributes(gotoh_band_cluster_kernel<CH>, smem, blocks);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_launch_config(
+      threads, blocks, (unsigned)blocks, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, gotoh_band_cluster_kernel<CH>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int CH>
+int max_active(int threads, int blocks, int* out) {
+  if (!cluster_plan_ok<CH>(threads, blocks)) {
+    *out = 0;
+    return (int)cudaErrorInvalidValue;
+  }
+  return cluster_occupancy(gotoh_band_cluster_kernel<CH>, threads, blocks,
+                           band_smem_bytes<CH>(threads), out);
+}
+
+BandArgs band_args(const void* match, const void* colpen, const void* rowpen,
+                   const void* cols_eps, const void* row_term, void* state,
+                   const void* strip_in, void* strip_out, void* dec, int Wd,
+                   int r0, int nr, int la, int lb, int c0, int first) {
+  return BandArgs{(const float*)match,  (const float*)colpen,
+                  (const float*)rowpen, (const float*)cols_eps,
+                  (const float*)row_term, (float*)state,
+                  (const float*)strip_in, (float*)strip_out,
+                  (int8_t*)dec, Wd, r0, nr, la, lb, c0, first};
+}
+
 }  // namespace
+
+/* Shared memory of a cluster block of `threads` threads of `ch` columns
+ * (0 for an unsupported ch); gpu/gotoh_mesh.py::band_config mirrors it. */
+KT_EXPORT size_t kt_gotoh_band_smem_bytes(int threads, int ch) {
+  switch (ch) {
+    case 4: return band_smem_bytes<4>(threads);
+    case 8: return band_smem_bytes<8>(threads);
+    default: return 0;
+  }
+}
+
+/* cudaOccupancyMaxActiveClusters of the cluster route's plan into *out
+ * (0: the card cannot schedule one such cluster). */
+KT_EXPORT int kt_gotoh_band_cluster_max_active(int threads, int ch,
+                                               int blocks, int* out) {
+  switch (ch) {
+    case 4: return max_active<4>(threads, blocks, out);
+    case 8: return max_active<8>(threads, blocks, out);
+    default: *out = 0; return (int)cudaErrorInvalidValue;
+  }
+}
+
+/* The cluster route: one cluster of `blocks` blocks of `threads` threads
+ * of `ch` columns (blocks * threads * ch == Wd). */
+KT_EXPORT int kt_gotoh_band_cluster(const void* match, const void* colpen,
+                                    const void* rowpen, const void* cols_eps,
+                                    const void* row_term, void* state,
+                                    const void* strip_in, void* strip_out,
+                                    void* dec, int Wd, int r0, int nr,
+                                    int la, int lb, int c0, int first,
+                                    int threads, int ch, int blocks,
+                                    void* stream) {
+  if (nr <= 0) return 0;
+  const BandArgs a = band_args(match, colpen, rowpen, cols_eps, row_term,
+                               state, strip_in, strip_out, dec, Wd, r0, nr,
+                               la, lb, c0, first);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (ch) {
+    case 4: return launch_cluster<4>(a, threads, blocks, s);
+    case 8: return launch_cluster<8>(a, threads, blocks, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 KT_EXPORT int kt_gotoh_band_block(const void* match, const void* colpen,
                                   const void* rowpen, const void* cols_eps,

@@ -52,268 +52,9 @@
  * columns) up to 16 such bands; wider rows still take
  * gotoh_row_tiled_kernel.
  */
-#include "kt_cuda.h"
-
-#include <cooperative_groups.h>
-
-namespace cg = cooperative_groups;
+#include "gotoh_row_body.cuh"
 
 namespace {
-
-constexpr int kSlot = 5;  // per warp: max u, max u but the last, last u,
-                          // A, GB
-
-template <int CH> struct RowCfg;
-template <> struct RowCfg<4> {
-  static constexpr int kMaxThreads = 512, kStages = 8;
-};
-template <> struct RowCfg<8> {
-  static constexpr int kMaxThreads = 896, kStages = 4;
-};
-
-template <int CH>
-__device__ __forceinline__ void load_chunk(float (&v)[CH], const float* p) {
-#pragma unroll
-  for (int q = 0; q < CH / 4; q++) {
-    const float4 a = reinterpret_cast<const float4*>(p)[q];
-    v[4 * q] = a.x;
-    v[4 * q + 1] = a.y;
-    v[4 * q + 2] = a.z;
-    v[4 * q + 3] = a.w;
-  }
-}
-
-template <int CH>
-__device__ __forceinline__ void store_chunk(float* p, const float (&v)[CH]) {
-#pragma unroll
-  for (int c = 0; c < CH; c++) p[c] = v[c];
-}
-
-template <int CH>
-__device__ __forceinline__ void store_dec(int8_t* p, const int (&d)[CH]) {
-  uint32_t w[CH / 4] = {};
-#pragma unroll
-  for (int c = 0; c < CH; c++)
-    w[c / 4] |= (uint32_t)(d[c] & 0xff) << (8 * (c % 4));
-  if constexpr (CH == 4) {
-    *reinterpret_cast<uint32_t*>(p) = w[0];
-  } else {
-    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-  }
-}
-
-/* cp.async of one thread's CH floats (16-byte aligned), 16 bytes at a
- * time. */
-template <int CH>
-__device__ __forceinline__ void copy_chunk_async(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-#pragma unroll
-  for (int q = 0; q < CH / 4; q++)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(d + 16 * q), "l"(src + 4 * q) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ float warp_incl_max(float v, int lane) {
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v = fmaxf(v, o);
-  }
-  return v;
-}
-
-struct RowScalars {
-  float goA, geA, tgeA, goA_prev, gb0_prev, rterm;
-};
-
-__device__ __forceinline__ RowScalars row_scalars(const float* rp,
-                                                  const float* rt) {
-  return RowScalars{rp[0], rp[1], rp[2], rp[3], rp[4], *rt};
-}
-
-/* What the bands left of a block's band hand it for one row: the prefix
- * max of u over every column left of the band (-inf where there is none),
- * the u at the column just left of it, and A, GA, GB there (the band's
- * diagonal left edge in the next row). */
-struct Halo {
-  float cmax, lu, eA, eGA, eGB;
-};
-
-/* The register kernel's row is one band: nothing comes from the left. */
-struct NoHalo {
-  static constexpr bool kBands = false;
-  __device__ __forceinline__ Halo receive(int, int) const {
-    return Halo{-INFINITY, KT_NEG, KT_NEG, KT_NEG, KT_NEG};
-  }
-  __device__ __forceinline__ void send(int, float, float, float, float,
-                                       float) const {}
-};
-
-/* One thread's place in its band and its DP state. */
-template <int CH>
-struct RowThread {
-  int t, lane, warp, nw;
-  int cols;          // the block's columns (the shared-memory row stride)
-  int j0;            // the first of the thread's CH columns in the row
-  bool real;         // j0 < L2p (L2p % CH == 0: a chunk is all in or out)
-  bool first;        // the thread holds DP column 1 (analytic left edge)
-  const float* inv;  // invariants [4][cols] at the thread's offset
-  float* slots;      // warp slots [2][nw][kSlot]
-  const float* colg; // colpen + the thread's offset (last row's C, gnC)
-  size_t BW;         // B * L2p: colpen's vector stride
-  float Cleft;       // C_norm at column j0 - 1
-  float A[CH], GA[CH], GB[CH], U[CH];
-  float lA, lGA, lGB;  // the previous row's values at column j0 - 1
-};
-
-/* One DP row (row r, DP row r + 1) of one thread's CH columns; m holds
- * the match row's chunk.  The per-cell order of operations is the plain
- * version's.  Between the block's prefix max of u and the GA pass the
- * halo of this row is received (the cluster kernel waits for it there,
- * after its own A / GB / u pass); after the GA pass the band's own halo
- * goes to the band on the right. */
-template <int CH, class Edge>
-__device__ __forceinline__ void row_step(RowThread<CH>& x, float (&m)[CH],
-                                         int r, int la, int lb,
-                                         const RowScalars& sc,
-                                         int8_t* dec_row, Edge& edge) {
-  const int row = r + 1;
-  const bool last = row == la;
-  const int cols = x.cols;
-  float gnC[CH];
-  if (last && x.real) {
-    load_chunk(gnC, x.colg + 3 * x.BW);
-  } else {
-    load_chunk(gnC, x.inv + 2 * cols);
-  }
-  if (!x.real) {
-#pragma unroll
-    for (int c = 0; c < CH; c++) m[c] = 0.0f;
-  }
-  if (x.first) {
-    x.lA = (row == 1) ? 0.0f : KT_NEG;
-    x.lGA = KT_NEG;
-    x.lGB = sc.gb0_prev;
-  }
-
-  // A, GB, u and the decision's A / GB bits, left to right; dA, dGA,
-  // dGB hold the previous row's values at the column to the left
-  int d[CH];
-  float dA = x.lA, dGAv = x.lGA, dGBv = x.lGB;
-  float run = -INFINITY, run_but_last = -INFINITY;
-#pragma unroll
-  for (int c = 0; c < CH; c++) {
-    const int col = x.j0 + c + 1;
-    const float mm = m[c] - fabsf(x.inv[c] - sc.rterm);
-    const float diagA = dA;
-    const float dGA = dGAv + x.inv[cols + c];
-    const float dGB = dGBv + sc.goA_prev;
-    const float best01 = fmaxf(diagA, dGA);
-    const float A_row = fmaxf(best01, dGB) + mm;
-    const bool term = col == lb;
-    const float ge_eff = term ? sc.tgeA : sc.geA;
-    const float go_eff = term ? sc.tgeA : sc.goA;
-    const float gb_e = x.GB[c] + ge_eff;
-    const float gb_o = x.A[c] + go_eff;
-    const float u = (col < lb) ? (A_row + gnC[c]) : KT_NEG;
-    d[c] = (dGB >= best01) ? 2 : ((dGA >= diagA) ? 1 : 0);
-    d[c] |= (gb_e > gb_o) ? KT_DEC_GB_EXT : 0;
-    dA = x.A[c];
-    dGAv = x.GA[c];
-    dGBv = x.GB[c];
-    x.A[c] = A_row;
-    x.GB[c] = fmaxf(gb_e, gb_o);
-    x.U[c] = u;
-    if (c == CH - 1) run_but_last = run;
-    run = fmaxf(run, u);
-  }
-
-  // prefix max of u across the block: one barrier
-  const int lane = x.lane, warp = x.warp, nw = x.nw;
-  const float incl = warp_incl_max(run, lane);
-  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = -INFINITY;
-  float lu = __shfl_up_sync(0xffffffffu, x.U[CH - 1], 1);
-  float cin = -INFINITY;   // max u of the warps left of this one
-  float wex2 = -INFINITY;  // ... of all but the nearest
-  float* slot = x.slots + (r & 1) * nw * kSlot;
-  const float* left = slot + (warp - 1) * kSlot;
-  if (lane == 31) {
-    float* sw = slot + warp * kSlot;
-    sw[0] = incl;
-    sw[1] = fmaxf(excl, run_but_last);
-    sw[2] = x.U[CH - 1];
-    sw[3] = x.A[CH - 1];
-    sw[4] = x.GB[CH - 1];
-  }
-  __syncthreads();
-  if (nw > 1) {
-    float wv = lane < nw ? slot[lane * kSlot] : -INFINITY;
-    for (int off = 1; off < nw; off <<= 1) {
-      const float o = __shfl_up_sync(0xffffffffu, wv, off);
-      if (lane >= off) wv = fmaxf(wv, o);
-    }
-    if (warp > 0) cin = __shfl_sync(0xffffffffu, wv, warp - 1);
-    if (warp > 1) wex2 = __shfl_sync(0xffffffffu, wv, warp - 2);
-  }
-  if (lane == 0 && warp > 0) lu = left[2];
-  const Halo h = edge.receive(r, x.t);
-  float cm = fmaxf(cin, excl);
-  if constexpr (Edge::kBands) cm = fmaxf(h.cmax, cm);
-  if (x.t == 0) {
-    cm = x.first ? KT_NEG : h.cmax;
-    lu = x.first ? KT_NEG : h.lu;
-  }
-
-  // GA = shifted prefix max + C, and the decision's GA bit
-  float C[CH];
-  if (last && x.real) {
-    load_chunk(C, x.colg + 1 * x.BW);
-  } else {
-    load_chunk(C, x.inv + 3 * cols);
-  }
-#pragma unroll
-  for (int c = 0; c < CH; c++) {
-    const float cm_s = cm;
-    const float u_s = c ? x.U[c - 1] : lu;
-    x.GA[c] = cm_s + C[c];
-    d[c] |= (cm_s > u_s) ? KT_DEC_GA_EXT : 0;
-    cm = fmaxf(cm, x.U[c]);
-  }
-  // the band's last thread: cm is now the prefix max of u over every
-  // column up to the band's right edge
-  if (x.t == (int)blockDim.x - 1)
-    edge.send(r, x.A[CH - 1], x.GA[CH - 1], x.GB[CH - 1], cm, x.U[CH - 1]);
-  if (x.real) store_dec<CH>(dec_row + x.j0, d);
-
-  // the next row's values at column j0 - 1
-  x.lA = __shfl_up_sync(0xffffffffu, x.A[CH - 1], 1);
-  x.lGA = __shfl_up_sync(0xffffffffu, x.GA[CH - 1], 1);
-  x.lGB = __shfl_up_sync(0xffffffffu, x.GB[CH - 1], 1);
-  if (lane == 0 && warp > 0) {
-    float w = fmaxf(wex2, left[1]);
-    if constexpr (Edge::kBands) w = fmaxf(h.cmax, w);
-    x.lA = left[3];
-    x.lGB = left[4];
-    x.lGA = w + x.Cleft;
-  }
-  if constexpr (Edge::kBands) {
-    if (x.t == 0 && !x.first) {
-      x.lA = h.eA;
-      x.lGA = h.eGA;
-      x.lGB = h.eGB;
-    }
-  }
-}
 
 /* The DP of one problem's band of columns [band0, band0 + blockDim.x *
  * CH) over every row: the invariants and the match ring in shared memory
@@ -329,25 +70,11 @@ __device__ __forceinline__ void band_rows(
     const int32_t* __restrict__ lb_arr, int B, int L1p, int L2p,
     int8_t* __restrict__ dec, float* __restrict__ score_out,
     int32_t* __restrict__ state_out, Edge& edge) {
-  constexpr int NS = RowCfg<CH>::kStages;
   RowThread<CH> x;
-  x.t = threadIdx.x;
-  x.lane = x.t & 31;
-  x.warp = x.t >> 5;
-  x.nw = blockDim.x >> 5;
-  x.cols = blockDim.x * CH;
-  x.j0 = band0 + x.t * CH;
+  float* ring = band_thread(x, smem, band0);
   x.real = x.j0 < L2p;
   x.first = x.j0 == 0;
-  const int cols = x.cols;
-  const int lo = x.t * CH;  // the thread's offset in shared memory
-
-  // shared memory: invariants [4][cols] (ceps, goB_s, gnC_norm, C_norm),
-  // the match ring [NS][cols], the warp slots [2][nw][kSlot]
-  float* inv = smem + lo;
-  float* ring = smem + 4 * cols + lo;
-  x.inv = inv;
-  x.slots = smem + (4 + NS) * cols;
+  float* inv = smem + x.t * CH;
 
   const int la = la_arr[b];
   const int lb = lb_arr[b];
@@ -356,29 +83,7 @@ __device__ __forceinline__ void band_rows(
   x.colg = colpen + pb;
   const float* mrow0 = match + (size_t)b * L1p * L2p + x.j0;
 
-  x.Cleft = 0.0f;
-  x.lA = KT_NEG;
-  x.lGA = KT_NEG;
-  x.lGB = KT_NEG;
-  {
-    float v[CH];
-#pragma unroll
-    for (int c = 0; c < CH; c++) v[c] = 0.0f;
-    const float* src[4] = {cols_eps + pb, colpen + 4 * x.BW + pb,
-                           colpen + 2 * x.BW + pb, colpen + 0 * x.BW + pb};
-#pragma unroll
-    for (int q = 0; q < 4; q++) {
-      if (x.real) load_chunk(v, src[q]);
-      store_chunk(inv + q * cols, v);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < CH; c++) {
-    x.A[c] = KT_NEG;
-    x.GB[c] = KT_NEG;
-    x.GA[c] = KT_NEG;
-    x.U[c] = KT_NEG;
-  }
+  band_invariants(x, inv, cols_eps + pb, colpen + pb);
   if (x.real) {
     load_chunk(x.GA, ga0 + pb);
     if (x.j0 > 0) {
@@ -388,33 +93,9 @@ __device__ __forceinline__ void band_rows(
   }
 
   const int rows = la < L1p ? la : L1p;
-#pragma unroll
-  for (int s = 0; s < NS - 1; s++) {
-    if (x.real && s < rows)
-      copy_chunk_async<CH>(ring + s * cols, mrow0 + (size_t)s * L2p);
-    cp_async_commit();
-  }
-  const float* rp0 = rowpen + (size_t)b * L1p * 5;
-  const float* rt0 = row_term + (size_t)b * L1p;
-  int8_t* dec0 = dec + (size_t)b * L1p * L2p;
-  RowScalars nx{};
-  if (rows > 0) nx = row_scalars(rp0, rt0);
-
-  for (int r = 0; r < rows; r++) {
-    const RowScalars sc = nx;
-    if (r + 1 < rows) nx = row_scalars(rp0 + (size_t)(r + 1) * 5, rt0 + r + 1);
-    {
-      const int s = r + NS - 1;
-      if (x.real && s < rows)
-        copy_chunk_async<CH>(ring + (s % NS) * cols, mrow0 + (size_t)s * L2p);
-      cp_async_commit();
-    }
-    cp_async_wait<NS - 1>();
-    float m[CH];
-    load_chunk(m, ring + (r % NS) * cols);
-    row_step<CH>(x, m, r, la, lb, sc, dec0 + (size_t)r * L2p, edge);
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  band_span<CH>(x, ring, mrow0, L2p, rowpen + (size_t)b * L1p * 5,
+                row_term + (size_t)b * L1p, dec + (size_t)b * L1p * L2p, L2p,
+                0, rows, la, lb, edge);
 
   const bool in_range = lb >= 1 && lb <= L2p;
   if (in_range ? (lb - 1 >= x.j0 && lb - 1 < x.j0 + CH) : x.first) {
@@ -493,131 +174,6 @@ gotoh_row_kernel(const float* __restrict__ match,     // [B, L1p, L2p]
  * Bound: device-memory bytes, as gotoh_row_kernel (~5 B a cell); the
  * halo is 24 bytes of distributed shared memory per band and row (the
  * halo and the credit). */
-constexpr int kSlots = 4;      // halo ring slots per block
-constexpr int kHaloFloats = 8; // a slot: A, GA, GB, carry, last u, pad
-constexpr unsigned kHaloBytes = 5 * 4;  // what a hand-off writes
-constexpr unsigned kCreditBytes = 4;
-// shared memory ahead of band_rows' arrays: the full and empty barriers
-// [2][kSlots] (8 bytes each), the halo ring and the credit words
-// [kSlots]; 16-byte aligned
-constexpr int kClusterHeader =
-    2 * kSlots * 8 + kSlots * kHaloFloats * 4 + kSlots * 4;
-static_assert(kClusterHeader % 16 == 0, "band_rows' arrays need 16 bytes");
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ unsigned remote_addr(const void* p,
-                                                unsigned rank) {
-  unsigned ra;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(ra) : "r"(smem_addr(p)), "r"(rank));
-  return ra;
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-/* Arm the local barrier's current phase: its one arrival, and `bytes`
- * to come by st.async. */
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-/* Has the phase of parity `parity` of the local barrier completed?
- * Acquire at cluster scope: the bytes another block's st.async counted
- * on it are visible after it. */
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
-                                              unsigned parity) {
-  unsigned ok;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-      "%2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n\t}\n"
-      : "=r"(ok) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
-}
-
-/* Asynchronous stores into block `rank`'s shared memory at p's offset,
- * counted on that block's barrier at bar's offset: the sender waits for
- * nothing (no release fence, which would wait for the thread's
- * outstanding global stores of decisions). */
-__device__ __forceinline__ void store_async4(float* p, unsigned rank,
-                                             float a, float b, float c,
-                                             float d, uint64_t* bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
-      "{%1, %2, %3, %4}, [%5];\n"
-      :: "r"(remote_addr(p, rank)), "r"(__float_as_uint(a)),
-         "r"(__float_as_uint(b)), "r"(__float_as_uint(c)),
-         "r"(__float_as_uint(d)), "r"(remote_addr(bar, rank))
-      : "memory");
-}
-
-__device__ __forceinline__ void store_async1(void* p, unsigned rank,
-                                             unsigned v, uint64_t* bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
-      "[%2];\n"
-      :: "r"(remote_addr(p, rank)), "r"(v), "r"(remote_addr(bar, rank))
-      : "memory");
-}
-
-/* The halo hand-off between neighbouring blocks of a cluster.  Every
- * barrier has one arrival a phase, its owner's arming (mbar_expect), and
- * completes when the bytes it expects have landed: full[s] the halo of
- * the rows r = s (mod kSlots), empty[s] the credit for them.  A credit
- * or a halo is sent only where its receiver will wait for it, so none is
- * in flight when a block finishes. */
-struct ClusterHalo {
-  static constexpr bool kBands = true;
-  uint64_t* full;    // [kSlots], completed by block rank - 1's halo
-  uint64_t* empty;   // [kSlots], completed by block rank + 1's credit
-  float* ring;       // [kSlots][kHaloFloats], written by block rank - 1
-  unsigned* credit;  // [kSlots], written by block rank + 1 (not read)
-  unsigned rank, S;
-  int rows;
-
-  __device__ __forceinline__ Halo receive(int r, int t) const {
-    if (rank == 0) return Halo{-INFINITY, KT_NEG, KT_NEG, KT_NEG, KT_NEG};
-    // every thread has passed this row's block barrier, so it has read
-    // the previous row's slot: arm the slot for its next halo and return
-    // it to block rank - 1
-    if (t == 0 && r > 0 && r - 1 + kSlots < rows) {
-      const int q = (r - 1) % kSlots;
-      mbar_expect(full + q, kHaloBytes);
-      store_async1(credit + q, rank - 1, 1u, empty + q);
-    }
-    const int s = r % kSlots;
-    mbar_wait(full + s, (unsigned)(r / kSlots) & 1u);
-    const float* h = ring + s * kHaloFloats;
-    return Halo{h[3], h[4], h[0], h[1], h[2]};
-  }
-
-  __device__ __forceinline__ void send(int r, float A, float GA, float GB,
-                                       float cmax, float u) const {
-    if (rank + 1 == S) return;
-    const int s = r % kSlots;
-    if (r >= kSlots) {
-      // the slot's previous halo (row r - kSlots) has been read
-      mbar_wait(empty + s, (unsigned)(r / kSlots - 1) & 1u);
-      if (r + kSlots < rows) mbar_expect(empty + s, kCreditBytes);
-    }
-    float* h = ring + s * kHaloFloats;
-    store_async4(h, rank + 1, A, GA, GB, cmax, full + s);
-    store_async1(h + 4, rank + 1, __float_as_uint(u), full + s);
-  }
-};
 
 template <int CH>
 __global__ void __launch_bounds__(RowCfg<CH>::kMaxThreads)
@@ -635,27 +191,10 @@ gotoh_row_cluster_kernel(const float* __restrict__ match,     // [B, L1p, L2p]
                          int32_t* __restrict__ state_out) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  ClusterHalo edge;
-  edge.full = reinterpret_cast<uint64_t*>(smem);
-  edge.empty = edge.full + kSlots;
-  edge.ring = smem + 2 * kSlots * 2;
-  edge.credit = reinterpret_cast<unsigned*>(edge.ring + kSlots * kHaloFloats);
-  edge.rank = cluster.block_rank();
-  edge.S = cluster.num_blocks();
-  const int b = blockIdx.x / edge.S;
-  edge.rows = la_arr[b] < L1p ? la_arr[b] : L1p;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kSlots; s++) {
-      mbar_init(edge.full + s, 1);
-      mbar_init(edge.empty + s, 1);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    // the first phase of each: the halo of row s, the credit for it
-    for (int s = 0; s < kSlots; s++) {
-      mbar_expect(edge.full + s, kHaloBytes);
-      mbar_expect(edge.empty + s, kCreditBytes);
-    }
-  }
+  const unsigned S = cluster.num_blocks();
+  const int b = blockIdx.x / S;
+  ClusterHalo edge = cluster_halo(smem, cluster.block_rank(), S,
+                                  la_arr[b] < L1p ? la_arr[b] : L1p);
   // every block's barriers exist before any block arrives on them
   cluster.sync();
   band_rows<CH>(smem + kClusterHeader / 4, (int)edge.rank * (int)blockDim.x *
@@ -865,12 +404,6 @@ gotoh_row_tiled_kernel(const float* __restrict__ match,     // [B, L1p, L2p]
   }
 }
 
-template <int CH>
-size_t smem_bytes(int threads) {
-  return ((size_t)(4 + RowCfg<CH>::kStages) * threads * CH +
-          (size_t)2 * (threads / 32) * kSlot) * sizeof(float);
-}
-
 size_t tiled_smem_bytes(int threads) {
   return (size_t)2 * (threads / 32) * kTSlot * sizeof(float);
 }
@@ -911,66 +444,13 @@ int launch_tiled(const float* match, const float* colpen, const float* ga0,
 }
 
 template <int CH>
-size_t cluster_smem_bytes(int threads) {
-  return kClusterHeader + smem_bytes<CH>(threads);
-}
-
-/* The cluster kernel's attributes for `threads` threads and clusters of
- * `blocks`: its dynamic shared memory, and clusters past the portable 8. */
-template <int CH>
-cudaError_t cluster_attributes(int threads, int blocks) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gotoh_row_cluster_kernel<CH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)cluster_smem_bytes<CH>(threads));
-  if (err == cudaSuccess && blocks > 8)
-    err = cudaFuncSetAttribute(gotoh_row_cluster_kernel<CH>,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-  return err;
-}
-
-/* A launch configuration of grid `grid` and clusters of `blocks`; attr
- * must outlive it. */
-template <int CH>
-cudaLaunchConfig_t cluster_launch_config(int threads, int blocks, unsigned grid,
-                                  cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid, 1, 1);
-  cfg.blockDim = dim3((unsigned)threads, 1, 1);
-  cfg.dynamicSmemBytes = cluster_smem_bytes<CH>(threads);
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = (unsigned)blocks;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-constexpr int kMaxClusterBlocks = 16;
-
-template <int CH>
-bool cluster_plan_ok(int threads, int blocks) {
-  return threads > 0 && threads % 32 == 0 &&
-         threads <= RowCfg<CH>::kMaxThreads && blocks >= 1 &&
-         blocks <= kMaxClusterBlocks;
-}
-
-template <int CH>
 int cluster_max_active(int threads, int blocks, int* out) {
-  *out = 0;
-  if (!cluster_plan_ok<CH>(threads, blocks))
+  if (!cluster_plan_ok<CH>(threads, blocks)) {
+    *out = 0;
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cluster_attributes<CH>(threads, blocks);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      cluster_launch_config<CH>(threads, blocks, (unsigned)blocks, 0, &attr);
-  return (int)cudaOccupancyMaxActiveClusters(
-      out, gotoh_row_cluster_kernel<CH>, &cfg);
+  }
+  return cluster_occupancy(gotoh_row_cluster_kernel<CH>, threads, blocks,
+                           cluster_smem_bytes<CH>(threads), out);
 }
 
 template <int CH>
@@ -983,11 +463,13 @@ int launch_cluster(const float* match, const float* colpen, const float* ga0,
   if (!cluster_plan_ok<CH>(threads, blocks) ||
       (long long)threads * CH * blocks < L2p || L2p % CH)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cluster_attributes<CH>(threads, blocks);
+  const size_t smem = cluster_smem_bytes<CH>(threads);
+  cudaError_t err =
+      cluster_attributes(gotoh_row_cluster_kernel<CH>, smem, blocks);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_launch_config<CH>(
-      threads, blocks, (unsigned)B * blocks, stream, &attr);
+  const cudaLaunchConfig_t cfg = cluster_launch_config(
+      threads, blocks, (unsigned)B * blocks, smem, stream, &attr);
   err = cudaLaunchKernelEx(&cfg, gotoh_row_cluster_kernel<CH>, match, colpen,
                            ga0, rowpen, cols_eps, row_term, la, lb, B, L1p,
                            L2p, dec, score, state);

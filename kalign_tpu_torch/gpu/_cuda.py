@@ -27,7 +27,8 @@ SOURCES = [os.path.join(CSRC, f) for f in
            ("gotoh_row.cu", "gotoh_lanewise.cu", "traceback.cu", "bpm.cu",
             "scan.cu", "kmeans.cu", "exact_sweep.cu", "gotoh_mesh.cu",
             "errors.cu")]
-HEADERS = [os.path.join(CSRC, "kt_cuda.h")]
+HEADERS = [os.path.join(CSRC, f) for f in ("kt_cuda.h",
+                                           "gotoh_row_body.cuh")]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -112,6 +113,12 @@ def lib() -> ctypes.CDLL:
     L.kt_exact_sweep.argtypes = [_p] * 11 + [_i] * 10 + [_p]
     L.kt_gotoh_band_block.restype = _i
     L.kt_gotoh_band_block.argtypes = [_p] * 9 + [_i] * 8 + [_p]
+    L.kt_gotoh_band_smem_bytes.restype = ctypes.c_size_t
+    L.kt_gotoh_band_smem_bytes.argtypes = [_i, _i]
+    L.kt_gotoh_band_cluster_max_active.restype = _i
+    L.kt_gotoh_band_cluster_max_active.argtypes = [_i, _i, _i, _p]
+    L.kt_gotoh_band_cluster.restype = _i
+    L.kt_gotoh_band_cluster.argtypes = [_p] * 9 + [_i] * 10 + [_p]
     return L
 
 

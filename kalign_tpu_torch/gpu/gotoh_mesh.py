@@ -1,14 +1,23 @@
 """Column-sharded Gotoh forward: one DP problem, its columns in bands over
 the shards of a mesh.
 
-Kernel: csrc/gotoh_mesh.cu (replaces kalign_tpu/parallel/mesh.py::
+Kernels: csrc/gotoh_mesh.cu (replaces kalign_tpu/parallel/mesh.py::
 sharded_long_gotoh :288, a shard_map wavefront that passes a 4-float
 halo per row by lax.ppermute).  The note at the top of the CUDA source
-gives its design and what bounds it.
+gives their design and what bounds them.  A band's width alone picks the
+route (``band_config``): up to gotoh_row.CLUSTER_MAX_WIDTH (114,688)
+columns one thread-block cluster per band of up to 16 blocks of
+BLOCK_COLS (256) columns or more, one block up to 256
+(``gotoh_band_cluster_kernel``, the row kernel's register body in the
+cluster row kernel's form); past that one block walking each row in
+tiles (``gotoh_band_block_kernel``, the first design, so that no width
+raises).
 
 Shard d owns the columns [d * Wd, (d + 1) * Wd) of the padded width
-Wp = n * Wd.  Rows go in blocks of ``BLOCK_ROWS``; at host step s, shard
-d runs its block s - d on its own stream (``schedule``), reading the left
+Wp = n * Wd, Wd = ``band_width`` (ceil(W / n) rounded up to
+gotoh_row.COL_QUANTUM and to the columns the route's blocks cover).
+Rows go in blocks of ``BLOCK_ROWS``; at host step s, shard d runs its
+block s - d on its own stream (``schedule``), reading the left
 neighbour's strip of that block — [R + 1, STRIP] floats: A, GA and GB at
 the neighbour's last column for the row above the block and each row of
 it, the prefix max of u over every column up to there and u there (the
@@ -24,28 +33,42 @@ Every band takes the row kernel's row-invariant vectors
 (gotoh_row.prepare over the whole padded width, prefix sums left to
 right in float32 on the first shard's device) sliced to its columns, and
 the row kernel's cell arithmetic, so the bands' decisions, score and end
-state are the unsplit row kernel's bit for bit.
+state are the unsplit row kernel's bit for bit.  Columns past lb (the
+padding among them) never reach a column at or before lb.
 
-``schedule`` (and so ``forward``) launches the kernel (``launch``) on
+``schedule`` (and so ``forward``) launches the kernels (``launch``) on
 CUDA shards and runs ``plain`` — the same block in PyTorch, row by row,
 with the same strip handoff — on CPU shards; ``use_plain=True`` runs the
-plain version on any device (the kernel's check on the card).
+plain version on any device (the kernels' check on the card).
 """
 
 import ctypes
 from collections import namedtuple
 from contextlib import contextmanager, nullcontext
+from functools import lru_cache
 
 import torch
 
-from kalign_tpu_torch.gpu import _cuda
-from kalign_tpu_torch.gpu.gotoh_row import NEG
+from kalign_tpu_torch.gpu import _cuda, gotoh_row
+from kalign_tpu_torch.gpu.gotoh_row import NEG, RowLaunch
 
-BLOCK_ROWS = 256           # rows per launch: ceil(la / 256) launches a band
+# rows per launch: ceil(la / 512) launches a band.  At the mesh_long root
+# merge (4 bands on one H100) 256 rows left the card behind the host's
+# enqueueing (8.9 ms of host time a merge against 8.3 of device time),
+# 1,024 lengthened the pipeline's fill (9.8 ms of device time); 512 took
+# 4.6 and 8.7 (PERF.md, chip_smoke.py --only mesh_sweep)
+BLOCK_ROWS = 512
 STRIP = 5                  # floats per strip row: A, GA, GB, carry, u
-MAX_THREADS = 1024         # csrc/gotoh_mesh.cu kMaxThreads
+STRIP_SLOT = 8             # floats per slot of a block's strip ring
+MAX_THREADS = 1024         # csrc/gotoh_mesh.cu kMaxThreads (block route)
+# the plan (band_config): clusters of blocks of BLOCK_COLS columns or
+# more (one block up to BLOCK_COLS)
+BLOCK_COLS = 256
 
+# launches by route: "block" (gotoh_band_block_kernel), "cluster"
+# (gotoh_band_cluster_kernel)
 launches = 0
+cluster_launches = 0
 
 # one shard of a mesh: its device and, on a card, its own stream
 Shard = namedtuple("Shard", "device stream")
@@ -77,16 +100,58 @@ def wait(shard, ev):
 
 
 def threads_for(Wd: int) -> int:
-    """Block size of a band of Wd columns: as few tiles of at most
-    MAX_THREADS columns as cover it, the block no wider than a tile."""
+    """Block size of the block route for a band of Wd columns: as few
+    tiles of at most MAX_THREADS columns as cover it, the block no wider
+    than a tile."""
     tiles = -(-Wd // MAX_THREADS)
     return -(-Wd // (tiles * 32)) * 32
 
 
+@lru_cache(maxsize=None)
+def band_config(Wd: int) -> RowLaunch:
+    """The route of a band of Wd columns (a multiple of
+    gotoh_row.COL_QUANTUM), by its width alone: "cluster", one cluster of
+    S <= 16 blocks of w columns each, w the least multiple of 128 (256
+    past 1,024, where a block takes 8 columns a thread) of at least
+    BLOCK_COLS (or Wd, where that is less) that keeps S = ceil(Wd / w)
+    within 16, up to gotoh_row.CLUSTER_MAX_WIDTH; "block" past that
+    (``threads`` from threads_for, ``band`` = Wd).  A cluster covers S *
+    w >= Wd columns and launches only where that is exactly Wd
+    (``band_width`` pads to it); its ``smem`` adds the strip ring
+    (``with_ring``).  Narrow blocks make a short row: at the mesh_long
+    root merge's bands of 2,560 columns one block of 8 columns a thread
+    took 1.7 us a row, clusters of 10 blocks of 256 columns 0.77 us
+    (PERF.md; BLOCK_COLS rests on that shape and one other)."""
+    q = gotoh_row.COL_QUANTUM
+    if Wd <= 0 or Wd % q:
+        raise ValueError(f"band Gotoh kernel: a band of {Wd} columns is not "
+                         f"a multiple of {q}")
+    if Wd > gotoh_row.CLUSTER_MAX_WIDTH:
+        return RowLaunch("block", threads_for(Wd), 1, 0, 1, Wd)
+    most = gotoh_row.CLUSTER_SIZES[-1]
+    w = max(min(BLOCK_COLS, Wd), -(-(-(-Wd // most)) // q) * q)
+    ch = 4 if w <= gotoh_row.BAND_CH4 else 8
+    w = -(-w // (32 * ch)) * 32 * ch
+    return with_ring(gotoh_row.band_config(-(-Wd // w), w, ch))
+
+
+def with_ring(cfg: RowLaunch) -> RowLaunch:
+    """A cluster plan with the strip ring in its shared memory
+    (csrc/gotoh_mesh.cu::band_smem_bytes): a slot per match row of the
+    ring and one more."""
+    ring = 4 * STRIP_SLOT * (gotoh_row.CHUNKS[cfg.ch][1] + 1)
+    return cfg._replace(smem=cfg.smem + ring)
+
+
 def band_width(W: int, n: int) -> int:
-    """Columns of each of n bands over a row of W columns (W padded to a
-    multiple of n, as mesh.py:516 pads it)."""
-    return -(-W // n)
+    """Columns of each of n bands over a row of W columns: ceil(W / n)
+    rounded up to gotoh_row.COL_QUANTUM, then to the columns band_config's
+    blocks cover (W padded to n times it, as mesh.py:516 pads W to a
+    multiple of n)."""
+    q = gotoh_row.COL_QUANTUM
+    Wd = -(-(-(-W // n)) // q) * q
+    cfg = band_config(Wd)
+    return Wd if cfg.route == "block" else cfg.blocks * cfg.band
 
 
 def band_inputs(prep, c0: int, c1: int, device):
@@ -173,27 +238,89 @@ def plain(band, strip_in, strip_out, r0: int, nr: int, la: int,
                                     cm[-1], u[-1]])
 
 
-def launch(band, strip_in, strip_out, r0: int, nr: int, la: int,
-                 lb: int, first: bool):
-    """Launch csrc/gotoh_mesh.cu on one band's CUDA tensors."""
-    global launches
-    dev = band["match"].device
+_max_active = {}
+
+
+def schedulable(cfg):
+    """How many clusters of the cluster route's plan the card holds at
+    once (cudaOccupancyMaxActiveClusters, cached per plan and device);
+    raises where it cannot hold one: the launch would never run."""
+    key = (torch.cuda.current_device(), cfg.threads, cfg.ch, cfg.blocks)
+    if key not in _max_active:
+        out = ctypes.c_int(0)
+        _cuda.check(_cuda.lib().kt_gotoh_band_cluster_max_active(
+            cfg.threads, cfg.ch, cfg.blocks, ctypes.byref(out)),
+            "gotoh_mesh cluster occupancy")
+        _max_active[key] = out.value
+    if _max_active[key] < 1:
+        raise RuntimeError(f"band Gotoh kernel: the card cannot schedule a "
+                           f"cluster of {cfg.blocks} blocks of "
+                           f"{cfg.threads} threads and {cfg.smem} bytes of "
+                           "shared memory")
+    return _max_active[key]
+
+
+# a band's launch: its route, the entry point, the band's pointers (before
+# the strips) and what follows the per-launch arguments
+BandPlan = namedtuple("BandPlan", "cfg entry ptrs args")
+
+_BAND_KEYS = ("match", "colpen", "rowpen", "cols_eps", "row_term", "state")
+
+
+def band_plan(band) -> BandPlan:
+    """One band's launch plan, checked once (call under
+    ``torch.cuda.device`` of its tensors): band_config's route, the entry
+    point and the band's fixed arguments."""
     Wd = band["match"].shape[1]
-    keys = ("match", "colpen", "rowpen", "cols_eps", "row_term", "state",
-            "dec")
+    cfg = band_config(Wd)
+    _cuda.require_cuda("gotoh_mesh", *(band[k] for k in _BAND_KEYS),
+                       band["dec"])
+    if band["match"].dtype != torch.float32 or \
+            band["dec"].dtype != torch.int8:
+        raise ValueError("gotoh_mesh: float32 match, int8 decisions")
+    lib = _cuda.lib()
+    ptrs = tuple(band[k].data_ptr() for k in _BAND_KEYS)
+    if cfg.route == "block":
+        return BandPlan(cfg, lib.kt_gotoh_band_block, ptrs, (cfg.threads,))
+    if cfg.blocks * cfg.band != Wd:
+        raise ValueError(f"gotoh_mesh: a band of {Wd} columns is not one "
+                         "that band_width gives")
+    if lib.kt_gotoh_band_smem_bytes(cfg.threads, cfg.ch) != cfg.smem:
+        raise RuntimeError("band Gotoh kernel: shared-memory size differs "
+                           "between csrc/gotoh_mesh.cu and band_config")
+    schedulable(cfg)
+    return BandPlan(cfg, lib.kt_gotoh_band_cluster, ptrs,
+                    (cfg.threads, cfg.ch, cfg.blocks))
+
+
+def launch(band, strip_in, strip_out, r0: int, nr: int, la: int,
+           lb: int, first: bool):
+    """Launch band_config's route of csrc/gotoh_mesh.cu on one band's
+    CUDA tensors: rows r0 + 1 .. r0 + nr, the left band's strip_in (None
+    on the first band), this band's strip_out ([>= nr + 1, STRIP])."""
+    global launches, cluster_launches
+    dev = band["match"].device
     with torch.cuda.device(dev):
-        _cuda.require_cuda("gotoh_mesh", *(band[k] for k in keys),
-                           strip_out, *(() if first else (strip_in,)))
-        if band["match"].dtype != torch.float32 or \
-                band["dec"].dtype != torch.int8:
-            raise ValueError("gotoh_mesh: float32 match, int8 decisions")
-        rc = _cuda.lib().kt_gotoh_band_block(
-            *(band[k].data_ptr() for k in keys[:6]),
+        plan = band.get("plan")
+        if plan is None:
+            plan = band["plan"] = band_plan(band)
+        _cuda.require_cuda("gotoh_mesh", band["match"], strip_out,
+                           *(() if first else (strip_in,)))
+        if strip_out.numel() < (nr + 1) * STRIP or (
+                not first and strip_in.numel() < (nr + 1) * STRIP):
+            raise ValueError("gotoh_mesh: a strip holds fewer than nr + 1 "
+                             "rows")
+        rc = plan.entry(
+            *plan.ptrs,
             None if first else strip_in.data_ptr(), strip_out.data_ptr(),
-            band["dec"].data_ptr(), Wd, r0, nr, la, lb, band["c0"],
-            int(first), threads_for(Wd), ctypes.c_void_p(_cuda.stream(dev)))
+            band["dec"].data_ptr(), band["match"].shape[1], r0, nr, la, lb,
+            band["c0"], int(first), *plan.args,
+            ctypes.c_void_p(_cuda.stream(dev)))
     _cuda.check(rc, "gotoh_mesh")
-    launches += 1
+    if plan.cfg.route == "cluster":
+        cluster_launches += 1
+    else:
+        launches += 1
 
 
 def schedule(shards, bands, la: int, lb: int, rows: int = BLOCK_ROWS,
@@ -202,38 +329,53 @@ def schedule(shards, bands, la: int, lb: int, rows: int = BLOCK_ROWS,
     shards[d], each with its state buffer and decision rows): at step s,
     shard d runs its block s - d.  Fills every band's dec rows < la and
     leaves row la's state in state[la & 1].  Kernel blocks on CUDA
-    shards, plain on CPU shards or with use_plain."""
+    shards, plain on CPU shards or with use_plain.  Each band's strips
+    (one per block) are allocated once, with a copy on the next shard's
+    card where that is another; each shard records one event, again at
+    every block: a step walks the shards right to left, so shard d + 1
+    waits on shard d's record of the block before shard d records the
+    next one."""
     n = len(shards)
     blocks = -(-la // rows)
-    inbox = {}
+    if blocks == 0:
+        return
+    outs, ins = [], [None]
+    for sh in shards:
+        with on(sh):
+            outs.append(torch.empty((blocks, rows + 1, STRIP),
+                                    dtype=torch.float32, device=sh.device))
+    for d in range(1, n):
+        src, sh = outs[d - 1], shards[d]
+        if sh.device != shards[d - 1].device:
+            with on(sh):
+                src = torch.empty_like(src, device=sh.device)
+        elif sh.stream is not None:
+            src.record_stream(sh.stream)
+        ins.append(src)
+    outs_b = [o.unbind(0) for o in outs]
+    ins_b = [None] + [i.unbind(0) for i in ins[1:]]
+    done = [None if sh.stream is None else torch.cuda.Event()
+            for sh in shards]
+    use_kernel = not use_plain
     for s in range(blocks + n - 1):
-        for d in range(n):
+        for d in reversed(range(n)):
             b = s - d
             if not 0 <= b < blocks:
                 continue
-            sh, band = shards[d], bands[d]
+            sh = shards[d]
             r0 = b * rows
-            nr = min(rows, la - r0)
             with on(sh):
-                strip_in = None
                 if d:
-                    strip_in, ev = inbox.pop((d, b))
-                    wait(sh, ev)
-                strip_out = torch.empty((rows + 1, STRIP),
-                                        dtype=torch.float32,
-                                        device=sh.device)
-                use_kernel = sh.device.type == "cuda" and not use_plain
-                (launch if use_kernel else plain)(
-                    band, strip_in, strip_out, r0, nr, la, lb, d == 0)
+                    wait(sh, done[d - 1])
+                run = launch if use_kernel and sh.device.type == "cuda" \
+                    else plain
+                run(bands[d], ins_b[d][b] if d else None, outs_b[d][b], r0,
+                    min(rows, la - r0), la, lb, d == 0)
                 if d + 1 < n:
-                    nxt = shards[d + 1]
-                    dst = strip_out
-                    if nxt.device != sh.device:
-                        dst = torch.empty_like(strip_out, device=nxt.device)
-                        dst.copy_(strip_out, non_blocking=True)
-                    if nxt.stream is not None:
-                        dst.record_stream(nxt.stream)
-                    inbox[(d + 1, b)] = (dst, event(sh))
+                    if ins[d + 1] is not outs[d]:
+                        ins_b[d + 1][b].copy_(outs_b[d][b], non_blocking=True)
+                    if done[d] is not None:
+                        done[d].record(sh.stream)
 
 
 def end_values(state, la: int, lb: int, c0: int):

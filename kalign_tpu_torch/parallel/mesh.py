@@ -312,6 +312,8 @@ def sharded_long_gotoh(mesh: Mesh, match, pens_cols, pens_rows, la: int,
     (mesh.py:288-487), the bands' blocks of rows pipelined by
     gotoh_mesh.forward.  match [L1, W] f32 (the bias in it; W a multiple
     of the shard count), pens_cols [3, W + 1], pens_rows [3, L1 + 1].
+    The bands are gotoh_mesh.band_width wide, W padded with zero match
+    and penalties to n of them (past lb, so no bit of the result moves).
     Returns (dec [L1, W] int8 in the row kernel's layout, rows >= la
     zero, score, end state).  rows: the rows of a block."""
     shards = _one_process(mesh)
@@ -319,22 +321,24 @@ def sharded_long_gotoh(mesh: Mesh, match, pens_cols, pens_rows, la: int,
     n = len(shards)
     if W % n:
         raise ValueError(f"width {W} is not a multiple of {n} shards")
-    Wd = W // n
+    Wd = gotoh_mesh.band_width(W, n)
+    Wp = Wd * n
+    pc = np.pad(np.asarray(pens_cols, np.float32), ((0, 0), (0, Wp - W)))
+    mp = np.pad(np.asarray(match, np.float32), ((0, 0), (0, Wp - W)))
     with on(shards[0]):
         z = torch.zeros(1, dtype=torch.float32, device=shards[0].device)
         prep = gotoh_row.prepare(
-            put(np.asarray(pens_cols, np.float32)[None], shards[0]),
+            put(pc[None], shards[0]),
             put(np.asarray(pens_rows, np.float32)[None], shards[0]),
             put(np.array([la], np.int32), shards[0]),
             put(np.array([lb], np.int32), shards[0]), z, z)
     bands = []
     for d, sh in enumerate(shards):
         with on(sh):
-            bands.append(put(np.asarray(match, np.float32)
-                             [:, d * Wd:(d + 1) * Wd], sh))
+            bands.append(put(mp[:, d * Wd:(d + 1) * Wd], sh))
     bands, score, st = gotoh_mesh.forward(shards, bands, prep, la, lb, rows)
     dec = np.concatenate([fetch(mesh, {d: b["dec"]})[d]
-                          for d, b in enumerate(bands)], axis=1)
+                          for d, b in enumerate(bands)], axis=1)[:, :W]
     with on(shards[0]):
         return dec, float(score.cpu()[0]), int(st.cpu()[0])
 
@@ -342,8 +346,8 @@ def sharded_long_gotoh(mesh: Mesh, match, pens_cols, pens_rows, la: int,
 def long_operands(mesh: Mesh, lhs, rhs, pc, pr, la: int, lb: int,
                   eps: float, bonus=None):
     """The column-sharded route's inputs of one merge, queued: W padded to
-    a multiple of the shard count (pc with zeros, as tpu/engine.py:
-    516-521 pads it), the row-invariant vectors over the padded width on
+    n bands of gotoh_mesh.band_width (pc with zeros, as tpu/engine.py:
+    516-521 pads it to a multiple of the shard count), the row-invariant vectors over the padded width on
     the first shard (gotoh_row.prepare), and on each shard only its band
     of the match — the product, then the bias and the bonus where there
     is a bonus (bonus_match on the band), as gpu/engine.py::bucket_match

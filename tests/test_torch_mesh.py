@@ -296,8 +296,9 @@ def test_column_sharded_dp_leading_gap_run_boundary(n):
     """The optimum's leading column-gap run is exactly one band wide, so
     it crosses band 1's first column at row 1: that cell's diagonal
     predecessor is band 0's row-0 state (test_mesh_engine.py:114-150),
-    which block 0's strip carries."""
-    W = 32 * n
+    which block 0's strip carries.  Bands are 128 columns wide at the
+    least (gotoh_mesh.band_width)."""
+    W = 128 * n
     Wd = W // n
     la, lb = 24, W
     match = np.full((la, W), -10.0, np.float32)
