@@ -16,8 +16,12 @@ Phases (any failure raises and the script exits non-zero):
      and short lengths and lb at band edges (also under clusters of 2, 4,
      8 and 16 blocks), 2 x 256 x 16,384, 1 x 64 x 114,688, and a narrow
      row in 3 and 4 bands (the last past the row), each launched twice;
-     for the tiled row kernel: 1 x 64 x 131,072 and two tiles of a
-     narrow row; for BPM and its
+     for the wave route (past 114,688 columns): 1 x 64 x 131,072 and
+     1 x 64 x 114,816 under its plan, lb at a band's edge and la < L1p,
+     several blocks of rows a problem, and a narrow row under forced
+     plans of 1-3 blocks a cluster (edge_cases_wave); for the match
+     preparation: blocks at row0 / col0 offsets, K = 5, 1 and 0, anchors
+     at -1 (edge_cases_prepare); for BPM and its
      mask-table kernel: every instantiation, nblk 1..16, with m = 0, 1,
      64, 65 and 64*nblk, texts past 1,024, P = 1; for the k-means Lloyd
      kernel, in both of its forms: clusters of exactly 50, 51 and 2,048
@@ -35,7 +39,7 @@ Phases (any failure raises and the script exits non-zero):
      launch of a long divergent family
      (LONG_DIVERGENT_*: routed to the exact engine in --fast mode, FASTA
      equal to the host engine's);
-  3. eight paths, each aligned on the card with the device-resident
+  3. ten paths, each aligned on the card with the device-resident
      progressive pass (launch counts set to 0 just before and read just
      after; every kernel of the path must have launched, and none it
      must not; but for "divergent" and "precise", the engine gpu-fast,
@@ -60,8 +64,14 @@ Phases (any failure raises and the script exits non-zero):
      the same FASTA or part ways at a near-SP-tie (refine_divergence);
      "long_default", LONG_GENOMES_N DNA sequences of HIV-1's length
      (long_genomes: 9,200-9,900 nt) in default mode, resident pass only,
-     every map DP and merge on the cluster row kernel (no tiled launch),
+     every map DP and merge on the cluster row kernel (no wave launch),
      the mean anchor distance below the autoroute's 0.5;
+     "sars2_default", SARS2_N genomes of SARS-CoV-2's length (29,400-
+     30,300 nt), default mode, resident pass only, every DP on the cluster
+     row kernel, the bonus through prepare_match, no wave launch;
+     "plastome_default", PLASTOME_N genomes of a plastome's length
+     (150,000-160,000 nt), default mode, resident pass only, every map DP
+     and merge on the wave route (no cluster or register row launch);
      "divergent", DIVERGENT_N protein sequences whose mean anchor
      distance lies in DIVERGENT_DISTANCE, default mode with the default
      gpu-fast engine: it must route to the exact engine "gpu", launch
@@ -113,7 +123,9 @@ Phases (any failure raises and the script exits non-zero):
      sharded distances and bucket equal to one process's, and small.fa's
      3-run ensemble split by my_ensemble_runs and merged equal to the
      CLI's sequential --ensemble 3;
-  4. the paths but the refined one once more under torch.profiler:
+  4. the paths but the refined one, protein_default, large_default and
+     the SARS-CoV-2 and plastome ones (those under --only profile:NAME)
+     once more under torch.profiler:
      device time by kernel and by part of the progressive pass, each
      kernel's total device time and launches (the trace must hold every
      launch of phase 3), and the device's idle share;
@@ -131,7 +143,9 @@ Phases (any failure raises and the script exits non-zero):
      FASTA, or equal per-merge scores where a near-tie resolved
      differently; a long family (three fragments of 200-400
      residues and one of ~7,300, merges wider than 7,168 columns) in both
-     modes: identical FASTA, the cluster row kernel launched; BB11001
+     modes: identical FASTA, the cluster row kernel launched; the same
+     family in default mode with every DP past 7,168 columns on the wave
+     route: identical FASTA, the wave kernel launched; BB11001
      with refine="all" in --fast mode, small.fa with mode "precise" and
      as a 3-run ensemble without realign (tree noise on runs 1 and 2),
      and post-realign of the golden BB11001 alignment (refine confident,
@@ -149,8 +163,16 @@ Phases (any failure raises and the script exits non-zero):
      block size that fits; for the cluster row kernel the long_default
      path's largest map-DP and progressive launches, the long family's
      largest launch and 8 x 512 x 8,192 and 2 x 256 x 16,384, with the
-     device memory one wide launch takes; for the tiled row kernel,
-     which no path launches, 1 x 64 x 131,072; for the prefix sums also the
+     device memory one wide launch takes (and one problem on the wave
+     route, beside the memory guard's model; a launch with a bonus must
+     take at most 0.5 bytes a cell more than one without); for the wave
+     route the plastome path's root merge as the engine runs it, every
+     launch timed, its first two blocks of rows and its last held against
+     the plain version from the same state, the first two blocks' rows
+     also through PR 14's band pipeline on shards of this card (held and
+     timed beside it), and 1 x 64 x 131,072; for the match preparation
+     the root merge's first block and long_default's largest progressive
+     launch; for the prefix sums also the
      widest row launch's [B, L2p]; for the walk each decision layout
      apart and the widest row launch's walks; for the fused kernel every
      launch shape of the default path), and timed there beside its plain
@@ -229,11 +251,15 @@ KERNELS = {
     "gotoh_fused": ("kalign_tpu_torch/csrc/gotoh_lanewise.cu",
                     "kalign_tpu/tpu/gotoh_lanewise.py:692 "
                     "(_fused_kernel :525)"),
-    "gotoh_row_tiled": ("kalign_tpu_torch/csrc/gotoh_row.cu",
-                        "kalign_tpu/tpu/gotoh_pallas.py:272 (_kernel :112) "
-                        "past its plan's widths, where kalign_tpu runs "
-                        "tpu/gotoh.py:47 gotoh_forward (XLA, not Pallas); "
-                        "here past 114,688 columns"),
+    "gotoh_row_wave": ("kalign_tpu_torch/csrc/gotoh_row_wave.cu",
+                       "kalign_tpu/tpu/gotoh_pallas.py:272 (_kernel :112) "
+                       "past its plan's widths, where kalign_tpu runs "
+                       "tpu/gotoh.py:47 gotoh_forward (XLA, not Pallas); "
+                       "here past 114,688 columns, the design of "
+                       "kalign_tpu/parallel/mesh.py:288 sharded_long_gotoh"),
+    "prepare_match": ("kalign_tpu_torch/csrc/prepare_match.cu",
+                      "kalign_tpu/tpu/engine.py:71 _prepare_match (centering "
+                      "bias and K-anchor bonus; XLA, not Pallas)"),
     "gotoh_row_cluster": ("kalign_tpu_torch/csrc/gotoh_row.cu",
                           "kalign_tpu/tpu/gotoh_pallas.py:272 (_kernel :112)"
                           " past its plan's widths, where kalign_tpu runs "
@@ -262,7 +288,8 @@ PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
                  "bpm_table": "peq_table_kernel",
                  "traceback": "walk_kernel", "prefix_sum": "prefix_sum_kernel",
                  "gotoh_fused": "FusedOperands",
-                 "gotoh_row_tiled": "gotoh_row_tiled_kernel",
+                 "gotoh_row_wave": "gotoh_row_wave_kernel",
+                 "prepare_match": "prepare_match_kernel",
                  "gotoh_row_cluster": "gotoh_row_cluster_kernel",
                  "kmeans": "lloyd_kernel",
                  "exact_sweep": "exact_sweep_kernel",
@@ -273,21 +300,42 @@ PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
 # take minutes at 16,384 sequences, and densify a 378 MB bonus per
 # problem some 80 times on the long genomes) and whether a profiled run
 # follows; the long family's cases of phase_gpu_vs_cpu must launch the
-# cluster row kernel
+# cluster row kernel.  Default mode adds the consistency bonus through
+# prepare_match.  The genome paths (long_default, sars2_default,
+# plastome_default) run the resident pass only.  Profiled runs of
+# protein_default and large_default (30 and 67 s of the whole run's
+# 1,098 s in PR 15) run only under --only profile:NAME, so that the run
+# stays within its time limit
 NARROW = [k for k in KERNELS
-          if k not in ("gotoh_fused", "gotoh_row_tiled", "gotoh_row_cluster",
+          if k not in ("gotoh_fused", "gotoh_row_wave", "gotoh_row_cluster",
                        "kmeans", "exact_sweep", "gotoh_mesh",
-                       "gotoh_mesh_cluster")]
+                       "gotoh_mesh_cluster", "prepare_match")]
 WIDE = ["bpm", "bpm_table", "prefix_sum", "traceback", "gotoh_row_cluster"]
+BONUS = ["prepare_match"]
+GENOME_BASE = ["bpm", "bpm_table", "prefix_sum", "traceback"]
 PATHS = {"fast": dict(mode="fast", launch=NARROW),
-         "default": dict(mode="default", launch=NARROW + ["gotoh_fused"]),
-         "protein_default": dict(mode="default", launch=NARROW),
-         "large_default": dict(mode="default", launch=NARROW + ["kmeans"],
-                               host_pass=False),
-         "refine_confident": dict(mode="default", launch=NARROW,
+         "default": dict(mode="default",
+                         launch=NARROW + ["gotoh_fused"] + BONUS),
+         "protein_default": dict(mode="default", launch=NARROW + BONUS,
+                                 profile=False),
+         "large_default": dict(mode="default",
+                               launch=NARROW + ["kmeans"] + BONUS,
+                               host_pass=False, profile=False),
+         "refine_confident": dict(mode="default", launch=NARROW + BONUS,
                                   refine="confident", profile=False),
-         "long_default": dict(mode="default", launch=WIDE,
-                              forbid=["gotoh_row_tiled"], host_pass=False)}
+         "long_default": dict(mode="default", launch=WIDE + BONUS,
+                              forbid=["gotoh_row_wave"], host_pass=False),
+         # SARS-CoV-2-length genomes: every DP on the cluster row kernel
+         "sars2_default": dict(mode="default", launch=WIDE + BONUS,
+                               forbid=["gotoh_row_wave"], host_pass=False,
+                               profile=False),
+         # plastome-length genomes: every map DP and merge on the wave
+         "plastome_default": dict(mode="default",
+                                  launch=GENOME_BASE + ["gotoh_row_wave"]
+                                  + BONUS,
+                                  forbid=["gotoh_row_cluster", "gotoh_row",
+                                          "gotoh_lanewise", "gotoh_fused"],
+                                  host_pass=False, profile=False)}
 # the precise path: mode "precise" (an ensemble of 3 runs, each with one
 # realign pass, consistency K = 5) on PRECISE_N proteins of the protein
 # family's kind; its POAR tables are host work over N (N - 1) / 2 pairs
@@ -297,8 +345,8 @@ PRECISE_N = 400
 PRECISE_SEED = 11
 PRECISE = dict(mode="precise",
                launch=["bpm", "bpm_table", "prefix_sum", "traceback",
-                       "gotoh_row", "gotoh_lanewise"],
-               forbid=["gotoh_row_tiled", "gotoh_row_cluster",
+                       "gotoh_row", "gotoh_lanewise", "prepare_match"],
+               forbid=["gotoh_row_wave", "gotoh_row_cluster",
                        "exact_sweep"])
 # golden files the bit-exact engine "gpu" must give on the card: (input,
 # ensemble runs, realign passes), default mode
@@ -311,6 +359,14 @@ CARD_GOLDENS = {"small.precise.afa": ("small.fa", 3, 1),
 LONG_GENOMES_N = 128
 LONG_GENOMES_SUBS = (0.06, 0.03)
 AUTOROUTE_DISTANCE = 0.5
+# the sars2_default path: SARS2_N genomes of SARS-CoV-2's length (the
+# Wuhan-Hu-1 reference, GenBank MN908947.3, is 29,903 nt); the
+# plastome_default path: PLASTOME_N genomes of a plastome's length (the
+# tobacco chloroplast genome, GenBank Z00044 / NC_001879, 155,943 bp);
+# the cuts: 64 and 8 genomes, not the thousands of SARS-CoV-2 genomes
+# users align
+SARS2_N, SARS2_LEN, SARS2_SUBS = 64, 29903, (0.02, 0.01)
+PLASTOME_N, PLASTOME_LEN, PLASTOME_SUBS = 8, 155943, (0.03, 0.015)
 # fp32 operations per cluster member, iteration and try of the k-means
 # Lloyd kernel, at D anchors: two D-long dot products (2D multiplies,
 # 2D - 2 adds), the two squared distances (1 multiply, 2 adds each), the
@@ -487,7 +543,7 @@ def long_family(seed: int, n_short: int = 3, long_len: int = 7300):
     long_len-residue root taken whole with 5 % substitutions and a few
     short indels, and n_short fragments of 200-400 residues of one region
     of it at 10 % more.  Where the long sequence is a merge's column side,
-    the merge is wider than 7,168 columns (the tiled row kernel's
+    the merge is wider than 7,168 columns (the cluster row kernel's
     widths) while its rows stay short."""
     rng = np.random.default_rng(seed)
     alpha = np.frombuffer(PROTEIN.encode(), np.uint8)
@@ -522,6 +578,23 @@ def long_genomes(n: int = LONG_GENOMES_N, seed: int = 10):
     (the cluster row kernel's widths)."""
     return family(n, seed, root_len=9719, lo=9200, hi=9900, letters=DNA,
                   subs=LONG_GENOMES_SUBS, max_indel=3)
+
+
+def sars2_genomes(n: int = SARS2_N, seed: int = 15):
+    """SARS-CoV-2-length genomes from a seed: a 29,903-nt root, 16 clades
+    at 2 % substitutions, members at 1 % more, indels of 1-3 nt; lengths
+    29,400-30,300 (every DP 7,296 to 114,688 columns wide: the cluster
+    row kernel's)."""
+    return family(n, seed, root_len=SARS2_LEN, lo=29400, hi=30300,
+                  letters=DNA, subs=SARS2_SUBS, max_indel=3)
+
+
+def plastome_genomes(n: int = PLASTOME_N, seed: int = 16):
+    """Plastome-length genomes from a seed: a 155,943-nt root, 4 clades at
+    3 % substitutions, members at 1.5 % more, indels of 1-3 nt; lengths
+    150,000-160,000 (every DP past 114,688 columns: the wave route's)."""
+    return family(n, seed, root_len=PLASTOME_LEN, lo=150000, hi=160000,
+                  clades=4, letters=DNA, subs=PLASTOME_SUBS, max_indel=3)
 
 
 def v4_family(n: int, seed: int):
@@ -728,6 +801,8 @@ def phase_edge_cases(dev):
                     gotoh_row.forward_plain(*dp_args(w)), w,
                     f"4x256x2176 under {gotoh_row.launch_config(4, 2176)}")
     edge_cases_cluster(dev, rng, p, row_ref)
+    edge_cases_wave(dev, rng, p, row_ref)
+    edge_cases_prepare(dev, rng)
 
     # lanewise Gotoh: B=1024 at 128 x 128, lengths 1..128 and 0
     la = rng.integers(1, 129, size=1024)
@@ -847,9 +922,7 @@ def edge_cases_cluster(dev, rng, p, ref):
     (cluster_cases) under its plan, and the 8,192-wide problems also under
     clusters of 2, 4, 8 and 16 blocks; on the 64 x 384 x 384 problem p
     (plain outputs ref) under 3 bands of 128 and 4 (the last band wholly
-    past the row); each launch twice.  Then the tiled row kernel, which
-    stays for rows past 114,688 columns, at 1 x 64 x 131,072 and on p
-    under blocks of 32, 64 and 128 threads."""
+    past the row); each launch twice."""
     from kalign_tpu_torch.gpu import gotoh_row
     for w in cluster_cases(dev, rng):
         B, W = len(w["la"]), w["L2p"]
@@ -872,19 +945,116 @@ def edge_cases_cluster(dev, rng, p, ref):
         hold_twice("gotoh_row_cluster", lambda: gotoh_row.run_dp(
             gotoh_row.prepare, lambda *a: gotoh_row.launch(*a, config=c),
             *dp_args(p)), ref, p, f"64x384x384 under {c}")
-    w = dp_problem(rng, 64, 131072, [64], [131000], dev)
-    cfg = gotoh_row.launch_config(1, 131072)
-    if cfg.route != "tiled":
-        raise AssertionError(f"{shape_of(w)}: not the tiled plan")
-    hold_twice("gotoh_row_tiled", lambda: gotoh_row.forward(*dp_args(w)),
-               gotoh_row.forward_plain(*dp_args(w)), w,
-               f"{shape_of(w)} under {cfg}")
-    for threads in (32, 64, 128):
-        c = gotoh_row.tiled_config(threads * 8)
-        hold_dp_outputs("gotoh_row_tiled", False, gotoh_row.run_dp(
-            gotoh_row.prepare,
-            lambda *a: gotoh_row.launch(*a, config=c), *dp_args(p)),
-            ref, p, f"64x384x384 under {c}")
+
+
+def wave_plan(blocks, band, bands, ch=4):
+    """A WaveLaunch of ``bands`` clusters of ``blocks`` blocks of ``band``
+    columns, ch a thread, with the shared memory wave_config gives it."""
+    from kalign_tpu_torch.gpu import gotoh_row
+    threads = band // ch
+    return gotoh_row.WaveLaunch(
+        "wave", threads, ch, max(gotoh_row.wave_smem_bytes(threads, ch),
+                                 gotoh_row.WAVE_SMEM_MIN), blocks, band,
+        bands)
+
+
+def wave_dp(plan=None, rows=None):
+    """dp_fn of gotoh_row.run_dp through the wave kernel, under a forced
+    plan and rows a launch where given."""
+    from kalign_tpu_torch.gpu import gotoh_wave
+
+    def run(m, prep, la, lb):
+        return gotoh_wave.launch(lambda b, r0, r1, out=None: m[b, r0:r1],
+                                 prep, la, lb, plan, rows)
+    return run
+
+
+def edge_cases_wave(dev, rng, p, ref):
+    """The wave route (csrc/gotoh_row_wave.cu) against the plain row DP on
+    the same card tensors, each launch twice: 1 x 64 x 131,072 and 1 x 64
+    x 114,816 (the narrowest width it takes) under launch_config's plan,
+    in one launch; 4 x 64 x 131,072 with lb at a band's edge (8,192) and
+    one either side, la < L1p, la = 1, la = 0; 2 x 100 x 131,072 in
+    launches of 16 and 33 rows (several blocks of rows, the state carried);
+    and the 64 x 384 x 384 problem p (plain outputs ref; la = 0 and lb = 0
+    among them) under forced plans: 3 clusters of one block of 128
+    columns, one cluster of 3, 2 of 2 (the last block past the row), in
+    launches of 16 rows and of all rows."""
+    from kalign_tpu_torch.gpu import gotoh_row
+
+    def held(w, dp, what):
+        plain = gotoh_row.forward_plain(*dp_args(w))
+        hold_twice("gotoh_row_wave", lambda: gotoh_row.run_dp(
+            gotoh_row.prepare, dp, *dp_args(w)), plain, w, what)
+
+    for w in (dp_problem(rng, 64, 131072, [64], [131000], dev),
+              dp_problem(rng, 64, 114816, [64], [114816], dev)):
+        cfg = gotoh_row.launch_config(1, w["L2p"])
+        if cfg.route != "wave":
+            raise AssertionError(f"{shape_of(w)}: not the wave plan")
+        held(w, gotoh_row.launch, f"{shape_of(w)} under {cfg}")
+        emit({"phase": "edge_wave", "shape": shape_of(w),
+              "plan": cfg._asdict()})
+    w = dp_problem(rng, 64, 131072, [64, 33, 1, 0], [8192, 8191, 8193, 65536],
+                   dev)
+    held(w, gotoh_row.launch, f"{shape_of(w)}, lb at a band's edge")
+    w = dp_problem(rng, 100, 131072, [100, 70], [131072, 100000], dev)
+    for rows in (16, 33):
+        held(w, wave_dp(rows=rows), f"{shape_of(w)}, {rows} rows a launch")
+    for plan in (wave_plan(1, 128, 3), wave_plan(3, 128, 1),
+                 wave_plan(2, 128, 2)):
+        for rows in (16, None):
+            hold_twice("gotoh_row_wave", lambda: gotoh_row.run_dp(
+                gotoh_row.prepare, wave_dp(plan, rows), *dp_args(p)), ref,
+                p, f"64x384x384 under {plan}, rows a launch {rows}")
+
+
+def hold_bits(name, got, want, what):
+    """float32 tensors equal bit for bit."""
+    import torch
+    hold(name, torch.equal(got.view(torch.int32), want.view(torch.int32)),
+         abs_err(got, want), what)
+
+
+def bonus_block(rng, B, R, W, K, dev, dead_rows=0):
+    """Random anchor vectors of a block (positions -1..11, the first
+    dead_rows rows of every anchor at -1) and per_w."""
+    import torch
+    t = lambda x: torch.from_numpy(x).to(dev)
+    apr = rng.integers(-1, 12, (B, K, R)).astype(np.int32)
+    apr[:, :, :dead_rows] = -1
+    return (torch.tensor(np.float32(2.0 / max(K, 1)), device=dev), t(apr),
+            t(rng.random((B, K, R), dtype=np.float32)),
+            t(rng.integers(-1, 12, (B, K, W)).astype(np.int32)),
+            t(rng.random((B, K, W), dtype=np.float32)))
+
+
+def edge_cases_prepare(dev, rng):
+    """The match-preparation kernel (csrc/prepare_match.cu, in place)
+    against its plain version (prepare.bonus_match) on the same card
+    tensors, bitwise: blocks at row0 / col0 offsets, K = 5, 1 and 0
+    anchors, anchors at -1 on whole rows, a width past one block's 1,024
+    columns and not a multiple of it, la = 0 and lb = 0 problems."""
+    import torch
+    from kalign_tpu_torch.gpu import prepare
+    for B, R, W, K, row0, col0, dead in ((3, 50, 640, 5, 100, 384, 7),
+                                         (2, 33, 1028, 5, 0, 0, 0),
+                                         (4, 8, 2048, 1, 7, 1024, 2),
+                                         (2, 16, 256, 0, 3, 5, 0)):
+        match = torch.from_numpy(rng.standard_normal(
+            (B, R, W), dtype=np.float32) * 3).to(dev)
+        la = torch.from_numpy(rng.integers(
+            0, row0 + R + 1, B).astype(np.int32)).to(dev)
+        lb = torch.from_numpy(rng.integers(
+            0, col0 + W + 1, B).astype(np.int32)).to(dev)
+        la[0], lb[-1] = 0, 0
+        eps = torch.full((B,), 1e-3, device=dev)
+        bonus = bonus_block(rng, B, R, W, K, dev, dead)
+        want = prepare.bonus_match(match, la, lb, eps, bonus, col0, row0)
+        got = prepare.prepare_match(match.clone(), la, lb, eps, bonus, col0,
+                                    row0)
+        hold_bits("prepare_match", got, want,
+                  f"{B}x{R}x{W} K={K} at row0={row0}, col0={col0}")
 
 
 def random_tokens(rng, lens):
@@ -1656,8 +1826,9 @@ def phase_goldens(dev):
 # ---------------------------------------------------------------------------
 # the serve path: a warm server in this process answering a request stream
 SERVE_LAUNCH = ["bpm", "bpm_table", "gotoh_lanewise", "gotoh_fused",
-                "gotoh_row", "traceback", "prefix_sum", "exact_sweep"]
-SERVE_FORBID = ["gotoh_row_tiled"]
+                "gotoh_row", "traceback", "prefix_sum", "exact_sweep",
+                "prepare_match"]
+SERVE_FORBID = ["gotoh_row_wave"]
 # seconds the in-process server, and the server a --server-start spawns,
 # may take to answer
 SERVE_READY_TIMEOUT_S = 300
@@ -2151,15 +2322,16 @@ def sweep_main_shape(dev, launch):
 def counters():
     """{kernel: (wrapper module, name of its launch count)}"""
     from kalign_tpu_torch.gpu import bpm, exact_sweep, gotoh_fused, \
-        gotoh_lanewise, gotoh_mesh, gotoh_row, kmeans, scan
+        gotoh_lanewise, gotoh_mesh, gotoh_row, gotoh_wave, kmeans, prepare, \
+        scan
     from kalign_tpu_torch.gpu import traceback as tb
     mods = {"gotoh_row": gotoh_row, "gotoh_lanewise": gotoh_lanewise,
             "bpm": bpm, "traceback": tb, "prefix_sum": scan,
             "gotoh_fused": gotoh_fused, "kmeans": kmeans,
-            "exact_sweep": exact_sweep, "gotoh_mesh": gotoh_mesh}
+            "exact_sweep": exact_sweep, "gotoh_mesh": gotoh_mesh,
+            "gotoh_row_wave": gotoh_wave, "prepare_match": prepare}
     out = {k: (m, "launches") for k, m in mods.items()}
     out["bpm_table"] = (bpm, "table_launches")
-    out["gotoh_row_tiled"] = (gotoh_row, "tiled_launches")
     out["gotoh_row_cluster"] = (gotoh_row, "cluster_launches")
     out["gotoh_mesh_cluster"] = (gotoh_mesh, "cluster_launches")
     return out
@@ -2641,39 +2813,64 @@ def launch_memory(dev):
     row route (8 problems of 1,024 x 8,192, the cluster kernel's widths),
     without and with a consistency bonus of 5 anchors, and from each the
     widest square problem (a multiple of 128) of which one launch of 8
-    problems, the least GpuEngine.max_launch gives, fits in this card's
-    memory."""
+    problems fits in this card's memory; then one problem of 8,192 x
+    131,072 on the wave route with a bonus: its peak bytes beside
+    engine.problem_bytes (the memory guard's model), and the widest
+    square problem of which one fits by that model."""
     import torch
+    from kalign_tpu_torch.gpu import engine as E
     from kalign_tpu_torch.gpu.engine import GpuEngine
     eng = GpuEngine(dev)
-    B, L1p, L2p, K = 8, 1024, 8192, 5
     g = torch.Generator(device=dev)
     g.manual_seed(3)
 
     def rnd(*shape):
         return torch.rand(shape, generator=g, device=dev)
-    lhs, rhs = rnd(B, L1p, 23), rnd(B, L2p, 23)
-    pc, pr = -rnd(B, 3, L2p + 1) - 0.5, -rnd(B, 3, L1p + 1) - 0.5
-    la = torch.full((B,), L1p, dtype=torch.int32, device=dev)
-    lb = torch.full((B,), L2p, dtype=torch.int32, device=dev)
-    eps = torch.full((B,), 1e-3, device=dev)
-    pos = lambda L: (torch.arange(L, device=dev, dtype=torch.int32)
-                     .expand(B, K, L).contiguous())
-    bonus = (torch.tensor(0.4, device=dev), pos(L1p), rnd(B, K, L1p),
-             pos(L2p), rnd(B, K, L2p))
-    total = torch.cuda.get_device_properties(dev).total_memory
-    out = {"total_bytes": total}
-    for key, bn in (("no_bonus", None), ("bonus", bonus)):
+
+    def peak(B, L1p, L2p, K, bonus):
+        lhs, rhs = rnd(B, L1p, 23), rnd(B, L2p, 23)
+        pc, pr = -rnd(B, 3, L2p + 1) - 0.5, -rnd(B, 3, L1p + 1) - 0.5
+        la = torch.full((B,), L1p, dtype=torch.int32, device=dev)
+        lb = torch.full((B,), L2p, dtype=torch.int32, device=dev)
+        eps = torch.full((B,), 1e-3, device=dev)
+        pos = lambda L: (torch.arange(L, device=dev, dtype=torch.int32)
+                         .expand(B, K, L).contiguous())
+        bn = (torch.tensor(0.4, device=dev), pos(L1p), rnd(B, K, L1p),
+              pos(L2p), rnd(B, K, L2p)) if bonus else None
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         eng.launch_bucket(lhs, rhs, pc, pr, la, lb, eps, bn,
                           la.cpu().numpy(), lb.cpu().numpy())
         torch.cuda.synchronize()
-        per_cell = (torch.cuda.max_memory_allocated(dev) - base) / (
-            B * L1p * L2p)
+        return torch.cuda.max_memory_allocated(dev) - base
+
+    B, L1p, L2p, K = 8, 1024, 8192, 5
+    total = torch.cuda.get_device_properties(dev).total_memory
+    out = {"total_bytes": total}
+    # once unmeasured: the first product also allocates cuBLAS's workspace
+    peak(B, L1p, L2p, K, False)
+    for key, bonus in (("no_bonus", False), ("bonus", True)):
+        per_cell = peak(B, L1p, L2p, K, bonus) / (B * L1p * L2p)
         out[key] = {"bytes_per_cell": per_cell, "widest_square_8": int(
             (total / (8 * per_cell)) ** 0.5) // 128 * 128}
+    out["bonus_over_no_bonus"] = (out["bonus"]["bytes_per_cell"]
+                                  - out["no_bonus"]["bytes_per_cell"])
+    if out["bonus_over_no_bonus"] > 0.5:
+        raise AssertionError(f"a wide launch with a bonus takes "
+                             f"{out['bonus_over_no_bonus']} bytes a cell "
+                             "more than one without")
+    L1w, L2w = 8192, 131072
+    got = peak(1, L1w, L2w, K, True)
+    L = 128
+    while E.problem_bytes(L + 128, L + 128) <= total and \
+            L + 128 <= 917504:
+        L += 128
+    out["wave_one_problem"] = {
+        "shape": f"1x{L1w}x{L2w}", "peak_bytes": got,
+        "problem_bytes": E.problem_bytes(L1w, L2w),
+        "bytes_per_cell": got / (L1w * L2w), "widest_square_1": L}
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2729,12 +2926,275 @@ def cluster_main_shape(dev, stats_wide, stats_long=None):
     return out
 
 
-def tiled_main_shape(dev):
-    """The tiled row kernel, which no path launches (it takes rows past
-    114,688 columns), at 1 x 64 x 131,072: held and timed."""
-    out = row_dp_entry("gotoh_row_tiled", dp_problem(
+@contextmanager
+def recorded_wave_calls(seen):
+    """gotoh_wave.forward_operands's arguments (the engine's launch
+    batches on the wave route) appended to seen."""
+    from kalign_tpu_torch.gpu import gotoh_wave
+    orig = gotoh_wave.forward_operands
+
+    def rec(*args, **kw):
+        if args[7] is not None:      # a merge (the maps have no bonus)
+            seen.append((args, kw))
+        return orig(*args, **kw)
+    gotoh_wave.forward_operands = rec
+    try:
+        yield
+    finally:
+        gotoh_wave.forward_operands = orig
+
+
+def root_merge(seen):
+    """The widest merge (a call with a bonus) the wave route took: its one
+    problem's operands (lhs, rhs, pc, pr, la, lb, eps, bonus), each with a
+    batch of 1."""
+    best = None
+    for args, _ in seen:
+        lhs, rhs, pc, pr, la, lb, eps, bonus = args[:8]
+        if bonus is None:
+            continue
+        for b in range(lhs.shape[0]):
+            cells = int(la[b]) * int(lb[b])
+            if best is None or cells > best[0]:
+                one = lambda x: x[b:b + 1]
+                best = (cells, tuple(one(x) for x in (
+                    lhs, rhs, pc, pr, la, lb, eps)) + ((bonus[0],) + tuple(
+                        one(v) for v in bonus[1:]),))
+    if best is None:
+        raise AssertionError("no merge took the wave route")
+    return best[1]
+
+
+def hold_wave_block(got_dec, got_state, want_dec, want_state, what):
+    """A block of rows: decisions (every column) and its last row's state
+    [3, L2p] bit for bit."""
+    import torch
+    ok = torch.equal(got_dec, want_dec) and torch.equal(
+        got_state.view(torch.int32), want_state.view(torch.int32))
+    hold("gotoh_row_wave", ok, abs_err(got_state, want_state), what)
+
+
+def wave_root(dev, seen):
+    """The plastome_default path's root merge on the wave route
+    (gotoh_wave.operand_source: each block of rows' fp32 product and
+    prepare_match in place, then the wave kernel), block by block on one
+    stream: the first two blocks of rows and the last held bitwise
+    against the plain version (one unit over the whole row) from the same
+    state (decisions, the block's last state; the score and end state
+    from the last), every launch timed by CUDA events and the whole run's
+    wall.  Then the route as the engine runs it (gotoh_wave.launch, the
+    next block made on a second stream), its score and end state held to
+    the first run's, its launches' device time and its wall.  Then the
+    first two blocks' rows
+    as a problem of their own (la = their rows) through the wave and
+    through PR 14's band pipeline (gotoh_mesh.forward on MESH_SHARDS
+    shards of this card): held against each other, device time and the
+    pipeline's host enqueue beside each other.  Returns the wave's
+    kernels-line entry."""
+    import torch
+    import torch.nn.functional as F
+    from kalign_tpu_torch.gpu import gotoh_mesh, gotoh_row, gotoh_wave
+    lhs, rhs, pc, pr, la, lb, eps, bonus = root_merge(seen)
+    L1p, L2p = lhs.shape[1], rhs.shape[1]
+    la_i, lb_i = int(la[0]), int(lb[0])
+    zero = torch.zeros(1, dtype=torch.float32, device=dev)
+    prep = gotoh_row.prepare(pc, pr, la, lb, zero, zero)
+    source = gotoh_wave.operand_source(lhs, rhs, la, lb, eps, bonus)
+    torch.cuda.empty_cache()
+    with torch.cuda.device(dev):
+        cfg = gotoh_wave.checked_plan(L2p)
+        # the first plan's clusters the card holds at once (below its
+        # bands, schedulable re-planned)
+        first = gotoh_row.wave_config(L2p)
+        held = gotoh_wave.max_active(first)
+    R = gotoh_wave.block_rows(L1p, L2p)
+    n = min(la_i, L1p)
+    starts = list(range(0, n, R))
+    K = len(starts)
+    keep = {0, 1, 2, K - 1} & set(range(K))
+    buf = gotoh_wave.Buffers(prep, 0, cfg, R)
+    dec = torch.empty((L1p, L2p), dtype=torch.int8, device=dev)
+    before, events = {}, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k, r0 in enumerate(starts):
+        if k in keep:
+            before[k] = buf.state[k & 1][:, :L2p].clone()
+        m = source(0, r0, min(r0 + R, n))
+        events.append([torch.cuda.Event(enable_timing=True)
+                       for _ in range(2)])
+        events[-1][0].record()
+        gotoh_wave.launch_block(m, prep, 0, buf, dec, r0, k, la, lb, cfg)
+        events[-1][1].record()
+        m = None
+    torch.cuda.synchronize()
+    route_ms = (time.perf_counter() - t0) * 1e3
+    kernel_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
+    final = buf.state[K & 1][:, :L2p]
+    # the held blocks against the plain version from the same state (row
+    # 0's the plain version's own)
+    hold_bits("gotoh_row_wave", before[0], gotoh_wave.plain_state(prep, 0),
+              "the root merge's row 0 state")
+    held_ms, held_cells = 0.0, 0
+    for k in sorted({0, 1, K - 1} & set(range(K))):
+        r0 = starts[k]
+        r1 = min(r0 + R, n)
+        m = source(0, r0, r1)
+        (want_dec, want_state), ms = timed_once(
+            lambda: gotoh_wave.plain_block(m, prep, 0, before[k], r0, la_i,
+                                           lb_i, L2p))
+        held_ms += ms
+        held_cells += (r1 - r0) * lb_i
+        after = before.get(k + 1, final if k == K - 1 else None)
+        hold_wave_block(dec[r0:r1], after, want_dec, want_state,
+                        f"the plastome root merge 1x{L1p}x{L2p}, block {k} "
+                        f"of {K} (rows {r0}-{r1 - 1})")
+        if k == K - 1:
+            s_w, st_w = gotoh_wave.end_values(want_state, lb)
+            s_k, st_k = gotoh_wave.end_values(final, lb)
+            hold_bits("gotoh_row_wave", s_k, s_w, "the root merge's score")
+            hold_equal("gotoh_row_wave", st_k, st_w,
+                       "the root merge's end state")
+    held_kernel_ms = sum(events[k][0].elapsed_time(events[k][1])
+                         for k in sorted({0, 1, K - 1} & set(range(K))))
+    b_all, by_all = bound(float(n) * lb_i * 5, float(n) * lb_i *
+                          GOTOH_OPS_PER_CELL, FP32_OPS_PER_S)
+    b_held, by_held = bound(held_cells * 5.0, held_cells * GOTOH_OPS_PER_CELL,
+                            FP32_OPS_PER_S)
+    s_k, st_k = gotoh_wave.end_values(final, lb)
+    del dec, buf, m, before, final
+    torch.cuda.empty_cache()
+
+    # the route as the engine runs it (gotoh_wave.launch: the next block's
+    # match made on a second stream while the kernel runs), each launch
+    # timed by events; its score and end state the held run's
+    ev = []
+    (_, s_r, st_r), eng_ms = timed_once(lambda: gotoh_wave.launch(
+        source, prep, la, lb, la_h=[la_i], events=ev))
+    hold_bits("gotoh_row_wave", s_r, s_k, "the root merge's score, the "
+              "engine's route against the held run")
+    hold_equal("gotoh_row_wave", st_r, st_k, "the root merge's end state, "
+               "the engine's route against the held run")
+    eng_kernel_ms = sum(e0.elapsed_time(e1) for e0, e1 in ev)
+    torch.cuda.empty_cache()
+
+    # the first two blocks' rows as a problem of their own: the wave and
+    # PR 14's band pipeline on shards of this card
+    rows2 = min(2 * R, n)
+    mm = torch.cat([source(0, 0, min(R, rows2)), source(0, R, rows2)])[
+        :rows2].contiguous()
+    la2 = torch.tensor([rows2], dtype=torch.int32, device=dev)
+    pr2 = pr[:, :, :rows2 + 1].contiguous()
+    prep2 = gotoh_row.prepare(pc, pr2, la2, lb, zero, zero)
+    wave = lambda: gotoh_wave.launch(lambda b, r0, r1, out=None: mm[r0:r1],
+                                     prep2, la2, lb, cfg, R, la_h=[rows2])
+    wave_out = wave()
+    wave_ms = device_ms(wave, 2)
+    mesh = mesh_of()
+    Wd = gotoh_mesh.band_width(L2p, mesh.size)
+    Wp = Wd * mesh.size
+    mp = F.pad(mm, (0, Wp - L2p))
+    bands = [mp[:, d * Wd:(d + 1) * Wd].contiguous() for d in
+             range(mesh.size)]
+    del mp
+    prep_m = gotoh_row.prepare(F.pad(pc, (0, Wp - L2p)), pr2, la2, lb, zero,
+                               zero)
+    # made on the default stream: done before the shards' streams read
+    torch.cuda.synchronize()
+    got = band_run(mesh, bands, prep_m, Wp, rows2, lb_i)
+    hold_band(f"the root merge's first {rows2} rows: the band pipeline vs "
+              "the wave", got, (wave_out[0][0], wave_out[1], wave_out[2]),
+              rows2, lb_i, "gotoh_row_wave")
+    mesh_ms, mesh_enqueue = band_device_ms(mesh, (bands, prep_m, Wp), rows2,
+                                           lb_i)
+    band_cfg = gotoh_mesh.band_config(Wd)
+    b2, by2 = bound(float(rows2) * lb_i * 5, float(rows2) * lb_i *
+                    GOTOH_OPS_PER_CELL, FP32_OPS_PER_S)
+    del bands, mm
+    torch.cuda.empty_cache()
+    shape = f"1x{L1p}x{L2p} la={la_i} lb={lb_i}"
+    return dict(
+        shape=f"{shape}, blocks 0, 1 and {K - 1} of {K} ({R} rows each)",
+        ms=round(held_kernel_ms, 3), plain_ms=round(held_ms, 3),
+        bound_ms=b_held, bound_by=by_held, library_ms=None,
+        plan=cfg._asdict(), rows_per_launch=R, every=gotoh_wave.EVERY,
+        first_plan=first._asdict(), first_plan_max_active_clusters=held,
+        plan_max_active_clusters=gotoh_wave.max_active(cfg),
+        root_merge=dict(shape=shape, launches=K,
+                        kernel_ms=round(eng_kernel_ms, 3),
+                        route_ms=round(eng_ms, 3),
+                        us_per_row=round(eng_kernel_ms * 1e3 / n, 4),
+                        serial_kernel_ms=round(kernel_ms, 3),
+                        serial_route_ms=round(route_ms, 3),
+                        bound_ms=b_all, bound_by=by_all),
+        vs_band_pipeline=dict(
+            shape=f"1x{rows2}x{L2p} lb={lb_i}", wave_device_ms=round(
+                wave_ms, 3), band_device_ms=round(mesh_ms, 3),
+            band_enqueue_ms=round(mesh_enqueue, 3), shards=mesh.size,
+            cards=mesh.cards, band=Wd, band_route=band_cfg.route,
+            band_blocks=band_cfg.blocks, bound_ms=b2, bound_by=by2))
+
+
+def wave_main_shape(dev, seen):
+    """The wave route at 1 x 64 x 131,072 (where PR 6's tiled kernel took
+    dev. 20.02 ms): held against the plain row DP, timed (events, then
+    device_ms) beside its plain version and bound; then the plastome root
+    merge (wave_root), whose held blocks give the kernels-line numbers."""
+    out = wave_root(dev, seen)
+    out["131072"] = row_dp_entry("gotoh_row_wave", dp_problem(
         np.random.default_rng(3), 64, 131072, [64], [131072], dev), 5)
-    emit({"phase": "main_shape", "kernel": "gotoh_row_tiled", **out})
+    emit({"phase": "main_shape", "kernel": "gotoh_row_wave", **out})
+    return out
+
+
+def prepare_main_shape(dev, seen, stats_long):
+    """The match-preparation kernel at the plastome root merge's first
+    block of rows (its own bonus, row0 0) and at long_default's largest
+    progressive launch (its lengths, random anchor vectors of K = 5): each
+    held bitwise against its plain version (on the same card tensors) and
+    timed, in place (events; device_ms), beside the plain version and the
+    bytes bound (8 bytes a cell, the anchor vectors)."""
+    import torch
+    from kalign_tpu_torch.gpu import gotoh_wave, prepare
+    lhs, rhs, pc, pr, la, lb, eps, bonus = root_merge(seen)
+    R = gotoh_wave.block_rows(lhs.shape[1], rhs.shape[1])
+
+    def entry(match, la, lb, eps, bonus, what):
+        B, Rr, W = match.shape
+        K = bonus[1].shape[1]
+        want, plain_ms = timed_once(
+            lambda: prepare.bonus_match(match, la, lb, eps, bonus))
+        got = prepare.prepare_match(match.clone(), la, lb, eps, bonus)
+        hold_bits("prepare_match", got, want, what)
+        del want
+        work = match.clone()
+        run = lambda: prepare.launch(work, la, lb, eps, bonus)
+        b_ms, b_by = bound(B * Rr * W * 8.0 + B * K * (Rr + W) * 8.0,
+                           B * Rr * W * (5.0 + 2 * K), FP32_OPS_PER_S)
+        return dict(shape=f"{B}x{Rr}x{W} K={K}", ms=cuda_time_ms(run, 5),
+                    device_ms=device_ms(run, 5), plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    m = torch.bmm(lhs[:, :R], rhs.transpose(1, 2))
+    out = entry(m, la, lb, eps, prepare.cut(bonus, 0, R),
+                "the plastome root merge's first block of rows")
+    del m
+    if stats_long is None:
+        emit({"phase": "main_shape", "kernel": "prepare_match", **out})
+        return out
+    b = max((b for b in stats_long["batches"] if b["route"] == "row"
+             and not b["maps"]), key=batch_cells)
+    rng = np.random.default_rng(6)
+    B, L1p, L2p = len(b["la"]), b["L1p"], b["L2p"]
+    t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)
+    m = t(rng.standard_normal((B, L1p, L2p), dtype=np.float32) * 3)
+    out["long_default"] = entry(
+        m, t(b["la"].astype(np.int32)), t(b["lb"].astype(np.int32)),
+        torch.full((B,), 1e-3, device=dev), bonus_block(rng, B, L1p, L2p, 5,
+                                                        dev),
+        "long_default's largest progressive launch")
+    del m
+    torch.cuda.empty_cache()
+    emit({"phase": "main_shape", "kernel": "prepare_match", **out})
     return out
 
 
@@ -2742,8 +3202,9 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
     """Each kernel at the shapes and lengths a path gave it: the row,
     lanewise, traceback and prefix-sum kernels at the fast path's, the
     fused kernel at the default path's, BPM and its table at both paths'
-    and at one full chunk of raw_distances (the cluster and tiled row
-    kernels: cluster_main_shape, tiled_main_shape)."""
+    and at one full chunk of raw_distances (the cluster row kernel, the
+    wave route and the match preparation: cluster_main_shape,
+    wave_main_shape, prepare_main_shape)."""
     import torch
     from kalign_tpu_torch.core import params as P
     from kalign_tpu_torch.gpu import gotoh_fused, gotoh_lanewise, gotoh_row, \
@@ -2956,7 +3417,7 @@ VS_CASES = {"BB30014": 0, "family150": 0, "BB30014-autoroute": 5,
             "dna250-default": 5, "long-fast": 0, "long-default": 5,
             "BB11001-refine-all": 0, "BB12006-gpu": 5, "small-precise": 5,
             "small-ensemble3": 5, "BB11001-postrealign2": 0,
-            "BB12006-mesh-long": 5}
+            "BB12006-mesh-long": 5, "long-default-wave": 5}
 # cases of the ensemble (mode "precise": 3 runs with one realign pass;
 # without realign runs 1 and 2 take tree noise) and of post-realign (of
 # the golden default alignment, refine confident, 2 iterations); these
@@ -2969,6 +3430,10 @@ VS_ENGINE = {"BB12006-gpu": "gpu"}
 # card, the CPU there) and every merge on the column-sharded route (the
 # width rule forced, as test_mesh_engine_long_seq_route forces kalign_tpu's)
 VS_MESH = {"BB12006-mesh-long": 4}
+# cases whose DPs past 7,168 columns take the wave route (the cluster
+# widths routed to it, as forced_plan forces a band route): the wave
+# kernel on the card, its plain version on the CPU
+VS_WAVE = {"long-default-wave"}
 VS_GOLDEN = {"BB30014-autoroute": "BB30014.default.afa",
              "BB12006-gpu": "BB12006.default.afa"}
 
@@ -3025,6 +3490,19 @@ def vs_align(name, device):
                               engine=engine)
         finally:
             GpuEngine.row_feasible = row_feasible
+        return (kio.format_alignment(msa, "fasta"),
+                np.asarray(msa.task_confidence, np.float64), [],
+                msa.engine_stats)
+    if name in VS_WAVE:
+        from kalign_tpu_torch.gpu import gotoh_row
+        widest = gotoh_row.CLUSTER_MAX_WIDTH
+        gotoh_row.CLUSTER_MAX_WIDTH = 7168
+        try:
+            msa = E.align_msa(vs_input(name),
+                              consistency_anchors=VS_CASES[name],
+                              engine=engine, device=device)
+        finally:
+            gotoh_row.CLUSTER_MAX_WIDTH = widest
         return (kio.format_alignment(msa, "fasta"),
                 np.asarray(msa.task_confidence, np.float64), [],
                 msa.engine_stats)
@@ -3119,9 +3597,13 @@ def phase_gpu_vs_cpu():
                 if not same:
                     raise AssertionError(f"{name}: GPU and CPU alignments "
                                          "differ")
-                if launches[name]["gotoh_row_cluster"] == 0:
+                route = "gotoh_row_wave" if name in VS_WAVE else \
+                    "gotoh_row_cluster"
+                if launches[name][route] == 0:
+                    raise AssertionError(f"{name}: {route} did not launch")
+                if name in VS_WAVE and launches[name]["gotoh_row_cluster"]:
                     raise AssertionError(f"{name}: the cluster row kernel "
-                                         "did not launch")
+                                         "launched")
     return launches, stats
 
 
@@ -3136,13 +3618,14 @@ MESH_SHARDS = 4
 # kernel's cluster route (bands of ~2,500 columns on 4 shards)
 MESH_PATHS = {
     "mesh_default": dict(launch=["bpm", "bpm_table", "prefix_sum",
-                                 "traceback", "gotoh_row"],
+                                 "traceback", "gotoh_row", "prepare_match"],
                          forbid=["gotoh_lanewise", "gotoh_fused"],
                          gpu_fast="protein_default"),
     "mesh_long": dict(launch=["bpm", "bpm_table", "prefix_sum", "traceback",
-                              "gotoh_row_cluster", "gotoh_mesh_cluster"],
+                              "gotoh_row_cluster", "gotoh_mesh_cluster",
+                              "prepare_match"],
                       forbid=["gotoh_lanewise", "gotoh_fused",
-                              "gotoh_row_tiled", "gotoh_mesh"],
+                              "gotoh_row_wave", "gotoh_mesh"],
                       gpu_fast="long_default")}
 # the band kernel's edge cases: (shards, L1, W, la, lb, rows a block)
 MESH_EDGE = [(2, 600, 1536, 600, 1536, 256),   # L1 not a multiple of R;
@@ -3792,16 +4275,36 @@ def phase_mesh_procs(device="cuda:0"):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def phase_wave_edge(dev):
+    """The wave route's and the match preparation's edge cases alone
+    (edge_cases_wave on phase_edge_cases' 64 x 384 x 384 problem,
+    edge_cases_prepare)."""
+    from kalign_tpu_torch.gpu import gotoh_row
+    rng = np.random.default_rng(0)
+    la = rng.integers(1, 385, size=64)
+    lb = rng.integers(1, 385, size=64)
+    la[[0, 2]] = 0
+    lb[[1, 2]] = 0
+    lb[3] = 384
+    p = dp_problem(rng, 384, 384, la, lb, dev)
+    edge_cases_wave(dev, rng, p, gotoh_row.forward_plain(*dp_args(p)))
+    edge_cases_prepare(dev, rng)
+    emit({"phase": "wave_edge", "ok": True})
+
+
 def large_family():
     """The large_default path's input: 16,384 protein sequences."""
     return family(16384, seed=4)
 
 
 def run_only(dev, only, divergent_n=DIVERGENT_N):
-    """The phases named in ``--only`` (comma-separated: edge, kmeans_edge,
-    kmeans, exact_edge, path:NAME, profile:NAME, vs, goldens, mesh_edge,
-    path:mesh_default, path:mesh_long, mesh_sweep, profile:mesh_long,
-    mesh_procs), for a short call; no result lines.  mesh_sweep runs
+    """The phases named in ``--only`` (comma-separated: edge, wave_edge,
+    kmeans_edge, kmeans, exact_edge, path:NAME, profile:NAME, vs, goldens,
+    mesh_edge, path:mesh_default, path:mesh_long, mesh_sweep,
+    profile:mesh_long, mesh_procs, launch_memory), for a short call; no
+    result lines.  path:plastome_default also holds and times the wave
+    route and the match preparation at its root merge (wave_main_shape,
+    prepare_main_shape).  mesh_sweep runs
     phase_mesh_sweep on the merges of path:mesh_long (run here first
     where it was not named before it).  path:precise runs phase_precise,
     path:serve phase_serve.  path:divergent also holds and times the sweep at
@@ -3809,7 +4312,9 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
     largest map-DP and progressive launches."""
     protein = lambda: family(2000, seed=0)
     seqs = {"default": lambda: v4_family(2000, seed=2),
-            "large_default": large_family, "long_default": long_genomes}
+            "large_default": large_family, "long_default": long_genomes,
+            "sars2_default": sars2_genomes,
+            "plastome_default": plastome_genomes}
     seen = None
     for what in only.split(","):
         if what == "edge":
@@ -3847,12 +4352,22 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
             phase_mesh_sweep(seen)
         elif what == "profile:mesh_long":
             profile_mesh_host()
+        elif what == "wave_edge":
+            phase_wave_edge(dev)
+        elif what == "launch_memory":
+            emit({"phase": "launch_memory", **launch_memory(dev)})
         elif what.startswith(("path:", "profile:")):
             kind, path = what.split(":")
             s = seqs.get(path, protein)()
-            launches, stats = phase_path(path, s)
+            wave_seen = []
+            with recorded_wave_calls(wave_seen):
+                launches, stats = phase_path(path, s)
             if path == "long_default":
                 cluster_main_shape(dev, stats)
+            if path == "plastome_default":
+                wave_main_shape(dev, wave_seen)
+                prepare_main_shape(dev, wave_seen, None)
+                wave_seen.clear()
             if kind == "profile":
                 phase_profile(path, s, launches)
         elif what == "vs":
@@ -3904,10 +4419,14 @@ def main(argv=None):
     seqs = {"fast": protein, "default": v4_family(2000, seed=2),
             "protein_default": protein, "large_default": large_family(),
             "refine_confident": protein, "long_default": long_genomes(),
+            "sars2_default": sars2_genomes(),
+            "plastome_default": plastome_genomes(),
             "divergent": divergent_family(args.divergent_n)}
     launches, stats = {}, {}
+    wave_seen = []
     for path in PATHS:
-        launches[path], stats[path] = phase_path(path, seqs[path])
+        with recorded_wave_calls(wave_seen):
+            launches[path], stats[path] = phase_path(path, seqs[path])
     launches["divergent"], sweep_largest = phase_divergent(
         seqs["divergent"])
     launches["precise"], precise_row = phase_precise(dev, precise_family())
@@ -3930,7 +4449,10 @@ def main(argv=None):
     shapes["gotoh_row"]["precise"] = precise_row
     shapes["gotoh_row_cluster"] = cluster_main_shape(
         dev, stats["long_default"], vs_stats["long-fast"])
-    shapes["gotoh_row_tiled"] = tiled_main_shape(dev)
+    shapes["gotoh_row_wave"] = wave_main_shape(dev, wave_seen)
+    shapes["prepare_match"] = prepare_main_shape(dev, wave_seen,
+                                                 stats["long_default"])
+    wave_seen.clear()
     shapes["kmeans"] = kmeans_root
     shapes["exact_sweep"] = sweep_main_shape(dev, sweep_largest)
     shapes[MESH_ROUTES[mesh_root["route"]]] = mesh_root
@@ -3941,7 +4463,8 @@ def main(argv=None):
     for name, (src, replaces) in KERNELS.items():
         t = shapes[name]
         main = {"gotoh_row_cluster": ("long_default",),
-                "gotoh_row_tiled": (),
+                "gotoh_row_wave": ("plastome_default",),
+                "prepare_match": ("plastome_default",),
                 "kmeans": ("large_default",),
                 "exact_sweep": ("divergent",),
                 "gotoh_mesh": ("mesh_long",),

@@ -49,8 +49,8 @@
  * The DP of a band of columns (band_rows, with the per-row body
  * row_step) is shared with gotoh_row_cluster_kernel below, which takes
  * rows wider than the largest block's registers hold (896 threads x 8
- * columns) up to 16 such bands; wider rows still take
- * gotoh_row_tiled_kernel.
+ * columns) up to 16 such bands; wider rows take the wave route
+ * (csrc/gotoh_row_wave.cu, the same body in a wavefront of clusters).
  */
 #include "gotoh_row_body.cuh"
 
@@ -205,209 +205,6 @@ gotoh_row_cluster_kernel(const float* __restrict__ match,     // [B, L1p, L2p]
   cluster.sync();
 }
 
-/* The tiled instantiation, for rows wider than a cluster of 16 bands
- * holds (gpu/gotoh_row.py::launch_config takes it past 114,688 columns;
- * it has no width limit of its own).  Replaces the same TPU kernel and, for these
- * widths, the XLA scan kalign_tpu falls back to
- * (kalign_tpu/tpu/gotoh.py::gotoh_forward).
- *
- * One block per problem walks each DP row in column tiles of
- * blockDim.x * kTiledCH columns, left to right.  The previous row's A,
- * GA and GB of the whole row live in a global-memory scratch
- * [B, 2, 3, L2p] that alternates by row parity (a problem's 24 bytes per
- * column stay in L2), so a thread reads the left neighbour's previous-row
- * values at column j0 - 1 from there, whatever tile it lies in.  The scan
- * transform's prefix max of u carries from tile to tile in registers:
- * every thread folds each tile's maximum into `carry`, and the tile's last
- * u is the next tile's left edge.  Match rows and the row-invariant
- * vectors are read straight from global memory per tile.  Per cell the
- * arithmetic is gotoh_row_kernel's, in the same order, so the kernel is
- * bitwise equal to the plain version too.
- *
- * Bound: the same bytes per cell as gotoh_row_kernel; the scratch traffic
- * (24 bytes per column and row) is L2 traffic.  One block per problem
- * leaves most SMs idle at few wide problems: gotoh_row_cluster_kernel,
- * a column wavefront of up to 16 blocks per problem, takes every width it
- * can. */
-constexpr int kTiledCH = 8;
-constexpr int kTiledMaxThreads = 512;
-constexpr int kTSlot = 2;  // per warp: max u, last u
-
-__global__ void __launch_bounds__(kTiledMaxThreads)
-gotoh_row_tiled_kernel(const float* __restrict__ match,     // [B, L1p, L2p]
-                       const float* __restrict__ colpen,    // [5, B, L2p]
-                       const float* __restrict__ ga0,       // [B, L2p]
-                       const float* __restrict__ rowpen,    // [B, L1p, 5]
-                       const float* __restrict__ cols_eps,  // [B, L2p]
-                       const float* __restrict__ row_term,  // [B, L1p]
-                       const int32_t* __restrict__ la_arr,
-                       const int32_t* __restrict__ lb_arr,
-                       int B, int L1p, int L2p,
-                       int8_t* __restrict__ dec,            // [B, L1p, L2p]
-                       float* __restrict__ score_out,
-                       int32_t* __restrict__ state_out,
-                       float* scratch) {                    // [B, 2, 3, L2p]
-  constexpr int CH = kTiledCH;
-  extern __shared__ __align__(16) float tslots[];  // [2][nw][kTSlot]
-  const int T = blockDim.x;
-  const int nw = T >> 5;
-  const int TW = T * CH;
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int la = la_arr[b];
-  const int lb = lb_arr[b];
-  const size_t BW = (size_t)B * L2p;
-  const size_t rb = (size_t)b * L2p;
-  float* st = scratch + (size_t)b * 6 * L2p;
-  const int ntiles = (L2p + TW - 1) / TW;
-
-  // the state before row 1: A = GB = NEG, GA = ga0
-  for (int j = t; j < L2p; j += T) {
-    st[j] = KT_NEG;
-    st[L2p + j] = ga0[rb + j];
-    st[2 * L2p + j] = KT_NEG;
-  }
-  __syncthreads();
-
-  const int rows = la < L1p ? la : L1p;
-  int step = 0;  // tiles done: the slots alternate by its parity
-  for (int r = 0; r < rows; r++) {
-    const int row = r + 1;
-    const bool last = row == la;
-    const RowScalars sc = row_scalars(rowpen + ((size_t)b * L1p + r) * 5,
-                                      row_term + (size_t)b * L1p + r);
-    const float* prv = st + (r & 1) * 3 * L2p;
-    float* nxt = st + ((r + 1) & 1) * 3 * L2p;
-    const float* mrow = match + ((size_t)b * L1p + r) * L2p;
-    float carry = -INFINITY;  // max u of the tiles left of this one
-    float carry_u = KT_NEG;   // u at the column left of this tile
-    for (int k = 0; k < ntiles; k++, step++) {
-      const int j0 = k * TW + t * CH;
-      const bool real = j0 < L2p;  // L2p % CH == 0
-      float A[CH], GA[CH], GB[CH], U[CH], m[CH], ceps[CH], goBs[CH], gnC[CH],
-          C[CH];
-#pragma unroll
-      for (int c = 0; c < CH; c++) {
-        A[c] = GA[c] = GB[c] = U[c] = KT_NEG;
-        m[c] = ceps[c] = goBs[c] = gnC[c] = C[c] = 0.0f;
-      }
-      float lA = KT_NEG, lGA = KT_NEG, lGB = KT_NEG;  // column j0 - 1
-      if (real) {
-        load_chunk(A, prv + j0);
-        load_chunk(GA, prv + L2p + j0);
-        load_chunk(GB, prv + 2 * L2p + j0);
-        load_chunk(m, mrow + j0);
-        load_chunk(ceps, cols_eps + rb + j0);
-        load_chunk(goBs, colpen + 4 * BW + rb + j0);
-        load_chunk(gnC, colpen + (last ? 3 : 2) * BW + rb + j0);
-        load_chunk(C, colpen + (last ? 1 : 0) * BW + rb + j0);
-        if (j0 == 0) {
-          lA = (row == 1) ? 0.0f : KT_NEG;
-          lGB = sc.gb0_prev;
-        } else {
-          lA = prv[j0 - 1];
-          lGA = prv[L2p + j0 - 1];
-          lGB = prv[2 * L2p + j0 - 1];
-        }
-      }
-
-      int d[CH];
-      float dA = lA, dGAv = lGA, dGBv = lGB;
-      float run = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < CH; c++) {
-        const int col = j0 + c + 1;
-        const float mm = m[c] - fabsf(ceps[c] - sc.rterm);
-        const float diagA = dA;
-        const float dGA = dGAv + goBs[c];
-        const float dGB = dGBv + sc.goA_prev;
-        const float best01 = fmaxf(diagA, dGA);
-        const float A_row = fmaxf(best01, dGB) + mm;
-        const bool term = col == lb;
-        const float ge_eff = term ? sc.tgeA : sc.geA;
-        const float go_eff = term ? sc.tgeA : sc.goA;
-        const float gb_e = GB[c] + ge_eff;
-        const float gb_o = A[c] + go_eff;
-        const float u = (col < lb) ? (A_row + gnC[c]) : KT_NEG;
-        d[c] = (dGB >= best01) ? 2 : ((dGA >= diagA) ? 1 : 0);
-        d[c] |= (gb_e > gb_o) ? KT_DEC_GB_EXT : 0;
-        dA = A[c];
-        dGAv = GA[c];
-        dGBv = GB[c];
-        A[c] = A_row;
-        GB[c] = fmaxf(gb_e, gb_o);
-        U[c] = u;
-        run = fmaxf(run, u);
-      }
-
-      // prefix max of u across the tile: one barrier
-      const float incl = warp_incl_max(run, lane);
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) excl = -INFINITY;
-      float lu = __shfl_up_sync(0xffffffffu, U[CH - 1], 1);
-      float* slot = tslots + (step & 1) * nw * kTSlot;
-      if (lane == 31) {
-        slot[warp * kTSlot] = incl;
-        slot[warp * kTSlot + 1] = U[CH - 1];
-      }
-      __syncthreads();
-      float wv = lane < nw ? slot[lane * kTSlot] : -INFINITY;
-      for (int off = 1; off < nw; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, wv, off);
-        if (lane >= off) wv = fmaxf(wv, o);
-      }
-      const float cin = __shfl_sync(0xffffffffu, wv, warp > 0 ? warp - 1 : 0);
-      const float tile_max = __shfl_sync(0xffffffffu, wv, nw - 1);
-      const float tile_last_u = slot[(nw - 1) * kTSlot + 1];
-      if (lane == 0 && warp > 0) lu = slot[(warp - 1) * kTSlot + 1];
-      float cm = fmaxf(fmaxf(warp > 0 ? cin : -INFINITY, excl), carry);
-      if (t == 0) {
-        cm = k ? carry : KT_NEG;
-        lu = carry_u;
-      }
-
-      // GA = shifted prefix max + C, the decision's GA bit, the new state
-#pragma unroll
-      for (int c = 0; c < CH; c++) {
-        const float cm_s = cm;
-        const float u_s = c ? U[c - 1] : lu;
-        GA[c] = cm_s + C[c];
-        d[c] |= (cm_s > u_s) ? KT_DEC_GA_EXT : 0;
-        cm = fmaxf(cm, U[c]);
-      }
-      if (real) {
-        store_dec<CH>(dec + ((size_t)b * L1p + r) * L2p + j0, d);
-        store_chunk(nxt + j0, A);
-        store_chunk(nxt + L2p + j0, GA);
-        store_chunk(nxt + 2 * L2p + j0, GB);
-      }
-      carry = fmaxf(carry, tile_max);
-      carry_u = tile_last_u;
-    }
-    // the next row reads this row's state at column j0 - 1, written by
-    // another thread (with one tile per row no other barrier lies between)
-    __syncthreads();
-  }
-
-  if (t == 0) {
-    const float* fin = st + (rows & 1) * 3 * L2p;
-    float ea = KT_NEG, ega = KT_NEG, egb = KT_NEG;
-    if (lb >= 1 && lb <= L2p) {
-      ea = fmaxf(fin[lb - 1], KT_NEG);
-      ega = fmaxf(fin[L2p + lb - 1], KT_NEG);
-      egb = fmaxf(fin[2 * L2p + lb - 1], KT_NEG);
-    }
-    score_out[b] = fmaxf(fmaxf(ea, ega), egb);
-    state_out[b] = (ega > ea) ? ((egb > ega) ? 2 : 1) : ((egb > ea) ? 2 : 0);
-  }
-}
-
-size_t tiled_smem_bytes(int threads) {
-  return (size_t)2 * (threads / 32) * kTSlot * sizeof(float);
-}
-
 template <int CH>
 int launch(const float* match, const float* colpen, const float* ga0,
            const float* rowpen, const float* cols_eps, const float* row_term,
@@ -425,21 +222,6 @@ int launch(const float* match, const float* colpen, const float* ga0,
   gotoh_row_kernel<CH><<<B, threads, smem, stream>>>(
       match, colpen, ga0, rowpen, cols_eps, row_term, la, lb, B, L1p, L2p,
       dec, score, state);
-  return (int)cudaGetLastError();
-}
-
-int launch_tiled(const float* match, const float* colpen, const float* ga0,
-                 const float* rowpen, const float* cols_eps,
-                 const float* row_term, const int32_t* la, const int32_t* lb,
-                 int B, int L1p, int L2p, int8_t* dec, float* score,
-                 int32_t* state, float* scratch, int threads,
-                 cudaStream_t stream) {
-  if (threads <= 0 || threads % 32 || threads > kTiledMaxThreads ||
-      L2p % kTiledCH)
-    return (int)cudaErrorInvalidValue;
-  gotoh_row_tiled_kernel<<<B, threads, tiled_smem_bytes(threads), stream>>>(
-      match, colpen, ga0, rowpen, cols_eps, row_term, la, lb, B, L1p, L2p,
-      dec, score, state, scratch);
   return (int)cudaGetLastError();
 }
 
@@ -506,25 +288,6 @@ KT_EXPORT int kt_gotoh_row_forward(const float* match, const float* colpen,
                              s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-/* Shared memory of a tiled launch; gpu/gotoh_row.py::tiled_config mirrors
- * it. */
-KT_EXPORT size_t kt_gotoh_row_tiled_smem_bytes(int threads) {
-  return tiled_smem_bytes(threads);
-}
-
-/* The tiled row kernel; scratch is [B, 2, 3, L2p] float32 (no contents
- * needed). */
-KT_EXPORT int kt_gotoh_row_tiled_forward(
-    const float* match, const float* colpen, const float* ga0,
-    const float* rowpen, const float* cols_eps, const float* row_term,
-    const int32_t* la, const int32_t* lb, int B, int L1p, int L2p,
-    int8_t* dec, float* score, int32_t* state, float* scratch, int threads,
-    void* stream) {
-  return launch_tiled(match, colpen, ga0, rowpen, cols_eps, row_term, la, lb,
-                      B, L1p, L2p, dec, score, state, scratch, threads,
-                      (cudaStream_t)stream);
 }
 
 /* Shared memory of a cluster launch's block (0 for an unsupported ch);

@@ -24,9 +24,9 @@ from kalign_tpu_torch.utils.build import build_library
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 SOURCES = [os.path.join(CSRC, f) for f in
-           ("gotoh_row.cu", "gotoh_lanewise.cu", "traceback.cu", "bpm.cu",
-            "scan.cu", "kmeans.cu", "exact_sweep.cu", "gotoh_mesh.cu",
-            "errors.cu")]
+           ("gotoh_row.cu", "gotoh_row_wave.cu", "prepare_match.cu",
+            "gotoh_lanewise.cu", "traceback.cu", "bpm.cu", "scan.cu",
+            "kmeans.cu", "exact_sweep.cu", "gotoh_mesh.cu", "errors.cu")]
 HEADERS = [os.path.join(CSRC, f) for f in ("kt_cuda.h",
                                            "gotoh_row_body.cuh")]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -77,11 +77,16 @@ def lib() -> ctypes.CDLL:
     L.kt_gotoh_row_forward.restype = _i
     L.kt_gotoh_row_forward.argtypes = ([_p] * 8 + [_i] * 3 + [_p] * 3
                                        + [_i, _i, _p])
-    L.kt_gotoh_row_tiled_smem_bytes.restype = ctypes.c_size_t
-    L.kt_gotoh_row_tiled_smem_bytes.argtypes = [_i]
-    L.kt_gotoh_row_tiled_forward.restype = _i
-    L.kt_gotoh_row_tiled_forward.argtypes = ([_p] * 8 + [_i] * 3 + [_p] * 4
-                                             + [_i, _p])
+    L.kt_gotoh_row_wave_smem_bytes.restype = ctypes.c_size_t
+    L.kt_gotoh_row_wave_smem_bytes.argtypes = [_i, _i]
+    L.kt_gotoh_row_wave_max_active.restype = _i
+    L.kt_gotoh_row_wave_max_active.argtypes = [_i, _i, _i, ctypes.c_size_t,
+                                               _p]
+    L.kt_gotoh_row_wave.restype = _i
+    L.kt_gotoh_row_wave.argtypes = ([_p] * 11 + [_i] * 14
+                                    + [ctypes.c_size_t, _p])
+    L.kt_prepare_match.restype = _i
+    L.kt_prepare_match.argtypes = [_p] * 8 + [_i] * 6 + [_p]
     L.kt_gotoh_row_cluster_smem_bytes.restype = ctypes.c_size_t
     L.kt_gotoh_row_cluster_smem_bytes.argtypes = [_i, _i]
     L.kt_gotoh_row_cluster_max_active.restype = _i

@@ -45,8 +45,10 @@ import torch
 from kalign_tpu_torch import native
 from kalign_tpu_torch.core import params as P
 from kalign_tpu_torch.gpu import (distances, gotoh_fused, gotoh_lanewise,
-                                  gotoh_row, kmeans)
+                                  gotoh_row, gotoh_wave, kmeans)
 from kalign_tpu_torch.gpu import traceback as tb
+# bonus_match (prepare_match's plain version) is importable from here too
+from kalign_tpu_torch.gpu.prepare import bonus_match, prepare_match
 from kalign_tpu_torch.gpu.profile import (Profile, column_gap_counts,
                                           leaf_profile, merge_profiles,
                                           sp_score_from_profiles,
@@ -140,53 +142,70 @@ def fused_feasible(B: int, L1p: int, L2p: int, nc: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
-def bonus_match(match, la, lb, bias_eps, bonus, col0: int = 0):
-    """Centering bias and consistency bonus added to a bucket's match on
-    its device, in the float order of kalign_tpu's _prepare_match
-    (tpu/engine.py:71-100): the bias in the form |j - i*slope| * eps, then
-    the bonus accumulated anchor by anchor into zeros and added once.
-    bonus = (per_w, apos_r [B, K, L1p], conf_r, apos_c [B, K, L2p], conf_c)
-    with per_w a float32 scalar tensor.  A band of columns starting at
-    col0 (gets the same bits as those columns of the whole match) takes
-    apos_c / conf_c cut to it."""
-    B, L1p, L2p = match.shape
-    dev = match.device
-    slope = lb.to(torch.float32) / torch.clamp(la.to(torch.float32), min=1.0)
-    ii = torch.arange(1, L1p + 1, device=dev).to(torch.float32)[None, :, None]
-    jj = torch.arange(col0 + 1, col0 + L2p + 1,
-                      device=dev).to(torch.float32)[None, None, :]
-    dev_ = torch.abs(jj - ii * slope[:, None, None])
-    match = match - dev_ * bias_eps[:, None, None]
-    per_w, apr, cfr, apc, cfc = bonus
-    acc = torch.zeros_like(match)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    for k in range(apr.shape[1]):
-        eq = (apr[:, k, :, None] == apc[:, k, None, :]) & \
-            (apr[:, k, :, None] >= 0)
-        term = (per_w * cfr[:, k, :, None]) * cfc[:, k, None, :]
-        acc = acc + torch.where(eq, term, zero)
-    return match + acc
-
-
 def bucket_match(lhs, rhs, la, lb, eps, bonus):
     """A launch batch's fp32 match product and the (slope, eps) of the
     centering bias its DP kernel subtracts: with a bonus, the bias and the
-    bonus are added to the match (bonus_match) and the kernel adds none."""
+    bonus are added to the match in place (prepare.prepare_match: the
+    kernel on the card, bonus_match on the CPU) and the kernel adds
+    none."""
     slope = lb.to(torch.float32) / torch.clamp(la.to(torch.float32), min=1.0)
     match = torch.bmm(lhs, rhs.transpose(1, 2))       # fp32
     if bonus is None:
         return match, slope, eps
-    return (bonus_match(match, la, lb, eps, bonus), torch.zeros_like(slope),
+    return (prepare_match(match, la, lb, eps, bonus), torch.zeros_like(slope),
             torch.zeros_like(eps))
 
 
-def row_route(lhs, rhs, pc, pr, la, lb, eps, bonus):
+def card_bytes(device):
+    """Device bytes a launch can still take on a card: free memory and
+    what torch's caching allocator holds unused; None off the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + (torch.cuda.memory_reserved(device)
+                   - torch.cuda.memory_allocated(device))
+
+
+def problem_bytes(L1p: int, L2p: int) -> int:
+    """Device bytes one problem of L1p x L2p takes on the row routes: its
+    decisions (int8) and its match (float32; on the wave route one block
+    of rows), the state and strips of the wave route."""
+    L1p, L2p = int(L1p), int(L2p)
+    if gotoh_row.launch_config(1, L2p).route == "wave":
+        return gotoh_wave.problem_bytes(L1p, L2p)
+    return 5 * L1p * L2p
+
+
+def check_fits(device, L1p: int, L2p: int) -> None:
+    """The memory guard of the wide routes: raises, naming the width,
+    where the card cannot hold one problem."""
+    have = card_bytes(device)
+    need = problem_bytes(L1p, L2p)
+    if have is not None and need > have:
+        raise MemoryError(
+            f"a {L1p} x {L2p} DP needs {need / 2 ** 30:.1f} GiB of device "
+            f"memory (decisions, match rows, state); {device} has "
+            f"{have / 2 ** 30:.1f} GiB free")
+
+
+def row_route(lhs, rhs, pc, pr, la, lb, eps, bonus, la_h=None):
     """One launch batch through the row kernel (tpu/engine.py:441-491 at
-    the row plan): bucket_match, the forward and the walk.  Returns
-    (steps, n, score) on the tensors' device."""
+    the row plan): bucket_match, the forward and the walk; past 114,688
+    columns the wave route from the operands, one block of rows at a time
+    (gotoh_wave.forward_operands; la_h, the host lengths, sets how many
+    rows it launches).  A wide route first checks that one problem fits
+    the card.  Returns (steps, n, score) on the tensors' device."""
     L1p, L2p = lhs.shape[1], rhs.shape[1]
-    match, slope, eps = bucket_match(lhs, rhs, la, lb, eps, bonus)
-    dec, score, st = gotoh_row.forward(match, pc, pr, la, lb, slope, eps)
+    route = gotoh_row.launch_config(lhs.shape[0], L2p).route
+    if route != "row":
+        check_fits(lhs.device, L1p, L2p)
+    if route == "wave":
+        dec, score, st = gotoh_wave.forward_operands(
+            lhs, rhs, pc, pr, la, lb, eps, bonus, la_h)
+    else:
+        match, slope, eps = bucket_match(lhs, rhs, la, lb, eps, bonus)
+        dec, score, st = gotoh_row.forward(match, pc, pr, la, lb, slope, eps)
     steps, n = tb.walk_rows(dec, la, lb, st, L1p + L2p + 2)
     return steps, n, score
 
@@ -261,6 +280,13 @@ class GpuEngine:
     # cap on the [B, L1p, L2p] match bytes of one launch; bigger buckets
     # split into chunked launches
     MAX_MATCH_BYTES = 1 << 30
+    # past the register row kernel's widths a launch holds only real
+    # problems, as many as keep their bytes (problem_bytes: decisions,
+    # match or its row blocks, state) within WIDE_LAUNCH_BYTES, at most
+    # WIDE_MAX_PROBLEMS (the 8 of the reference's least launch, which the
+    # long genomes' 9,728-column launches fill), down to one
+    WIDE_LAUNCH_BYTES = 16 << 30
+    WIDE_MAX_PROBLEMS = 8
     # centering-bias strength of the progressive merges (tpu/engine.py:686)
     EPS = 1e-3
     # centering-bias strength of the consistency-map DPs
@@ -422,8 +448,8 @@ class GpuEngine:
     @staticmethod
     def row_feasible(B: int, L2p: int) -> bool:
         """The register row kernel holds the width (the counterpart of
-        pick_plan's feasible, tpu/engine.py:409-411): no cluster or tiled
-        instantiation."""
+        pick_plan's feasible, tpu/engine.py:409-411): no cluster
+        instantiation or wave route."""
         return gotoh_row.launch_config(B, L2p).route == "row"
 
     def pad_to_launch(self, B: int) -> int:
@@ -435,7 +461,22 @@ class GpuEngine:
             Bp = -(-max(Bp, n) // n) * n
         return Bp
 
+    def pads(self, L2p: int) -> bool:
+        """Whether launches of width L2p are padded to a power of two with
+        pad problems (tpu/engine.py:51-58, so the reference's routing of
+        narrow buckets holds): at the register row kernel's widths, and on
+        a mesh of several shards; past them (BAND_MAX, where row_feasible
+        turns false) a launch holds only real problems."""
+        return self.sharded or L2p <= gotoh_row.BAND_MAX
+
     def max_launch(self, L1p: int, L2p: int) -> int:
+        """Problems of one launch: a power of two of at least 8 within
+        MAX_MATCH_BYTES where launches pad (pads), else as many as keep
+        their bytes within WIDE_LAUNCH_BYTES, at most WIDE_MAX_PROBLEMS,
+        at least one."""
+        if not self.pads(L2p):
+            return max(1, min(self.WIDE_MAX_PROBLEMS, self.WIDE_LAUNCH_BYTES
+                              // problem_bytes(L1p, L2p)))
         cap = max(8, self.MAX_MATCH_BYTES // (L1p * L2p * 4))
         p = 8
         while p * 2 <= cap:
@@ -455,12 +496,13 @@ class GpuEngine:
                         merges=None):
         """Queue one bucket of host arrays on the device (nothing is
         fetched): chunks of at most max_launch problems, each padded to a
-        power of two, uploaded and launched (tpu/engine.py::
-        _dispatch_bucket :361-465; a single-candidate bucket arrives
-        padded already, a multi-candidate one as its K tiles).  A pad
-        problem is 8 x 8 with the last problem's penalties, eps 0 and no
-        bonus.  bonus is None or the compact tuple (per_w, apos_r, conf_r,
-        apos_c, conf_c); merges counts the real problems (the first ones;
+        power of two where launches pad (pads), uploaded and launched
+        (tpu/engine.py::_dispatch_bucket :361-465; a single-candidate
+        bucket arrives padded already, a multi-candidate one as its K
+        tiles).  A pad problem is 8 x 8 with the last problem's
+        penalties, eps 0 and no bonus.  bonus is None or the compact tuple
+        (per_w, apos_r, conf_r, apos_c, conf_c); merges counts the real
+        problems (the first ones;
         default all).  On a mesh each chunk takes dispatch_long's route or
         is sharded on its batch axis (padded as pad_to_launch pads).
         Returns a handle for collect_bucket."""
@@ -484,7 +526,8 @@ class GpuEngine:
             return self.dispatch_long(lhs, rhs, pc, pr, la, lb, eps, bonus,
                                       merges)
         lhs, rhs, pc, pr, la, lb, eps, bonus = pad_batch(
-            lhs, rhs, pc, pr, la, lb, eps, bonus, self.pad_to_launch(B) - B)
+            lhs, rhs, pc, pr, la, lb, eps, bonus,
+            self.pad_to_launch(B) - B if self.pads(rhs.shape[1]) else 0)
         if self.sharded:
             # the batch axis over the mesh (tpu/engine.py:424-439)
             from kalign_tpu_torch.parallel import mesh as M
@@ -525,7 +568,7 @@ class GpuEngine:
         self.stats[route + "_merges"] += B
         if route == "row":
             return ("walked", *row_route(lhs, rhs, pc, pr, la, lb, eps,
-                                         bonus), B)
+                                         bonus, la_h), B)
         if fused:
             nc = self.nc
             slope = lb.to(torch.float32) / torch.clamp(
@@ -602,10 +645,11 @@ class GpuEngine:
         _dp_leaf_batch_device :1098-1187).  The token table goes to the
         device once; per launch only index vectors travel and the
         operands are assembled there (leaf_operands).  Buckets by padded
-        shape, in sorted order, chunked by max_launch; each chunk pads to
-        a power of two with 8 x 8 problems on sequence 0.  Every chunk is
-        launched before any is fetched; each chunk's step lists come back
-        in one fetch and go straight into the map extraction.
+        shape, in sorted order, chunked by max_launch; where launches pad
+        (pads) each chunk pads to a power of two with 8 x 8 problems on
+        sequence 0.  Every chunk is launched before any is fetched; each
+        chunk's step lists come back in one fetch and go straight into the
+        map extraction.
 
         maps_spec[p] = (length of the mapped sequence, swapped) for pair
         p.  Returns the residue -> anchor position map of every pair."""
@@ -627,7 +671,8 @@ class GpuEngine:
             cap = self.max_launch(L1p, L2p)
             for lo in range(0, len(items), cap):
                 chunk = items[lo:lo + cap]
-                Bp = _pow2_batch(len(chunk))
+                Bp = _pow2_batch(len(chunk)) if self.pads(L2p) else \
+                    len(chunk)
                 rows = np.zeros(Bp, np.int32)
                 cols = np.zeros(Bp, np.int32)
                 rows[:len(chunk)] = [ri for _, ri, _ in chunk]
@@ -788,8 +833,9 @@ class GpuEngine:
                 with split("assembly"):
                     B = len(items)
                     # a multi-candidate bucket is tiled K times, then
-                    # padded by dispatch_bucket
-                    Ba = self.pad_to_launch(B) if K == 1 else B
+                    # padded by dispatch_bucket (where launches pad)
+                    Ba = self.pad_to_launch(B) if K == 1 and \
+                        self.pads(L2p) else B
                     pc = np.zeros((Ba, 3, L2p + 1), np.float32)
                     pr = np.zeros((Ba, 3, L1p + 1), np.float32)
                     la = np.full(Ba, 8, np.int32)

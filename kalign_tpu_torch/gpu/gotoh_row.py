@@ -8,9 +8,10 @@ widths kalign_tpu gives its XLA scan, tpu/gotoh.py::gotoh_forward) take
 its cluster instantiation (``cluster_config``): a thread-block cluster of
 up to 16 blocks per problem, each a band of the row's columns, handing
 a halo to the next band once per row.  Past 16 bands
-(CLUSTER_MAX_WIDTH = 114,688 columns) the tiled instantiation
-(``tiled_config``) walks each row in column tiles with the previous
-row's state in a global-memory scratch; no width raises.
+(CLUSTER_MAX_WIDTH = 114,688 columns) the wave route (``wave_config``,
+gpu/gotoh_wave.py, csrc/gotoh_row_wave.cu) runs one problem at a time in
+blocks of rows, its columns in a wavefront of up to WAVE_BANDS clusters
+of WAVE_CLUSTER blocks that fills the card.
 
 ``forward`` launches the kernel for CUDA tensors and runs ``plain`` — the
 same arithmetic in PyTorch, one row at a time — for CPU tensors.  Both
@@ -44,9 +45,6 @@ COL_QUANTUM = 128          # L2p must be a multiple of this
 # a block may have, match rows in the shared-memory ring)
 CHUNKS = {4: (512, 8), 8: (896, 4)}
 SLOT_FLOATS = 5            # per warp, two row parities
-# the tiled instantiation: most threads of a block, columns per thread,
-# floats per warp slot
-TILED_THREADS, TILED_CH, TILED_SLOT_FLOATS = 512, 8, 2
 # the cluster instantiation: cluster sizes (blocks, one band each), the
 # widest band (one block of the register design), the widest row, the
 # halo ring (slots of floats per block, each with a full and an empty
@@ -63,15 +61,28 @@ FILL_BLOCKS = 132
 # bands wider than this take 8 columns a thread: fewer threads, so more
 # blocks fit on an SM
 BAND_CH4 = 1024
+# the wave route (csrc/gotoh_row_wave.cu): clusters of WAVE_CLUSTER
+# blocks (the portable cluster size) of at least WAVE_BLOCK_COLS columns,
+# up to WAVE_BANDS clusters a problem, so 128 blocks of the card's 132
+# SMs; a block asks for at least WAVE_SMEM_MIN bytes of shared memory, so
+# that no two blocks share an SM (two would take more than an SM's
+# 233,472 bytes, 1 KB a block reserved)
+WAVE_CLUSTER = 8
+WAVE_BLOCK_COLS = 256
+WAVE_BANDS = 16
+WAVE_SMEM_MIN = 116736
+WAVE_MAX_THREADS = 512     # csrc/gotoh_row_wave.cu kWaveMaxThreads
+WAVE_STRIP_FLOATS = 8      # a strip row's floats (its ring slot)
 
 launches = 0
-tiled_launches = 0
 cluster_launches = 0
 
-# route: "row" (one block per problem, ``band`` its columns), "cluster"
-# (``blocks`` blocks per problem, ``band`` columns each) or "tiled" (one
-# block per problem, ``band`` the columns of a tile)
+# route: "row" (one block per problem, ``band`` its columns) or "cluster"
+# (``blocks`` blocks per problem, ``band`` columns each)
 RowLaunch = namedtuple("RowLaunch", "route threads ch smem blocks band")
+# the wave route: ``bands`` clusters of ``blocks`` blocks of ``band``
+# columns each, over one problem
+WaveLaunch = namedtuple("WaveLaunch", RowLaunch._fields + ("bands",))
 
 
 def smem_bytes(threads, ch):
@@ -89,17 +100,6 @@ def config_for(L2p, ch):
     if threads > CHUNKS[ch][0] or smem > SMEM_LIMIT:
         return None
     return RowLaunch("row", threads, ch, smem, 1, threads * ch)
-
-
-def tiled_config(L2p):
-    """RowLaunch of the tiled instantiation: as few tiles of at most
-    TILED_THREADS * TILED_CH columns as cover L2p, the block no wider
-    than the tiles need."""
-    tiles = -(-L2p // (TILED_THREADS * TILED_CH))
-    threads = -(-L2p // (tiles * TILED_CH * 32)) * 32
-    return RowLaunch("tiled", threads, TILED_CH,
-                     4 * 2 * (threads // 32) * TILED_SLOT_FLOATS, 1,
-                     threads * TILED_CH)
 
 
 def cluster_smem_bytes(threads, ch):
@@ -134,11 +134,39 @@ def cluster_config(B, L2p, blocks=None):
     return band_config(blocks, -(-band // (32 * ch)) * 32 * ch, ch)
 
 
+def wave_smem_bytes(threads, ch):
+    """csrc/gotoh_row_wave.cu::wave_smem_bytes: the cluster's halo
+    header, the strip ring (a slot per match row of the ring and one
+    more), then smem_bytes."""
+    ring = 4 * WAVE_STRIP_FLOATS * (CHUNKS[ch][1] + 1)
+    return cluster_smem_bytes(threads, ch) + ring
+
+
+def wave_config(L2p, bands=WAVE_BANDS):
+    """WaveLaunch of the wave route at width L2p over at most ``bands``
+    clusters: blocks of w columns, w the least of at least
+    WAVE_BLOCK_COLS that keeps bands * WAVE_CLUSTER blocks over the row,
+    rounded up to whole warps of 4 columns a thread (up to BAND_CH4
+    columns) or 8; as many clusters as cover L2p.  Raises past blocks
+    of WAVE_MAX_THREADS threads (524,288 columns at 16 bands)."""
+    S = WAVE_CLUSTER
+    w = max(WAVE_BLOCK_COLS, -(-L2p // (bands * S)))
+    ch = 4 if w <= BAND_CH4 else 8
+    w = -(-w // (32 * ch)) * 32 * ch
+    if w > WAVE_MAX_THREADS * ch:
+        raise ValueError(f"row Gotoh kernel: {L2p} columns exceed the "
+                         f"wave route's {bands * S * WAVE_MAX_THREADS * 8}")
+    threads = w // ch
+    return WaveLaunch("wave", threads, ch,
+                      max(wave_smem_bytes(threads, ch), WAVE_SMEM_MIN), S, w,
+                      -(-L2p // (S * w)))
+
+
 def launch_config(B, L2p):
     """Block size and columns per thread of the row kernel for B problems
     of width L2p: 4 columns per thread (up to 512 threads), 8 beyond
     that; past 896 threads of 8 the cluster instantiation, and past
-    CLUSTER_MAX_WIDTH the tiled one."""
+    CLUSTER_MAX_WIDTH the wave route (WaveLaunch)."""
     if L2p <= 0 or L2p % COL_QUANTUM:
         raise ValueError(f"row Gotoh kernel: L2p={L2p} is not a multiple "
                          f"of {COL_QUANTUM}")
@@ -148,7 +176,7 @@ def launch_config(B, L2p):
             return cfg
     if L2p <= CLUSTER_MAX_WIDTH:
         return cluster_config(B, L2p)
-    return tiled_config(L2p)
+    return wave_config(L2p)
 
 
 def prepare(pens_cols, pens_rows, la, lb, slope, bias_eps):
@@ -272,8 +300,8 @@ _max_active = {}
 def cluster_schedulable(cfg):
     """How many clusters of the plan the card can hold at once
     (cudaOccupancyMaxActiveClusters, cached per plan); raises where it
-    cannot hold one: the launch would never run, and the tiled kernel is
-    no quiet substitute."""
+    cannot hold one: the launch would never run, and the wave route is no
+    quiet substitute."""
     key = (cfg.threads, cfg.ch, cfg.blocks)
     if key not in _max_active:
         out = ctypes.c_int(0)
@@ -291,15 +319,19 @@ def cluster_schedulable(cfg):
 
 def launch(match, prep, la, lb, config=None):
     """Launch csrc/gotoh_row.cu on CUDA tensors, with launch_config's
-    plan unless a RowLaunch is given."""
-    global launches, tiled_launches, cluster_launches
+    plan unless a RowLaunch is given; a WaveLaunch goes to the wave route
+    (gpu/gotoh_wave.py), which takes the match one block of rows at a
+    time."""
+    global launches, cluster_launches
     match = match.contiguous()
     B, L1p, W = match.shape
     cfg = config or launch_config(B, W)
+    if cfg.route == "wave":
+        from kalign_tpu_torch.gpu import gotoh_wave
+        return gotoh_wave.launch(lambda b, r0, r1, out=None: match[b, r0:r1],
+                                 prep, la, lb, cfg)
     lib = _cuda.lib()
-    if cfg.route == "tiled":
-        smem = lib.kt_gotoh_row_tiled_smem_bytes(cfg.threads)
-    elif cfg.route == "cluster":
+    if cfg.route == "cluster":
         smem = lib.kt_gotoh_row_cluster_smem_bytes(cfg.threads, cfg.ch)
     else:
         smem = lib.kt_gotoh_row_smem_bytes(cfg.threads, cfg.ch)
@@ -323,21 +355,13 @@ def launch(match, prep, la, lb, config=None):
             la.data_ptr(), lb.data_ptr(), B, L1p, W, dec.data_ptr(),
             score.data_ptr(), state.data_ptr())
         stream = _cuda.stream(dev)
-        if cfg.route == "tiled":
-            # the previous row's A, GA and GB, two row parities
-            scratch = torch.empty((B, 2, 3, W), dtype=torch.float32,
-                                  device=dev)
-            rc = lib.kt_gotoh_row_tiled_forward(*args, scratch.data_ptr(),
-                                                cfg.threads, stream)
-        elif cfg.route == "cluster":
+        if cfg.route == "cluster":
             rc = lib.kt_gotoh_row_cluster_forward(*args, cfg.threads, cfg.ch,
                                                   cfg.blocks, stream)
         else:
             rc = lib.kt_gotoh_row_forward(*args, cfg.threads, cfg.ch, stream)
         _cuda.check(rc, "gotoh_row")
-    if cfg.route == "tiled":
-        tiled_launches += 1
-    elif cfg.route == "cluster":
+    if cfg.route == "cluster":
         cluster_launches += 1
     else:
         launches += 1

@@ -544,13 +544,16 @@ class ResidentPass:
             chunks = []
             for (L1p, L2p, cands), items in buckets.items():
                 with split("assembly"):
-                    Ba = _pow2_batch(len(items))
+                    # past the register row kernel's widths no pads: a
+                    # wide launch holds only real problems (eng.pads)
+                    Ba = _pow2_batch(len(items)) if eng.pads(L2p) else \
+                        len(items)
                     fi_h, ff_h = self.bucket_fields(items, Ba)
                     fi, ff = eng.put(fi_h), eng.put(ff_h)
                     cap = eng.max_launch(L1p, L2p)
-                    Bc = min(cap, Ba)
                 for lo in range(0, Ba, cap):
                     sl = slice(lo, lo + cap)
+                    Bc = min(cap, Ba - lo)
                     citems = items[sl]
                     bonus = None
                     if ct is not None:

@@ -257,8 +257,8 @@ def dispatch_bucket_step(mesh: Mesh, lhs, rhs, pc, pr, la, lb, eps,
                          bonus=None) -> dict:
     """Queue one merge bucket with its batch axis sharded over the mesh
     (mesh.py:490-546): on each shard the match product, the centering
-    bias and the compact consistency bonus (built on the card by
-    gpu/engine.py::bonus_match), gotoh_row.forward and the walk
+    bias and the compact consistency bonus (added on the card by
+    gpu/prepare.py::prepare_match), gotoh_row.forward and the walk
     (gpu/engine.py::row_route).  Host numpy inputs, the batch a multiple
     of the shard count; bonus None or (per_w, apos_r, conf_r, apos_c,
     conf_c).  Returns {shard: (steps, n, score)} on the shards' devices."""
@@ -350,10 +350,11 @@ def long_operands(mesh: Mesh, lhs, rhs, pc, pr, la: int, lb: int,
     516-521 pads it to a multiple of the shard count), the row-invariant vectors over the padded width on
     the first shard (gotoh_row.prepare), and on each shard only its band
     of the match — the product, then the bias and the bonus where there
-    is a bonus (bonus_match on the band), as gpu/engine.py::bucket_match
-    builds the whole match; without a bonus the kernel subtracts the
-    bias.  Returns (match bands, prep, Wp)."""
-    from kalign_tpu_torch.gpu.engine import bonus_match
+    is a bonus (prepare.prepare_match on the band: csrc/prepare_match.cu
+    in place on a card), as gpu/engine.py::bucket_match builds the whole
+    match; without a bonus the kernel subtracts the bias.  Returns (match
+    bands, prep, Wp)."""
+    from kalign_tpu_torch.gpu.prepare import prepare_match
     shards = _one_process(mesh)
     n = len(shards)
     L2p = rhs.shape[0]
@@ -390,7 +391,7 @@ def long_operands(mesh: Mesh, lhs, rhs, pc, pr, la: int, lb: int,
                      put(apr[None], sh), put(cfr[None], sh),
                      put(apc[None, :, c0:c1], sh),
                      put(cfc[None, :, c0:c1], sh))
-                m = bonus_match(m, *one, b, col0=c0)
+                m = prepare_match(m, *one, b, col0=c0)
             bands.append(m[0])
     return bands, prep, Wp
 

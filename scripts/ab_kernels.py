@@ -117,9 +117,12 @@ def main():
 
     def old_tiled(match, prep, la, lb):
         """The earlier checkout's kt_gotoh_row_tiled_forward under its
-        own plan (this checkout's tiled_config, unchanged since)."""
+        own plan (its gotoh_row.tiled_config: as few tiles of at most
+        512 threads x 8 columns as cover W, the block no wider than the
+        tiles need)."""
         B, L1p, W = match.shape
-        cfg = gotoh_row.tiled_config(W)
+        tiles = -(-W // (512 * 8))
+        threads = -(-W // (tiles * 8 * 32)) * 32
         dec = torch.empty((B, L1p, W), dtype=torch.int8, device=dev)
         score = torch.empty(B, dtype=torch.float32, device=dev)
         state = torch.empty(B, dtype=torch.int32, device=dev)
@@ -129,7 +132,7 @@ def main():
                 "colpen", "ga0", "rowpen", "cols_eps", "row_term")),
             la.data_ptr(), lb.data_ptr(), B, L1p, W, dec.data_ptr(),
             score.data_ptr(), state.data_ptr(), scratch.data_ptr(),
-            cfg.threads, _cuda.stream(dev))
+            threads, _cuda.stream(dev))
         old.check(rc, "earlier gotoh_row_tiled")
         return dec, score, state
 

@@ -241,7 +241,7 @@ def test_cluster_config_covers_every_width(B):
     instantiation's threads and Hopper's shared memory, sized by the
     kernel's own formula; S the largest that keeps B * S within 132 blocks,
     or the least that keeps bands within 7,168 columns; 4 columns a
-    thread up to bands of 1,024; wider rows get the tiled plan."""
+    thread up to bands of 1,024; wider rows get the wave plan."""
     fit = max((s for s in (2, 4, 8, 16) if B * s <= 132), default=2)
     for L2p in range(7296, gotoh_row.CLUSTER_MAX_WIDTH + 1, 128):
         cfg = gotoh_row.launch_config(B, L2p)
@@ -264,14 +264,15 @@ def test_cluster_config_covers_every_width(B):
         assert cfg.ch == (4 if band <= 1024 else 8)
     for L2p in (114816, 131072, 200064):
         cfg = gotoh_row.launch_config(B, L2p)
-        assert cfg.route == "tiled" and cfg.ch == gotoh_row.TILED_CH
-        assert cfg.band == cfg.threads * cfg.ch <= 512 * 8
+        assert cfg.route == "wave" and cfg == gotoh_row.wave_config(L2p)
+        assert cfg.band == cfg.threads * cfg.ch <= gotoh_row.BAND_MAX
+        assert cfg.bands * cfg.blocks * cfg.band >= L2p
 
 
 def test_cluster_launch_raises_where_the_card_cannot_schedule_it(
         monkeypatch):
     """A plan cudaOccupancyMaxActiveClusters gives 0 clusters raises; it
-    does not fall back to the tiled kernel."""
+    does not fall back to another route."""
     class NoRoom:
         @staticmethod
         def kt_gotoh_row_cluster_max_active(threads, ch, blocks, out):

@@ -38,7 +38,8 @@ def test_import_leaves_jax_and_kalign_tpu_unloaded():
             "kalign_tpu_torch.core.cmp, kalign_tpu_torch.utils.devtime, "
             "kalign_tpu_torch.parallel.mesh, "
             "kalign_tpu_torch.parallel.distributed, "
-            "kalign_tpu_torch.gpu.gotoh_mesh\n"
+            "kalign_tpu_torch.gpu.gotoh_mesh, kalign_tpu_torch.gpu.gotoh_wave, "
+            "kalign_tpu_torch.gpu.prepare\n"
             "kalign_tpu_torch.align, kalign_tpu_torch.compare\n"
             "kalign_tpu_torch.native.lib().kt_consensus_columns\n"
             "bad = [m for m in sys.modules if m in ('jax', 'kalign_tpu') "
@@ -62,7 +63,9 @@ def test_no_jax_or_kalign_tpu_import_in_port_sources():
             os.path.join("utils", "__init__.py"),
             os.path.join("parallel", "mesh.py"),
             os.path.join("parallel", "distributed.py"),
-            os.path.join("gpu", "gotoh_mesh.py")} <= names
+            os.path.join("gpu", "gotoh_mesh.py"),
+            os.path.join("gpu", "gotoh_wave.py"),
+            os.path.join("gpu", "prepare.py")} <= names
     assert len(files) > 20
     for path in files:
         with open(path) as fh:
