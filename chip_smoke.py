@@ -20,8 +20,9 @@ Phases (any failure raises and the script exits non-zero):
      1 x 64 x 114,816 under its plan, lb at a band's edge and la < L1p,
      several blocks of rows a problem, and a narrow row under forced
      plans of 1-3 blocks a cluster (edge_cases_wave); for the match
-     preparation: blocks at row0 / col0 offsets, K = 5, 1 and 0, anchors
-     at -1 (edge_cases_prepare); for BPM and its
+     preparation: PREPARE_EDGE, K = 0, 1, 5, 9 and 16, W tails that are
+     not a tile's multiple, rows whose anchors are all -1, row0 / col0
+     offsets, B = 1 and 8 (edge_cases_prepare); for BPM and its
      mask-table kernel: every instantiation, nblk 1..16, with m = 0, 1,
      64, 65 and 64*nblk, texts past 1,024, P = 1; for the k-means Lloyd
      kernel, in both of its forms: clusters of exactly 50, 51 and 2,048
@@ -111,20 +112,27 @@ Phases (any failure raises and the script exits non-zero):
      (bpm, bpm_table, prefix_sum, traceback and gotoh_row launched, no
      lanewise or fused launch), and "mesh_long", the long genomes in
      default mode on gpu-mesh (the cluster row kernel and the band
-     kernel launched), each with launch counts set to 0 just before and
+     kernel launched), "mesh_sars2" and "mesh_plastome", the SARS-CoV-2-
+     and plastome-length genomes in default mode on gpu-mesh (F6: launches
+     past 7,168 columns hold real problems only, each band's match made a
+     block of rows at a time; the peak device memory printed; no one-shard
+     run), each with launch counts set to 0 just before and
      read just after, FASTA equal to one shard's and to gpu-fast's (the
-     protein_default / long_default paths'); the mesh_long path's root
+     protein_default / long_default / sars2_default / plastome_default
+     paths'); the mesh_long path's root
      merge rebuilt as the engine builds it, the band kernel held against
      its plain version, the cluster row kernel on the same match and PR
-     13's block route forced at its widths, timed beside them with its
+     13's block route forced at its widths, fed its band sources against
+     fed whole bands, timed beside them with its
      bound and the host's enqueue (the sweeps that chose the plan run
      only under --only mesh_sweep); mesh_procs, MESH_PROCS
      processes under init_distributed with two shards each: their
      sharded distances and bucket equal to one process's, and small.fa's
      3-run ensemble split by my_ensemble_runs and merged equal to the
      CLI's sequential --ensemble 3;
-  4. the paths but the refined one, protein_default, large_default and
-     the SARS-CoV-2 and plastome ones (those under --only profile:NAME)
+  4. the paths but the refined one, protein_default, large_default,
+     divergent and the SARS-CoV-2 and plastome ones (those under --only
+     profile:NAME)
      once more under torch.profiler:
      device time by kernel and by part of the progressive pass, each
      kernel's total device time and launches (the trace must hold every
@@ -171,8 +179,8 @@ Phases (any failure raises and the script exits non-zero):
      the plain version from the same state, the first two blocks' rows
      also through PR 14's band pipeline on shards of this card (held and
      timed beside it), and 1 x 64 x 131,072; for the match preparation
-     the root merge's first block and long_default's largest progressive
-     launch; for the prefix sums also the
+     the root merge's first block, long_default's largest progressive
+     launch and a serve-path launch; for the prefix sums also the
      widest row launch's [B, L2p]; for the walk each decision layout
      apart and the widest row launch's walks; for the fused kernel every
      launch shape of the default path), and timed there beside its plain
@@ -1029,18 +1037,29 @@ def bonus_block(rng, B, R, W, K, dev, dead_rows=0):
             t(rng.random((B, K, W), dtype=np.float32)))
 
 
+# the match preparation's edge cases: (B, R, W, K, row0, col0, dead
+# rows): W past a tile and not a multiple of it, K across the
+# compile-time instantiations (0, 1, 5) and the groups of 8 (9, 16), rows
+# whose anchors are all -1, row0 / col0 offsets, B = 1 and B = 8, tiles
+# of 32 and 128 threads across (W = 8, 384)
+PREPARE_EDGE = [(1, 70, 1028, 5, 100, 384, 7),
+                (8, 33, 2052, 1, 0, 0, 0),
+                (8, 64, 640, 0, 3, 5, 0),
+                (2, 50, 4100, 9, 7, 1024, 3),
+                (3, 17, 384, 16, 0, 0, 17),
+                (1, 300, 12292, 5, 0, 0, 40),
+                (8, 5, 8, 5, 11, 13, 0),
+                (4, 8, 2048, 1, 7, 1024, 2)]
+
+
 def edge_cases_prepare(dev, rng):
     """The match-preparation kernel (csrc/prepare_match.cu, in place)
     against its plain version (prepare.bonus_match) on the same card
-    tensors, bitwise: blocks at row0 / col0 offsets, K = 5, 1 and 0
-    anchors, anchors at -1 on whole rows, a width past one block's 1,024
-    columns and not a multiple of it, la = 0 and lb = 0 problems."""
+    tensors, bitwise, at PREPARE_EDGE (la = 0 and lb = 0 problems among
+    them), each under its launch plan (prepare.launch_plan)."""
     import torch
     from kalign_tpu_torch.gpu import prepare
-    for B, R, W, K, row0, col0, dead in ((3, 50, 640, 5, 100, 384, 7),
-                                         (2, 33, 1028, 5, 0, 0, 0),
-                                         (4, 8, 2048, 1, 7, 1024, 2),
-                                         (2, 16, 256, 0, 3, 5, 0)):
+    for B, R, W, K, row0, col0, dead in PREPARE_EDGE:
         match = torch.from_numpy(rng.standard_normal(
             (B, R, W), dtype=np.float32) * 3).to(dev)
         la = torch.from_numpy(rng.integers(
@@ -1053,8 +1072,10 @@ def edge_cases_prepare(dev, rng):
         want = prepare.bonus_match(match, la, lb, eps, bonus, col0, row0)
         got = prepare.prepare_match(match.clone(), la, lb, eps, bonus, col0,
                                     row0)
+        plan = prepare.launch_plan(B, R, W)
         hold_bits("prepare_match", got, want,
-                  f"{B}x{R}x{W} K={K} at row0={row0}, col0={col0}")
+                  f"{B}x{R}x{W} K={K} at row0={row0}, col0={col0}, "
+                  f"{dead} dead rows, tiles of {plan.tx * 4} x {plan.rows}")
 
 
 def random_tokens(rng, lens):
@@ -3147,13 +3168,20 @@ def wave_main_shape(dev, seen):
     return out
 
 
+# a serve-path launch of the match preparation: the eight-problem
+# launches of the protein families' upper levels (B x L1p x L2p)
+PREPARE_SERVE = (8, 384, 384)
+
+
 def prepare_main_shape(dev, seen, stats_long):
     """The match-preparation kernel at the plastome root merge's first
-    block of rows (its own bonus, row0 0) and at long_default's largest
-    progressive launch (its lengths, random anchor vectors of K = 5): each
-    held bitwise against its plain version (on the same card tensors) and
-    timed, in place (events; device_ms), beside the plain version and the
-    bytes bound (8 bytes a cell, the anchor vectors)."""
+    block of rows (its own bonus, row0 0), at long_default's largest
+    progressive launch (its lengths, random anchor vectors of K = 5) and
+    at a serve-path launch (PREPARE_SERVE, random lengths and anchors of
+    K = 5): each held bitwise against its plain version (on the same card
+    tensors) and timed, in place (events; device_ms), beside the plain
+    version and the bytes bound (8 bytes a cell, the anchor vectors),
+    with its launch plan."""
     import torch
     from kalign_tpu_torch.gpu import gotoh_wave, prepare
     lhs, rhs, pc, pr, la, lb, eps, bonus = root_merge(seen)
@@ -3173,19 +3201,27 @@ def prepare_main_shape(dev, seen, stats_long):
                            B * Rr * W * (5.0 + 2 * K), FP32_OPS_PER_S)
         return dict(shape=f"{B}x{Rr}x{W} K={K}", ms=cuda_time_ms(run, 5),
                     device_ms=device_ms(run, 5), plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    plan=prepare.launch_plan(B, Rr, W)._asdict())
     m = torch.bmm(lhs[:, :R], rhs.transpose(1, 2))
     out = entry(m, la, lb, eps, prepare.cut(bonus, 0, R),
                 "the plastome root merge's first block of rows")
     del m
+    rng = np.random.default_rng(6)
+    t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)
+    B, L1p, L2p = PREPARE_SERVE
+    out["serve"] = entry(
+        t(rng.standard_normal((B, L1p, L2p), dtype=np.float32) * 3),
+        t(rng.integers(L1p - 127, L1p + 1, B).astype(np.int32)),
+        t(rng.integers(L2p - 127, L2p + 1, B).astype(np.int32)),
+        torch.full((B,), 1e-3, device=dev),
+        bonus_block(rng, B, L1p, L2p, 5, dev), "a serve-path launch")
     if stats_long is None:
         emit({"phase": "main_shape", "kernel": "prepare_match", **out})
         return out
     b = max((b for b in stats_long["batches"] if b["route"] == "row"
              and not b["maps"]), key=batch_cells)
-    rng = np.random.default_rng(6)
     B, L1p, L2p = len(b["la"]), b["L1p"], b["L2p"]
-    t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)
     m = t(rng.standard_normal((B, L1p, L2p), dtype=np.float32) * 3)
     out["long_default"] = entry(
         m, t(b["la"].astype(np.int32)), t(b["lb"].astype(np.int32)),
@@ -3626,7 +3662,21 @@ MESH_PATHS = {
                               "prepare_match"],
                       forbid=["gotoh_lanewise", "gotoh_fused",
                               "gotoh_row_wave", "gotoh_mesh"],
-                      gpu_fast="long_default")}
+                      gpu_fast="long_default"),
+    # the genome families on the mesh (F6): past 7,168 columns launches of
+    # real problems only, each band's match a block of rows at a time; the
+    # one-shard run is skipped (one shard is gpu-fast's resident pass,
+    # which the gpu_fast path already ran)
+    "mesh_sars2": dict(launch=WIDE + ["gotoh_mesh_cluster"] + BONUS,
+                       forbid=["gotoh_lanewise", "gotoh_fused",
+                               "gotoh_row_wave", "gotoh_mesh"],
+                       gpu_fast="sars2_default", one_shard=False),
+    "mesh_plastome": dict(launch=GENOME_BASE + ["gotoh_row_wave",
+                                                "gotoh_mesh_cluster"] + BONUS,
+                          forbid=["gotoh_mesh", "gotoh_lanewise",
+                                  "gotoh_fused", "gotoh_row",
+                                  "gotoh_row_cluster"],
+                          gpu_fast="plastome_default", one_shard=False)}
 # the band kernel's edge cases: (shards, L1, W, la, lb, rows a block)
 MESH_EDGE = [(2, 600, 1536, 600, 1536, 256),   # L1 not a multiple of R;
                                                # clusters of 3
@@ -3855,24 +3905,75 @@ def recorded_long_merges(seen):
         M.long_merge = orig
 
 
+@contextmanager
+def recorded_band_rows(rows):
+    """The rows of every match block a band source of the column-sharded
+    route made (parallel/mesh.py::band_source) appended to rows."""
+    from kalign_tpu_torch.parallel import mesh as M
+    orig = M.band_source
+
+    def rec(*args, **kw):
+        source = orig(*args, **kw)
+
+        def counted(r0, r1, out=None):
+            rows.append(r1 - r0)
+            return source(r0, r1, out)
+        return counted
+    M.band_source = rec
+    try:
+        yield
+    finally:
+        M.band_source = orig
+
+
+def wide_launches(st):
+    """The launches of a run past 7,168 columns (engine_stats["batches"]):
+    route, map DPs or merges, shape, problems a launch (on the batch axis
+    their split over the shards), and how many such launches; raises
+    where one holds a pad problem (la = lb = 8)."""
+    from kalign_tpu_torch.gpu import gotoh_row
+    out = {}
+    for b in st["batches"]:
+        if b["L2p"] <= gotoh_row.BAND_MAX:
+            continue
+        if np.any((b["la"] == 8) & (b["lb"] == 8)):
+            raise AssertionError(f"a launch of {b['L1p']} x {b['L2p']} "
+                                 "holds a pad problem")
+        key = (f"{'maps' if b['maps'] else 'merges'} {b['route']} "
+               f"{len(b['la'])}x{b['L1p']}x{b['L2p']}"
+               + (f" over {b['shards']}" if "shards" in b else ""))
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
 def phase_mesh_path(name, seqs, mode="default"):
     """seqs on the engine gpu-mesh (mesh_devices()), in one run with every
     launch count set to 0 just before and read just after: the kernels of
     MESH_PATHS[name] launched, none it forbids; the same FASTA on one
-    shard and from gpu-fast (this run's path MESH_PATHS[name]["gpu_fast"],
-    else aligned here).  Returns (launches, stats, the long merges'
-    arguments)."""
+    shard (unless the path skips it) and from gpu-fast (this run's path
+    MESH_PATHS[name]["gpu_fast"], else aligned here); the launches past
+    7,168 columns (wide_launches: no pad problem), the most rows a band's
+    match block held (at most gotoh_mesh.FILL_BLOCKS blocks of
+    gotoh_mesh.BLOCK_ROWS) and the peak device memory of the run.
+    Returns (launches, stats, the long merges' arguments)."""
+    import torch
     from kalign_tpu_torch.core import io as kio
+    from kalign_tpu_torch.gpu import gotoh_mesh
     cfg = MESH_PATHS[name]
     mesh = mesh_of()
-    seen = []
+    seen, band_rows = [], []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with recorded_long_merges(seen):
+    with recorded_long_merges(seen), recorded_band_rows(band_rows):
         msa, wall = align_on_mesh(seqs, mode, mesh)
     launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
     width = check_alignment(msa.aligned_rows(), seqs)
     fasta = kio.format_alignment(msa, "fasta")
-    one, one_wall = align_on_mesh(seqs, mode, mesh_of(1))
+    one = one_wall = None
+    if cfg.get("one_shard", True):
+        one, one_wall = align_on_mesh(seqs, mode, mesh_of(1))
     ref = cfg["gpu_fast"]
     if ref not in FASTA:
         FASTA[ref] = kio.format_alignment(align_on_card(seqs, mode)[0],
@@ -3884,10 +3985,13 @@ def phase_mesh_path(name, seqs, mode="default"):
             "cards": st["cards"], "tree": st["tree"],
             "long_merges": st["long_merges"], "row_merges": st["row_merges"],
             "map_pairs": st["map_pairs"],
-            "one_shard_wall_s": round(one_wall, 3),
-            "identical_fasta_one_shard":
+            "one_shard_wall_s": None if one is None else round(one_wall, 3),
+            "identical_fasta_one_shard": None if one is None else
                 kio.format_alignment(one, "fasta") == fasta,
             "identical_fasta_gpu_fast": FASTA[ref] == fasta,
+            "wide_launches": wide_launches(st),
+            "band_block_rows_max": max(band_rows, default=0),
+            "peak_memory_gb": round(peak / 1e9, 3),
             "launches": launches, **pass_summary(msa, wall)}
     emit(line)
     missing = [k for k in cfg["launch"] if launches[k] == 0]
@@ -3898,7 +4002,11 @@ def phase_mesh_path(name, seqs, mode="default"):
     if st["engine"] != "gpu-mesh" or st["shards"] != mesh.size:
         raise AssertionError(f"{name}: aligned on {st['engine']} over "
                              f"{st.get('shards')} shards")
-    if not (line["identical_fasta_one_shard"]
+    if line["band_block_rows_max"] > gotoh_mesh.FILL_BLOCKS * \
+            gotoh_mesh.BLOCK_ROWS:
+        raise AssertionError(f"{name}: a band's match block held "
+                             f"{line['band_block_rows_max']} rows")
+    if not (line["identical_fasta_one_shard"] in (None, True)
             and line["identical_fasta_gpu_fast"]):
         raise AssertionError(f"{name}: the mesh's FASTA is not the one "
                              "shard's and gpu-fast's")
@@ -3974,13 +4082,21 @@ def cluster_plan(blocks, ch):
 def widest_merge(seen):
     """The mesh_long path's widest column-sharded merge (its root) rebuilt
     from its recorded arguments as long_merge builds it: (the arguments,
-    (bands, prep, Wp), its shape's name)."""
+    (each band's whole match, prep, Wp), its shape's name, the band
+    sources long_merge feeds the band kernel).  The whole bands, each
+    made by its source in one block, let the kernel be timed alone."""
     from kalign_tpu_torch.parallel import mesh as M
     args = max(seen, key=lambda a: int(a[5]) * int(a[6]))
     mesh, lhs, rhs, pc, pr, la, lb, eps, bonus = args[:9]
-    ops = M.long_operands(mesh, lhs, rhs, pc, pr, la, lb, eps, bonus)
-    return args, ops, (f"1x{lhs.shape[0]}x{rhs.shape[0]} la={la} lb={lb} "
-                       f"over {mesh.size} shards")
+    sources, prep, Wp = M.long_operands(mesh, lhs, rhs, pc, pr, la, lb, eps,
+                                        bonus)
+    whole = []
+    for sh, src in zip(mesh.shards, sources):
+        with M.on(sh):
+            whole.append(src(0, lhs.shape[0]))
+    return args, (whole, prep, Wp), (
+        f"1x{lhs.shape[0]}x{rhs.shape[0]} la={la} lb={lb} over {mesh.size} "
+        "shards"), sources
 
 
 def band_device_ms(mesh, ops, la, lb, rows=None):
@@ -3999,13 +4115,16 @@ def mesh_root_merge(dev, seen):
     kernel) forced at the same widths; the pipeline's wall, device time
     and host enqueue time (mesh_device_ms) beside the block route's, the
     cluster row kernel's device time on that match (device_ms) and the
-    bytes bound (a match read and a decision written per cell).  Returns
-    the main_shape entries of the route taken and of the block route."""
+    bytes bound (a match read and a decision written per cell); the
+    pipeline fed its band sources (each band's match a block of rows at a
+    time, as long_merge runs it) held against it fed the whole bands, and
+    its device and enqueue times beside.  Returns the main_shape entries
+    of the route taken and of the block route."""
     import torch
     from kalign_tpu_torch.gpu import gotoh_row
     from kalign_tpu_torch.parallel import mesh as M
     G = M.gotoh_mesh
-    args, ops, shape = widest_merge(seen)
+    args, ops, shape, sources = widest_merge(seen)
     mesh, _, rhs, pc, pr, la, lb, eps, bonus = args[:9]
     bands, prep, Wp = ops
     L2p = rhs.shape[0]
@@ -4015,6 +4134,11 @@ def mesh_root_merge(dev, seen):
     plain, plain_ms = timed_once(
         lambda: band_run(mesh, *ops, la, lb, plain=True))
     hold_band(shape + " vs plain", got, plain, la, lb, name)
+    src_ops = (sources, prep, Wp)
+    fed, fed_ms = timed_once(lambda: band_run(mesh, *src_ops, la, lb))
+    hold_band(shape + " fed its band sources vs whole bands", fed, got, la,
+              lb, name)
+    src_ms, src_enqueue_ms = band_device_ms(mesh, src_ops, la, lb)
     with forced_plan(block_plan):
         old, old_wall = timed_once(lambda: band_run(mesh, *ops, la, lb))
         old_ms, old_enqueue = band_device_ms(mesh, ops, la, lb)
@@ -4051,6 +4175,9 @@ def mesh_root_merge(dev, seen):
                route=cfg.route, ch=cfg.ch, threads=cfg.threads,
                cluster_blocks=cfg.blocks,
                block_route_device_ms=round(old_ms, 3),
+               sources_ms=round(fed_ms, 3),
+               sources_device_ms=round(src_ms, 3),
+               sources_enqueue_ms=round(src_enqueue_ms, 3),
                cluster_device_ms=round(cluster_ms, 3),
                cluster_plan=row_cfg._asdict())
     block = dict(ms=round(old_wall, 3), device_ms=round(old_ms, 3),
@@ -4103,7 +4230,7 @@ def phase_mesh_sweep(seen):
     """sweep_band at the mesh_long root merge (widest_merge) and on a
     random SWEEP_ROWS-row problem of SWEEP_SHARDS bands of 8,192 columns
     (the second width of CLUSTER_SWEEP)."""
-    args, ops, shape = widest_merge(seen)
+    args, ops, shape, _ = widest_merge(seen)
     sweep_band(args[0], ops, args[5], args[6], shape)
     mesh = mesh_of(SWEEP_SHARDS)
     W = 8192 * SWEEP_SHARDS
@@ -4299,8 +4426,9 @@ def large_family():
 
 def run_only(dev, only, divergent_n=DIVERGENT_N):
     """The phases named in ``--only`` (comma-separated: edge, wave_edge,
-    kmeans_edge, kmeans, exact_edge, path:NAME, profile:NAME, vs, goldens,
-    mesh_edge, path:mesh_default, path:mesh_long, mesh_sweep,
+    prepare_edge, kmeans_edge, kmeans, exact_edge, path:NAME,
+    profile:NAME, vs, goldens, mesh_edge, path:mesh_default,
+    path:mesh_long, path:mesh_sars2, path:mesh_plastome, mesh_sweep,
     profile:mesh_long, mesh_procs, launch_memory), for a short call; no
     result lines.  path:plastome_default also holds and times the wave
     route and the match preparation at its root merge (wave_main_shape,
@@ -4346,6 +4474,9 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
         elif what == "path:mesh_long":
             _, _, seen = phase_mesh_path("mesh_long", long_genomes())
             mesh_root_merge(dev, seen)
+        elif what in ("path:mesh_sars2", "path:mesh_plastome"):
+            path = what.split("_")[1]
+            phase_mesh_path(what[5:], seqs[f"{path}_default"]())
         elif what == "mesh_sweep":
             if seen is None:
                 _, _, seen = phase_mesh_path("mesh_long", long_genomes())
@@ -4354,6 +4485,10 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
             profile_mesh_host()
         elif what == "wave_edge":
             phase_wave_edge(dev)
+        elif what == "prepare_edge":
+            edge_cases_prepare(dev, np.random.default_rng(16))
+            emit({"phase": "prepare_edge", "ok": True,
+                  "cases": len(PREPARE_EDGE)})
         elif what == "launch_memory":
             emit({"phase": "launch_memory", **launch_memory(dev)})
         elif what.startswith(("path:", "profile:")):
@@ -4432,13 +4567,20 @@ def main(argv=None):
     launches["precise"], precise_row = phase_precise(dev, precise_family())
     launches["serve"] = phase_serve(dev)
     block_own = phase_mesh_edge(dev)
+    seen = {}
     for name, path in (("mesh_default", "protein_default"),
-                       ("mesh_long", "long_default")):
-        launches[name], stats[name], seen = phase_mesh_path(name, seqs[path])
-    mesh_root, mesh_block = mesh_root_merge(dev, seen)
+                       ("mesh_long", "long_default"),
+                       ("mesh_sars2", "sars2_default"),
+                       ("mesh_plastome", "plastome_default")):
+        launches[name], stats[name], seen[name] = phase_mesh_path(
+            name, seqs[path])
+    mesh_root, mesh_block = mesh_root_merge(dev, seen["mesh_long"])
+    seen.clear()
     phase_mesh_procs()
-    for path in list(PATHS) + ["divergent"]:
-        if PATHS.get(path, {}).get("profile", True):
+    # the divergent path's profiled run (50 s of PR 16's first whole run
+    # of 1,093 s) runs only under --only profile:divergent
+    for path in PATHS:
+        if PATHS[path].get("profile", True):
             phase_profile(path, seqs[path], launches[path])
     kmeans_root = phase_kmeans(dev, seqs["large_default"])
     vs_launches, vs_stats = phase_gpu_vs_cpu()

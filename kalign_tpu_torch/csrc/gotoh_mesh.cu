@@ -9,10 +9,12 @@
  * reads the left neighbour's strip [R + 1][5] — for the row above the
  * block and each row in it: A, GA and GB at the neighbour's last column,
  * the prefix max of u over every column up to it, and u there — and
- * writes its own strip for the shard on its right.  The band's last-row
- * state A, GA, GB stays on its card between launches in a [2][3][Wd]
- * buffer: a launch reads slot r0 & 1 and leaves its last row in slot
- * (r0 + nr) & 1.
+ * writes its own strip for the shard on its right.  A launch reads the
+ * match of its own rows only (a block of a ring the host fills block by
+ * block: parallel/mesh.py::band_source), so no band's whole match need
+ * exist.  The band's last-row state A, GA, GB stays on its card between
+ * launches in a [2][3][Wd] buffer: a launch reads slot r0 & 1 and leaves
+ * its last row in slot (r0 + nr) & 1.
  *
  * The arithmetic is the row kernel's (csrc/gotoh_row.cu, gpu/gotoh_row.py
  * ::plain) cell by cell, on the same row-invariant vectors (the prefix
@@ -62,7 +64,7 @@ constexpr int kMaxThreads = 1024;  // gotoh_band_block_kernel
 constexpr unsigned kFull = 0xffffffffu;
 
 struct BandArgs {
-  const float* match;     // [L1p][Wd] the band's match rows
+  const float* match;     // [nr][Wd] the launch's match rows, r0 first
   const float* colpen;    // [5][Wd] C_norm, C_term, gnC_norm, gnC_term, goB_s
   const float* rowpen;    // [L1p][5] goA, geA, tgeA, goA_prev, gb0_prev
   const float* cols_eps;  // [Wd]
@@ -188,8 +190,10 @@ __device__ __forceinline__ void band_block(float* smem, int band0,
     a.strip_out[4] = KT_NEG;
   }
   edge.start();
-  band_span<CH>(x, ring, a.match + j0, Wd, a.rowpen, a.row_term, a.dec, Wd,
-                a.r0, a.r0 + a.nr, a.la, a.lb - a.c0, edge);
+  // band_span indexes the match by the DP row's index r >= r0
+  const float* mrow0 = a.match + j0 - (ptrdiff_t)a.r0 * Wd;
+  band_span<CH>(x, ring, mrow0, Wd, a.rowpen, a.row_term, a.dec, Wd, a.r0,
+                a.r0 + a.nr, a.la, a.lb - a.c0, edge);
   float* cur = a.state + (size_t)((a.r0 + a.nr) & 1) * W3;
   store_chunk(cur + j0, x.A);
   store_chunk(cur + Wd + j0, x.GA);
@@ -270,7 +274,7 @@ gotoh_band_block_kernel(BandArgs a) {
     const float* Cv = a.colpen + (size_t)(last ? 1 : 0) * Wd;
     const float* gnCv = a.colpen + (size_t)(last ? 3 : 2) * Wd;
     const float* goB_s = a.colpen + (size_t)4 * Wd;
-    const float* mrow = a.match + (size_t)r * Wd;
+    const float* mrow = a.match + (size_t)(s - 1) * Wd;
     int8_t* drow = a.dec + (size_t)r * Wd;
 
     for (int base = 0; base < Wd; base += T) {

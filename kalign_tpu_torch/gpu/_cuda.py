@@ -86,7 +86,7 @@ def lib() -> ctypes.CDLL:
     L.kt_gotoh_row_wave.argtypes = ([_p] * 11 + [_i] * 14
                                     + [ctypes.c_size_t, _p])
     L.kt_prepare_match.restype = _i
-    L.kt_prepare_match.argtypes = [_p] * 8 + [_i] * 6 + [_p]
+    L.kt_prepare_match.argtypes = [_p] * 8 + [_i] * 8 + [_p]
     L.kt_gotoh_row_cluster_smem_bytes.restype = ctypes.c_size_t
     L.kt_gotoh_row_cluster_smem_bytes.argtypes = [_i, _i]
     L.kt_gotoh_row_cluster_max_active.restype = _i

@@ -282,9 +282,10 @@ class GpuEngine:
     MAX_MATCH_BYTES = 1 << 30
     # past the register row kernel's widths a launch holds only real
     # problems, as many as keep their bytes (problem_bytes: decisions,
-    # match or its row blocks, state) within WIDE_LAUNCH_BYTES, at most
-    # WIDE_MAX_PROBLEMS (the 8 of the reference's least launch, which the
-    # long genomes' 9,728-column launches fill), down to one
+    # match or its row blocks, state) within WIDE_LAUNCH_BYTES on each
+    # card, at most WIDE_MAX_PROBLEMS a card (the 8 of the reference's
+    # least launch, which the long genomes' 9,728-column launches fill),
+    # down to one
     WIDE_LAUNCH_BYTES = 16 << 30
     WIDE_MAX_PROBLEMS = 8
     # centering-bias strength of the progressive merges (tpu/engine.py:686)
@@ -464,19 +465,25 @@ class GpuEngine:
     def pads(self, L2p: int) -> bool:
         """Whether launches of width L2p are padded to a power of two with
         pad problems (tpu/engine.py:51-58, so the reference's routing of
-        narrow buckets holds): at the register row kernel's widths, and on
-        a mesh of several shards; past them (BAND_MAX, where row_feasible
-        turns false) a launch holds only real problems."""
-        return self.sharded or L2p <= gotoh_row.BAND_MAX
+        narrow buckets holds; on a mesh also to a multiple of the shard
+        count): at the register row kernel's widths; past them (BAND_MAX,
+        where row_feasible turns false) a launch holds only real
+        problems, on a mesh too."""
+        return L2p <= gotoh_row.BAND_MAX
 
-    def max_launch(self, L1p: int, L2p: int) -> int:
+    def max_launch(self, L1p: int, L2p: int, sharded: bool = False) -> int:
         """Problems of one launch: a power of two of at least 8 within
         MAX_MATCH_BYTES where launches pad (pads), else as many as keep
-        their bytes within WIDE_LAUNCH_BYTES, at most WIDE_MAX_PROBLEMS,
-        at least one."""
+        their bytes within WIDE_LAUNCH_BYTES on a card, at most
+        WIDE_MAX_PROBLEMS, at least one; ``sharded`` (a bucket over the
+        mesh's batch axis): that many on each of the mesh's cards, shared
+        by the shards there (parallel/mesh.py::batch_counts)."""
+        L1p, L2p = int(L1p), int(L2p)
         if not self.pads(L2p):
-            return max(1, min(self.WIDE_MAX_PROBLEMS, self.WIDE_LAUNCH_BYTES
-                              // problem_bytes(L1p, L2p)))
+            per_card = max(1, min(self.WIDE_MAX_PROBLEMS,
+                                  self.WIDE_LAUNCH_BYTES
+                                  // problem_bytes(L1p, L2p)))
+            return per_card * (self.mesh.cards if sharded else 1)
         cap = max(8, self.MAX_MATCH_BYTES // (L1p * L2p * 4))
         p = 8
         while p * 2 <= cap:
@@ -503,12 +510,27 @@ class GpuEngine:
         penalties, eps 0 and no bonus.  bonus is None or the compact tuple
         (per_w, apos_r, conf_r, apos_c, conf_c); merges counts the real
         problems (the first ones;
-        default all).  On a mesh each chunk takes dispatch_long's route or
-        is sharded on its batch axis (padded as pad_to_launch pads).
-        Returns a handle for collect_bucket."""
+        default all).  On a mesh a bucket of at most as many merges as
+        shards that the register row kernel cannot hold takes
+        dispatch_long's route; the chunks of any other are sharded on
+        their batch axis (padded as pad_to_launch pads where launches
+        pad, else split unevenly, real problems only: each card holds at
+        most max_launch's share).  Returns a handle for collect_bucket."""
         B = lhs.shape[0]
         merges = B if merges is None else merges
-        cap = self.max_launch(lhs.shape[1], rhs.shape[1])
+        if (self.sharded and merges <= self.mesh.size
+                and not self.row_feasible(B, rhs.shape[1])):
+            return self.dispatch_long(lhs, rhs, pc, pr, la, lb, eps, bonus,
+                                      merges)
+        return self.dispatch_chunks(lhs, rhs, pc, pr, la, lb, eps, bonus,
+                                    merges)
+
+    def dispatch_chunks(self, lhs, rhs, pc, pr, la, lb, eps, bonus,
+                        merges: int):
+        """dispatch_bucket's chunks of at most max_launch problems."""
+        B = lhs.shape[0]
+        pads = self.pads(rhs.shape[1])
+        cap = self.max_launch(lhs.shape[1], rhs.shape[1], self.sharded)
         if B > cap:
             def part(x, lo):
                 if x is None:
@@ -517,17 +539,13 @@ class GpuEngine:
                     return (x[0],) + tuple(a[lo:lo + cap] for a in x[1:])
                 return x[lo:lo + cap]
             return ("multi", [
-                self.dispatch_bucket(*(part(x, lo) for x in (
+                self.dispatch_chunks(*(part(x, lo) for x in (
                     lhs, rhs, pc, pr, la, lb, eps, bonus)),
                     merges=min(cap, max(0, merges - lo)))
                 for lo in range(0, B, cap)])
-        if (self.sharded and merges <= self.mesh.size
-                and not self.row_feasible(B, rhs.shape[1])):
-            return self.dispatch_long(lhs, rhs, pc, pr, la, lb, eps, bonus,
-                                      merges)
         lhs, rhs, pc, pr, la, lb, eps, bonus = pad_batch(
             lhs, rhs, pc, pr, la, lb, eps, bonus,
-            self.pad_to_launch(B) - B if self.pads(rhs.shape[1]) else 0)
+            self.pad_to_launch(B) - B if pads else 0)
         if self.sharded:
             # the batch axis over the mesh (tpu/engine.py:424-439)
             from kalign_tpu_torch.parallel import mesh as M
@@ -535,7 +553,8 @@ class GpuEngine:
             self.stats["batches"].append(
                 {"route": "row", "maps": False, "L1p": lhs.shape[1],
                  "L2p": rhs.shape[1], "la": np.array(la),
-                 "lb": np.array(lb)})
+                 "lb": np.array(lb),
+                 "shards": M.batch_counts(self.mesh, len(la))})
             return ("sharded", M.dispatch_bucket_step(
                 self.mesh, lhs, rhs, pc, pr, la, lb, eps, bonus), B)
         bonus_d = None

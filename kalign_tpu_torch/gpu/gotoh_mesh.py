@@ -29,6 +29,15 @@ stream waits on a CUDA event.  The host enqueues every step and
 synchronises once, when the caller fetches.  ceil(la / R) launches per
 shard, ceil(la / R) + n - 1 steps (rows past la are never read).
 
+A band's match comes a block of rows at a time from its source
+(``forward``): a whole band's tensor, whose rows each launch reads in
+place, or a callable source(r0, r1, out) that makes the match of the
+rows [r0, r1) in ``out``, a buffer of a ring of two on the band's shard
+(parallel/mesh.py::band_source: the rows' product and prepare_match).
+A buffer holds FILL_BLOCKS launches' rows, made on the shard's stream
+just before the first of them, so the buffer those launches read is
+written again only after them.
+
 Every band takes the row kernel's row-invariant vectors
 (gotoh_row.prepare over the whole padded width, prefix sums left to
 right in float32 on the first shard's device) sliced to its columns, and
@@ -58,6 +67,11 @@ from kalign_tpu_torch.gpu.gotoh_row import NEG, RowLaunch
 # 1,024 lengthened the pipeline's fill (9.8 ms of device time); 512 took
 # 4.6 and 8.7 (PERF.md, chip_smoke.py --only mesh_sweep)
 BLOCK_ROWS = 512
+# a band source makes the match of this many launches' rows at a time:
+# each fill costs the host a product, the preparation and their small
+# operations (~0.4 ms), which at one launch's rows held the mesh_long
+# root merge's band pipeline behind the host (PERF.md, PR 16)
+FILL_BLOCKS = 4
 STRIP = 5                  # floats per strip row: A, GA, GB, carry, u
 STRIP_SLOT = 8             # floats per slot of a block's strip ring
 MAX_THREADS = 1024         # csrc/gotoh_mesh.cu kMaxThreads (block route)
@@ -176,18 +190,18 @@ def init_state(band):
     return state
 
 
-def plain(band, strip_in, strip_out, r0: int, nr: int, la: int,
-                lb: int, first: bool):
-    """Rows r0 + 1 .. r0 + nr of one band in PyTorch: the kernel's
-    arithmetic (gotoh_row.plain's, with the strip at the band's left
-    edge)."""
-    match, state, dec = band["match"], band["state"], band["dec"]
+def plain(band, m, strip_in, strip_out, r0: int, nr: int, la: int,
+          lb: int, first: bool):
+    """Rows r0 + 1 .. r0 + nr of one band in PyTorch, m [nr, Wd] their
+    match: the kernel's arithmetic (gotoh_row.plain's, with the strip at
+    the band's left edge)."""
+    state, dec = band["state"], band["dec"]
     C_norm, C_term, gnC_norm, gnC_term, goB_s = band["colpen"]
     rowpen, cols_eps, row_term = band["rowpen"], band["cols_eps"], \
         band["row_term"]
-    dev = match.device
+    dev = m.device
     f32 = dict(dtype=torch.float32, device=dev)
-    Wd = match.shape[1]
+    Wd = m.shape[1]
     cols = torch.arange(band["c0"] + 1, band["c0"] + Wd + 1, device=dev)
     is_term_col = cols == lb
     can_open = cols < lb
@@ -207,12 +221,12 @@ def plain(band, strip_in, strip_out, r0: int, nr: int, la: int,
             eA, eGA, eGB = strip_in[s - 1, 0:1], strip_in[s - 1, 1:2], \
                 strip_in[s - 1, 2:3]
             carry, lu = strip_in[s, 3:4], strip_in[s, 4:5]
-        m = match[r] - torch.abs(cols_eps - row_term[r:r + 1])
+        mr = m[s - 1] - torch.abs(cols_eps - row_term[r:r + 1])
         diagA = torch.cat([eA, A[:-1]])
         diagGA = torch.cat([eGA, GA[:-1]]) + goB_s
         diagGB = torch.cat([eGB, GB[:-1]]) + goA_prev
         best01 = torch.maximum(diagA, diagGA)
-        A_row = torch.maximum(best01, diagGB) + m
+        A_row = torch.maximum(best01, diagGB) + mr
 
         ge_eff = torch.where(is_term_col, tgeA_i, geA_i)
         go_eff = torch.where(is_term_col, tgeA_i, goA_i)
@@ -264,20 +278,19 @@ def schedulable(cfg):
 # the strips) and what follows the per-launch arguments
 BandPlan = namedtuple("BandPlan", "cfg entry ptrs args")
 
-_BAND_KEYS = ("match", "colpen", "rowpen", "cols_eps", "row_term", "state")
+_BAND_KEYS = ("colpen", "rowpen", "cols_eps", "row_term", "state")
 
 
 def band_plan(band) -> BandPlan:
     """One band's launch plan, checked once (call under
     ``torch.cuda.device`` of its tensors): band_config's route, the entry
-    point and the band's fixed arguments."""
-    Wd = band["match"].shape[1]
+    point and the band's fixed arguments (those after the match)."""
+    Wd = band["dec"].shape[1]
     cfg = band_config(Wd)
     _cuda.require_cuda("gotoh_mesh", *(band[k] for k in _BAND_KEYS),
                        band["dec"])
-    if band["match"].dtype != torch.float32 or \
-            band["dec"].dtype != torch.int8:
-        raise ValueError("gotoh_mesh: float32 match, int8 decisions")
+    if band["dec"].dtype != torch.int8:
+        raise ValueError("gotoh_mesh: int8 decisions")
     lib = _cuda.lib()
     ptrs = tuple(band[k].data_ptr() for k in _BAND_KEYS)
     if cfg.route == "block":
@@ -293,27 +306,32 @@ def band_plan(band) -> BandPlan:
                     (cfg.threads, cfg.ch, cfg.blocks))
 
 
-def launch(band, strip_in, strip_out, r0: int, nr: int, la: int,
+def launch(band, m, strip_in, strip_out, r0: int, nr: int, la: int,
            lb: int, first: bool):
     """Launch band_config's route of csrc/gotoh_mesh.cu on one band's
-    CUDA tensors: rows r0 + 1 .. r0 + nr, the left band's strip_in (None
-    on the first band), this band's strip_out ([>= nr + 1, STRIP])."""
+    CUDA tensors: rows r0 + 1 .. r0 + nr, m [nr, Wd] their match
+    (contiguous float32), the left band's strip_in (None on the first
+    band), this band's strip_out ([>= nr + 1, STRIP])."""
     global launches, cluster_launches
-    dev = band["match"].device
+    dev = band["dec"].device
     with torch.cuda.device(dev):
         plan = band.get("plan")
         if plan is None:
             plan = band["plan"] = band_plan(band)
-        _cuda.require_cuda("gotoh_mesh", band["match"], strip_out,
+        _cuda.require_cuda("gotoh_mesh", m, strip_out,
                            *(() if first else (strip_in,)))
+        if tuple(m.shape) != (nr, band["dec"].shape[1]) or \
+                m.dtype != torch.float32 or not m.is_contiguous():
+            raise ValueError("gotoh_mesh: a launch's match is not its rows "
+                             "of the band, contiguous float32")
         if strip_out.numel() < (nr + 1) * STRIP or (
                 not first and strip_in.numel() < (nr + 1) * STRIP):
             raise ValueError("gotoh_mesh: a strip holds fewer than nr + 1 "
                              "rows")
         rc = plan.entry(
-            *plan.ptrs,
+            m.data_ptr(), *plan.ptrs,
             None if first else strip_in.data_ptr(), strip_out.data_ptr(),
-            band["dec"].data_ptr(), band["match"].shape[1], r0, nr, la, lb,
+            band["dec"].data_ptr(), band["dec"].shape[1], r0, nr, la, lb,
             band["c0"], int(first), *plan.args,
             ctypes.c_void_p(_cuda.stream(dev)))
     _cuda.check(rc, "gotoh_mesh")
@@ -323,11 +341,29 @@ def launch(band, strip_in, strip_out, r0: int, nr: int, la: int,
         launches += 1
 
 
+def block(band, r0: int, nr: int):
+    """The match of the band's rows [r0, r0 + nr): a whole band's rows,
+    or rows of the ring's buffer f % 2 that holds the f-th fill of
+    ``fill`` rows, which the source makes there where the buffer does not
+    hold it yet."""
+    ring = band["ring"]
+    if ring is None:
+        return band["source"](r0, r0 + nr, None)
+    F = band["fill"]
+    f, lo = divmod(r0, F)
+    if band["filled"] != f:
+        r1 = min((f + 1) * F, band["dec"].shape[0])
+        band["source"](f * F, r1, ring[f % 2][:r1 - f * F])
+        band["filled"] = f
+    return ring[f % 2][lo:lo + nr]
+
+
 def schedule(shards, bands, la: int, lb: int, rows: int = BLOCK_ROWS,
              use_plain: bool = False):
     """The block-pipelined wavefront over the bands (bands[d] on
-    shards[d], each with its state buffer and decision rows): at step s,
-    shard d runs its block s - d.  Fills every band's dec rows < la and
+    shards[d], each with its match source, state buffer and decision
+    rows): at step s, shard d makes the match of its block s - d (block)
+    and runs the block.  Fills every band's dec rows < la and
     leaves row la's state in state[la & 1].  Kernel blocks on CUDA
     shards, plain on CPU shards or with use_plain.  Each band's strips
     (one per block) are allocated once, with a copy on the next shard's
@@ -369,8 +405,10 @@ def schedule(shards, bands, la: int, lb: int, rows: int = BLOCK_ROWS,
                     wait(sh, done[d - 1])
                 run = launch if use_kernel and sh.device.type == "cuda" \
                     else plain
-                run(bands[d], ins_b[d][b] if d else None, outs_b[d][b], r0,
-                    min(rows, la - r0), la, lb, d == 0)
+                nr = min(rows, la - r0)
+                run(bands[d], block(bands[d], r0, nr),
+                    ins_b[d][b] if d else None, outs_b[d][b], r0, nr, la,
+                    lb, d == 0)
                 if d + 1 < n:
                     if ins[d + 1] is not outs[d]:
                         ins_b[d + 1][b].copy_(outs_b[d][b], non_blocking=True)
@@ -391,22 +429,38 @@ def end_values(state, la: int, lb: int, c0: int):
 
 def forward(shards, match_bands, prep, la: int, lb: int,
             rows: int = BLOCK_ROWS, use_plain: bool = False):
-    """One problem's column-sharded DP.  match_bands[d] [L1p, Wd] on
-    shards[d] (the centering bias not yet subtracted where prep carries
-    it, as for the row kernel); prep = gotoh_row.prepare of the problem
-    over the padded width n * Wd, on shards[0]'s device, queued there.
-    Returns (bands, score [1], state [1] int32 on shards[0]'s device);
-    each band's decision rows < la are its dec (rows past la are 0)."""
-    Wd = match_bands[0].shape[1]
+    """One problem's column-sharded DP.  match_bands[d], the match of
+    band d on shards[d] (the centering bias not yet subtracted where prep
+    carries it, as for the row kernel): a [L1p, Wd] tensor, or a source
+    source(r0, r1, out) giving the rows [r0, r1) as a [r1 - r0, Wd]
+    tensor (made in out, the first r1 - r0 rows of a buffer of a ring of
+    two of FILL_BLOCKS * ``rows`` rows on the shard, block); prep =
+    gotoh_row.prepare of the
+    problem over the padded width n * Wd, on shards[0]'s device, queued
+    there.  Returns (bands, score [1], state [1] int32 on shards[0]'s
+    device); each band's decision rows < la are its dec (rows past la
+    are 0)."""
+    L1p = prep["rowpen"].shape[1]
+    Wd = prep["cols_eps"].shape[1] // len(shards)
     ready = event(shards[0])
     bands = []
     for d, sh in enumerate(shards):
         with on(sh):
             wait(sh, ready)
             band = band_inputs(prep, d * Wd, (d + 1) * Wd, sh.device)
-            band["match"] = match_bands[d]
+            src = match_bands[d]
+            if callable(src):
+                band["source"] = src
+                band["fill"] = min(rows * FILL_BLOCKS, L1p)
+                band["filled"] = None
+                band["ring"] = torch.empty((2, band["fill"], Wd),
+                                           dtype=torch.float32,
+                                           device=sh.device)
+            else:
+                band["source"] = lambda r0, r1, out, m=src: m[r0:r1]
+                band["ring"] = None
             band["state"] = init_state(band)
-            band["dec"] = torch.zeros(match_bands[d].shape, dtype=torch.int8,
+            band["dec"] = torch.zeros((L1p, Wd), dtype=torch.int8,
                                       device=sh.device)
             bands.append(band)
     if shards[0].stream is not None:

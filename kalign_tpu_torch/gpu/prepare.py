@@ -17,11 +17,47 @@ apos_r [B, K, R], conf_r [B, K, R], apos_c [B, K, W], conf_c [B, K, W]),
 its vectors cut to the block (``cut``), per_w a float32 scalar tensor.
 """
 
+from collections import namedtuple
+
 import torch
 
 from kalign_tpu_torch.gpu import _cuda
 
 launches = 0
+
+# the kernel's tile (csrc/prepare_match.cu kThreads, kCols, kMaxRows)
+THREADS = 256
+COLS = 4
+MAX_ROWS = 64
+# blocks that fill the card: two resident an SM (the kernel's
+# __launch_bounds__) on an H100's 132 SMs, twice over
+FILL_BLOCKS = 2 * 2 * 132
+# rows a tile at least: at a serve launch (8 x 384 x 384) tiles of 4
+# rows took 0.0103 ms on an H100, of 16 rows 0.0071, of 32 0.0081 (the
+# card half idle, the launch's own cost counts more; PERF.md, PR 16)
+MIN_ROWS = 16
+
+# a launch: tx threads across a tile of tx * COLS columns, ``rows`` rows
+# a tile, the grid (column tiles x row tiles, B)
+Plan = namedtuple("Plan", "tx rows ctiles rtiles")
+
+
+def launch_plan(B: int, R: int, W: int) -> Plan:
+    """The kernel's tiles for a block [B, R, W]: tx the least power of two
+    from 32 that covers W's float4s, at most THREADS; ``rows`` from
+    MAX_ROWS down by halves, while the grid has fewer than FILL_BLOCKS
+    blocks, to no fewer than MIN_ROWS (nor the tile's threads down,
+    THREADS / tx)."""
+    quads = -(-W // COLS)
+    tx = 32
+    while tx < THREADS and tx < quads:
+        tx *= 2
+    ctiles = -(-quads // tx)
+    least = max(THREADS // tx, MIN_ROWS)
+    rows = MAX_ROWS
+    while rows > least and B * ctiles * -(-R // rows) < FILL_BLOCKS:
+        rows //= 2
+    return Plan(tx, rows, ctiles, -(-R // rows))
 
 
 def bonus_match(match, la, lb, bias_eps, bonus, col0: int = 0,
@@ -59,6 +95,12 @@ def cut(bonus, r0: int, r1: int, c0: int = 0, c1=None):
             cfc[:, :, c0:c1])
 
 
+def _aligned(x):
+    """x, or a copy where its data is not 16-byte aligned (a view at an
+    offset)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def launch(match, la, lb, bias_eps, bonus, col0: int = 0, row0: int = 0):
     """csrc/prepare_match.cu on a CUDA block, in place; returns it."""
     global launches
@@ -70,11 +112,16 @@ def launch(match, la, lb, bias_eps, bonus, col0: int = 0, row0: int = 0):
     if tuple(apr.shape) != (B, K, R) or tuple(apc.shape) != (B, K, W):
         raise ValueError("prepare_match: the bonus vectors are not the "
                          "block's")
+    if W % COLS or match.data_ptr() % 16:
+        raise ValueError("prepare_match: the block's rows must be whole "
+                         "float4s (W a multiple of 4, 16-byte aligned)")
+    plan = launch_plan(B, R, W)
     dev = match.device
     with torch.cuda.device(dev):
         slope = (lb.to(torch.float32)
                  / torch.clamp(la.to(torch.float32), min=1.0)).contiguous()
-        vecs = [x.contiguous() for x in (
+        # the kernel reads the columns' vectors as 16-byte words
+        vecs = [_aligned(x.contiguous()) for x in (
             bias_eps.to(torch.float32), per_w.to(torch.float32).reshape(1),
             apr.to(torch.int32), cfr.to(torch.float32),
             apc.to(torch.int32), cfc.to(torch.float32))]
@@ -82,7 +129,7 @@ def launch(match, la, lb, bias_eps, bonus, col0: int = 0, row0: int = 0):
         rc = _cuda.lib().kt_prepare_match(
             match.data_ptr(), slope.data_ptr(),
             *(x.data_ptr() for x in vecs), B, K, R, W, row0, col0,
-            _cuda.stream(dev))
+            plan.tx, plan.rows, _cuda.stream(dev))
     _cuda.check(rc, "prepare_match")
     launches += 1
     return match

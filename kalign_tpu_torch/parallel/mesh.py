@@ -9,7 +9,8 @@ reference's:
     axis (``sharded_bucket_step``);
   * one merge too wide for the row kernel's registers — its columns in
     bands over the shards (``long_merge``, ``sharded_long_gotoh``: the
-    band kernel of gpu/gotoh_mesh.py, csrc/gotoh_mesh.cu).
+    band kernel of gpu/gotoh_mesh.py, csrc/gotoh_mesh.cu), each band's
+    match made a block of rows at a time (``band_source``).
 
 A mesh is a [data, model] array of torch devices (``make_mesh``, the
 reference's factorisation).  Every shard keeps its own CUDA stream on
@@ -228,12 +229,29 @@ def anchor_distances(mesh: Mesh, codes, anchors) -> np.ndarray:
 # batched level-synchronous DP
 # ---------------------------------------------------------------------------
 
+def batch_counts(mesh: Mesh, B: int):
+    """Problems per shard of a batch of B: spread evenly over the mesh's
+    cards (the first cards take one more), then over each card's shards
+    in shard order; a shard may get none.  A multiple of the shard count
+    on a mesh whose cards hold as many shards each splits evenly."""
+    flat = [str(d) for d in mesh.devices.reshape(-1)]
+    cards = list(dict.fromkeys(flat))
+    counts = [0] * len(flat)
+    for c, card in enumerate(cards):
+        n = B // len(cards) + (c < B % len(cards))
+        mine = [k for k, d in enumerate(flat) if d == card]
+        for i, k in enumerate(mine):
+            counts[k] = n // len(mine) + (i < n % len(mine))
+    return counts
+
+
 def _batch_slices(mesh: Mesh, B: int):
-    if B % mesh.size:
-        raise ValueError(f"batch of {B} is not a multiple of the "
-                         f"{mesh.size} shards")
-    per = B // mesh.size
-    return {k: slice(k * per, (k + 1) * per) for k in mesh.local}
+    """Each local shard's slice of a batch of B (batch_counts' split),
+    for the shards that get problems."""
+    counts = batch_counts(mesh, B)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    return {k: slice(int(starts[k]), int(starts[k + 1])) for k in mesh.local
+            if counts[k]}
 
 
 def batched_gotoh(mesh: Mesh, match, pens_cols, pens_rows, la, lb):
@@ -249,7 +267,7 @@ def batched_gotoh(mesh: Mesh, match, pens_cols, pens_rows, la, lb):
                 match, pens_cols, pens_rows, np.asarray(la, np.int32),
                 np.asarray(lb, np.int32))))
     host = fetch(mesh, outs)
-    return tuple(np.concatenate([host[k][i] for k in range(mesh.size)])
+    return tuple(np.concatenate([host[k][i] for k in sorted(host)])
                  for i in range(3))
 
 
@@ -259,9 +277,12 @@ def dispatch_bucket_step(mesh: Mesh, lhs, rhs, pc, pr, la, lb, eps,
     (mesh.py:490-546): on each shard the match product, the centering
     bias and the compact consistency bonus (added on the card by
     gpu/prepare.py::prepare_match), gotoh_row.forward and the walk
-    (gpu/engine.py::row_route).  Host numpy inputs, the batch a multiple
-    of the shard count; bonus None or (per_w, apos_r, conf_r, apos_c,
-    conf_c).  Returns {shard: (steps, n, score)} on the shards' devices."""
+    (gpu/engine.py::row_route).  Host numpy inputs, split by
+    batch_counts (the reference's padded batches evenly; past the
+    register row kernel's widths real problems only, a shard perhaps
+    idle); bonus None or (per_w, apos_r, conf_r, apos_c, conf_c).
+    Returns {shard: (steps, n, score)} on the shards' devices, for the
+    shards that got problems."""
     from kalign_tpu_torch.gpu.engine import row_route
     outs = {}
     for k, sl in _batch_slices(mesh, lhs.shape[0]).items():
@@ -281,7 +302,7 @@ def collect_bucket_step(mesh: Mesh, outs: dict):
     in batch order."""
     host = fetch(mesh, outs)
     steps, scores = [], []
-    for k in range(mesh.size):
+    for k in sorted(host):
         s, n, sc = host[k]
         steps.extend(s[b, :n[b]] for b in range(len(n)))
         scores.append(sc)
@@ -343,18 +364,79 @@ def sharded_long_gotoh(mesh: Mesh, match, pens_cols, pens_rows, la: int,
         return dec, float(score.cpu()[0]), int(st.cpu()[0])
 
 
+def band_bytes(L1p: int, Wd: int, rows: int) -> int:
+    """Device bytes of one band of a column-sharded merge on its shard:
+    its decisions (int8), the ring of two float32 match buffers of
+    gotoh_mesh.FILL_BLOCKS blocks of ``rows`` rows (L1p at most), the
+    state [2, 3, Wd], the strips (one of rows + 1 a block, and a copy for
+    the next shard) and the operands (the rows' lhs, the band's rhs)."""
+    blocks = -(-L1p // rows)
+    fill = min(rows * gotoh_mesh.FILL_BLOCKS, L1p)
+    return (L1p * Wd + 2 * 4 * fill * Wd + 4 * 6 * Wd
+            + 2 * 4 * blocks * (rows + 1) * gotoh_mesh.STRIP
+            + 4 * 23 * (L1p + Wd))
+
+
+def check_long_fits(mesh: Mesh, L1p: int, W: int,
+                    rows: int = gotoh_mesh.BLOCK_ROWS) -> None:
+    """The column-sharded route's memory guard, before anything of the
+    merge is allocated: raises MemoryError, naming the width, where a
+    card cannot hold the bands of one L1p x W merge that its shards run
+    (band_bytes for each; on the first shard's card also the bands'
+    decisions gathered for the walk).  Off the card nothing is checked."""
+    from kalign_tpu_torch.gpu.engine import card_bytes
+    shards = _one_process(mesh)
+    n = len(shards)
+    Wd = gotoh_mesh.band_width(W, n)
+    need = {}
+    for sh in shards:
+        need[sh.device] = need.get(sh.device, 0) + band_bytes(
+            L1p, Wd, rows)
+    need[shards[0].device] += L1p * (-(-Wd * n // 16) * 16)
+    for dev, bytes_ in need.items():
+        have = card_bytes(dev)
+        if have is not None and bytes_ > have:
+            raise MemoryError(
+                f"a {L1p} x {W} merge in {n} bands of {Wd} columns needs "
+                f"{bytes_ / 2 ** 30:.1f} GiB of device memory on {dev} "
+                f"(decisions, match blocks, strips); it has "
+                f"{have / 2 ** 30:.1f} GiB free")
+
+
+def band_source(lhs, rhs_t, one, bonus, c0: int):
+    """source(r0, r1, out=None) of one band, on its shard (call inside
+    ``on(shard)``): the fp32 product of the rows [r0, r1) of lhs
+    [1, L1p, nc] with the band's columns rhs_t [1, nc, Wd], in out where
+    given ([r1 - r0, Wd]; the match lands there), then, with a bonus, the
+    centering bias and the bonus added in place at row0 = r0, col0 = c0
+    (prepare.prepare_match: csrc/prepare_match.cu on a card; one = the
+    problem's (la, lb, eps) [1] tensors, bonus the band's compact tuple,
+    its row vectors cut to the rows), as gpu/engine.py::bucket_match
+    makes the whole match.  Returns [r1 - r0, Wd]."""
+    from kalign_tpu_torch.gpu.prepare import cut, prepare_match
+
+    def source(r0, r1, out=None):
+        m = torch.bmm(lhs[:, r0:r1], rhs_t,
+                      out=None if out is None else out.unsqueeze(0))
+        if bonus is not None:
+            done = prepare_match(m, *one, cut(bonus, r0, r1), col0=c0,
+                                 row0=r0)
+            if done is not m:       # the plain version's new tensor
+                m.copy_(done)
+        return m[0]
+    return source
+
+
 def long_operands(mesh: Mesh, lhs, rhs, pc, pr, la: int, lb: int,
                   eps: float, bonus=None):
-    """The column-sharded route's inputs of one merge, queued: W padded to
-    n bands of gotoh_mesh.band_width (pc with zeros, as tpu/engine.py:
-    516-521 pads it to a multiple of the shard count), the row-invariant vectors over the padded width on
-    the first shard (gotoh_row.prepare), and on each shard only its band
-    of the match — the product, then the bias and the bonus where there
-    is a bonus (prepare.prepare_match on the band: csrc/prepare_match.cu
-    in place on a card), as gpu/engine.py::bucket_match builds the whole
-    match; without a bonus the kernel subtracts the bias.  Returns (match
-    bands, prep, Wp)."""
-    from kalign_tpu_torch.gpu.prepare import prepare_match
+    """The column-sharded route's inputs of one merge, queued: W padded
+    to n bands of gotoh_mesh.band_width (pc with zeros, as tpu/engine.py:
+    516-521 pads it to a multiple of the shard count), the row-invariant
+    vectors over the padded width on the first shard (gotoh_row.prepare),
+    and on each shard its band's source (band_source: the operands of
+    its rows and columns on its card, the match made a block of rows at
+    a time; no band's whole match is made).  Without a bonus the kernel
+    subtracts the bias.  Returns (band sources, prep, Wp)."""
     shards = _one_process(mesh)
     n = len(shards)
     L2p = rhs.shape[0]
@@ -378,12 +460,11 @@ def long_operands(mesh: Mesh, lhs, rhs, pc, pr, la: int, lb: int,
         per_w, apr, cfr, apc, cfc = bonus
         apc = np.pad(apc, ((0, 0), (0, Wp - L2p)), constant_values=-1)
         cfc = np.pad(cfc, ((0, 0), (0, Wp - L2p)))
-    bands = []
+    sources = []
     for d, sh in enumerate(shards):
         c0, c1 = d * Wd, (d + 1) * Wd
         with on(sh):
-            m = torch.bmm(put(lhs[None], sh),
-                          put(rhs_p[None, c0:c1], sh).transpose(1, 2))
+            one = b = None
             if bonus is not None:
                 one = [put(np.array([x], dt), sh) for x, dt in (
                     (la, np.int32), (lb, np.int32), (eps, np.float32))]
@@ -391,25 +472,30 @@ def long_operands(mesh: Mesh, lhs, rhs, pc, pr, la: int, lb: int,
                      put(apr[None], sh), put(cfr[None], sh),
                      put(apc[None, :, c0:c1], sh),
                      put(cfc[None, :, c0:c1], sh))
-                m = prepare_match(m, *one, b, col0=c0)
-            bands.append(m[0])
-    return bands, prep, Wp
+            sources.append(band_source(
+                put(lhs[None], sh), put(rhs_p[None, c0:c1], sh).transpose(
+                    1, 2), one, b, c0))
+    return sources, prep, Wp
 
 
 def long_merge(mesh: Mesh, lhs, rhs, pc, pr, la: int, lb: int, eps: float,
                bonus=None, rows: int = gotoh_mesh.BLOCK_ROWS):
     """Queue one merge whose width the register row kernel cannot hold
     with its columns in bands over the mesh (tpu/engine.py:409-423,
-    _long_seq_mesh :509-532): long_operands, the band kernel's pipeline,
-    the decision bands gathered onto the first shard's card and walked
-    there (max_steps = L1p + Wp + 2).  lhs [L1p, 23], rhs [L2p, 23], pc
-    [3, L2p + 1], pr [3, L1p + 1] host numpy; bonus None or the compact
-    (per_w, apos_r [K, L1p], conf_r, apos_c [K, L2p], conf_c).  Returns
-    (steps [1, S], n [1], score [1]) on the first shard's device."""
+    _long_seq_mesh :509-532): the memory guard (check_long_fits),
+    long_operands, the band kernel's pipeline (each band's match a block
+    of rows at a time), the decision bands gathered onto the first
+    shard's card and walked there (max_steps = L1p + Wp + 2).  lhs
+    [L1p, 23], rhs [L2p, 23], pc [3, L2p + 1], pr [3, L1p + 1] host
+    numpy; bonus None or the compact (per_w, apos_r [K, L1p], conf_r,
+    apos_c [K, L2p], conf_c).  Returns (steps [1, S], n [1], score [1])
+    on the first shard's device."""
     shards = _one_process(mesh)
-    bands, prep, Wp = long_operands(mesh, lhs, rhs, pc, pr, la, lb, eps,
-                                    bonus)
-    bands, score, st = gotoh_mesh.forward(shards, bands, prep, la, lb, rows)
+    check_long_fits(mesh, lhs.shape[0], rhs.shape[0], rows)
+    sources, prep, Wp = long_operands(mesh, lhs, rhs, pc, pr, la, lb, eps,
+                                      bonus)
+    bands, score, st = gotoh_mesh.forward(shards, sources, prep, la, lb,
+                                          rows)
     dec = gotoh_mesh.gather_dec(shards, bands, -(-Wp // 16) * 16)
     with on(shards[0]):
         t = [put(np.array([x], np.int32), shards[0]) for x in (la, lb)]

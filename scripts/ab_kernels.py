@@ -6,6 +6,7 @@ on one NVIDIA GPU, in one process.
     python3 scripts/ab_kernels.py --parent _proof/parent
     python3 scripts/ab_kernels.py --variant _proof/variant
     python3 scripts/ab_kernels.py --sweep
+    python3 scripts/ab_kernels.py --parent _proof/parent --prepare
 
 --parent: the row Gotoh kernel of an earlier checkout past 7,168
 columns, its tiled instantiation called through its own C entry point
@@ -17,6 +18,20 @@ fill rule) and 8 x 256 x 7,424 (one real problem: the long family's
 largest launch), and the long_default path's largest launch
 (the path runs once here to give it).  The two outputs must be bitwise
 equal.
+
+--prepare (with --parent): the match-preparation kernel
+(csrc/prepare_match.cu) of the earlier checkout, called through its own
+C entry point `kt_prepare_match` as of a9938c0 (one block per row and
+1,024 columns, no plan arguments), against this checkout's, both entry
+points called directly on the same prepared vectors (kernel time, no
+wrapper work): at a plastome root merge's row block (1 x 3,440 x 156,032),
+long_default's largest progressive launch (8 x 9,856 x 9,728) and a
+serve-path launch (8 x 384 x 384), each with K = 5 random anchors, and
+at 8 x 9,856 x 9,728 with K = 0 (no anchor: the bias alone) and K = 9;
+the outputs held bitwise against each other and against
+prepare.bonus_match; then this checkout's kernel at each shape under
+other tiles (32 or launch_plan's threads across, 4 to 64 rows), held to
+its own plan's bits.  The row-kernel comparison of --parent is skipped.
 
 --sweep: the cluster instantiation's settings at those shapes: every
 cluster size of gotoh_row.CLUSTER_SIZES that covers the row, each held
@@ -69,9 +84,13 @@ def main():
                     help="an unpacked checkout with this one's interfaces")
     ap.add_argument("--sweep", action="store_true",
                     help="time the cluster row kernel's settings")
+    ap.add_argument("--prepare", action="store_true",
+                    help="with --parent: the match-preparation kernels")
     args = ap.parse_args()
     if not (args.parent or args.variant or args.sweep):
         ap.error("give --parent, --variant, --sweep or more")
+    if args.prepare and not args.parent:
+        ap.error("--prepare needs --parent")
     import torch
     if not torch.cuda.is_available():
         print("ab_kernels: CUDA is not available", file=sys.stderr)
@@ -98,8 +117,10 @@ def main():
                                           "variant_cuda")
         var.lib()
     _cuda.lib()
-    # -Xptxas -v of each library's row kernels
-    ptxas = {k: cs.ptxas_lines(build_log(m.library_path()), "gotoh_row")
+    # -Xptxas -v of each library's row (or match-preparation) kernels
+    ptxas = {k: cs.ptxas_lines(build_log(m.library_path()),
+                               "prepare_match" if args.prepare
+                               else "gotoh_row")
              for k, m in libs.items()}
     print(json.dumps({"ptxas": ptxas}), flush=True)
 
@@ -158,12 +179,15 @@ def main():
         show(kernel, label, shape, ab(on_variant(fn), fn, reps, "variant"),
              against="variant", **extra)
 
+    if args.prepare:
+        prepare_ab(cs, dev, old, old_lib, ab, show)
+
     seqs = {"fast": cs.family(2000, seed=0),
             "default": cs.v4_family(2000, seed=2)}
 
     # the row kernel past 7,168 columns: the parent's tiled instantiation
     # against this checkout's cluster route, and the cluster settings
-    if old or args.sweep:
+    if (old and not args.prepare) or args.sweep:
         rng = np.random.default_rng(10)
         wide = {"8x512x8192": cs.dp_problem(rng, 512, 8192, [512] * 8,
                                             [8192] * 8, dev),
@@ -311,6 +335,82 @@ def main():
                                                         L2p=L2p)),
                         plan=gotoh_lanewise.launch_plan(L2p, nc)._asdict())
     return 0
+
+
+# --prepare's shapes: (label, B, R, W, K)
+PREPARE_SHAPES = (("plastome root-merge block", 1, 3440, 156032, 5),
+                  ("long_default largest progressive", 8, 9856, 9728, 5),
+                  ("serve", 8, 384, 384, 5),
+                  ("no anchor", 8, 9856, 9728, 0),
+                  ("K = 9", 8, 9856, 9728, 9))
+
+
+def prepare_ab(cs, dev, old, old_lib, ab, show):
+    """--prepare: the parent's kt_prepare_match against this checkout's
+    on the same card tensors, in place on copies of one match block."""
+    import torch
+    from kalign_tpu_torch.gpu import _cuda, prepare
+    rng = np.random.default_rng(16)
+    this_lib = _cuda.lib()
+    for label, B, R, W, K in PREPARE_SHAPES:
+        t = lambda x: torch.from_numpy(x).to(dev)
+        match = t(rng.standard_normal((B, R, W), dtype=np.float32) * 3)
+        la = t(rng.integers(R // 2, R + 1, B).astype(np.int32))
+        lb = t(rng.integers(W // 2, W + 1, B).astype(np.int32))
+        eps = torch.full((B,), 1e-3, device=dev)
+        bonus = cs.bonus_block(rng, B, R, W, K, dev)
+        slope = (lb.float() / torch.clamp(la.float(), min=1.0)).contiguous()
+        vecs = [eps, bonus[0].reshape(1)] + [x.contiguous()
+                                             for x in bonus[1:]]
+        ptrs = [slope.data_ptr()] + [x.data_ptr() for x in vecs]
+        plan = prepare.launch_plan(B, R, W)
+        work = {"old": match.clone(), "new": match.clone()}
+
+        def run_old():
+            old.check(old_lib.kt_prepare_match(
+                work["old"].data_ptr(), *ptrs, B, K, R, W, 0, 0,
+                _cuda.stream(dev)), "earlier prepare_match")
+
+        def run_new():
+            _cuda.check(this_lib.kt_prepare_match(
+                work["new"].data_ptr(), *ptrs, B, K, R, W, 0, 0, plan.tx,
+                plan.rows, _cuda.stream(dev)), "prepare_match")
+        run_old()
+        run_new()
+        once = work["new"].clone()
+        want = prepare.bonus_match(match, la, lb, eps, bonus)
+        cs.hold_bits("prepare_match", work["new"], want,
+                     f"{label}: new vs plain")
+        cs.hold_bits("prepare_match", work["old"], want,
+                     f"{label}: parent vs plain")
+        del want
+        b_ms, b_by = cs.bound(B * R * W * 8.0 + B * K * (R + W) * 8.0,
+                              B * R * W * (5.0 + 2 * K), cs.FP32_OPS_PER_S)
+        show("prepare_match", label, f"{B}x{R}x{W} K={K}",
+             ab(run_old, run_new, 5), against="parent", bound_ms=b_ms,
+             bound_by=b_by, plan_new=plan._asdict())
+        # this kernel under other tiles: tx threads across, rows a tile
+        sweep = {}
+        for tx in sorted({plan.tx, 32}):
+            for rows in (4, 8, 16, 32, 64):
+                if rows < prepare.THREADS // tx:
+                    continue
+                other = match.clone()
+
+                def run_plan():
+                    _cuda.check(this_lib.kt_prepare_match(
+                        other.data_ptr(), *ptrs, B, K, R, W, 0, 0, tx, rows,
+                        _cuda.stream(dev)), "prepare_match")
+                run_plan()
+                cs.hold_bits("prepare_match", other, once,
+                             f"{label}: tiles of {tx} x {rows}")
+                sweep[f"{tx}x{rows}"] = cs.device_ms(run_plan, 5)
+                del other
+        show("prepare_match", label, f"{B}x{R}x{W} K={K}",
+             {"device_ms_by_plan": sweep}, against="plans",
+             plan_new=plan._asdict())
+        del match, work, once
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

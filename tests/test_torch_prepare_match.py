@@ -150,3 +150,124 @@ def test_wrapper_runs_the_plain_version_on_the_cpu():
                           _bits(P.bonus_match(match, la_t, lb_t, eps, b)))
     with pytest.raises(ValueError, match="unsupported device"):
         P.prepare_match(match.to("meta"), la_t, lb_t, eps, b)
+
+
+@pytest.mark.parametrize("B, R, W, tx, rows", [
+    (1, 3440, 156032, 256, 64),     # a plastome root-merge block
+    (8, 9856, 9728, 256, 64),       # long_default's largest merge launch
+    (8, 384, 384, 128, 16),         # a serve-path launch: rows cut down
+    (512, 384, 384, 128, 64),       # the protein paths' largest
+    (1, 64, 131072, 256, 16),       # few rows, one problem
+    (2, 5, 8, 32, 16),              # narrower than a warp's float4s
+    (3, 17, 2052, 256, 16)])        # W past a tile, not a multiple
+def test_launch_plan_by_shape(B, R, W, tx, rows):
+    """prepare.launch_plan: tx threads across (the least power of two
+    from 32 covering W's float4s, at most 256), rows a tile halved from
+    64 while the grid has fewer than FILL_BLOCKS blocks, never below
+    MIN_ROWS or the tile's threads down; the tiles cover the block."""
+    plan = P.launch_plan(B, R, W)
+    assert (plan.tx, plan.rows) == (tx, rows)
+    assert plan.ctiles * plan.tx * P.COLS >= W > \
+        (plan.ctiles - 1) * plan.tx * P.COLS
+    assert plan.rtiles * plan.rows >= R > (plan.rtiles - 1) * plan.rows
+    least = max(P.THREADS // plan.tx, P.MIN_ROWS)
+    assert plan.rows >= least
+    assert plan.rows == least or plan.rows == P.MAX_ROWS or \
+        B * plan.ctiles * plan.rtiles >= P.FILL_BLOCKS
+
+
+def _kernel_model(match, la, lb, eps, bonus, col0, row0):
+    """csrc/prepare_match.cu's schedule in PyTorch: the launch plan's
+    tiles one by one (each cell once), per tile the bias, then the
+    anchors in groups of 8 in k order into an accumulator from +0, added
+    once."""
+    B, R, W = match.shape
+    plan = P.launch_plan(B, R, W)
+    per_w, apr, cfr, apc, cfc = bonus
+    K = apr.shape[1]
+    slope = lb.float() / torch.clamp(la.float(), min=1.0)
+    out = torch.full_like(match, float("nan"))
+    hits = torch.zeros(match.shape, dtype=torch.int32)
+    zero = torch.zeros(())
+    for b in range(B):
+        for rt in range(plan.rtiles):
+            r = slice(rt * plan.rows, min((rt + 1) * plan.rows, R))
+            t = (torch.arange(row0 + r.start + 1, row0 + r.stop + 1)
+                 .float() * slope[b])[:, None]
+            for ct in range(plan.ctiles):
+                c = slice(ct * plan.tx * P.COLS,
+                          min((ct + 1) * plan.tx * P.COLS, W))
+                jj = torch.arange(col0 + c.start + 1,
+                                  col0 + c.stop + 1).float()[None]
+                m = match[b, r, c] - torch.abs(jj - t) * eps[b]
+                acc = torch.zeros_like(m)
+                for k0 in range(0, K, 8):
+                    for k in range(k0, min(k0 + 8, K)):
+                        ar = apr[b, k, r][:, None]
+                        live = (ar >= 0) & (apc[b, k, c][None] == ar)
+                        w = (per_w * cfr[b, k, r])[:, None]
+                        acc = acc + torch.where(live, w * cfc[b, k, c][None],
+                                                zero)
+                out[b, r, c] = m + acc
+                hits[b, r, c] += 1
+    assert torch.all(hits == 1)
+    return out
+
+
+@pytest.mark.parametrize("K", [0, 1, 5, 9, 16])
+@pytest.mark.parametrize("B, R, W, row0, col0, dead", [
+    (1, 70, 1028, 100, 384, 7),     # W a tile and one float4
+    (8, 5, 8, 11, 13, 0),           # tiles of 32 threads across
+    (3, 17, 384, 0, 0, 17)])        # every row's anchors at -1
+def test_kernel_schedule_is_bonus_match(K, B, R, W, row0, col0, dead):
+    """The kernel's schedule (its tiles, the anchors in groups of 8 past
+    K = 8) gives bonus_match's bits at K = 0, 1, 5, 9 and 16, with row0 /
+    col0 offsets and a W tail that is not a tile multiple."""
+    lhs, rhs, la, lb, bonus = _case(31 * K + R, B, R, W, K, dead)
+    match, la_t, lb_t, b = _tensors(lhs, rhs, la, lb, bonus)
+    eps = torch.full((B,), 1e-3)
+    want = P.bonus_match(match, la_t, lb_t, eps, b, col0, row0)
+    got = _kernel_model(match, la_t, lb_t, eps, b, col0, row0)
+    assert np.array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("K", [9, 16])
+def test_anchor_groups_match_kalign_tpu_prepare_match(K):
+    """Past 8 anchors the kernel's schedule against kalign_tpu's
+    _prepare_match jitted on the CPU (dyadic eps), bitwise."""
+    B, L1p, L2p = 4, 24, 40
+    lhs, rhs, la, lb, bonus = _case(K, B, L1p, L2p, K)
+    match, la_t, lb_t, b = _tensors(lhs, rhs, la, lb, bonus)
+    e = np.full(B, 2.0 ** -7, np.float32)
+    want, _, _ = jax.jit(JTE._prepare_match)(
+        jnp.asarray(lhs), jnp.asarray(rhs), jnp.asarray(la), jnp.asarray(lb),
+        jnp.asarray(e), (jnp.float32(bonus[0]),) + tuple(
+            jnp.asarray(a) for a in bonus[1:]))
+    got = _kernel_model(match, la_t, lb_t, torch.from_numpy(e), b, 0, 0)
+    assert np.array_equal(_bits(got), _bits(np.asarray(want)))
+
+
+def test_wrapper_refusals():
+    """The kernel's wrapper refuses, before any launch, a block that is not
+    contiguous float32, whose W is not a multiple of 4, whose data is not
+    16-byte aligned, or whose anchor vectors are not the block's."""
+    lhs, rhs, la, lb, bonus = _case(19, 2, 8, 16)
+    match, la_t, lb_t, b = _tensors(lhs, rhs, la, lb, bonus)
+    eps = torch.full((2,), 1e-3)
+    before = P.launches
+    with pytest.raises(ValueError, match="contiguous float32"):
+        P.launch(match.double(), la_t, lb_t, eps, b)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        P.launch(match.transpose(1, 2), la_t, lb_t, eps, b)
+    odd = match[:, :, :14].contiguous()
+    with pytest.raises(ValueError, match="whole float4s"):
+        P.launch(odd, la_t, lb_t, eps, P.cut(b, 0, 8, 0, 14))
+    flat = torch.zeros(match.numel() + 1)
+    shifted = flat[1:].view(match.shape)
+    with pytest.raises(ValueError, match="whole float4s"):
+        P.launch(shifted, la_t, lb_t, eps, b)
+    with pytest.raises(ValueError, match="not the block's"):
+        P.launch(match, la_t, lb_t, eps, P.cut(b, 0, 7))
+    with pytest.raises(ValueError, match="not the block's"):
+        P.launch(match, la_t, lb_t, eps, P.cut(b, 0, 8, 0, 12))
+    assert P.launches == before
