@@ -7,7 +7,11 @@ Phases (any failure raises and the script exits non-zero):
   1. device and build: the card's name and power limit, then the CUDA
      kernels and the native tree library built from this checkout;
   2. edge cases: every hand-written kernel held against its plain
-     PyTorch version on the same CUDA tensors (bitwise / exact), with
+     PyTorch version on the same inputs (bitwise / exact; the plain
+     versions that are loops of small operations -- lanewise, fused, the
+     walk, BPM and its table, the sweep -- on CPU copies in HOST_WORKERS
+     worker processes while the card goes on, each checked before the
+     kernels line), with
      la = 0 and lb = 0 problems, short and odd-sized inputs (for the
      walk: walks across many windows, pure-gap walks, a short max_steps
      and walks longer than its step buffer; for the fused kernel: nc = 1,
@@ -106,8 +110,10 @@ Phases (any failure raises and the script exits non-zero):
      stream): mesh_edge, the band kernel (csrc/gotoh_mesh.cu) bitwise
      against its plain version and the unsplit row DP at 2, 3 and 4
      shards (MESH_EDGE: clusters of one block and of several, of 4 and
-     of 8 columns a thread, and the block route past 114,688 columns,
-     timed there, and a leading gap run of exactly one band);
+     of 8 columns a thread, and the wave route past 114,688 columns at
+     2 x 64 and 2 x 512 x 229,632, timed there beside each band cut into
+     MESH_SUB_BANDS sub-bands on the cluster route, and a leading gap
+     run of exactly one band);
      "mesh_default", the protein family in default mode on gpu-mesh
      (bpm, bpm_table, prefix_sum, traceback and gotoh_row launched, no
      lanewise or fused launch), and "mesh_long", the long genomes in
@@ -116,16 +122,22 @@ Phases (any failure raises and the script exits non-zero):
      and plastome-length genomes in default mode on gpu-mesh (F6: launches
      past 7,168 columns hold real problems only, each band's match made a
      block of rows at a time; the peak device memory printed; no one-shard
-     run), each with launch counts set to 0 just before and
-     read just after, FASTA equal to one shard's and to gpu-fast's (the
-     protein_default / long_default / sars2_default / plastome_default
-     paths'); the mesh_long path's root
+     run), "mesh_wide", wide_family() (a 236,000-nt genome and eight
+     copies of a 20,000-nt region of it) on two shards: its merges of a
+     region's profile against the genome take bands past 114,688
+     columns, the band kernel's wave route; each with launch counts set
+     to 0 just before and read just after, FASTA equal to one shard's
+     and to gpu-fast's (the protein_default / long_default /
+     sars2_default / plastome_default paths', mesh_wide's aligned
+     here); mesh_wide's widest merge as long_merge runs it on its two
+     shards, bitwise against the same merge on one card's wave route
+     (wide_merge: rows, columns, launches, walls, peak memory); the
+     mesh_long path's root
      merge rebuilt as the engine builds it, the band kernel held against
-     its plain version, the cluster row kernel on the same match and PR
-     13's block route forced at its widths, fed its band sources against
-     fed whole bands, timed beside them with its
-     bound and the host's enqueue (the sweeps that chose the plan run
-     only under --only mesh_sweep); mesh_procs, MESH_PROCS
+     its plain version and the cluster row kernel on the same match,
+     fed its band sources against fed whole bands, timed beside them
+     with its bound and the host's enqueue (the sweeps that chose the
+     plan run only under --only mesh_sweep); mesh_procs, MESH_PROCS
      processes under init_distributed with two shards each: their
      sharded distances and bucket equal to one process's, and small.fa's
      3-run ensemble split by my_ensemble_runs and merged equal to the
@@ -190,8 +202,9 @@ Phases (any failure raises and the script exits non-zero):
      fused kernel also beside the materialised route (torch.bmm +
      lanewise kernel) on the same inputs; BPM and its table at both
      paths' distance stages and at one full 262,144-pair chunk (8,192
-     sequences x 32 anchors); the sweep at the divergent path's largest
-     launch;
+     sequences x 32 anchors), the table also at the large path's 16,384
+     rows and long_default's nblk 16 (bpm_table_shape); the sweep at the
+     divergent path's largest launch;
   7. one JSON line with every kernel's numbers, the nvidia-smi line, and
      the last line {"ok": true, "device": {...}}.
 Without a card, or outside a checkout of the repository, it prints no
@@ -283,7 +296,8 @@ KERNELS = {
     "gotoh_mesh": ("kalign_tpu_torch/csrc/gotoh_mesh.cu",
                    "kalign_tpu/parallel/mesh.py:288 sharded_long_gotoh "
                    "(shard_map + lax.ppermute; XLA, not Pallas); the "
-                   "block route, bands past 114,688 columns"),
+                   "wave route, bands past 114,688 columns (a wavefront "
+                   "of thread-block clusters)"),
     "gotoh_mesh_cluster": ("kalign_tpu_torch/csrc/gotoh_mesh.cu",
                            "kalign_tpu/parallel/mesh.py:288 "
                            "sharded_long_gotoh (shard_map + lax.ppermute; "
@@ -301,7 +315,7 @@ PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
                  "gotoh_row_cluster": "gotoh_row_cluster_kernel",
                  "kmeans": "lloyd_kernel",
                  "exact_sweep": "exact_sweep_kernel",
-                 "gotoh_mesh": "gotoh_band_block_kernel",
+                 "gotoh_mesh": "gotoh_band_wave_kernel",
                  "gotoh_mesh_cluster": "gotoh_band_cluster_kernel"}
 # the paths: mode, the kernels the path must launch (and those it must
 # not), refinement, whether the host-assembled pass runs too (it would
@@ -375,6 +389,13 @@ AUTOROUTE_DISTANCE = 0.5
 # users align
 SARS2_N, SARS2_LEN, SARS2_SUBS = 64, 29903, (0.02, 0.01)
 PLASTOME_N, PLASTOME_LEN, PLASTOME_SUBS = 8, 155943, (0.03, 0.015)
+# the mesh_wide path: one genome of a human cytomegalovirus's length (the
+# Merlin strain, GenBank AY446894, 235,646 bp) and WIDE_N sequences of
+# one WIDE_REGION-nt region of it (a locus sequenced across strains):
+# merges of a region's profile against the genome are ~236,000 columns
+# wide, past two 114,688-column bands; the cut: one genome (two such
+# genomes' merge, ~236,000 squared, would not fit one card)
+WIDE_N, WIDE_LEN, WIDE_REGION, WIDE_SUBS = 8, 236000, 20000, (0.01, 0.02)
 # fp32 operations per cluster member, iteration and try of the k-means
 # Lloyd kernel, at D anchors: two D-long dot products (2D multiplies,
 # 2D - 2 adds), the two squared distances (1 multiply, 2 adds each), the
@@ -416,10 +437,15 @@ LOG = None
 
 
 def emit(obj):
-    """One JSON line, with the seconds since the script started."""
+    """One JSON line, with the seconds since the script started; the
+    phase and those seconds also on standard error (where a run that was
+    stopped shows how far it got)."""
     obj = dict(obj, t_s=round(time.perf_counter() - T_START, 1))
     line = json.dumps(obj)
     print(line, flush=True)
+    what = obj.get("path") or obj.get("kernel") or ""
+    print(f"chip_smoke: {obj.get('phase')} {what} at {obj['t_s']} s",
+          file=sys.stderr, flush=True)
     if LOG is not None:
         with open(LOG, "a") as fh:
             fh.write(line + "\n")
@@ -513,6 +539,103 @@ def timed_once(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+# ---------------------------------------------------------------------------
+# host work beside the card: the plain versions that run on the CPU (loops of
+# small operations, which the host runs faster than it launches them on the
+# card; the same float32 operations, so the same bits) and the CPU side of
+# gpu_vs_cpu run in HOST_WORKERS spawned processes of one torch thread each,
+# at a lower priority than this one, while the card's phases go on.  A plain
+# version's check is made when its result is back (settle(), before the
+# kernels line), on CPU copies of the kernel's outputs.  Four workers slowed
+# the precise path's host loops 2.2x (an H100 host of 8 cores: PERF.md).
+HOST_WORKERS = 3
+HOST_NICE = 10
+HOST = {"pool": None, "pending": []}
+
+
+class HostTensor:
+    """A tensor on its way to or from a host worker, as a numpy array."""
+
+    def __init__(self, a):
+        self.a = a
+
+
+def to_host(x):
+    """x with every tensor (in tuples, lists and dicts too) a HostTensor."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return HostTensor(x.detach().cpu().numpy())
+    if isinstance(x, dict):
+        return {k: to_host(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_host(v) for v in x)
+    return x
+
+
+def from_host(x):
+    """to_host's inverse: CPU tensors."""
+    import torch
+    if isinstance(x, HostTensor):
+        return torch.from_numpy(x.a)
+    if isinstance(x, dict):
+        return {k: from_host(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(from_host(v) for v in x)
+    return x
+
+
+def host_init():
+    import torch
+    os.nice(HOST_NICE)
+    torch.set_num_threads(1)
+
+
+def host_pool():
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    if HOST["pool"] is None:
+        HOST["pool"] = ProcessPoolExecutor(
+            HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=host_init)
+    return HOST["pool"]
+
+
+def host_call(fn, args):
+    """In a host worker: (fn(*args) on CPU tensors, to_host; wall ms)."""
+    args = from_host(args)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return to_host(out), (time.perf_counter() - t0) * 1e3
+
+
+def later(fn, args, check):
+    """fn(*args) in a host worker on CPU copies of args; check(its output,
+    its wall ms) is called by settle()."""
+    HOST["pending"].append(
+        (host_pool().submit(host_call, fn, to_host(args)), check))
+
+
+def settle():
+    """Every check handed out by later(), in the order it was handed out."""
+    while HOST["pending"]:
+        fut, check = HOST["pending"].pop(0)
+        out, ms = fut.result()
+        check(from_host(out), ms)
+
+
+def stop_host():
+    """End the host workers, whatever they are running."""
+    pool, HOST["pool"] = HOST["pool"], None
+    HOST["pending"].clear()
+    if pool is not None:
+        procs = list((pool._processes or {}).values())
+        pool.shutdown(wait=False, cancel_futures=True)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=10)
+
+
 def family(n: int, seed: int, root_len: int = 300, lo: int = 270,
            hi: int = 330, clades: int = 16, letters: str = PROTEIN,
            subs=(0.12, 0.08), max_indel: int = 4, p_del: float = 0.5):
@@ -603,6 +726,33 @@ def plastome_genomes(n: int = PLASTOME_N, seed: int = 16):
     150,000-160,000 (every DP past 114,688 columns: the wave route's)."""
     return family(n, seed, root_len=PLASTOME_LEN, lo=150000, hi=160000,
                   clades=4, letters=DNA, subs=PLASTOME_SUBS, max_indel=3)
+
+
+def wide_family(n: int = WIDE_N, seed: int = 18):
+    """The mesh_wide path's input from a seed: a WIDE_LEN-nt root taken
+    whole with WIDE_SUBS[0] substitutions and a few indels of 1-3 nt, and
+    n copies of its first WIDE_REGION nt at WIDE_SUBS[1] more."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(DNA.encode(), np.uint8)
+
+    def mutate(seq, sub, n_indel):
+        seq = seq.copy()
+        mask = rng.random(len(seq)) < sub
+        seq[mask] = alpha[rng.integers(0, len(alpha), int(mask.sum()))]
+        for _ in range(n_indel):
+            k = int(rng.integers(1, 4))
+            pos = int(rng.integers(0, len(seq)))
+            if rng.random() < 0.5:
+                seq = np.delete(seq, slice(pos, pos + k))
+            else:
+                seq = np.insert(seq, pos, alpha[rng.integers(0, len(alpha),
+                                                             k)])
+        return seq
+
+    root = alpha[rng.integers(0, len(alpha), WIDE_LEN)]
+    out = [mutate(root, WIDE_SUBS[0], 20)]
+    out += [mutate(root[:WIDE_REGION], WIDE_SUBS[1], 4) for _ in range(n)]
+    return [s.tobytes().decode() for s in out]
 
 
 def v4_family(n: int, seed: int):
@@ -763,14 +913,48 @@ def hold_walk_case(dev, rng, lanewise, B, L1p, L2p, p_diag, p_ext, la, lb,
     ms = max_steps or L1p + L2p + 2
     walk, plain = ((tb.walk_lanewise, tb.plain_lanewise) if lanewise
                    else (tb.walk_rows, tb.plain_rows))
-    hold_walks(walk(dec, la, lb, st, ms), plain(dec, la, lb, st, ms), la, lb,
-               f"{walk.__name__} {B}x{L1p}x{L2p} p_diag={p_diag} "
-               f"p_ext={p_ext} max_steps={ms}", whole=max_steps is None)
+    hold_walks_later(walk(dec, la, lb, st, ms), plain,
+                     (dec, la, lb, st, ms),
+                     f"{walk.__name__} {B}x{L1p}x{L2p} p_diag={p_diag} "
+                     f"p_ext={p_ext} max_steps={ms}",
+                     whole=max_steps is None)
+
+
+def hold_walks_later(got, plain, args, what, whole=True):
+    """hold_walks of the walk kernel's got against plain(*args), run in a
+    host worker (later)."""
+    got = tuple(x.cpu() for x in got)
+    la, lb = args[1].cpu(), args[2].cpu()
+    later(plain, args, lambda ref, ms: hold_walks(
+        got, ref, la, lb, f"{what}, plain version on the CPU", whole))
+
+
+def hold_dp_later(name, lanewise, out, plain, args, p, what, done=None):
+    """hold_dp_outputs of a DP kernel's outputs out against plain(*args),
+    run in a host worker (later); then done(the plain version's wall ms),
+    where given."""
+    out = tuple(x.cpu() for x in out)
+    pc = dict(la=p["la"].cpu(), lb=p["lb"].cpu(), L2p=p["L2p"])
+
+    def check(ref, ms):
+        hold_dp_outputs(name, lanewise, out, ref, pc,
+                        f"{what}, plain version on the CPU")
+        if done is not None:
+            done(ms)
+    later(plain, args, check)
 
 
 def hold_equal(name, a, b, what):
     import torch
     hold(name, torch.equal(a, b), abs_err(a, b), what)
+
+
+def hold_equal_later(name, got, plain, args, what):
+    """hold_equal of a kernel's output got against plain(*args), run in a
+    host worker (later)."""
+    got = got.cpu()
+    later(plain, args, lambda ref, ms: hold_equal(
+        name, got, ref, f"{what}, plain version on the CPU"))
 
 
 def phase_edge_cases(dev):
@@ -819,9 +1003,8 @@ def phase_edge_cases(dev):
     lb[[4, 5]] = 0
     q = dp_problem(rng, 128, 128, la, lb, dev)
     lw_k = gotoh_lanewise.forward(*dp_args(q))
-    hold_dp_outputs("gotoh_lanewise", True, lw_k,
-                    gotoh_lanewise.forward_plain(*dp_args(q)), q,
-                    "1024x128x128 with la=0/lb=0")
+    hold_dp_later("gotoh_lanewise", True, lw_k, gotoh_lanewise.forward_plain,
+                  dp_args(q), q, "1024x128x128 with la=0/lb=0")
 
     # lanewise Gotoh with rows past a strip of 32 x R rows: B=64 at
     # 136 x 16, with la=0/lb=0 problems
@@ -831,10 +1014,10 @@ def phase_edge_cases(dev):
     lb[[4, 5]] = 0
     la[6] = 136
     q2 = dp_problem(rng, 136, 16, la, lb, dev)
-    hold_dp_outputs("gotoh_lanewise", True,
-                    gotoh_lanewise.forward(*dp_args(q2)),
-                    gotoh_lanewise.forward_plain(*dp_args(q2)), q2,
-                    "64x136x16 with la=0/lb=0")
+    hold_dp_later("gotoh_lanewise", True,
+                  gotoh_lanewise.forward(*dp_args(q2)),
+                  gotoh_lanewise.forward_plain, dp_args(q2), q2,
+                  "64x136x16 with la=0/lb=0")
 
     # fused Gotoh: la=0/lb=0 problems, operands of any float value (the
     # chain's order is the plain version's): nc=5 at 128 x 128 and nc=23
@@ -853,9 +1036,9 @@ def phase_edge_cases(dev):
         ops = [torch.from_numpy(rng.standard_normal(
             (B, L, nc), dtype=np.float32)).to(dev) for L in (L1, L2)]
         args = (*ops, *dp_args(f)[1:])
-        hold_dp_outputs("gotoh_fused", True, gotoh_fused.forward(*args),
-                        gotoh_fused.forward_plain(*args), f,
-                        f"{B}x{L1}x{L2} nc={nc} with la=0/lb=0")
+        hold_dp_later("gotoh_fused", True, gotoh_fused.forward(*args),
+                      gotoh_fused.forward_plain, args, f,
+                      f"{B}x{L1}x{L2} nc={nc} with la=0/lb=0")
 
     # traceback over both decision layouts: the forward kernels' own
     # decisions, then random decisions whose walks cross many windows
@@ -867,8 +1050,8 @@ def phase_edge_cases(dev):
             (tb.walk_rows, tb.plain_rows, p, row_k),
             (tb.walk_lanewise, tb.plain_lanewise, q, lw_k)):
         args = (dec, r["la"], r["lb"], st, r["L1p"] + r["L2p"] + 2)
-        hold_walks(walk(*args), plain(*args), r["la"], r["lb"],
-                   f"{walk.__name__} {tuple(dec.shape)}")
+        hold_walks_later(walk(*args), plain, args,
+                         f"{walk.__name__} {tuple(dec.shape)}")
     for lanewise in (False, True):
         win = tb.WINDOW[0]
         la = rng.integers(300, 513, size=64)
@@ -1091,9 +1274,9 @@ def edge_cases_bpm(dev, rng):
     instantiation (nblk 1..16) on pairs whose patterns need nblk blocks,
     with m = 0, 1, 63, 64, 65, 64*nblk - 1 and 64*nblk where they fit,
     texts of length 0, equal to the pattern and (nblk 1 and 16) past
-    1,024, a P that is no multiple of a block's threads and P = 1 (plain
-    versions on CPU copies); then 2,048 sequences x 32 anchors through
-    distances.PairBatch, lengths 60-1,100 (plain version on the card)."""
+    1,024, a P that is no multiple of a block's threads and P = 1; then
+    2,048 sequences x 32 anchors through distances.PairBatch, lengths
+    60-1,100 (plain versions on CPU copies: later)."""
     import torch
     from kalign_tpu_torch.gpu import bpm, distances
     for nblk in range(1, bpm.NBLK + 1):
@@ -1110,10 +1293,8 @@ def edge_cases_bpm(dev, rng):
         tok = t(np.pad(tokens, ((0, 0), (0, -tokens.shape[1] % 16))))
         m_seq = t(np.minimum(lens, bpm.MAX_PATTERN).astype(np.int32))
         table = bpm.build_table(tok, m_seq, nblk)
-        ref_table, _ = plain_on_cpu(lambda a, b: bpm.plain_table(a, b, nblk),
-                                    tok, m_seq)
-        hold_equal("bpm_table", table.cpu(), ref_table,
-                   f"nblk={nblk}, {len(lens)} rows")
+        hold_equal_later("bpm_table", table, bpm.plain_table,
+                         (tok, m_seq, nblk), f"nblk={nblk}, {len(lens)} rows")
         N = len(lens)
         P = 300 + nblk
         ti = rng.integers(0, N, size=P).astype(np.int32)
@@ -1121,21 +1302,20 @@ def edge_cases_bpm(dev, rng):
         ti[:N], pi[:N] = np.arange(N), np.arange(N)          # text = pattern
         pi[N:2 * N] = np.arange(N)                           # every pattern
         inp = (tok, t(ti), t(pi), t(lens[ti]), m_seq[t(pi).long()], table)
-        ref, _ = plain_on_cpu(bpm.plain, *inp)
-        hold_equal("bpm", bpm.bpm_batch(*inp).cpu(), ref,
-                   f"nblk={nblk}, P={P}")
         one = slice(N + 1, N + 2)           # P = 1 (pairs are independent)
-        hold_equal("bpm", bpm.bpm_batch(tok, *(x[one] for x in inp[1:5]),
-                                        table).cpu(), ref[one],
-                   f"nblk={nblk}, P=1")
+        hold_equal_later("bpm", bpm.bpm_batch(*inp), bpm.plain, inp,
+                         f"nblk={nblk}, P={P}")
+        inp1 = (tok, *(x[one] for x in inp[1:5]), table)
+        hold_equal_later("bpm", bpm.bpm_batch(*inp1), bpm.plain, inp1,
+                         f"nblk={nblk}, P=1")
 
     N = 2048
     lens = rng.integers(60, 1101, size=N).astype(np.int32)
     anchors = list(range(0, N, N // 32))
     pairs = distances.PairBatch(random_tokens(rng, lens), lens, anchors, dev)
     inp = pairs.inputs(0, pairs.n_pairs)
-    hold_equal("bpm", bpm.bpm_batch(*inp), bpm.plain(*inp),
-               "2048x32, lengths 60-1100")
+    hold_equal_later("bpm", bpm.bpm_batch(*inp), bpm.plain, inp,
+                     "2048x32, lengths 60-1100")
 
 
 # ---------------------------------------------------------------------------
@@ -1429,22 +1609,26 @@ def sweep_tensors(plans, key, live, dev):
 
 
 def hold_sweep(plans, key, live, what, dev):
-    """The sweep kernel against its plain version on the same CUDA
-    tensors: the live windows' outputs bit for bit, the -inf cells
-    included.  Returns (the case's record, the CUDA plan)."""
+    """The sweep kernel against its plain version on CPU copies of the
+    same tensors (in a host worker: later): the live windows' outputs bit
+    for bit, the -inf cells included.  Returns (the case's record, the
+    CUDA plan)."""
     import torch
     from kalign_tpu_torch.gpu import exact_sweep as XS
     VR, C, Wmax, chain = key
     t = sweep_tensors(plans, key, live, dev)
-    got = XS.launch(t, VR, C, Wmax, chain, *live)
-    ref = XS.plain(t, VR, C, Wmax, chain, XS.live_steps(VR, C, live[1]))
-    ref = ref[:, :live[0], :live[1]].contiguous()
-    same = torch.equal(got.view(torch.int32), ref.view(torch.int32))
-    both = torch.isfinite(got) & torch.isfinite(ref)
-    err = abs_err(got[both], ref[both]) if bool(both.any()) else 0.0
-    if not torch.equal(torch.isfinite(got), torch.isfinite(ref)):
-        err = float("inf")
-    hold("exact_sweep", same, err, what)
+    got = XS.launch(t, VR, C, Wmax, chain, *live).cpu()
+
+    def check(ref, ms):
+        ref = ref[:, :live[0], :live[1]].contiguous()
+        same = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        both = torch.isfinite(got) & torch.isfinite(ref)
+        err = abs_err(got[both], ref[both]) if bool(both.any()) else 0.0
+        if not torch.equal(torch.isfinite(got), torch.isfinite(ref)):
+            err = float("inf")
+        hold("exact_sweep", same, err, f"{what}, plain version on the CPU")
+    later(XS.plain, (t, VR, C, Wmax, chain, XS.live_steps(VR, C, live[1])),
+          check)
     return dict(case=what, **sweep_shape(plans, key, live),
                 cells=sweep_cells(plans, live),
                 finite_outputs=int(torch.isfinite(got).sum())), t
@@ -2308,9 +2492,9 @@ def prepass_plan(prepass, dev, grids=64, budget=4096):
 
 def sweep_main_shape(dev, launch):
     """The sweep kernel at the divergent path's largest launch: held
-    bitwise against its plain version on the card and timed beside it
-    and its bound (8 bytes of match and bonus per processed cell, the
-    rows' and columns' addends, the output; SWEEP_OPS_PER_CELL fp32
+    bitwise against its plain version (hold_sweep) and timed beside it
+    (on the card) and its bound (8 bytes of match and bonus per processed
+    cell, the rows' and columns' addends, the output; SWEEP_OPS_PER_CELL fp32
     operations per cell, SWEEP_CHAIN_OPS more in chain form), with its
     block (threads, rows per thread, strips), its blocks and the steps of
     its longest block (the band-local schedule) beside the reference
@@ -2695,43 +2879,20 @@ def walk_chain_floor(walk_args, lanewise, lat):
                                             * lat["device_round_trip"]))
 
 
-def plain_on_cpu(fn, *args):
-    """(fn(*args) on CPU copies of the tensors, dicts of tensors among
-    them; wall ms).  The lanewise DP's plain version is a loop over cells
-    that launches one small operation at a time: at 1,024 problems the
-    host runs that loop faster than it can launch it on the card, with
-    the same float32 operations, so the same bits."""
-    def cpu(a):
-        if isinstance(a, dict):
-            return {k: v.cpu() for k, v in a.items()}
-        return a.cpu()
-    args = [cpu(a) for a in args]
-    t0 = time.perf_counter()
-    out = fn(*args)
-    return out, (time.perf_counter() - t0) * 1e3
-
-
-def hold_dp_on_cpu(name, out, plain, args, p, what):
-    """A lanewise kernel's outputs against its plain version run on CPU
-    copies of the same inputs; returns the plain version's wall ms."""
-    ref, plain_ms = plain_on_cpu(plain, *args)
-    hold_dp_outputs(name, True, tuple(x.cpu() for x in out), ref,
-                    dict(la=p["la"].cpu(), lb=p["lb"].cpu(), L2p=p["L2p"]),
-                    f"{what}, plain version on the CPU")
-    return plain_ms
-
-
-def hold_dp(name, mod, lanewise, p, reps):
+def hold_dp(name, mod, lanewise, p, reps, entry=None):
     """Kernel vs plain DP on the same prepared inputs: bitwise, then the
     kernel timed over reps launches (events, then device_ms over 5)
-    and the plain version once (the lanewise kernel's on the CPU,
-    plain_on_cpu).  Returns (outputs, ms, device ms, plain ms)."""
+    and the plain version once (the lanewise kernel's on the CPU, in a
+    host worker: later, which sets entry["plain_ms"]).  Returns (outputs,
+    ms, device ms, plain ms or None)."""
     prep = mod.prepare(p["pc"], p["pr"], p["la"], p["lb"], p["slope"],
                        p["eps"])
     args = (p["match"], prep, p["la"], p["lb"])
     out = mod.launch(*args)
     if lanewise:
-        plain_ms = hold_dp_on_cpu(name, out, mod.plain, args, p, shape_of(p))
+        plain_ms = None
+        hold_dp_later(name, True, out, mod.plain, args, p, shape_of(p),
+                      lambda ms: entry.__setitem__("plain_ms", ms))
     else:
         ref, plain_ms = timed_once(lambda: mod.plain(*args))
         hold_dp_outputs(name, lanewise, out, ref, p, shape_of(p))
@@ -2827,6 +2988,32 @@ def bpm_stage(dev, seqs):
                           device_ms=device_ms(run_table, 20),
                           plain_ms=t_plain_ms, bound_ms=tb_ms,
                           bound_by=tb_by, shape=f"{N}x{bpm.SIGMA}x{nblk}")}
+
+
+def bpm_table_shape(dev, seqs):
+    """The mask-table kernel alone at the rows of seqs (their lengths;
+    random codes, on which the table depends only through equality), nblk
+    the words their longest pattern needs: held bitwise against its plain
+    version on the card, timed, with bpm_stage's bound."""
+    import torch
+    from kalign_tpu_torch.gpu import bpm
+    lens = np.array([len(x) for x in seqs], np.int32)
+    m = np.minimum(lens, bpm.MAX_PATTERN).astype(np.int32)
+    nblk = -(-int(m.max()) // bpm.WORD)
+    tokens = random_tokens(np.random.default_rng(len(lens)), lens)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    tok = t(np.pad(tokens, ((0, 0), (0, -tokens.shape[1] % 16))))
+    m_seq = t(m)
+    run = lambda: bpm.launch_table(tok, m_seq, nblk)
+    table = run()
+    ref, plain_ms = timed_once(lambda: bpm.plain_table(tok, m_seq, nblk))
+    shape = f"{len(lens)}x{bpm.SIGMA}x{nblk}"
+    hold_equal("bpm_table", table, ref, f"{shape} words")
+    b_ms, b_by = bound(int(np.minimum(lens, bpm.WORD * nblk).sum())
+                       + len(lens) * 4 + table.numel() * 8,
+                       table.numel() * bpm.WORD, INT32_OPS_PER_S)
+    return dict(ms=cuda_time_ms(run, reps=20), device_ms=device_ms(run, 20),
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, shape=shape)
 
 
 def launch_memory(dev):
@@ -3292,10 +3479,11 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
 
     # lanewise kernel: the main path's 1,024-problem leaf bucket
     q = problem(batch(True, batch_cells))
-    lw_out, ms, dev_ms, plain_ms = hold_dp("gotoh_lanewise", gotoh_lanewise,
-                                           True, q, 10)
-    out["gotoh_lanewise"] = dict(
-        ms=ms, plain_ms=plain_ms, shape=shape_of(q), device_ms=dev_ms,
+    out["gotoh_lanewise"] = {}
+    lw_out, ms, dev_ms, _ = hold_dp("gotoh_lanewise", gotoh_lanewise, True,
+                                    q, 10, out["gotoh_lanewise"])
+    out["gotoh_lanewise"].update(
+        ms=ms, shape=shape_of(q), device_ms=dev_ms,
         plan=gotoh_lanewise.launch_plan(q["L2p"])._asdict())
     out["gotoh_lanewise"]["bound_ms"], out["gotoh_lanewise"]["bound_by"] = \
         gotoh_bound(q, 0.5)
@@ -3372,19 +3560,24 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
     stages = {key: bpm_stage(dev, s) for key, s in (
         ("fast", seqs["fast"]), ("default", seqs["default"]),
         ("full_chunk", family(8192, seed=4)))}
+    # the table alone at the large path's 16,384 rows and at a genome
+    # path's nblk 16 (long_default's 128 rows of ~9,720 nt)
+    tables = {key: bpm_table_shape(dev, seqs[path]) for key, path in (
+        ("large", "large_default"), ("genome", "long_default"))}
     for name in ("bpm", "bpm_table"):
         out[name] = dict(stages["fast"][name], **{
             key: stages[key][name] for key in ("default", "full_chunk")})
+        if name == "bpm_table":
+            out[name].update(tables)
         emit({"phase": "main_shape", "kernel": name, **out[name]})
 
     # fused kernel: every launch shape of the default path (map DPs), the
     # largest launch of each, with its real lengths, the engine's own
     # operands (one-hot rows against rows of the DNA substitution matrix,
     # integer-valued) from random nucleotide codes, the map DPs'
-    # penalties and eps = 0.  The largest launch (4,096 problems) is held
-    # against the plain version on the card and beside the materialised
-    # route; the others (1,024 problems) against it on the CPU
-    # (plain_on_cpu)
+    # penalties and eps = 0.  Each launch is held against the plain
+    # version on the CPU (in a host worker: later), the largest (4,096
+    # problems) also against the materialised route
     ap = P.aln_param_init(P.BIOTYPE_DNA, 0)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     nc = 5
@@ -3418,15 +3611,10 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
                      device_ms=device_ms(run, 5),
                      bound_ms=b_ms, bound_by=b_by,
                      plan=gotoh_lanewise.launch_plan(L2p, nc)._asdict())
-        if k == 0:
-            ref, entry["plain_ms"] = timed_once(
-                lambda: gotoh_fused.plain(x, y, prep, la_d, lb_d))
-            hold_dp_outputs("gotoh_fused", True, got, ref, f, shape)
-            del ref
-        else:
-            entry["plain_ms"] = hold_dp_on_cpu(
-                "gotoh_fused", got, gotoh_fused.plain,
-                (x, y, prep, la_d, lb_d), f, shape)
+        hold_dp_later("gotoh_fused", True, got, gotoh_fused.plain,
+                      (x, y, prep, la_d, lb_d), f, shape,
+                      lambda ms, entry=entry: entry.__setitem__(
+                          "plain_ms", ms))
         if k == 0:
             # the materialised route on the same inputs: the 23-wide match
             # product, then the match-stream lanewise kernel; integer
@@ -3439,7 +3627,9 @@ def phase_main_shapes(dev, stats, stats_default, seqs):
                             f"{shape} fused vs bmm + lanewise")
             entry["materialised_ms"] = cuda_time_ms(materialised, reps=10)
         launches_f.append(entry)
-    out["gotoh_fused"] = dict(launches_f[0], other_shapes=launches_f[1:])
+    # (one dict, which the host workers' checks complete: later)
+    out["gotoh_fused"] = launches_f[0]
+    out["gotoh_fused"]["other_shapes"] = launches_f[1:]
     emit({"phase": "main_shape", "kernel": "gotoh_fused",
           **out["gotoh_fused"]})
     return out
@@ -3568,78 +3758,83 @@ def vs_align(name, device):
             msa.engine_stats)
 
 
-def phase_gpu_vs_cpu():
-    """Every case on the card and on the CPU; the CPU sides run at once
-    in worker processes (their plain versions are host-bound loops) while
-    the card takes the cases one by one."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+def vs_cpu_sides():
+    """The CPU sides of gpu_vs_cpu, handed to the host workers (their
+    plain versions are host-bound loops; run_all hands them out after the
+    precise path, so that they run while the card takes the phases
+    before gpu_vs_cpu)."""
+    return {name: host_pool().submit(vs_align, name, "cpu")
+            for name in VS_CASES}
+
+
+def phase_gpu_vs_cpu(cpu=None):
+    """Every case on the card and on the CPU (cpu: vs_cpu_sides(), handed
+    out here where not given) while the card takes the cases one by
+    one."""
     launches, stats = {}, {}
-    ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(len(VS_CASES), mp_context=ctx) as pool:
-        cpu = {name: pool.submit(vs_align, name, "cpu") for name in VS_CASES}
-        for name, consistency in VS_CASES.items():
-            reset_counts()
-            outs = {"cuda": vs_align(name, "cuda")}
-            launches[name] = read_counts()
-            stats[name] = outs["cuda"][3]
-            outs["cpu"] = cpu[name].result()
-            for d in ("cuda", "cpu"):
-                fused = outs[d][2]
-                if name.startswith("dna") and fused != [2048]:
-                    raise AssertionError(f"{name} on {d}: fused launches "
-                                         f"{fused}, not one of 2,048")
-            same = outs["cuda"][0] == outs["cpu"][0]
-            c_gpu, c_cpu = outs["cuda"][1], outs["cpu"][1]
-            rel = np.abs(c_gpu - c_cpu) / np.maximum(1.0, np.abs(c_cpu))
-            engines = {d: outs[d][3]["engine"] for d in outs}
-            golden = None
-            if name in VS_GOLDEN:
-                with open(os.path.join(HERE, "tests", "golden",
-                                       VS_GOLDEN[name])) as fh:
-                    golden = outs["cuda"][0] == fh.read()
-            emit({"phase": "gpu_vs_cpu", "case": name, "engines": engines,
-                  "identical_fasta": same, "golden_fasta": golden,
-                  "consistency": consistency,
-                  "merges": int(len(c_cpu)),
-                  "merges_with_other_score": int((c_gpu != c_cpu).sum()),
-                  "max_rel_score_diff": float(rel.max()) if len(rel)
-                  else 0.0, "launches": launches[name]})
-            if not same and rel.max() > 1e-5:
-                raise AssertionError(f"{name}: GPU and CPU alignments "
-                                     "differ with unequal merge scores")
-            if (name in VS_REFINE or name in VS_ENSEMBLE or name in VS_POST
-                    or "gpu" in engines.values()) and not same:
+    cpu = cpu or vs_cpu_sides()
+    for name, consistency in VS_CASES.items():
+        reset_counts()
+        outs = {"cuda": vs_align(name, "cuda")}
+        launches[name] = read_counts()
+        stats[name] = outs["cuda"][3]
+        outs["cpu"] = cpu[name].result()
+        for d in ("cuda", "cpu"):
+            fused = outs[d][2]
+            if name.startswith("dna") and fused != [2048]:
+                raise AssertionError(f"{name} on {d}: fused launches "
+                                     f"{fused}, not one of 2,048")
+        same = outs["cuda"][0] == outs["cpu"][0]
+        c_gpu, c_cpu = outs["cuda"][1], outs["cpu"][1]
+        rel = np.abs(c_gpu - c_cpu) / np.maximum(1.0, np.abs(c_cpu))
+        engines = {d: outs[d][3]["engine"] for d in outs}
+        golden = None
+        if name in VS_GOLDEN:
+            with open(os.path.join(HERE, "tests", "golden",
+                                   VS_GOLDEN[name])) as fh:
+                golden = outs["cuda"][0] == fh.read()
+        emit({"phase": "gpu_vs_cpu", "case": name, "engines": engines,
+              "identical_fasta": same, "golden_fasta": golden,
+              "consistency": consistency,
+              "merges": int(len(c_cpu)),
+              "merges_with_other_score": int((c_gpu != c_cpu).sum()),
+              "max_rel_score_diff": float(rel.max()) if len(rel)
+              else 0.0, "launches": launches[name]})
+        if not same and rel.max() > 1e-5:
+            raise AssertionError(f"{name}: GPU and CPU alignments "
+                                 "differ with unequal merge scores")
+        if (name in VS_REFINE or name in VS_ENSEMBLE or name in VS_POST
+                or "gpu" in engines.values()) and not same:
+            raise AssertionError(f"{name}: GPU and CPU alignments "
+                                 "differ")
+        if name.startswith("BB30014") and \
+                set(engines.values()) != {"gpu"}:
+            raise AssertionError(f"{name}: not routed to the exact "
+                                 f"engine ({engines})")
+        if golden is False:
+            raise AssertionError(f"{name}: not the golden alignment")
+        if name in VS_MESH:
+            # every merge on the band kernel, on the card and the CPU
+            if not same:
                 raise AssertionError(f"{name}: GPU and CPU alignments "
                                      "differ")
-            if name.startswith("BB30014") and \
-                    set(engines.values()) != {"gpu"}:
-                raise AssertionError(f"{name}: not routed to the exact "
-                                     f"engine ({engines})")
-            if golden is False:
-                raise AssertionError(f"{name}: not the golden alignment")
-            if name in VS_MESH:
-                # every merge on the band kernel, on the card and the CPU
-                if not same:
-                    raise AssertionError(f"{name}: GPU and CPU alignments "
-                                         "differ")
-                if launches[name]["gotoh_mesh"] + \
-                        launches[name]["gotoh_mesh_cluster"] == 0 or \
-                        outs["cpu"][3]["long_merges"] == 0:
-                    raise AssertionError(f"{name}: the column-sharded route "
-                                         "did not run")
-            if name.startswith("long"):
-                # wider than 7,168 columns: card and CPU must agree exactly
-                if not same:
-                    raise AssertionError(f"{name}: GPU and CPU alignments "
-                                         "differ")
-                route = "gotoh_row_wave" if name in VS_WAVE else \
-                    "gotoh_row_cluster"
-                if launches[name][route] == 0:
-                    raise AssertionError(f"{name}: {route} did not launch")
-                if name in VS_WAVE and launches[name]["gotoh_row_cluster"]:
-                    raise AssertionError(f"{name}: the cluster row kernel "
-                                         "launched")
+            if launches[name]["gotoh_mesh"] + \
+                    launches[name]["gotoh_mesh_cluster"] == 0 or \
+                    outs["cpu"][3]["long_merges"] == 0:
+                raise AssertionError(f"{name}: the column-sharded route "
+                                     "did not run")
+        if name.startswith("long"):
+            # wider than 7,168 columns: card and CPU must agree exactly
+            if not same:
+                raise AssertionError(f"{name}: GPU and CPU alignments "
+                                     "differ")
+            route = "gotoh_row_wave" if name in VS_WAVE else \
+                "gotoh_row_cluster"
+            if launches[name][route] == 0:
+                raise AssertionError(f"{name}: {route} did not launch")
+            if name in VS_WAVE and launches[name]["gotoh_row_cluster"]:
+                raise AssertionError(f"{name}: the cluster row kernel "
+                                     "launched")
     return launches, stats
 
 
@@ -3676,7 +3871,13 @@ MESH_PATHS = {
                           forbid=["gotoh_mesh", "gotoh_lanewise",
                                   "gotoh_fused", "gotoh_row",
                                   "gotoh_row_cluster"],
-                          gpu_fast="plastome_default", one_shard=False)}
+                          gpu_fast="plastome_default", one_shard=False),
+    # a merge wider than 229,376 columns on two shards of a card: bands
+    # past 114,688 columns, the band kernel's wave route (no one-shard
+    # run: one shard is gpu-fast's resident pass, run here for the FASTA)
+    "mesh_wide": dict(launch=GENOME_BASE + ["gotoh_mesh"] + BONUS,
+                      forbid=["gotoh_lanewise", "gotoh_fused"],
+                      gpu_fast="wide_default", one_shard=False, shards=2)}
 # the band kernel's edge cases: (shards, L1, W, la, lb, rows a block)
 MESH_EDGE = [(2, 600, 1536, 600, 1536, 256),   # L1 not a multiple of R;
                                                # clusters of 3
@@ -3694,10 +3895,18 @@ MESH_EDGE = [(2, 600, 1536, 600, 1536, 256),   # L1 not a multiple of R;
              # bands of 20,480: clusters of 16 blocks of 1,280 columns,
              # 8 a thread
              (2, 64, 40960, 64, 40000, 64),
-             # bands of 114,816: the block route
-             (2, 64, 229632, 64, 229000, 64)]
+             # bands of 114,816 (padded to 129,024): the wave route, 7
+             # clusters of 8 blocks a band, one launch of 64 rows, then a
+             # full block of BLOCK_ROWS (both timed, beside the band cut
+             # into sub-bands on the cluster route: MESH_SUB_BANDS)
+             (2, 64, 229632, 64, 229000, 64),
+             (2, 512, 229632, 512, 229000, 512)]
 # the band kernel's instantiations by route: their names in KERNELS
-MESH_ROUTES = {"cluster": "gotoh_mesh_cluster", "block": "gotoh_mesh"}
+MESH_ROUTES = {"cluster": "gotoh_mesh_cluster", "wave": "gotoh_mesh"}
+# the simplest alternative to the wave route, timed beside it: each band
+# cut into this many sub-bands of at most 114,688 columns, each on the
+# cluster route, in order on its shard's stream
+MESH_SUB_BANDS = 2
 # mesh_procs: processes on the card, each with two shards
 MESH_PROCS = 2
 MESH_PROCS_TIMEOUT_S = 300
@@ -3804,11 +4013,13 @@ def phase_mesh_edge(dev):
     the unsplit row DP's plain version: MESH_EDGE at 2, 3 and 4 shards
     (W a multiple of the shard count and not, bands padded to 128
     columns, L1 not a multiple of the block's rows, la < L1, lb inside
-    the first band, la = 0, lb = 0, a cluster-route and a block-route
-    case) and the leading gap run of exactly one band
-    (test_mesh_engine.py:114-150) at 2 and 4 shards, blocks of 5 rows.
-    Each case is held under its route's name (MESH_ROUTES).  Returns the
-    block route's timing at its case (band_timing)."""
+    the first band, la = 0, lb = 0, cluster-route cases and two
+    wave-route cases, 64 rows and a full block) and the leading gap run
+    of exactly one band (test_mesh_engine.py:114-150) at 2 and 4 shards,
+    blocks of 5 rows.  Each case is held under its route's name
+    (MESH_ROUTES).  Returns the wave route's timings by rows
+    (band_timing, with the band cut into sub-bands beside it:
+    sub_band_timing)."""
     import torch
     from kalign_tpu_torch.gpu import gotoh_mesh
     from kalign_tpu_torch.gpu import traceback as tb
@@ -3827,7 +4038,7 @@ def phase_mesh_edge(dev):
                      (1, la + 1))
         cases.append((n, la, W, la, W, 5, (match, pc, pr)))
     before = read_counts()
-    out, timed = [], None
+    out, timed = [], {}
     for n, L1, W, la, lb, rows, (match, pc, pr) in cases:
         mesh = mesh_of(n)
         eps = 0.0 if rows == 5 else 1e-3
@@ -3852,15 +4063,45 @@ def phase_mesh_edge(dev):
             if path[:Wd] != [1] * Wd or path[Wd] != 0:
                 raise AssertionError(f"{what}: the leading gap run is not "
                                      f"one band wide: {path[:Wd + 1]}")
-        if cfg.route == "block" and timed is None:
-            timed = band_timing(mesh, ops, la, lb, rows, plain_ms)
-            timed["shape"] = what
+        if cfg.route == "wave":
+            timed[L1] = dict(band_timing(mesh, ops, la, lb, rows, plain_ms),
+                             shape=what, sub_bands=sub_band_timing(
+                                 mesh, (match, pc, pr), la, lb, rows, got))
+        del ops, got, plain
         out.append(what)
     emit({"phase": "mesh_edge", "cases": out,
           "launches": {k: v - before[k] for k, v in read_counts().items()
                        if k in MESH_ROUTES.values()},
-          "devices": mesh_devices(), "block_route": timed})
+          "devices": mesh_devices(), "wave_route": timed})
     return timed
+
+
+def sub_band_timing(mesh, problem, la, lb, rows, want):
+    """The simplest alternative to the wave route on one problem (match,
+    pc, pr): each band cut into MESH_SUB_BANDS sub-bands of at most
+    114,688 columns, each on the cluster route, in order on its band's
+    shard's stream (the row padded to that many sub-bands of the cluster
+    route's widths); held bitwise against the wave route's result (want)
+    and timed (mesh_device_ms)."""
+    from types import SimpleNamespace
+    from kalign_tpu_torch.gpu import gotoh_mesh
+    shards = [sh for sh in mesh.shards for _ in range(MESH_SUB_BANDS)]
+    alt = SimpleNamespace(shards=shards)
+    sub, prep, Wp = band_operands(alt, *problem, la, lb)
+    Ws = Wp // len(shards)
+    cfg = gotoh_mesh.band_config(Ws)
+    if cfg.route != "cluster":
+        raise AssertionError(f"sub-bands of {Ws} columns are not the "
+                             "cluster route's")
+    got = band_run(alt, sub, prep, Wp, la, lb, rows)
+    hold_band(f"{mesh.size} shards {la}x{Wp} cut into {len(shards)} "
+              "sub-bands vs the wave route", got, want, la, lb,
+              "gotoh_mesh_cluster")
+    d_ms, e_ms = mesh_device_ms(alt, lambda: gotoh_mesh.forward(
+        shards, sub, prep, la, lb, rows))
+    return dict(sub_bands=len(shards), band=Ws, route=cfg.route,
+                cluster_blocks=cfg.blocks, threads=cfg.threads, ch=cfg.ch,
+                device_ms=round(d_ms, 3), enqueue_ms=round(e_ms, 3))
 
 
 def band_timing(mesh, ops, la, lb, rows, plain_ms):
@@ -3876,11 +4117,15 @@ def band_timing(mesh, ops, la, lb, rows, plain_ms):
     t = lambda x: torch.tensor([x], dtype=torch.int32)
     b_ms, b_by = gotoh_bound(dict(la=t(la), lb=t(lb)), 1)
     cfg = gotoh_mesh.band_config(Wp // mesh.size)
+    with torch.cuda.device(mesh.shards[0].device):
+        held = gotoh_mesh.max_active(cfg)
     return dict(ms=round(ms, 3), device_ms=round(dev_ms, 3),
                 enqueue_ms=round(enqueue_ms, 3), plain_ms=round(plain_ms, 3),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                us_per_row=round(dev_ms * 1e3 / max(la, 1), 4),
                 shards=mesh.size, cards=mesh.cards, rows_per_block=rows,
-                launches_per_shard=-(-la // rows), plan=cfg._asdict())
+                launches_per_shard=-(-la // rows), plan=cfg._asdict(),
+                max_active_clusters=held)
 
 
 def align_on_mesh(seqs, mode, mesh):
@@ -3947,7 +4192,8 @@ def wide_launches(st):
 
 
 def phase_mesh_path(name, seqs, mode="default"):
-    """seqs on the engine gpu-mesh (mesh_devices()), in one run with every
+    """seqs on the engine gpu-mesh (mesh_devices() of the path's "shards",
+    by default MESH_SHARDS on one card), in one run with every
     launch count set to 0 just before and read just after: the kernels of
     MESH_PATHS[name] launched, none it forbids; the same FASTA on one
     shard (unless the path skips it) and from gpu-fast (this run's path
@@ -3960,7 +4206,7 @@ def phase_mesh_path(name, seqs, mode="default"):
     from kalign_tpu_torch.core import io as kio
     from kalign_tpu_torch.gpu import gotoh_mesh
     cfg = MESH_PATHS[name]
-    mesh = mesh_of()
+    mesh = mesh_of(cfg.get("shards"))
     seen, band_rows = [], []
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4061,13 +4307,6 @@ def forced_plan(plan):
         gotoh_mesh.band_config = orig
 
 
-def block_plan(Wd):
-    """The block route (the first design's kernel) at any width."""
-    from kalign_tpu_torch.gpu import gotoh_mesh
-    from kalign_tpu_torch.gpu.gotoh_row import RowLaunch
-    return RowLaunch("block", gotoh_mesh.threads_for(Wd), 1, 0, 1, Wd)
-
-
 def cluster_plan(blocks, ch):
     """The cluster route with clusters of ``blocks`` and ch columns a
     thread at any width they cover exactly (with the strip ring)."""
@@ -4109,17 +4348,15 @@ def band_device_ms(mesh, ops, la, lb, rows=None):
 
 def mesh_root_merge(dev, seen):
     """The mesh_long path's root merge (widest_merge): the band kernel
-    held against its plain version on the card, against the cluster row
-    kernel on the same match (the bands gathered; dec in the valid
-    region, score, end state) and against the block route (PR 13's
-    kernel) forced at the same widths; the pipeline's wall, device time
-    and host enqueue time (mesh_device_ms) beside the block route's, the
-    cluster row kernel's device time on that match (device_ms) and the
-    bytes bound (a match read and a decision written per cell); the
-    pipeline fed its band sources (each band's match a block of rows at a
-    time, as long_merge runs it) held against it fed the whole bands, and
-    its device and enqueue times beside.  Returns the main_shape entries
-    of the route taken and of the block route."""
+    held against its plain version on the card and against the cluster
+    row kernel on the same match (the bands gathered; dec in the valid
+    region, score, end state); the pipeline's wall, device time and host
+    enqueue time (mesh_device_ms), the cluster row kernel's device time
+    on that match (device_ms) and the bytes bound (a match read and a
+    decision written per cell); the pipeline fed its band sources (each
+    band's match a block of rows at a time, as long_merge runs it) held
+    against it fed the whole bands, and its device and enqueue times
+    beside.  Returns the main_shape entry of the route taken."""
     import torch
     from kalign_tpu_torch.gpu import gotoh_row
     from kalign_tpu_torch.parallel import mesh as M
@@ -4139,11 +4376,6 @@ def mesh_root_merge(dev, seen):
     hold_band(shape + " fed its band sources vs whole bands", fed, got, la,
               lb, name)
     src_ms, src_enqueue_ms = band_device_ms(mesh, src_ops, la, lb)
-    with forced_plan(block_plan):
-        old, old_wall = timed_once(lambda: band_run(mesh, *ops, la, lb))
-        old_ms, old_enqueue = band_device_ms(mesh, ops, la, lb)
-    hold_band(shape + " vs the block route", old, plain, la, lb,
-              "gotoh_mesh")
     # the same match on one card, through the cluster row kernel
     full = torch.cat([b.to(dev) for b in bands], dim=1)[None, :, :L2p]
     full = full.contiguous()
@@ -4174,18 +4406,81 @@ def mesh_root_merge(dev, seen):
                enqueue_ms=round(enqueue_ms, 3), **common,
                route=cfg.route, ch=cfg.ch, threads=cfg.threads,
                cluster_blocks=cfg.blocks,
-               block_route_device_ms=round(old_ms, 3),
                sources_ms=round(fed_ms, 3),
                sources_device_ms=round(src_ms, 3),
                sources_enqueue_ms=round(src_enqueue_ms, 3),
                cluster_device_ms=round(cluster_ms, 3),
                cluster_plan=row_cfg._asdict())
-    block = dict(ms=round(old_wall, 3), device_ms=round(old_ms, 3),
-                 enqueue_ms=round(old_enqueue, 3), **common, route="block",
-                 threads=G.threads_for(Wp // mesh.size))
     emit({"phase": "main_shape", "kernel": name, **out})
-    emit({"phase": "main_shape", "kernel": "gotoh_mesh", **block})
-    return out, block
+    return out
+
+
+def wide_merge(dev, seen):
+    """The mesh_wide path's widest column-sharded merge (its recorded
+    long_merge arguments: the most columns, then rows) as long_merge runs
+    it on the path's two shards of one card (the memory guard,
+    long_operands' band sources, the band pipeline on the wave route, the
+    decisions gathered), against the same merge on one card through the
+    row kernel's wave route (gotoh_wave.forward_operands, itself bitwise
+    to the unsplit row DP): decisions in the valid region, score bits and
+    end state equal.  Its rows, columns, bands, launches of the band
+    kernel's wave route, wall and peak device memory of each side."""
+    import torch
+    from kalign_tpu_torch.gpu import gotoh_wave
+    from kalign_tpu_torch.parallel import mesh as M
+    G = M.gotoh_mesh
+    args = max(seen, key=lambda a: (a[2].shape[0], a[1].shape[0]))
+    mesh, lhs, rhs, pc, pr, la, lb, eps, bonus = args[:9]
+    L1p, L2p = lhs.shape[0], rhs.shape[0]
+    shape = f"1x{L1p}x{L2p} la={la} lb={lb} over {mesh.size} shards"
+
+    def on_mesh():
+        M.check_long_fits(mesh, L1p, L2p)
+        sources, prep, Wp = M.long_operands(mesh, lhs, rhs, pc, pr, la, lb,
+                                            eps, bonus)
+        bands, score, st = G.forward(mesh.shards, sources, prep, la, lb)
+        dec = G.gather_dec(mesh.shards, bands, -(-Wp // 16) * 16)
+        return dec[0], score, st, Wp
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = G.launches
+    (dec, score, st, Wp), mesh_ms = timed_once(on_mesh)
+    launches = G.launches - before
+    mesh_peak = torch.cuda.max_memory_allocated()
+    got = (dec.cpu(), score.cpu(), st.cpu())
+    del dec
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    one = [t(np.array([x], dt)) for x, dt in ((la, np.int32),
+                                              (lb, np.int32),
+                                              (eps, np.float32))]
+    b1 = None if bonus is None else (
+        torch.tensor(np.float32(bonus[0])).to(dev),
+        *(t(v[None]) for v in bonus[1:]))
+    (wd, ws, wst), wave_ms = timed_once(lambda: gotoh_wave.forward_operands(
+        t(lhs[None]), t(rhs[None]), t(pc[None]), t(pr[None]), *one, b1,
+        la_h=[la]))
+    wave_peak = torch.cuda.max_memory_allocated()
+    hold_band(shape + " vs the same merge on one card's wave route", got,
+              (wd[0].cpu(), ws.cpu(), wst.cpu()), la, lb, "gotoh_mesh")
+    del wd
+    torch.cuda.empty_cache()
+    cfg = G.band_config(Wp // mesh.size)
+    out = dict(shape=shape, rows=L1p, columns=L2p, la=la, lb=lb,
+               bonus=bonus is not None, bands=mesh.size,
+               band=Wp // mesh.size, route=cfg.route,
+               clusters=getattr(cfg, "bands", 1),
+               launches=launches, mesh_ms=round(mesh_ms, 3),
+               mesh_peak_gb=round(mesh_peak / 1e9, 3),
+               wave_ms=round(wave_ms, 3),
+               wave_peak_gb=round(wave_peak / 1e9, 3),
+               cards=mesh.cards)
+    emit({"phase": "whole_merge", **out})
+    if cfg.route != "wave" or launches == 0:
+        raise AssertionError(f"{shape}: not on the band kernel's wave route")
+    return out
 
 
 # the sweeps that chose band_config and BLOCK_ROWS (--only mesh_sweep):
@@ -4193,6 +4488,7 @@ def mesh_root_merge(dev, seen):
 # costs the host an enqueue), and cluster plans (blocks, columns a thread)
 # at the root merge's bands of 2,560 columns and at bands of SWEEP_WIDTH
 BLOCK_ROWS_SWEEP = (256, 512, 1024)
+WAVE_ROWS_SWEEP = (256, 512, 1024, 2048)
 CLUSTER_SWEEP = {2560: ((1, 8), (2, 4), (4, 4), (5, 4), (10, 4)),
                  8192: ((2, 8), (4, 8), (8, 4), (16, 4))}
 SWEEP_ROWS, SWEEP_SHARDS = 2048, 2
@@ -4226,10 +4522,42 @@ def sweep_band(mesh, ops, la, lb, shape):
     return out
 
 
-def phase_mesh_sweep(seen):
+def sweep_wave_rows(seen):
+    """Rows a launch on the band kernel's wave route (WAVE_ROWS_SWEEP): the
+    mesh_wide path's widest merge (wide_merge's) fed its band sources as
+    long_merge feeds them, the band pipeline's device and enqueue ms at
+    each, each held bitwise against BLOCK_ROWS'."""
+    from kalign_tpu_torch.parallel import mesh as M
+    G = M.gotoh_mesh
+    args = max(seen, key=lambda a: (a[2].shape[0], a[1].shape[0]))
+    mesh, lhs, rhs, pc, pr, la, lb, eps, bonus = args[:9]
+    ops = M.long_operands(mesh, lhs, rhs, pc, pr, la, lb, eps, bonus)
+    shape = (f"1x{lhs.shape[0]}x{rhs.shape[0]} la={la} lb={lb} over "
+             f"{mesh.size} shards")
+    want = band_run(mesh, *ops, la, lb, G.BLOCK_ROWS)
+    want = tuple(x.cpu() for x in want)
+    rows = {}
+    for r in WAVE_ROWS_SWEEP:
+        hold_band(f"{shape} at {r} rows a launch", tuple(
+            x.cpu() for x in band_run(mesh, *ops, la, lb, r)), want, la, lb,
+            "gotoh_mesh")
+        d_ms, e_ms = band_device_ms(mesh, ops, la, lb, r)
+        rows[r] = dict(device_ms=round(d_ms, 3), enqueue_ms=round(e_ms, 3),
+                       us_per_row=round(d_ms * 1e3 / la, 4),
+                       launches_per_shard=-(-la // r))
+    out = dict(shape=shape, band=ops[2] // mesh.size,
+               plan=G.band_config(ops[2] // mesh.size)._asdict(),
+               wave_rows_sweep=rows)
+    emit({"phase": "mesh_sweep", **out})
+    return out
+
+
+def phase_mesh_sweep(seen, wide_seen):
     """sweep_band at the mesh_long root merge (widest_merge) and on a
     random SWEEP_ROWS-row problem of SWEEP_SHARDS bands of 8,192 columns
-    (the second width of CLUSTER_SWEEP)."""
+    (the second width of CLUSTER_SWEEP); sweep_wave_rows at the mesh_wide
+    path's widest merge."""
+    sweep_wave_rows(wide_seen)
     args, ops, shape, _ = widest_merge(seen)
     sweep_band(args[0], ops, args[5], args[6], shape)
     mesh = mesh_of(SWEEP_SHARDS)
@@ -4428,13 +4756,13 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
     """The phases named in ``--only`` (comma-separated: edge, wave_edge,
     prepare_edge, kmeans_edge, kmeans, exact_edge, path:NAME,
     profile:NAME, vs, goldens, mesh_edge, path:mesh_default,
-    path:mesh_long, path:mesh_sars2, path:mesh_plastome, mesh_sweep,
-    profile:mesh_long, mesh_procs, launch_memory), for a short call; no
-    result lines.  path:plastome_default also holds and times the wave
+    path:mesh_long, path:mesh_sars2, path:mesh_plastome, path:mesh_wide
+    (and wide_merge on its widest merge), mesh_sweep, profile:mesh_long,
+    mesh_procs, launch_memory), for a short call; no result lines.  path:plastome_default also holds and times the wave
     route and the match preparation at its root merge (wave_main_shape,
     prepare_main_shape).  mesh_sweep runs
-    phase_mesh_sweep on the merges of path:mesh_long (run here first
-    where it was not named before it).  path:precise runs phase_precise,
+    phase_mesh_sweep on the merges of path:mesh_long and path:mesh_wide
+    (each run here first where it was not named before it).  path:precise runs phase_precise,
     path:serve phase_serve.  path:divergent also holds and times the sweep at
     its largest launch, path:long_default the cluster row kernel at its
     largest map-DP and progressive launches."""
@@ -4443,7 +4771,7 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
             "large_default": large_family, "long_default": long_genomes,
             "sars2_default": sars2_genomes,
             "plastome_default": plastome_genomes}
-    seen = None
+    seen = wide_seen = None
     for what in only.split(","):
         if what == "edge":
             phase_edge_cases(dev)
@@ -4477,10 +4805,15 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
         elif what in ("path:mesh_sars2", "path:mesh_plastome"):
             path = what.split("_")[1]
             phase_mesh_path(what[5:], seqs[f"{path}_default"]())
+        elif what == "path:mesh_wide":
+            _, _, wide_seen = phase_mesh_path("mesh_wide", wide_family())
+            wide_merge(dev, wide_seen)
         elif what == "mesh_sweep":
+            if wide_seen is None:
+                _, _, wide_seen = phase_mesh_path("mesh_wide", wide_family())
             if seen is None:
                 _, _, seen = phase_mesh_path("mesh_long", long_genomes())
-            phase_mesh_sweep(seen)
+            phase_mesh_sweep(seen, wide_seen)
         elif what == "profile:mesh_long":
             profile_mesh_host()
         elif what == "wave_edge":
@@ -4544,8 +4877,18 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     smi = phase_device_and_build()
+    try:
+        return run_all(dev, smi, args)
+    finally:
+        stop_host()
+
+
+def run_all(dev, smi, args):
+    """Every phase (or --only's), then the result lines."""
+    import torch
     if args.only:
         run_only(dev, args.only, args.divergent_n)
+        settle()
         return 0
     phase_edge_cases(dev)
     edge_cases_kmeans(dev, np.random.default_rng(7))
@@ -4565,8 +4908,10 @@ def main(argv=None):
     launches["divergent"], sweep_largest = phase_divergent(
         seqs["divergent"])
     launches["precise"], precise_row = phase_precise(dev, precise_family())
+    # handed out after the precise path, whose host loops they slowed
+    vs_cpu = vs_cpu_sides()
     launches["serve"] = phase_serve(dev)
-    block_own = phase_mesh_edge(dev)
+    wave_edge = phase_mesh_edge(dev)
     seen = {}
     for name, path in (("mesh_default", "protein_default"),
                        ("mesh_long", "long_default"),
@@ -4574,7 +4919,10 @@ def main(argv=None):
                        ("mesh_plastome", "plastome_default")):
         launches[name], stats[name], seen[name] = phase_mesh_path(
             name, seqs[path])
-    mesh_root, mesh_block = mesh_root_merge(dev, seen["mesh_long"])
+    launches["mesh_wide"], stats["mesh_wide"], seen["mesh_wide"] = \
+        phase_mesh_path("mesh_wide", wide_family())
+    mesh_root = mesh_root_merge(dev, seen["mesh_long"])
+    mesh_wide = wide_merge(dev, seen["mesh_wide"])
     seen.clear()
     phase_mesh_procs()
     # the divergent path's profiled run (50 s of PR 16's first whole run
@@ -4583,7 +4931,7 @@ def main(argv=None):
         if PATHS[path].get("profile", True):
             phase_profile(path, seqs[path], launches[path])
     kmeans_root = phase_kmeans(dev, seqs["large_default"])
-    vs_launches, vs_stats = phase_gpu_vs_cpu()
+    vs_launches, vs_stats = phase_gpu_vs_cpu(vs_cpu)
     phase_goldens(dev)
     launches.update({k: v for k, v in vs_launches.items()
                      if k.startswith(("long", "BB11001"))})
@@ -4598,9 +4946,17 @@ def main(argv=None):
     shapes["kmeans"] = kmeans_root
     shapes["exact_sweep"] = sweep_main_shape(dev, sweep_largest)
     shapes[MESH_ROUTES[mesh_root["route"]]] = mesh_root
-    shapes["gotoh_mesh"] = dict(mesh_block, own_width=block_own)
+    shapes["gotoh_mesh"] = dict(wave_edge[64], full_block=wave_edge[512],
+                                whole_merge=mesh_wide)
+    emit({"phase": "main_shape", "kernel": "gotoh_mesh",
+          **shapes["gotoh_mesh"]})
     emit({"phase": "main_shape", "kernel": "exact_sweep",
           **shapes["exact_sweep"]})
+    t0 = time.perf_counter()
+    settle()
+    emit({"phase": "settled", "wait_s": round(time.perf_counter() - t0, 1),
+          "plain_ms": {k: shapes[k].get("plain_ms") for k in (
+              "gotoh_lanewise", "gotoh_fused")}})
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = shapes[name]
@@ -4609,7 +4965,7 @@ def main(argv=None):
                 "prepare_match": ("plastome_default",),
                 "kmeans": ("large_default",),
                 "exact_sweep": ("divergent",),
-                "gotoh_mesh": ("mesh_long",),
+                "gotoh_mesh": ("mesh_wide",),
                 "gotoh_mesh_cluster": ("mesh_long",)}.get(name, ("default",))
         kernels.append({
             "name": name, "route": "cuda", "source": src,

@@ -26,7 +26,7 @@
  *   - the match masks come from one table per sequence, peq_table_kernel
  *     below ([N, 13, NB], in L2), read through pat_idx; the masks of the
  *     next step's symbol are loaded one step ahead, so no load sits on
- *     the chain;
+ *     the chain (the table kernel's own design is in its note);
  *   - the text comes in 16-byte loads, one chunk ahead (rows padded to a
  *     multiple of 16 bytes), symbols past n read as 0.
  */
@@ -38,7 +38,8 @@ constexpr int kSigma = 13;
 constexpr int kMaxBlocks = 16;
 constexpr int kWord = 64;
 constexpr int kThreads = 256;   // pairs per block (gpu/bpm.py::THREADS)
-constexpr int kTableThreads = 256;
+constexpr int kTableThreads = 256;  // 8 warps: 8 words of a table a block
+constexpr unsigned kFull = 0xffffffffu;
 
 /* The horizontal delta out of a block: +1 (p) or -1 (n), never both. */
 struct Carry {
@@ -235,38 +236,59 @@ bpm_kernel(const uint8_t* __restrict__ tok, int64_t tok_stride,
 
 /* Match masks of every sequence: table[r, s, b] bit k set where position
  * 64*b + k of row r is symbol s or lies at or past m[r] (bpm.c:428-440);
- * positions past the row's width L read as symbol 0.  One thread per
- * word. */
+ * positions past the row's width L read as symbol 0.
+ *
+ * Replaces kalign_tpu/tpu/bpm.py:51 build_peq, which kalign_tpu runs per
+ * pair (XLA, not Pallas) to feed bpm_batch_pallas; here one table per
+ * sequence.  Bound: device-memory bytes (each row's tokens up to 64 * nblk
+ * read once, 13 * nblk words of 8 bytes written); at the paths' sizes
+ * (2,000 to 80,000 words) what it takes is the launch and the warps'
+ * latency (a launch of 128 rows x 16 words, 2,048 warps, takes 0.0027
+ * ms on an H100, 27 times its bound; PERF.md).
+ * Design: one warp per (row, 64-position word).  Lane l loads the bytes
+ * at positions l and 32 + l (the word's 64 bytes in two coalesced reads;
+ * 0 at or past L; the row length loaded beside them, not before).  Five
+ * __ballot_sync per half word give the word's bit planes: bit k of each
+ * code (k < 4) and "code >= 16"; lane s < 13 forms symbol s's mask as
+ * the AND of the planes or their complements by the bits of s, ORs in
+ * the bits at or past m and writes word (r, s, b).  A word costs the
+ * warp 2 loads, 10 ballots, a dozen logic operations and one store,
+ * where a thread per word (the earlier design) loaded the word's 64 bytes
+ * 13 times over and assembled its 64 bits one by one.  Tried on an H100 and
+ * slower at the paths' shapes: a ballot per symbol (26 a word), 4 words
+ * a warp, a grid of 8 blocks an SM looping over the words (PERF.md). */
 __global__ void __launch_bounds__(kTableThreads)
 peq_table_kernel(const uint8_t* __restrict__ tok, int L,
                  const int32_t* __restrict__ m_arr, int N, int nblk,
                  uint64_t* __restrict__ table) {
-  const int idx = blockIdx.x * kTableThreads + threadIdx.x;
-  if (idx >= N * kSigma * nblk) return;
-  const int b = idx % nblk;
-  const int s = (idx / nblk) % kSigma;
-  const int r = idx / (nblk * kSigma);
-  const int m = m_arr[r];
-  const uint4* row = reinterpret_cast<const uint4*>(tok + (size_t)r * L);
-  const int lim = min(m, L);
-  const uint32_t sym = (uint32_t)s * 0x01010101u;
-  uint64_t hit = 0;
+  const int w =
+      (int)(((long long)blockIdx.x * kTableThreads + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (w >= N * nblk) return;  // whole warps: w is the warp's
+  const int b = w % nblk;
+  const int r = w / nblk;
+  const int m = __ldg(m_arr + r);
+  const uint8_t* row = tok + (size_t)r * L + kWord * b;
+  const int p0 = kWord * b + lane;
+  const uint32_t c0 = p0 < L ? __ldg(row + lane) : 0u;
+  const uint32_t c1 = p0 + 32 < L ? __ldg(row + 32 + lane) : 0u;
+  // the planes of the word: bit k of each position's code, and code >= 16
+  uint64_t plane[4];
 #pragma unroll
-  for (int j = 0; j < 4; j++) {
-    const int pos = kWord * b + 16 * j;
-    const uint4 v = pos < lim ? __ldg(row + pos / 16) : make_uint4(0, 0, 0, 0);
-    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+  for (int k = 0; k < 4; k++)
+    plane[k] = ((uint64_t)__ballot_sync(kFull, (c1 >> k) & 1u) << 32) |
+               __ballot_sync(kFull, (c0 >> k) & 1u);
+  const uint64_t high = ((uint64_t)__ballot_sync(kFull, c1 >= 16u) << 32) |
+                        __ballot_sync(kFull, c0 >= 16u);
+  if (lane < kSigma) {
+    uint64_t eq = ~high;
 #pragma unroll
-    for (int q = 0; q < 4; q++) {
-      const uint32_t eqb = __vcmpeq4(words[q], sym);   // 0xff per match
-#pragma unroll
-      for (int t = 0; t < 4; t++)
-        hit |= (uint64_t)((eqb >> (8 * t)) & 1u) << (16 * j + 4 * q + t);
-    }
+    for (int k = 0; k < 4; k++) eq &= (lane >> k) & 1 ? plane[k] : ~plane[k];
+    const int rest = m - kWord * b;
+    const uint64_t beyond =
+        rest <= 0 ? ~0ULL : rest >= kWord ? 0ULL : (~0ULL << rest);
+    table[((size_t)r * kSigma + lane) * nblk + b] = eq | beyond;
   }
-  const int lo = m - kWord * b;
-  const uint64_t beyond = lo <= 0 ? ~0ULL : lo >= kWord ? 0ULL : (~0ULL << lo);
-  table[idx] = hit | beyond;
 }
 
 using BpmKernel = void (*)(const uint8_t*, int64_t, const int32_t*,
@@ -285,12 +307,16 @@ struct Instantiations {
 
 KT_EXPORT int kt_bpm_table(const uint8_t* tok, int L, const int32_t* m,
                            int N, int nblk, uint64_t* table, void* stream) {
-  if (nblk < 1 || nblk > kMaxBlocks || L % 16 != 0)
+  if (nblk < 1 || nblk > kMaxBlocks || L % 16 != 0 ||
+      (long long)N * nblk > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const int words = N * kSigma * nblk;
-  const int blocks = (words + kTableThreads - 1) / kTableThreads;
-  peq_table_kernel<<<blocks, kTableThreads, 0, (cudaStream_t)stream>>>(
-      tok, L, m, N, nblk, table);
+  const long long warps = (long long)N * nblk;
+  const int per_block = kTableThreads / 32;
+  const long long blocks = (warps + per_block - 1) / per_block;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return 0;
+  peq_table_kernel<<<(unsigned)blocks, kTableThreads, 0,
+                     (cudaStream_t)stream>>>(tok, L, m, N, nblk, table);
   return (int)cudaGetLastError();
 }
 

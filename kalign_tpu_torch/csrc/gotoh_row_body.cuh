@@ -3,10 +3,13 @@
  * columns of a band of a DP row (RowThread, row_step), the rows of a band
  * with the match prefetched through a cp.async ring (band_span), and the
  * edges by which a band learns what lies to its left: nothing (NoHalo),
- * the previous block of a thread-block cluster (ClusterHalo), or a strip
- * in global memory written by the band on the left (gotoh_mesh.cu's
- * StripHalo).  gotoh_row.cu's header note gives the design; a kernel
- * that includes this file adds only how a band starts and ends.
+ * the previous block of a thread-block cluster (ClusterHalo), or
+ * (BandHalo) besides that the previous cluster of a wavefront of
+ * clusters through a strip in L2 with a row counter (gotoh_row_wave.cu,
+ * gotoh_mesh.cu's wave route) and a strip in global memory written by
+ * another launch's band (StripHalo, gotoh_mesh.cu).  gotoh_row.cu's
+ * header note gives the design; a kernel that includes this file adds
+ * only how a band starts and ends.
  */
 #ifndef KT_GOTOH_ROW_BODY_CUH
 #define KT_GOTOH_ROW_BODY_CUH
@@ -550,6 +553,189 @@ __device__ __forceinline__ ClusterHalo cluster_halo(float* smem,
   return edge;
 }
 
+/* The edges of a band that another launch's band, or another cluster of
+ * the same launch, borders.
+ *
+ * Between launches (the mesh's bands, csrc/gotoh_mesh.cu) a strip
+ * [R + 1][kStrip] per band and block of rows, complete before the next
+ * launch starts (StripHalo).  Between the clusters of one launch (a
+ * wavefront: csrc/gotoh_row_wave.cu, gotoh_mesh.cu's wave route) a strip
+ * [R][kWaveStrip] in global memory (L2) per cluster, written by its last
+ * block and published every `every` rows and at a launch's last by a
+ * release store of the rows done (counted from the problem's row 0) to
+ * its counter; thread 0 of the next cluster's first block polls that
+ * counter with an acquire load when the rows it knows of run out and
+ * copies strip rows into a shared-memory ring with cp.async (.cg: L2,
+ * never a stale L1 line), in the match ring's commit groups (BandHalo). */
+constexpr int kStrip = 5;      // floats per strip row between launches
+constexpr int kWaveStrip = 8;  // floats per strip row between clusters
+                               // (A, GA, GB, carry, u, pad: two 16-byte
+                               // copies) and per slot of the strip ring
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// a wait on the left cluster longer than this means a plan whose clusters
+// are not all resident: the launch traps (an error the wrapper raises)
+// rather than hang the card
+constexpr unsigned long long kWaitLimitNs = 20000000000ull;
+
+/* The edge of a band whose neighbours are other launches' bands: the left
+ * one's strip, rows r0 .. r0 + nr, and this band's.  Thread 0 copies
+ * strip row q + 1 (what row q of the launch receives) into a ring of
+ * kRing slots in shared memory with cp.async as the match row q is copied
+ * ahead, in the same commit group; its wait on that group and the row's
+ * barrier make the slot visible to every thread, so the receive on the
+ * row's dependent chain is a shared-memory read.  A slot is written again
+ * kRing rows later, two barriers after every thread has read it. */
+template <int CH>
+struct StripHalo {
+  static constexpr int kRing = RowCfg<CH>::kStages + 1;
+  static constexpr int kRingFloats = kRing * kWaveStrip;  // 16-byte multiple
+  const float* in;  // the left band's strip; nullptr: none (the first band)
+  float* out;       // this band's strip (written by the band's last
+                    // thread); nullptr: none
+  float* ring;      // [kRing][kWaveStrip] in shared memory
+  int r0;
+
+  __device__ __forceinline__ void prefetch(int q) const {
+    if (in != nullptr && threadIdx.x == 0) {
+      const float* e = in + (size_t)(q + 1) * kStrip;
+      float* d = ring + (q % kRing) * kWaveStrip;
+#pragma unroll
+      for (int i = 0; i < kStrip; i++) copy_float_async(d + i, e + i);
+    }
+  }
+
+  __device__ __forceinline__ Halo receive(int r, int) const {
+    if (in == nullptr) return Halo{-INFINITY, KT_NEG, KT_NEG, KT_NEG, KT_NEG};
+    const float* h = ring + ((r - r0) % kRing) * kWaveStrip;
+    return Halo{h[3], h[4], h[0], h[1], h[2]};
+  }
+
+  __device__ __forceinline__ void send(int r, float A, float GA, float GB,
+                                       float cm, float u) const {
+    if (out == nullptr) return;
+    float* o = out + (size_t)(r - r0 + 1) * kStrip;
+    o[0] = A;
+    o[1] = GA;
+    o[2] = GB;
+    o[3] = cm;
+    o[4] = u;
+  }
+};
+
+/* The edge of a block of a band of one or more clusters (the mesh's
+ * bands; the row kernel's wave, a band of a whole row).  Inside a cluster
+ * the blocks pass the halo on through distributed shared memory
+ * (ClusterHalo; rows counted from the launch's first); the block holding
+ * the band's first column takes the left band's strip, the one holding
+ * its last column writes this band's (StripHalo; none on the row
+ * kernel's wave); between clusters the first block of a cluster past the
+ * first polls the left cluster's row counter and copies its strip rows
+ * into the ring (wave_in), the last block of a cluster before the last
+ * writes its strip and publishes it (wave_out).  A block reads at most
+ * one strip, so one ring serves both. */
+template <int CH>
+struct BandHalo {
+  static constexpr bool kBands = true;
+  ClusterHalo cl;
+  StripHalo<CH> st;
+  const float* wave_in;      // the left cluster's strip (nullptr: none)
+  const unsigned* in_ready;  // its counter
+  float* wave_out;           // this cluster's (nullptr: none)
+  unsigned* out_ready;
+  int nr, every;
+  unsigned seen;             // rows of wave_in known to be published
+
+  // every block has loaded its start state and its barriers exist
+  __device__ __forceinline__ void start() { cg::this_cluster().sync(); }
+
+  __device__ __forceinline__ void prefetch(int q) {
+    if (wave_in == nullptr) {
+      st.prefetch(q);
+      return;
+    }
+    if (threadIdx.x != 0) return;
+    const unsigned need = (unsigned)(st.r0 + q + 1);
+    if (seen < need) {
+      const unsigned long long t0 = global_ns();
+      while ((seen = ld_acquire(in_ready)) < need)
+        if (global_ns() - t0 > kWaitLimitNs) __trap();
+    }
+    copy_chunk_async<8>(st.ring + (q % StripHalo<CH>::kRing) * kWaveStrip,
+                        wave_in + (size_t)q * kWaveStrip);
+  }
+
+  __device__ __forceinline__ Halo receive(int r, int t) const {
+    if (cl.rank > 0) return cl.receive(r - st.r0, t);
+    if (wave_in == nullptr) return st.receive(r, t);
+    const float* h =
+        st.ring + ((r - st.r0) % StripHalo<CH>::kRing) * kWaveStrip;
+    return Halo{h[3], h[4], h[0], h[1], h[2]};
+  }
+
+  __device__ __forceinline__ void send(int r, float A, float GA, float GB,
+                                       float cm, float u) const {
+    if (cl.rank + 1 < cl.S) {
+      cl.send(r - st.r0, A, GA, GB, cm, u);
+    } else if (wave_out == nullptr) {
+      st.send(r, A, GA, GB, cm, u);
+    } else {
+      const int q = r - st.r0;
+      float4* o = reinterpret_cast<float4*>(wave_out + (size_t)q * kWaveStrip);
+      o[0] = make_float4(A, GA, GB, cm);
+      o[1] = make_float4(u, 0.0f, 0.0f, 0.0f);
+      if ((q + 1) % every == 0 || q + 1 == nr)
+        st_release(out_ready, (unsigned)(r + 1));
+    }
+  }
+};
+
+/* Block `rank` of cluster c of `clusters` (S blocks each) of a band: its
+ * edge (the barriers initialised by thread 0), the strip ring after the
+ * cluster's halo header in smem; strip_in the left band's strip (nullptr
+ * where there is none), strip_out this band's (nullptr: none), the
+ * clusters' strips [clusters][R][kWaveStrip] in wstrip and their counters
+ * in ready; launch rows r0 .. r0 + nr - 1, published every `every`. */
+template <int CH>
+__device__ __forceinline__ BandHalo<CH> band_halo(
+    float* smem, unsigned rank, unsigned S, int c, int clusters,
+    const float* strip_in, float* strip_out, float* wstrip, unsigned* ready,
+    int R, int r0, int nr, int every) {
+  BandHalo<CH> edge;
+  edge.cl = cluster_halo(smem, rank, S, nr);
+  const bool left = rank == 0 && c == 0;
+  edge.st = StripHalo<CH>{left ? strip_in : nullptr, strip_out,
+                          smem + kClusterHeader / 4, r0};
+  const bool has_in = rank == 0 && c > 0;
+  const bool has_out = rank + 1 == S && c + 1 < clusters;
+  const size_t R8 = (size_t)R * kWaveStrip;
+  edge.wave_in = has_in ? wstrip + (size_t)(c - 1) * R8 : nullptr;
+  edge.in_ready = has_in ? ready + c - 1 : nullptr;
+  edge.wave_out = has_out ? wstrip + (size_t)c * R8 : nullptr;
+  edge.out_ready = has_out ? ready + c : nullptr;
+  edge.nr = nr;
+  edge.every = every;
+  edge.seen = 0;
+  return edge;
+}
+
 /* Shared memory of a block of `threads` threads of CH columns: four
  * invariant vectors and the match ring over its columns, the warp slots;
  * a cluster's block has the halo header ahead of them. */
@@ -571,6 +757,24 @@ bool cluster_plan_ok(int threads, int blocks) {
   return threads > 0 && threads % 32 == 0 &&
          threads <= RowCfg<CH>::kMaxThreads && blocks >= 1 &&
          blocks <= kMaxClusterBlocks;
+}
+
+/* A wavefront's blocks (csrc/gotoh_row_wave.cu, gotoh_mesh.cu's wave
+ * route): at most kWaveMaxThreads threads (at 8 columns a thread the row
+ * kernel's 896 would cap a thread at 72 registers, and the body spills
+ * there); shared memory: the cluster's halo header, the strip ring (a
+ * slot per match row of the ring and one more), then smem_bytes. */
+constexpr int kWaveMaxThreads = 512;
+
+template <int CH>
+size_t wave_smem_bytes(int threads) {
+  return kClusterHeader + StripHalo<CH>::kRingFloats * sizeof(float) +
+         smem_bytes<CH>(threads);
+}
+
+template <int CH>
+bool wave_plan_ok(int threads, int blocks) {
+  return cluster_plan_ok<CH>(threads, blocks) && threads <= kWaveMaxThreads;
 }
 
 /* A cluster kernel's attributes for blocks of `smem` bytes of dynamic

@@ -30,9 +30,10 @@
  * counter with an acquire load (only when the rows it knows of run out)
  * and copies strip rows into a shared-memory ring with cp.async (.cg:
  * L2, never a stale L1 line), kStages - 1 rows ahead in the match ring's
- * commit groups, as gotoh_mesh.cu's StripHalo does.  A band waits only
- * on the band to its left, which never waits on it, and the wrapper
- * launches only plans whose every cluster is co-resident
+ * commit groups, as the mesh's StripHalo does (gotoh_row_body.cuh's
+ * BandHalo holds both edges).  A band waits only on the band to its
+ * left, which never waits on it, and the wrapper launches only plans
+ * whose every cluster is co-resident
  * (cudaOccupancyMaxActiveClusters), so no wait can block the cluster it
  * waits on.  A strip holds a launch's whole block of rows: the producer
  * never waits for the consumer.
@@ -61,12 +62,6 @@
 
 namespace {
 
-constexpr int kWaveStrip = 8;  // floats per strip row: A, GA, GB, carry,
-                               // u, pad (two 16-byte copies)
-// most threads of a wave block: at 8 columns a thread the row kernel's
-// 896 would cap a thread at 72 registers, and the body spills there
-constexpr int kWaveMaxThreads = 512;
-
 struct WaveArgs {
   const float* match;     // [nr, L2p]: the launch's rows r0 .. r0 + nr - 1
   const float* colpen;    // [5, B, L2p]
@@ -84,92 +79,13 @@ struct WaveArgs {
   int la, lb;             // problem b's, read by the kernel
 };
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// a wait on the left band longer than this means a plan whose clusters are
-// not all resident: the launch traps (an error the wrapper raises) rather
-// than hang the card
-constexpr unsigned long long kWaitLimitNs = 20000000000ull;
-
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;\n"
-               :: "l"(p), "r"(v) : "memory");
-}
-
-/* The edge of a block of the wavefront: the cluster's halo between its
- * blocks; on a band's first block the left band's strip, on its last
- * block this band's strip and counter (rows counted from the launch's
- * first for the cluster halo, absolute for the strip's counter). */
-template <int CH>
-struct WaveHalo {
-  static constexpr bool kBands = true;
-  static constexpr int kRing = RowCfg<CH>::kStages + 1;
-  static constexpr int kRingFloats = kRing * kWaveStrip;  // 16-byte multiple
-  ClusterHalo cl;
-  const float* in;           // the left band's strip (nullptr: none)
-  const unsigned* in_ready;  // its counter
-  float* out;                // this band's strip (nullptr: no band right)
-  unsigned* out_ready;
-  float* ring;               // [kRing][kWaveStrip] in shared memory
-  int r0, nr, every;
-  unsigned seen;             // rows of `in` known to be published
-
-  __device__ __forceinline__ void start() { cg::this_cluster().sync(); }
-
-  __device__ __forceinline__ void prefetch(int q) {
-    if (in == nullptr || threadIdx.x != 0) return;
-    const unsigned need = (unsigned)(r0 + q + 1);
-    if (seen < need) {
-      const unsigned long long t0 = global_ns();
-      while ((seen = ld_acquire(in_ready)) < need)
-        if (global_ns() - t0 > kWaitLimitNs) __trap();
-    }
-    const float* src = in + (size_t)q * kWaveStrip;
-    float* dst = ring + (q % kRing) * kWaveStrip;
-    copy_chunk_async<8>(dst, src);
-  }
-
-  __device__ __forceinline__ Halo receive(int r, int t) const {
-    if (cl.rank > 0) return cl.receive(r - r0, t);
-    if (in == nullptr) return Halo{-INFINITY, KT_NEG, KT_NEG, KT_NEG, KT_NEG};
-    const float* h = ring + ((r - r0) % kRing) * kWaveStrip;
-    return Halo{h[3], h[4], h[0], h[1], h[2]};
-  }
-
-  __device__ __forceinline__ void send(int r, float A, float GA, float GB,
-                                       float cm, float u) const {
-    if (cl.rank + 1 < cl.S) {
-      cl.send(r - r0, A, GA, GB, cm, u);
-      return;
-    }
-    if (out == nullptr) return;
-    const int q = r - r0;
-    float4* o = reinterpret_cast<float4*>(out + (size_t)q * kWaveStrip);
-    o[0] = make_float4(A, GA, GB, cm);
-    o[1] = make_float4(u, 0.0f, 0.0f, 0.0f);
-    if ((q + 1) % every == 0 || q + 1 == nr)
-      st_release(out_ready, (unsigned)(r + 1));
-  }
-};
-
 /* One block's columns [band0, band0 + blockDim.x * CH) over the launch's
  * rows: the start state from the state buffer, the rows (band_span), the
  * last row's state into the other slot. */
 template <int CH>
 __device__ __forceinline__ void wave_block(float* smem, int band0,
                                            const WaveArgs& a,
-                                           WaveHalo<CH>& edge) {
+                                           BandHalo<CH>& edge) {
   RowThread<CH> x;
   float* ring = band_thread(x, smem, band0);
   const int j0 = x.j0;
@@ -219,38 +135,16 @@ gotoh_row_wave_kernel(WaveArgs a) {
   const unsigned rank = cluster.block_rank();
   const int band = (int)(blockIdx.x / S);
   const int bands = (int)(gridDim.x / S);
-  WaveHalo<CH> edge;
-  edge.cl = cluster_halo(smem, rank, S, a.nr);
-  edge.ring = smem + kClusterHeader / 4;
-  const bool has_in = rank == 0 && band > 0;
-  const bool has_out = rank + 1 == S && band + 1 < bands;
-  edge.in = has_in ? a.strip + (size_t)(band - 1) * a.R * kWaveStrip
-                   : nullptr;
-  edge.in_ready = has_in ? a.ready + band - 1 : nullptr;
-  edge.out = has_out ? a.strip + (size_t)band * a.R * kWaveStrip : nullptr;
-  edge.out_ready = has_out ? a.ready + band : nullptr;
-  edge.r0 = a.r0;
-  edge.nr = a.nr;
-  edge.every = a.every;
-  edge.seen = 0;
-  wave_block<CH>(edge.ring + WaveHalo<CH>::kRingFloats,
+  BandHalo<CH> edge =
+      band_halo<CH>(smem, rank, S, band, bands, nullptr, nullptr, a.strip,
+                    a.ready, a.R, a.r0, a.nr, a.every);
+  wave_block<CH>(edge.st.ring + StripHalo<CH>::kRingFloats,
                  (int)blockIdx.x * (int)blockDim.x * CH, a, edge);
   // no block leaves while its neighbour may still arrive on its barriers
   cluster.sync();
 }
 
-template <int CH>
-size_t wave_smem_bytes(int threads) {
-  return kClusterHeader + WaveHalo<CH>::kRingFloats * sizeof(float) +
-         smem_bytes<CH>(threads);
-}
-
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
-
-template <int CH>
-bool wave_plan_ok(int threads, int blocks) {
-  return cluster_plan_ok<CH>(threads, blocks) && threads <= kWaveMaxThreads;
-}
 
 template <int CH>
 int max_active(int threads, int blocks, size_t smem, int* out) {

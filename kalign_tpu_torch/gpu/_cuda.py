@@ -116,14 +116,18 @@ def lib() -> ctypes.CDLL:
                                   + [_i, _p])
     L.kt_exact_sweep.restype = _i
     L.kt_exact_sweep.argtypes = [_p] * 11 + [_i] * 10 + [_p]
-    L.kt_gotoh_band_block.restype = _i
-    L.kt_gotoh_band_block.argtypes = [_p] * 9 + [_i] * 8 + [_p]
     L.kt_gotoh_band_smem_bytes.restype = ctypes.c_size_t
     L.kt_gotoh_band_smem_bytes.argtypes = [_i, _i]
     L.kt_gotoh_band_cluster_max_active.restype = _i
     L.kt_gotoh_band_cluster_max_active.argtypes = [_i, _i, _i, _p]
+    L.kt_gotoh_band_wave_max_active.restype = _i
+    L.kt_gotoh_band_wave_max_active.argtypes = [_i, _i, _i, ctypes.c_size_t,
+                                                _p]
     L.kt_gotoh_band_cluster.restype = _i
-    L.kt_gotoh_band_cluster.argtypes = [_p] * 9 + [_i] * 10 + [_p]
+    L.kt_gotoh_band_cluster.argtypes = [_p] * 9 + [_i] * 11 + [_p]
+    L.kt_gotoh_band_wave.restype = _i
+    L.kt_gotoh_band_wave.argtypes = ([_p] * 9 + [_i] * 8 + [_p] * 2
+                                     + [_i] * 6 + [ctypes.c_size_t, _p])
     return L
 
 

@@ -9,9 +9,11 @@ route (``band_config``): up to gotoh_row.CLUSTER_MAX_WIDTH (114,688)
 columns one thread-block cluster per band of up to 16 blocks of
 BLOCK_COLS (256) columns or more, one block up to 256
 (``gotoh_band_cluster_kernel``, the row kernel's register body in the
-cluster row kernel's form); past that one block walking each row in
-tiles (``gotoh_band_block_kernel``, the first design, so that no width
-raises).
+cluster row kernel's form); past that a wavefront of WAVE_BANDS clusters
+of gotoh_row.WAVE_CLUSTER blocks over the band (``gotoh_band_wave_kernel``,
+the row kernel's wave route, gpu/gotoh_wave.py, with the mesh's strips at
+the band's two ends), planned so that every cluster of the band launches
+that can run at once on a card is resident (``card_streams``).
 
 Shard d owns the columns [d * Wd, (d + 1) * Wd) of the padded width
 Wp = n * Wd, Wd = ``band_width`` (ceil(W / n) rounded up to
@@ -48,7 +50,10 @@ padding among them) never reach a column at or before lb.
 ``schedule`` (and so ``forward``) launches the kernels (``launch``) on
 CUDA shards and runs ``plain`` — the same block in PyTorch, row by row,
 with the same strip handoff — on CPU shards; ``use_plain=True`` runs the
-plain version on any device (the kernels' check on the card).
+plain version on any device (the kernels' check on the card).  A launch
+reads the band's state buffer slot ``band["slot"]`` and leaves its last
+row in the other slot, which band["slot"] then names, so no block
+overwrites a slot another block of the launch still reads.
 """
 
 import ctypes
@@ -58,7 +63,7 @@ from functools import lru_cache
 
 import torch
 
-from kalign_tpu_torch.gpu import _cuda, gotoh_row
+from kalign_tpu_torch.gpu import _cuda, gotoh_row, gotoh_wave
 from kalign_tpu_torch.gpu.gotoh_row import NEG, RowLaunch
 
 # rows per launch: ceil(la / 512) launches a band.  At the mesh_long root
@@ -74,12 +79,19 @@ BLOCK_ROWS = 512
 FILL_BLOCKS = 4
 STRIP = 5                  # floats per strip row: A, GA, GB, carry, u
 STRIP_SLOT = 8             # floats per slot of a block's strip ring
-MAX_THREADS = 1024         # csrc/gotoh_mesh.cu kMaxThreads (block route)
 # the plan (band_config): clusters of blocks of BLOCK_COLS columns or
 # more (one block up to BLOCK_COLS)
 BLOCK_COLS = 256
+# the wave route past CLUSTER_MAX_WIDTH: at least WAVE_BANDS clusters of
+# gotoh_row.WAVE_CLUSTER blocks a band, one block an SM, so that the two
+# bands of a card on two shards (a two-shard merge on one card, chip_smoke's
+# mesh_wide) are resident at once: an H100 80GB HBM3 holds 15 such
+# clusters (cudaOccupancyMaxActiveClusters, PERF.md), 2 x 8 would not fit;
+# more where the band's blocks would pass gotoh_row.WAVE_MAX_THREADS
+# threads
+WAVE_BANDS = 7
 
-# launches by route: "block" (gotoh_band_block_kernel), "cluster"
+# launches by route: "wave" (gotoh_band_wave_kernel), "cluster"
 # (gotoh_band_cluster_kernel)
 launches = 0
 cluster_launches = 0
@@ -113,35 +125,32 @@ def wait(shard, ev):
         shard.stream.wait_event(ev)
 
 
-def threads_for(Wd: int) -> int:
-    """Block size of the block route for a band of Wd columns: as few
-    tiles of at most MAX_THREADS columns as cover it, the block no wider
-    than a tile."""
-    tiles = -(-Wd // MAX_THREADS)
-    return -(-Wd // (tiles * 32)) * 32
-
-
 @lru_cache(maxsize=None)
-def band_config(Wd: int) -> RowLaunch:
+def band_config(Wd: int):
     """The route of a band of Wd columns (a multiple of
     gotoh_row.COL_QUANTUM), by its width alone: "cluster", one cluster of
     S <= 16 blocks of w columns each, w the least multiple of 128 (256
     past 1,024, where a block takes 8 columns a thread) of at least
     BLOCK_COLS (or Wd, where that is less) that keeps S = ceil(Wd / w)
-    within 16, up to gotoh_row.CLUSTER_MAX_WIDTH; "block" past that
-    (``threads`` from threads_for, ``band`` = Wd).  A cluster covers S *
-    w >= Wd columns and launches only where that is exactly Wd
-    (``band_width`` pads to it); its ``smem`` adds the strip ring
-    (``with_ring``).  Narrow blocks make a short row: at the mesh_long
-    root merge's bands of 2,560 columns one block of 8 columns a thread
-    took 1.7 us a row, clusters of 10 blocks of 256 columns 0.77 us
-    (PERF.md; BLOCK_COLS rests on that shape and one other)."""
+    within 16, up to gotoh_row.CLUSTER_MAX_WIDTH (a RowLaunch); "wave"
+    past that, gotoh_row.wave_config's plan over at least WAVE_BANDS
+    clusters (a WaveLaunch: ``bands`` clusters of ``blocks`` blocks of
+    ``band`` columns, its ``smem`` enough that no two blocks share an
+    SM).  The blocks cover bands * blocks * band >= Wd columns and launch
+    only where that is exactly Wd (``band_width`` pads to it); a block's
+    ``smem`` holds the strip ring (``with_ring``; on the wave route one
+    ring serves the mesh's strip and the wave's, as a block reads at most
+    one).  Narrow blocks make a short row: at the mesh_long root merge's
+    bands of 2,560 columns one block of 8 columns a thread took 1.7 us a
+    row, clusters of 10 blocks of 256 columns 0.77 us (PERF.md;
+    BLOCK_COLS rests on that shape and one other)."""
     q = gotoh_row.COL_QUANTUM
     if Wd <= 0 or Wd % q:
         raise ValueError(f"band Gotoh kernel: a band of {Wd} columns is not "
                          f"a multiple of {q}")
     if Wd > gotoh_row.CLUSTER_MAX_WIDTH:
-        return RowLaunch("block", threads_for(Wd), 1, 0, 1, Wd)
+        widest = gotoh_row.WAVE_CLUSTER * gotoh_row.WAVE_MAX_THREADS * 8
+        return gotoh_row.wave_config(Wd, max(WAVE_BANDS, -(-Wd // widest)))
     most = gotoh_row.CLUSTER_SIZES[-1]
     w = max(min(BLOCK_COLS, Wd), -(-(-(-Wd // most)) // q) * q)
     ch = 4 if w <= gotoh_row.BAND_CH4 else 8
@@ -151,10 +160,15 @@ def band_config(Wd: int) -> RowLaunch:
 
 def with_ring(cfg: RowLaunch) -> RowLaunch:
     """A cluster plan with the strip ring in its shared memory
-    (csrc/gotoh_mesh.cu::band_smem_bytes): a slot per match row of the
+    (csrc/gotoh_row_body.cuh::wave_smem_bytes): a slot per match row of the
     ring and one more."""
     ring = 4 * STRIP_SLOT * (gotoh_row.CHUNKS[cfg.ch][1] + 1)
     return cfg._replace(smem=cfg.smem + ring)
+
+
+def covered(cfg) -> int:
+    """The columns a band plan's blocks cover."""
+    return getattr(cfg, "bands", 1) * cfg.blocks * cfg.band
 
 
 def band_width(W: int, n: int) -> int:
@@ -163,9 +177,7 @@ def band_width(W: int, n: int) -> int:
     blocks cover (W padded to n times it, as mesh.py:516 pads W to a
     multiple of n)."""
     q = gotoh_row.COL_QUANTUM
-    Wd = -(-(-(-W // n)) // q) * q
-    cfg = band_config(Wd)
-    return Wd if cfg.route == "block" else cfg.blocks * cfg.band
+    return covered(band_config(-(-(-(-W // n)) // q) * q))
 
 
 def band_inputs(prep, c0: int, c1: int, device):
@@ -195,7 +207,7 @@ def plain(band, m, strip_in, strip_out, r0: int, nr: int, la: int,
     """Rows r0 + 1 .. r0 + nr of one band in PyTorch, m [nr, Wd] their
     match: the kernel's arithmetic (gotoh_row.plain's, with the strip at
     the band's left edge)."""
-    state, dec = band["state"], band["dec"]
+    state, dec, slot = band["state"], band["dec"], band["slot"]
     C_norm, C_term, gnC_norm, gnC_term, goB_s = band["colpen"]
     rowpen, cols_eps, row_term = band["rowpen"], band["cols_eps"], \
         band["row_term"]
@@ -206,14 +218,13 @@ def plain(band, m, strip_in, strip_out, r0: int, nr: int, la: int,
     is_term_col = cols == lb
     can_open = cols < lb
     neg = torch.full((1,), NEG, **f32)
-    prev = state[r0 & 1]
-    strip_out[0, :3] = prev[:, Wd - 1]
+    A, GA, GB = state[slot]
+    strip_out[0, :3] = state[slot][:, Wd - 1]
     strip_out[0, 3:] = NEG
     for s in range(1, nr + 1):
         row = r0 + s
         r = row - 1
         goA_i, geA_i, tgeA_i, goA_prev, gb0_prev = rowpen[r].split(1)
-        A, GA, GB = state[(row - 1) & 1]
         if first:
             eA = torch.full((1,), 0.0 if row == 1 else NEG, **f32)
             eGA, eGB, carry, lu = neg, gb0_prev, neg, neg
@@ -247,31 +258,74 @@ def plain(band, m, strip_in, strip_out, r0: int, nr: int, la: int,
                         torch.where(diagGA >= diagA, 1, 0))
         d = d | torch.where(cm_s > u_s, 4, 0) | torch.where(gb_e > gb_o, 8, 0)
         dec[r] = d.to(torch.int8)
-        state[row & 1] = torch.stack([A_row, GA_row, GB_row])
+        A, GA, GB = A_row, GA_row, GB_row
         strip_out[s] = torch.stack([A_row[-1], GA_row[-1], GB_row[-1],
                                     cm[-1], u[-1]])
+    state[slot ^ 1] = torch.stack([A, GA, GB])
+    band["slot"] ^= 1
 
 
 _max_active = {}
 
 
-def schedulable(cfg):
-    """How many clusters of the cluster route's plan the card holds at
-    once (cudaOccupancyMaxActiveClusters, cached per plan and device);
-    raises where it cannot hold one: the launch would never run."""
-    key = (torch.cuda.current_device(), cfg.threads, cfg.ch, cfg.blocks)
+def max_active(cfg) -> int:
+    """cudaOccupancyMaxActiveClusters of a band plan on the current card
+    (cached per card and plan)."""
+    key = (torch.cuda.current_device(), cfg)
     if key not in _max_active:
         out = ctypes.c_int(0)
-        _cuda.check(_cuda.lib().kt_gotoh_band_cluster_max_active(
-            cfg.threads, cfg.ch, cfg.blocks, ctypes.byref(out)),
-            "gotoh_mesh cluster occupancy")
+        lib = _cuda.lib()
+        if cfg.route == "wave":
+            rc = lib.kt_gotoh_band_wave_max_active(
+                cfg.threads, cfg.ch, cfg.blocks, ctypes.c_size_t(cfg.smem),
+                ctypes.byref(out))
+        else:
+            rc = lib.kt_gotoh_band_cluster_max_active(
+                cfg.threads, cfg.ch, cfg.blocks, ctypes.byref(out))
+        _cuda.check(rc, "gotoh_mesh occupancy")
         _max_active[key] = out.value
-    if _max_active[key] < 1:
-        raise RuntimeError(f"band Gotoh kernel: the card cannot schedule a "
-                           f"cluster of {cfg.blocks} blocks of "
-                           f"{cfg.threads} threads and {cfg.smem} bytes of "
-                           "shared memory")
     return _max_active[key]
+
+
+def schedulable(cfg):
+    """How many clusters of a band plan the current card holds at once;
+    raises where it cannot hold one launch's (one cluster on the cluster
+    route, every cluster of the band on the wave route, where a cluster
+    waits on the one to its left): the launch would never run, or could
+    wait on a cluster that never becomes resident."""
+    held = max_active(cfg)
+    need = getattr(cfg, "bands", 1)
+    if held < need:
+        raise RuntimeError(
+            f"band Gotoh kernel: the card cannot schedule a cluster of "
+            f"{cfg.blocks} blocks of {cfg.threads} threads and {cfg.smem} "
+            "bytes of shared memory" + ("" if need == 1 else
+                                        f" {need} times at once"))
+    return held
+
+
+def card_streams(shards, cfg):
+    """The shards as one merge's band launches run on them: each on its
+    own stream, unless the launches that can then run at once on a card
+    (one a shard of it) would need more clusters resident than the card
+    holds (wave route: the card's shards x cfg.bands > schedulable); then
+    every shard of that card on its first shard's stream, so that its band
+    launches run one at a time (their blocks of rows stay in schedule's
+    order, which every dependence follows)."""
+    if cfg.route != "wave":
+        return list(shards)
+    out = list(shards)
+    by_card = {}
+    for i, sh in enumerate(shards):
+        if sh.stream is not None:
+            by_card.setdefault(sh.device, []).append(i)
+    for dev, idx in by_card.items():
+        with torch.cuda.device(dev):
+            held = schedulable(cfg)
+        if len(idx) * cfg.bands > held:
+            for i in idx:
+                out[i] = Shard(shards[i].device, shards[idx[0]].stream)
+    return out
 
 
 # a band's launch: its route, the entry point, the band's pointers (before
@@ -284,26 +338,39 @@ _BAND_KEYS = ("colpen", "rowpen", "cols_eps", "row_term", "state")
 def band_plan(band) -> BandPlan:
     """One band's launch plan, checked once (call under
     ``torch.cuda.device`` of its tensors): band_config's route, the entry
-    point and the band's fixed arguments (those after the match)."""
+    point and the band's fixed arguments (those after the launch's slot);
+    on the wave route also the band's strips between its clusters
+    [bands, rows, gotoh_wave.STRIP] and their row counters (zero; never
+    reset: they count rows from the problem's first), ``rows`` the most
+    rows a launch of the band takes (band["rows"])."""
     Wd = band["dec"].shape[1]
     cfg = band_config(Wd)
     _cuda.require_cuda("gotoh_mesh", *(band[k] for k in _BAND_KEYS),
                        band["dec"])
     if band["dec"].dtype != torch.int8:
         raise ValueError("gotoh_mesh: int8 decisions")
-    lib = _cuda.lib()
-    ptrs = tuple(band[k].data_ptr() for k in _BAND_KEYS)
-    if cfg.route == "block":
-        return BandPlan(cfg, lib.kt_gotoh_band_block, ptrs, (cfg.threads,))
-    if cfg.blocks * cfg.band != Wd:
+    if covered(cfg) != Wd:
         raise ValueError(f"gotoh_mesh: a band of {Wd} columns is not one "
                          "that band_width gives")
-    if lib.kt_gotoh_band_smem_bytes(cfg.threads, cfg.ch) != cfg.smem:
+    lib = _cuda.lib()
+    if lib.kt_gotoh_band_smem_bytes(cfg.threads, cfg.ch) != \
+            gotoh_row.wave_smem_bytes(cfg.threads, cfg.ch):
         raise RuntimeError("band Gotoh kernel: shared-memory size differs "
                            "between csrc/gotoh_mesh.cu and band_config")
     schedulable(cfg)
-    return BandPlan(cfg, lib.kt_gotoh_band_cluster, ptrs,
-                    (cfg.threads, cfg.ch, cfg.blocks))
+    ptrs = tuple(band[k].data_ptr() for k in _BAND_KEYS)
+    if cfg.route == "cluster":
+        return BandPlan(cfg, lib.kt_gotoh_band_cluster, ptrs,
+                        (cfg.threads, cfg.ch, cfg.blocks))
+    R = band["rows"]
+    dev = band["dec"].device
+    band["wstrip"] = torch.empty((cfg.bands, R, gotoh_wave.STRIP),
+                                 dtype=torch.float32, device=dev)
+    band["ready"] = torch.zeros(cfg.bands, dtype=torch.int32, device=dev)
+    return BandPlan(cfg, lib.kt_gotoh_band_wave, ptrs, (
+        band["wstrip"].data_ptr(), band["ready"].data_ptr(), R,
+        gotoh_wave.EVERY, cfg.threads, cfg.ch, cfg.blocks, cfg.bands,
+        ctypes.c_size_t(cfg.smem)))
 
 
 def launch(band, m, strip_in, strip_out, r0: int, nr: int, la: int,
@@ -311,7 +378,8 @@ def launch(band, m, strip_in, strip_out, r0: int, nr: int, la: int,
     """Launch band_config's route of csrc/gotoh_mesh.cu on one band's
     CUDA tensors: rows r0 + 1 .. r0 + nr, m [nr, Wd] their match
     (contiguous float32), the left band's strip_in (None on the first
-    band), this band's strip_out ([>= nr + 1, STRIP])."""
+    band), this band's strip_out ([>= nr + 1, STRIP]); the state read
+    from slot band["slot"], which then flips."""
     global launches, cluster_launches
     dev = band["dec"].device
     with torch.cuda.device(dev):
@@ -328,13 +396,17 @@ def launch(band, m, strip_in, strip_out, r0: int, nr: int, la: int,
                 not first and strip_in.numel() < (nr + 1) * STRIP):
             raise ValueError("gotoh_mesh: a strip holds fewer than nr + 1 "
                              "rows")
+        if plan.cfg.route == "wave" and nr > band["rows"]:
+            raise ValueError("gotoh_mesh: a launch of more rows than the "
+                             "wave strips hold")
         rc = plan.entry(
             m.data_ptr(), *plan.ptrs,
             None if first else strip_in.data_ptr(), strip_out.data_ptr(),
             band["dec"].data_ptr(), band["dec"].shape[1], r0, nr, la, lb,
-            band["c0"], int(first), *plan.args,
+            band["c0"], int(first), band["slot"], *plan.args,
             ctypes.c_void_p(_cuda.stream(dev)))
     _cuda.check(rc, "gotoh_mesh")
+    band["slot"] ^= 1
     if plan.cfg.route == "cluster":
         cluster_launches += 1
     else:
@@ -364,7 +436,7 @@ def schedule(shards, bands, la: int, lb: int, rows: int = BLOCK_ROWS,
     shards[d], each with its match source, state buffer and decision
     rows): at step s, shard d makes the match of its block s - d (block)
     and runs the block.  Fills every band's dec rows < la and
-    leaves row la's state in state[la & 1].  Kernel blocks on CUDA
+    leaves row la's state in state[band["slot"]].  Kernel blocks on CUDA
     shards, plain on CPU shards or with use_plain.  Each band's strips
     (one per block) are allocated once, with a copy on the next shard's
     card where that is another; each shard records one event, again at
@@ -416,10 +488,11 @@ def schedule(shards, bands, la: int, lb: int, rows: int = BLOCK_ROWS,
                         done[d].record(sh.stream)
 
 
-def end_values(state, la: int, lb: int, c0: int):
-    """Score and end state at column lb of the band holding it, from row
-    la's state (gotoh_row.plain's pick): tensors [1]."""
-    A, GA, GB = state[la & 1][:, lb - 1 - c0:lb - c0]
+def end_values(band, lb: int):
+    """Score and end state at column lb of the band holding it, from its
+    last row's state, row la's (gotoh_row.plain's pick): tensors [1]."""
+    c0 = band["c0"]
+    A, GA, GB = band["state"][band["slot"]][:, lb - 1 - c0:lb - c0]
     ea, ega, egb = (torch.clamp(x, min=NEG) for x in (A, GA, GB))
     score = torch.maximum(torch.maximum(ea, ega), egb)
     st = torch.where(ega > ea, torch.where(egb > ega, 2, 1),
@@ -437,14 +510,16 @@ def forward(shards, match_bands, prep, la: int, lb: int,
     two of FILL_BLOCKS * ``rows`` rows on the shard, block); prep =
     gotoh_row.prepare of the
     problem over the padded width n * Wd, on shards[0]'s device, queued
-    there.  Returns (bands, score [1], state [1] int32 on shards[0]'s
-    device); each band's decision rows < la are its dec (rows past la
-    are 0)."""
+    there.  The bands run on card_streams' streams, joined back onto each
+    shard's own before this returns.  Returns (bands, score [1], state
+    [1] int32 on shards[0]'s device); each band's decision rows < la are
+    its dec (rows past la are 0)."""
     L1p = prep["rowpen"].shape[1]
     Wd = prep["cols_eps"].shape[1] // len(shards)
+    run = card_streams(shards, band_config(Wd))
     ready = event(shards[0])
     bands = []
-    for d, sh in enumerate(shards):
+    for d, sh in enumerate(run):
         with on(sh):
             wait(sh, ready)
             band = band_inputs(prep, d * Wd, (d + 1) * Wd, sh.device)
@@ -460,15 +535,24 @@ def forward(shards, match_bands, prep, la: int, lb: int,
                 band["source"] = lambda r0, r1, out, m=src: m[r0:r1]
                 band["ring"] = None
             band["state"] = init_state(band)
+            band["slot"] = 0
+            band["rows"] = rows
             band["dec"] = torch.zeros((L1p, Wd), dtype=torch.int8,
                                       device=sh.device)
             bands.append(band)
     if shards[0].stream is not None:
         for x in prep.values():
-            for sh in shards[1:]:
+            for sh in run[1:]:
                 if sh.device == shards[0].device:
                     x.record_stream(sh.stream)
-    schedule(shards, bands, la, lb, rows, use_plain)
+    schedule(run, bands, la, lb, rows, use_plain)
+    for sh, own, band in zip(run, shards, bands):
+        if own.stream is not None and own.stream != sh.stream:
+            # gather_dec, end_values and the caller read the band on the
+            # shard's own stream
+            wait(own, event(sh))
+            for t in (band["dec"], band["state"]):
+                t.record_stream(own.stream)
     if lb == 0:
         with on(shards[0]):
             score = prep["lb0_score"].clone()
@@ -477,7 +561,7 @@ def forward(shards, match_bands, prep, la: int, lb: int,
         return bands, score, st
     o = (lb - 1) // Wd
     with on(shards[o]):
-        score, st = end_values(bands[o]["state"], la, lb, o * Wd)
+        score, st = end_values(bands[o], lb)
         done = event(shards[o])
     with on(shards[0]):
         wait(shards[0], done)

@@ -7,6 +7,7 @@ on one NVIDIA GPU, in one process.
     python3 scripts/ab_kernels.py --variant _proof/variant
     python3 scripts/ab_kernels.py --sweep
     python3 scripts/ab_kernels.py --parent _proof/parent --prepare
+    python3 scripts/ab_kernels.py --parent _proof/parent --table
 
 --parent: the row Gotoh kernel of an earlier checkout past 7,168
 columns, its tiled instantiation called through its own C entry point
@@ -32,6 +33,14 @@ the outputs held bitwise against each other and against
 prepare.bonus_match; then this checkout's kernel at each shape under
 other tiles (32 or launch_plan's threads across, 4 to 64 rows), held to
 its own plan's bits.  The row-kernel comparison of --parent is skipped.
+
+--table (with --parent): the BPM match-mask table kernel
+(csrc/bpm.cu::peq_table_kernel) of the earlier checkout against this
+checkout's, both through their own `kt_bpm_table` (the same C
+interface), at the rows of the fast path's 2,000 proteins, large_default's
+16,384 and long_default's 128 genomes (nblk 16), random codes at the
+sequences' lengths (bpm_table_shape's inputs), both held bitwise against
+bpm.plain_table.  The row-kernel comparison of --parent is skipped.
 
 --sweep: the cluster instantiation's settings at those shapes: every
 cluster size of gotoh_row.CLUSTER_SIZES that covers the row, each held
@@ -86,11 +95,13 @@ def main():
                     help="time the cluster row kernel's settings")
     ap.add_argument("--prepare", action="store_true",
                     help="with --parent: the match-preparation kernels")
+    ap.add_argument("--table", action="store_true",
+                    help="with --parent: the BPM match-mask table kernels")
     args = ap.parse_args()
     if not (args.parent or args.variant or args.sweep):
         ap.error("give --parent, --variant, --sweep or more")
-    if args.prepare and not args.parent:
-        ap.error("--prepare needs --parent")
+    if (args.prepare or args.table) and not args.parent:
+        ap.error("--prepare and --table need --parent")
     import torch
     if not torch.cuda.is_available():
         print("ab_kernels: CUDA is not available", file=sys.stderr)
@@ -118,9 +129,9 @@ def main():
         var.lib()
     _cuda.lib()
     # -Xptxas -v of each library's row (or match-preparation) kernels
-    ptxas = {k: cs.ptxas_lines(build_log(m.library_path()),
-                               "prepare_match" if args.prepare
-                               else "gotoh_row")
+    entry = ("prepare_match" if args.prepare else "peq_table"
+             if args.table else "gotoh_row")
+    ptxas = {k: cs.ptxas_lines(build_log(m.library_path()), entry)
              for k, m in libs.items()}
     print(json.dumps({"ptxas": ptxas}), flush=True)
 
@@ -181,13 +192,15 @@ def main():
 
     if args.prepare:
         prepare_ab(cs, dev, old, old_lib, ab, show)
+    if args.table:
+        table_ab(cs, dev, old, old_lib, ab, show)
 
     seqs = {"fast": cs.family(2000, seed=0),
             "default": cs.v4_family(2000, seed=2)}
 
     # the row kernel past 7,168 columns: the parent's tiled instantiation
     # against this checkout's cluster route, and the cluster settings
-    if (old and not args.prepare) or args.sweep:
+    if (old and not (args.prepare or args.table)) or args.sweep:
         rng = np.random.default_rng(10)
         wide = {"8x512x8192": cs.dp_problem(rng, 512, 8192, [512] * 8,
                                             [8192] * 8, dev),
@@ -411,6 +424,49 @@ def prepare_ab(cs, dev, old, old_lib, ab, show):
              plan_new=plan._asdict())
         del match, work, once
         torch.cuda.empty_cache()
+
+
+def table_ab(cs, dev, old, old_lib, ab, show):
+    """--table: the parent's kt_bpm_table against this checkout's on the
+    same card tensors (bpm_table_shape's inputs), each into its own
+    table."""
+    import torch
+    from kalign_tpu_torch.gpu import _cuda, bpm
+    this_lib = _cuda.lib()
+    for label, seqs in (("fast", cs.family(2000, seed=0)),
+                        ("large_default", cs.large_family()),
+                        ("long_default", cs.long_genomes())):
+        lens = np.array([len(x) for x in seqs], np.int32)
+        m = np.minimum(lens, bpm.MAX_PATTERN).astype(np.int32)
+        nblk = -(-int(m.max()) // bpm.WORD)
+        tokens = cs.random_tokens(np.random.default_rng(len(lens)), lens)
+        tok = torch.from_numpy(np.pad(tokens, ((0, 0), (
+            0, -tokens.shape[1] % 16)))).to(dev)
+        m_seq = torch.from_numpy(m).to(dev)
+        N, L = tok.shape
+        out = {k: torch.empty((N, bpm.SIGMA, nblk), dtype=torch.int64,
+                              device=dev) for k in ("old", "new")}
+
+        def run(lib, check, key):
+            def go():
+                check(lib.kt_bpm_table(
+                    tok.data_ptr(), L, m_seq.data_ptr(), N, nblk,
+                    out[key].data_ptr(), _cuda.stream(dev)), key + " table")
+            return go
+        run_old = run(old_lib, old.check, "old")
+        run_new = run(this_lib, _cuda.check, "new")
+        run_old()
+        run_new()
+        want = bpm.plain_table(tok, m_seq, nblk)
+        cs.hold_equal("bpm_table", out["new"], want, f"{label}: new vs plain")
+        cs.hold_equal("bpm_table", out["old"], want,
+                      f"{label}: parent vs plain")
+        b_ms, b_by = cs.bound(int(np.minimum(lens, bpm.WORD * nblk).sum())
+                              + N * 4 + want.numel() * 8,
+                              want.numel() * bpm.WORD, cs.INT32_OPS_PER_S)
+        show("bpm_table", label, f"{N}x{bpm.SIGMA}x{nblk}",
+             ab(run_old, run_new, 20), against="parent", bound_ms=b_ms,
+             bound_by=b_by)
 
 
 if __name__ == "__main__":

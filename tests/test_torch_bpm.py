@@ -2,7 +2,8 @@
 function of csrc/bpm.cu) and the anchor-distance stage (gpu/distances.py)
 against kalign_tpu: tpu/bpm.py::bpm_batch (XLA) and the native
 kt_dist_to_anchors / kt_bpm_block, bit-exact; the per-sequence
-match-mask table against the per-pair masks, and the kernel's launch
+match-mask table against the per-pair masks, the table kernel's warp
+schedule (bit planes by ballot) against both, and the kernel's launch
 plan."""
 
 import numpy as np
@@ -98,6 +99,68 @@ def test_match_mask_table_equals_per_pair_masks(plen, nblk):
                                      jnp.asarray(m_seq[pat_idx])))
     want = np.ascontiguousarray(want[:, :, :nblk]).view(np.int64)[..., 0]
     got = table[torch.from_numpy(pat_idx)].numpy()
+    assert np.array_equal(got, want)
+
+
+def _ballot_table(tok, m, nblk):
+    """csrc/bpm.cu::peq_table_kernel's schedule in numpy: a warp per (row,
+    word); lane l holds the codes at positions 64 b + l and 64 b + 32 + l
+    (0 at or past L); per half word five ballots over the lanes give the
+    bit planes (bit k of each code, k < 4, and code >= 16); lane s forms
+    symbol s's mask as the AND of the planes or their complements by the
+    bits of s, adds the bits at or past m and writes word (r, s, b)."""
+    N, L = tok.shape
+    full = (1 << 64) - 1
+    shift = np.arange(32).astype(np.uint64)
+
+    def ballot(pred):
+        return int(np.sum(pred.astype(np.uint64) << shift))
+
+    out = np.zeros((N, jbpm.SIGMA, nblk), np.uint64)
+    for r in range(N):
+        for b in range(nblk):
+            pos = 64 * b + np.arange(32)
+            c0, c1 = (np.where(p < L, tok[r, np.minimum(p, L - 1)], 0)
+                      .astype(np.uint32) for p in (pos, pos + 32))
+            plane = [ballot((c0 >> k) & 1 == 1) |
+                     ballot((c1 >> k) & 1 == 1) << 32 for k in range(4)]
+            high = ballot(c0 >= 16) | ballot(c1 >= 16) << 32
+            rest = int(m[r]) - 64 * b
+            beyond = (full if rest <= 0 else 0 if rest >= 64
+                      else (full << rest) & full)
+            for sym in range(jbpm.SIGMA):
+                eq = ~high & full
+                for k in range(4):
+                    eq &= plane[k] if (sym >> k) & 1 else ~plane[k] & full
+                out[r, sym, b] = np.uint64(eq | beyond)
+    return out.view(np.int64)
+
+
+@pytest.mark.parametrize("nblk", [1, 5, 16])
+@pytest.mark.parametrize("L", [16, 80, 336, 1040])
+def test_match_mask_table_by_warps_equals_plain_and_build_peq(L, nblk):
+    """The table kernel's warp schedule (_ballot_table) on rows of width L
+    (a multiple of 16, not of 64) whose codes past m are not zero, at
+    lengths that are no multiple of 64, codes past the alphabet (13-15,
+    16 and up) among them: plain_table's bits, and kalign_tpu's
+    tpu/bpm.py::build_peq of each row's pattern (its first m codes,
+    zero-padded) cut to nblk words."""
+    rng = np.random.default_rng(L + nblk)
+    lens = np.array([0, 1, 63, 65, 127, 200, 333, 1000, L], np.int32)
+    m = np.minimum(np.minimum(lens, L), 1024).astype(np.int32)
+    tok = rng.integers(0, 13, size=(len(lens), L)).astype(np.uint8)
+    odd = rng.random(tok.shape) < 0.05
+    tok[odd] = rng.choice(np.array([13, 15, 16, 29, 255], np.uint8),
+                          size=int(odd.sum()))
+    got = _ballot_table(tok, m, nblk)
+    plain = bpm.plain_table(torch.from_numpy(tok), torch.from_numpy(m),
+                            nblk).numpy()
+    assert np.array_equal(got, plain)
+    pats = np.zeros((len(lens), jbpm.MAX_PATTERN), np.uint8)
+    for r in range(len(lens)):
+        pats[r, :m[r]] = tok[r, :m[r]]
+    want = np.asarray(jbpm.build_peq(jnp.asarray(pats), jnp.asarray(m)))
+    want = np.ascontiguousarray(want[:, :, :nblk]).view(np.int64)[..., 0]
     assert np.array_equal(got, want)
 
 

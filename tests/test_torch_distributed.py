@@ -2,12 +2,25 @@
 process groups (init_distributed), each process aligning its
 my_ensemble_runs share or running its shards of one mesh that spans the
 processes; the results must be the one-process run's, byte for byte
-(kalign_tpu's tests/test_distributed.py, on the port)."""
+(kalign_tpu's tests/test_distributed.py, on the port).
+
+The coordinator's port is chosen by process 0 itself (_RENDEZVOUS): it
+binds port 0, keeps the socket (the rendezvous's store joins it) and
+publishes the port in a file the others read.  A port chosen by the
+parent and closed again before the children bind it could be taken by
+any other process meanwhile (the suite runs in parallel workers, each
+starting gloo groups and distributed JAX processes).  gloo binds the
+loopback interface (GLOO_SOCKET_IFNAME=lo: the processes share one
+machine; no host name is resolved), and every process leaves through a
+barrier (_FAREWELL), so that none closes its connections, or process 0
+its store, while another still reads from them.  A group whose processes
+failed on the network (_NETWORK_ERRORS in their output) is run once more,
+its first output printed; a wrong result is never run again."""
 
 import os
-import socket
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -21,10 +34,47 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data")
 TIMEOUT_S = 300
 
-_CHILD_ENSEMBLE = r"""
-import os, sys
-coord, pid, nproc, nruns, inp, scratch = (sys.argv[1], int(sys.argv[2]),
-    int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6])
+# each child's first lines: its coordinator address.  Process 0 starts the
+# store's server on a port the kernel assigns (no other process can take
+# it from then on; init_process_group's tcp rendezvous, multi-tenant,
+# joins that server) and publishes the port in argv[1]; the others wait
+# for the file.
+_RENDEZVOUS = r"""
+import os, sys, time
+from datetime import timedelta
+import torch.distributed as _dist
+_path, _pid, _nproc = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+if _pid == 0:
+    _server = _dist.TCPStore("127.0.0.1", 0, _nproc, True,
+                             timedelta(seconds=%(timeout)d),
+                             wait_for_workers=False, multi_tenant=True)
+    with open(_path + ".tmp", "w") as _f:
+        _f.write(str(_server.port))
+    os.replace(_path + ".tmp", _path)
+_t0 = time.monotonic()
+while not os.path.exists(_path):
+    if time.monotonic() - _t0 > %(timeout)d:
+        raise TimeoutError("no coordinator port published")
+    time.sleep(0.05)
+with open(_path) as _f:
+    coord = "127.0.0.1:" + _f.read()
+""" % {"timeout": TIMEOUT_S}
+
+# each child's last lines: every process of the group is done with it
+_FAREWELL = r"""
+_dist.barrier()
+_dist.destroy_process_group()
+"""
+
+# what a process that failed on the network, not on its work, prints
+_NETWORK_ERRORS = ("Address already in use", "Connection reset",
+                   "Connection refused", "Connection closed", "Broken pipe",
+                   "DistNetworkError", "DistStoreError", "IoException",
+                   "connectFullMesh", "Socket Timeout")
+
+_CHILD_ENSEMBLE = _RENDEZVOUS + r"""
+pid, nproc, nruns, inp, scratch = (int(sys.argv[2]), int(sys.argv[3]),
+    int(sys.argv[4]), sys.argv[5], sys.argv[6])
 from kalign_tpu_torch.parallel.distributed import init_distributed, \
     my_ensemble_runs, process_count, process_index
 init_distributed(coordinator_address=coord, num_processes=nproc,
@@ -39,13 +89,11 @@ msa.quiet = True
 assert ensemble_worker(msa, pid, nproc, scratch, n_runs=nruns, realign=1,
                        consistency_anchors=5, device="cpu") == runs
 print("child", pid, "done", runs)
-"""
+""" + _FAREWELL
 
-_CHILD_MESH = r"""
-import os, sys
+_CHILD_MESH = _RENDEZVOUS + r"""
 import numpy as np
-coord, pid, nproc, out = (sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),
-                          sys.argv[4])
+pid, nproc, out = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
 from kalign_tpu_torch.parallel.distributed import init_distributed
 init_distributed(coordinator_address=coord, num_processes=nproc,
                  process_id=pid)
@@ -60,7 +108,7 @@ if pid == 0:
     np.savez(out, dm=dm, scores=scores,
              **{f"steps{i}": s for i, s in enumerate(steps)})
 print("child", pid, "ok")
-"""
+""" + _FAREWELL
 
 
 def mesh_case(mesh):
@@ -93,31 +141,39 @@ def mesh_case(mesh):
     return dm, steps, scores
 
 
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def _run(code, nproc, *args):
-    """nproc processes of code joined by one gloo group; each must exit
-    0 within TIMEOUT_S."""
-    coord = f"127.0.0.1:{_free_port()}"
-    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code, coord, str(pid), str(nproc),
-         *map(str, args)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for pid in range(nproc)]
-    try:
-        outs = [p.communicate(timeout=TIMEOUT_S)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for p, o in zip(procs, outs):
-        assert p.returncode == 0, o[-3000:]
+    """nproc processes of code joined by one gloo group (the coordinator's
+    port published by process 0: _RENDEZVOUS); each must exit 0 within
+    TIMEOUT_S.  A group that failed on the network is run once more
+    (_NETWORK_ERRORS).  A failure names every process that did not exit 0,
+    with its exit code and its whole output."""
+    failed = _group(code, nproc, *args)
+    if failed and any(e in out for out in failed for e in _NETWORK_ERRORS):
+        print("the group failed on the network; once more. Its output:\n"
+              + "\n".join(failed))
+        failed = _group(code, nproc, *args)
+    assert not failed, "\n".join(failed)
+
+
+def _group(code, nproc, *args):
+    """One run of _run's group: the failing processes' reports."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
+               GLOO_SOCKET_IFNAME="lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        rdv = os.path.join(tmp, "port")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code, rdv, str(pid), str(nproc),
+             *map(str, args)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for pid in range(nproc)]
+        try:
+            outs = [p.communicate(timeout=TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+    return [f"--- process {pid}: exit code {p.returncode}\n{o}"
+            for pid, (p, o) in enumerate(zip(procs, outs))
+            if p.returncode != 0]
 
 
 @pytest.mark.parametrize("nproc,nruns", [(2, 3), (4, 6)])
