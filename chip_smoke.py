@@ -325,9 +325,10 @@ PROFILE_NAMES = {"gotoh_row": "gotoh_row_kernel",
 # cluster row kernel.  Default mode adds the consistency bonus through
 # prepare_match.  The genome paths (long_default, sars2_default,
 # plastome_default) run the resident pass only.  Profiled runs of
-# protein_default and large_default (30 and 67 s of the whole run's
-# 1,098 s in PR 15) run only under --only profile:NAME, so that the run
-# stays within its time limit
+# protein_default, large_default, default and long_default (30, 67, 43
+# and 30 s of whole runs of 1,050-1,100 s on an H100 80GB HBM3 at 700 W)
+# run only under --only profile:NAME, so that the run stays within its
+# time limit
 NARROW = [k for k in KERNELS
           if k not in ("gotoh_fused", "gotoh_row_wave", "gotoh_row_cluster",
                        "kmeans", "exact_sweep", "gotoh_mesh",
@@ -337,7 +338,8 @@ BONUS = ["prepare_match"]
 GENOME_BASE = ["bpm", "bpm_table", "prefix_sum", "traceback"]
 PATHS = {"fast": dict(mode="fast", launch=NARROW),
          "default": dict(mode="default",
-                         launch=NARROW + ["gotoh_fused"] + BONUS),
+                         launch=NARROW + ["gotoh_fused"] + BONUS,
+                         profile=False),
          "protein_default": dict(mode="default", launch=NARROW + BONUS,
                                  profile=False),
          "large_default": dict(mode="default",
@@ -346,7 +348,8 @@ PATHS = {"fast": dict(mode="fast", launch=NARROW),
          "refine_confident": dict(mode="default", launch=NARROW + BONUS,
                                   refine="confident", profile=False),
          "long_default": dict(mode="default", launch=WIDE + BONUS,
-                              forbid=["gotoh_row_wave"], host_pass=False),
+                              forbid=["gotoh_row_wave"], host_pass=False,
+                              profile=False),
          # SARS-CoV-2-length genomes: every DP on the cluster row kernel
          "sars2_default": dict(mode="default", launch=WIDE + BONUS,
                                forbid=["gotoh_row_wave"], host_pass=False,
@@ -3910,7 +3913,8 @@ MESH_SUB_BANDS = 2
 # mesh_procs: processes on the card, each with two shards
 MESH_PROCS = 2
 MESH_PROCS_TIMEOUT_S = 300
-# the gpu-fast FASTA of each path run in this process (phase_path)
+# the gpu-fast FASTA of each path run in this process (phase_path), and
+# the gpu-mesh FASTA of each mesh path (phase_mesh_path)
 FASTA = {}
 
 
@@ -4216,7 +4220,7 @@ def phase_mesh_path(name, seqs, mode="default"):
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     width = check_alignment(msa.aligned_rows(), seqs)
-    fasta = kio.format_alignment(msa, "fasta")
+    fasta = FASTA[name] = kio.format_alignment(msa, "fasta")
     one = one_wall = None
     if cfg.get("one_shard", True):
         one, one_wall = align_on_mesh(seqs, mode, mesh_of(1))
@@ -4603,17 +4607,111 @@ def profile_mesh_host(top=30):
           "by_cumtime": sorted(rows, key=lambda r: -r["cumtime"])[:top]})
 
 
-def mesh_proc(rank, nproc, port, work, device):
-    """One process of phase_mesh_procs (spawned): joins the gloo group,
-    runs mesh_case on its two shards of the processes' mesh (rank 0
-    saves the result), then its my_ensemble_runs share of small.fa's
-    3-run ensemble into work/scratch (the CLI's worker step)."""
+def rendezvous(rank, nproc, path):
+    """(coordinator address, store) of mesh_proc's group: process 0 starts
+    the store's server on a port the kernel assigns and publishes the
+    port in the file ``path`` (init_process_group's tcp rendezvous joins
+    that server, multi-tenant); the others wait for the file.  No port is
+    chosen, closed and bound again, so none can be lost to another
+    process meanwhile.  Process 0 keeps the store until it leaves."""
+    from datetime import timedelta
+    import torch.distributed as dist
+    store = None
+    if rank == 0:
+        store = dist.TCPStore("127.0.0.1", 0, nproc, True,
+                              timedelta(seconds=MESH_PROCS_TIMEOUT_S),
+                              wait_for_workers=False, multi_tenant=True)
+        with open(path + ".tmp", "w") as fh:
+            fh.write(str(store.port))
+        os.replace(path + ".tmp", path)
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > MESH_PROCS_TIMEOUT_S:
+            raise TimeoutError(f"process {rank}: no coordinator port")
+        time.sleep(0.05)
+    with open(path) as fh:
+        return "127.0.0.1:" + fh.read(), store
+
+
+def wide_bucket(L1p=128, L2p=7424):
+    """One merge too wide for the register row kernel (host arrays of
+    dispatch_bucket): the column-sharded route on a mesh of shards."""
+    return (np.zeros((1, L1p, 23), np.float32),
+            np.zeros((1, L2p, 23), np.float32),
+            np.zeros((1, 3, L2p + 1), np.float32),
+            np.zeros((1, 3, L1p + 1), np.float32),
+            np.array([L1p], np.int32), np.array([L2p - 100], np.int32),
+            np.array([1e-3], np.float32))
+
+
+def mesh_proc_path(rank, device, work):
+    """mesh_proc's alignment: the mesh_default family (2,000 proteins,
+    default mode) on the engine gpu-mesh over the processes' mesh (two
+    shards of ``device`` each), every launch count set to 0 just before
+    and read just after; engine "auto" must take gpu-mesh under the group
+    (F7), and the column-sharded DP and the engine's route to it must
+    raise across processes.  Writes the FASTA and a summary (launches,
+    pass_summary, buckets, gathers) into work."""
+    from kalign_tpu_torch import engine as TE
+    from kalign_tpu_torch.core import io as kio
+    from kalign_tpu_torch.core.msa import Msa
+    from kalign_tpu_torch.parallel import mesh as M
+    seqs = family(2000, seed=0)
+    auto = TE.resolve_auto_engine(Msa.from_sequences(seqs))
+    if auto != "gpu-mesh":
+        raise AssertionError(f"process {rank}: auto took {auto}")
+    mesh = M.make_mesh(devices=[device] * 2)
+    eng = TE.get_engine("gpu-mesh", mesh=mesh)
+    reset_counts()
+    msa, wall = align_on_card(seqs, "default", eng)
+    launches = read_counts()
+    check_alignment(msa.aligned_rows(), seqs)
+    st = msa.engine_stats
+    raised = []
+    for what, run in (
+            ("sharded_long_gotoh", lambda: M.sharded_long_gotoh(
+                mesh, np.zeros((4, 4), np.float32),
+                np.zeros((3, 5), np.float32), np.zeros((3, 5), np.float32),
+                4, 4)),
+            ("dispatch_bucket", lambda: eng.dispatch_bucket(
+                *wide_bucket()))):
+        try:
+            run()
+        except ValueError as e:
+            named = "one process" in str(e) and (
+                what == "sharded_long_gotoh" or "7424" in str(e))
+            raised.append(what if named else str(e))
+    if raised != ["sharded_long_gotoh", "dispatch_bucket"]:
+        raise AssertionError(f"process {rank}: the column-sharded route "
+                             f"across processes: {raised}")
+    with open(os.path.join(work, f"mesh{rank}.afa"), "w") as fh:
+        fh.write(kio.format_alignment(msa, "fasta"))
+    with open(os.path.join(work, f"mesh{rank}.json"), "w") as fh:
+        json.dump({"launches": launches, "auto": auto,
+                   "shards": st["shards"], "cards": st["cards"],
+                   "processes": st["processes"],
+                   "local_shards": st["local_shards"],
+                   "buckets": sum("shards" in b for b in st["batches"]),
+                   "gathers": {"calls": st["gathers"]["calls"],
+                               "s": round(st["gathers"]["s"], 3)},
+                   **pass_summary(msa, wall)}, fh)
+
+
+def mesh_proc(rank, nproc, rdv, work, device):
+    """One process of phase_mesh_procs (spawned): joins the gloo group
+    (rendezvous), runs mesh_case on its two shards of the processes'
+    mesh (rank 0 saves the result), aligns the mesh_default family on
+    gpu-mesh over that mesh (mesh_proc_path), then its my_ensemble_runs
+    share of small.fa's 3-run ensemble into work/scratch (the CLI's
+    worker step); it leaves through a barrier."""
     import torch.distributed as dist
     from kalign_tpu_torch import cli
     from kalign_tpu_torch.parallel.distributed import init_distributed, \
         my_ensemble_runs
     from kalign_tpu_torch.parallel.mesh import make_mesh
-    init_distributed(f"127.0.0.1:{port}", nproc, rank)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    coord, store = rendezvous(rank, nproc, rdv)
+    init_distributed(coord, nproc, rank)
     mesh = make_mesh(devices=[device] * 2)
     if mesh.size != 2 * nproc or not mesh.spans_processes:
         raise AssertionError(f"process {rank}: a mesh of {mesh.size}")
@@ -4621,6 +4719,7 @@ def mesh_proc(rank, nproc, port, work, device):
     if rank == 0:
         np.savez(os.path.join(work, "procs.npz"), dm=dm, scores=scores,
                  **{f"steps{i}": s for i, s in enumerate(steps)})
+    mesh_proc_path(rank, device, work)
     # the CLI's worker step aligns the runs k % workers == worker
     if my_ensemble_runs(3) != [k for k in range(3) if k % nproc == rank]:
         raise AssertionError(f"process {rank}: runs {my_ensemble_runs(3)}")
@@ -4629,7 +4728,9 @@ def mesh_proc(rank, nproc, port, work, device):
                    "3", "--ensemble-scratch", os.path.join(work, "scratch"),
                    "--ensemble-worker", str(rank), "--ensemble-workers",
                    str(nproc), "--device", device, "--quiet"])
+    dist.barrier()
     dist.destroy_process_group()
+    del store
     if rc:
         raise AssertionError(f"process {rank}: the worker step returned {rc}")
 
@@ -4667,26 +4768,27 @@ def mesh_case(mesh):
 def phase_mesh_procs(device="cuda:0"):
     """MESH_PROCS processes on the card under init_distributed, each with
     two shards of one mesh: their sharded distances and bucket must equal
-    this process's on a mesh of as many shards, and the 3-run ensemble
-    of small.fa split by my_ensemble_runs, then merged, must give the
-    sequential `--ensemble 3` bytes (the CLI's).  The processes' shards
-    are on ``device``."""
+    this process's on a mesh of as many shards; each aligns the
+    mesh_default family on gpu-mesh over that mesh (mesh_proc_path),
+    and its FASTA must be gpu-fast's (and so mesh_default's, where that
+    path ran here); every kernel of MESH_PATHS["mesh_default"] launched
+    in each process, none it forbids; the 3-run ensemble of small.fa
+    split by my_ensemble_runs, then merged, must give the sequential
+    `--ensemble 3` bytes (the CLI's).  The processes' shards are on
+    ``device``.  A process that fails fails the phase; nothing is run
+    again.  Returns the path's launches, summed over the processes."""
     import multiprocessing
     import shutil
-    import socket
     import tempfile
     from kalign_tpu_torch import cli
+    from kalign_tpu_torch.core import io as kio
     work = tempfile.mkdtemp(prefix="ktm")
     try:
-        sock = socket.socket()
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-        sock.close()
         ctx = multiprocessing.get_context("spawn")
         t0 = time.perf_counter()
-        procs = [ctx.Process(target=mesh_proc,
-                             args=(r, MESH_PROCS, port, work, device))
-                 for r in range(MESH_PROCS)]
+        procs = [ctx.Process(target=mesh_proc, args=(
+            r, MESH_PROCS, os.path.join(work, "port"), work, device))
+            for r in range(MESH_PROCS)]
         for p in procs:
             p.start()
         for p in procs:
@@ -4705,6 +4807,15 @@ def phase_mesh_procs(device="cuda:0"):
                 and np.array_equal(got["scores"], scores)
                 and all(np.array_equal(got[f"steps{i}"], s)
                         for i, s in enumerate(steps)))
+        if "protein_default" not in FASTA:
+            FASTA["protein_default"] = kio.format_alignment(
+                align_on_card(family(2000, seed=0), "default")[0], "fasta")
+        path, fastas = {}, []
+        for r in range(MESH_PROCS):
+            with open(os.path.join(work, f"mesh{r}.json")) as fh:
+                path[r] = json.load(fh)
+            with open(os.path.join(work, f"mesh{r}.afa")) as fh:
+                fastas.append(fh.read())
         small = os.path.join(HERE, "tests", "data", "small.fa")
         outs = {}
         for kind, extra in (("merged", ["--ensemble-scratch",
@@ -4719,13 +4830,34 @@ def phase_mesh_procs(device="cuda:0"):
                                      f"returned {rc}")
         with open(outs["merged"]) as a, open(outs["sequential"]) as b:
             ens_same = a.read() == b.read()
+        cfg = MESH_PATHS["mesh_default"]
+        launches = {k: sum(path[r]["launches"][k] for r in path)
+                    for k in path[0]["launches"]}
+        missing = {r: [k for k in cfg["launch"] if not p["launches"][k]]
+                   for r, p in path.items()}
+        stray = [k for k in cfg["forbid"] if launches[k]]
         emit({"phase": "mesh_procs", "processes": MESH_PROCS,
               "shards": 2 * MESH_PROCS, "procs_s": round(procs_s, 3),
               "identical_distances_and_bucket": same,
-              "identical_ensemble_fasta": ens_same})
+              "identical_ensemble_fasta": ens_same,
+              "identical_fasta_gpu_fast": [f == FASTA["protein_default"]
+                                           for f in fastas],
+              "identical_fasta_mesh_default": None
+              if "mesh_default" not in FASTA else
+              [f == FASTA["mesh_default"] for f in fastas],
+              "path": {r: {k: v for k, v in p.items() if k != "launches"}
+                       for r, p in path.items()},
+              "launches": launches})
         if not (same and ens_same):
             raise AssertionError("mesh_procs: the processes' results differ "
                                  "from one process's")
+        if any(f != FASTA["protein_default"] for f in fastas):
+            raise AssertionError("mesh_procs: a process's gpu-mesh FASTA is "
+                                 "not gpu-fast's")
+        if any(missing.values()) or stray:
+            raise AssertionError(f"mesh_procs: kernels not launched "
+                                 f"{missing}, launched {stray}")
+        return launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4924,7 +5056,7 @@ def run_all(dev, smi, args):
     mesh_root = mesh_root_merge(dev, seen["mesh_long"])
     mesh_wide = wide_merge(dev, seen["mesh_wide"])
     seen.clear()
-    phase_mesh_procs()
+    launches["mesh_procs"] = phase_mesh_procs()
     # the divergent path's profiled run (50 s of PR 16's first whole run
     # of 1,093 s) runs only under --only profile:divergent
     for path in PATHS:

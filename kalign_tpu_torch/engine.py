@@ -23,11 +23,14 @@ Engines (kalign_tpu's "tpu-fast", "tpu", "tpu-mesh" and "host"):
     Hirschberg DP runs its O(L^2) sweeps on the card (gpu/exact.py, the
     wavefront kernel csrc/exact_sweep.cu); gives the "host" bytes;
   * "gpu-mesh": "gpu-fast" with the anchor distances and the merge
-    buckets sharded over every visible card (parallel/mesh.py; pass
+    buckets sharded over every visible card, of every process after
+    parallel.distributed.init_distributed (parallel/mesh.py; pass
     ``mesh=`` to get_engine for another layout, such as shards on one
     card or on the CPU), the host-assembled progressive pass, and merges
-    too wide for one block's registers split by columns over the cards;
-    divergent families switch to "gpu" as on "gpu-fast";
+    too wide for one block's registers split by columns over the cards
+    (on a mesh within one process; across processes such a merge
+    raises, as in kalign_tpu); divergent families switch to "gpu" as on
+    "gpu-fast";
   * "host": the native C++ runtime alone (native/);
   * "auto": the user's request for kalign_tpu's documented policy
     (resolve_auto_engine), resolved before the engine is built; the
@@ -56,6 +59,7 @@ from kalign_tpu_torch.gpu.consistency import ConsistencyTable
 from kalign_tpu_torch.gpu.engine import GpuEngine
 from kalign_tpu_torch.gpu.exact import ExactDpBackend
 from kalign_tpu_torch.parallel import mesh as mesh_mod
+from kalign_tpu_torch.parallel.distributed import cards_of_every_process
 from kalign_tpu_torch.utils.logging import PhaseTimes, log, timer
 from kalign_tpu_torch.utils.rng import XoshiroRng
 from kalign_tpu_torch.utils.sorting import glibc_msort
@@ -92,13 +96,15 @@ def resolve_auto_engine(msa: Optional[Msa] = None, device=None) -> str:
     :189-204): "host" when the device is not a CUDA card that is there,
     or below AUTO_MIN_SEQUENCES sequences (the native runtime gives the
     exact engines' bytes and is faster on small inputs); "gpu-mesh" when
-    more than one card is visible; "gpu-fast" on ``device`` otherwise."""
+    the cards of every process (one gather under a process group, as
+    len(jax.devices()) counts every process's after jax.distributed)
+    number more than one; "gpu-fast" on ``device`` otherwise."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda" or not torch.cuda.is_available():
         return "host"
     if msa is not None and msa.numseq < AUTO_MIN_SEQUENCES:
         return "host"
-    return "gpu-mesh" if torch.cuda.device_count() > 1 else "gpu-fast"
+    return "gpu-mesh" if cards_of_every_process() > 1 else "gpu-fast"
 
 
 def pick_anchors(msa: Msa) -> List[int]:

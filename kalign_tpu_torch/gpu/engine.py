@@ -303,15 +303,19 @@ class GpuEngine:
         # a mesh (parallel/mesh.py) of more than one shard shards the
         # anchor distances and the merge buckets (tpu/engine.py:215-229):
         # the progressive pass is the host-assembled one, the lanewise and
-        # fused routes are off, and the consistency maps run on the first
-        # shard's device, the engine's device
+        # fused routes are off, and the tree and the consistency maps run
+        # on this process's first shard's device, the engine's device (on
+        # a mesh across processes every process runs them, as kalign_tpu
+        # runs them on each process's default device,
+        # tpu/engine.py:1046-1051)
         if mesh is not None:
-            if mesh.spans_processes:
-                raise ValueError("GpuEngine takes a mesh within one process")
-            first = mesh.shards[0].device
+            if not mesh.local:
+                raise ValueError(f"process {mesh.rank} owns no shard of the "
+                                 "mesh")
+            first = mesh.shards[mesh.local[0]].device
             if device is not None and torch.device(device) != first:
                 raise ValueError(f"device {device} is not the mesh's first "
-                                 f"shard ({first})")
+                                 f"local shard ({first})")
             device = first
         self.device = torch.device(device)
         self.mesh = mesh
@@ -336,9 +340,14 @@ class GpuEngine:
                       "fused_merges": 0, "map_pairs": 0, "levels": [],
                       "batches": []}
         if mesh is not None:
-            # merges through the column-sharded DP (long_merge)
+            # the mesh's shards, cards and processes, the shards this
+            # process runs, merges through the column-sharded DP
+            # (long_merge) and the gathers across processes (the mesh's
+            # own count: calls, seconds)
             self.stats.update(shards=mesh.size, cards=mesh.cards,
-                              long_merges=0)
+                              processes=mesh.processes,
+                              local_shards=list(mesh.local), long_merges=0,
+                              gathers=mesh.gathers)
         # the progressive pass's host seconds by part (``split``) and its
         # transfers to the host (``fetch``)
         self.stats["progressive_split_s"] = {}
@@ -476,8 +485,9 @@ class GpuEngine:
         MAX_MATCH_BYTES where launches pad (pads), else as many as keep
         their bytes within WIDE_LAUNCH_BYTES on a card, at most
         WIDE_MAX_PROBLEMS, at least one; ``sharded`` (a bucket over the
-        mesh's batch axis): that many on each of the mesh's cards, shared
-        by the shards there (parallel/mesh.py::batch_counts)."""
+        mesh's batch axis): that many on each of the mesh's cards (a card
+        per process and device, Mesh.cards), shared by the shards there
+        (parallel/mesh.py::batch_counts)."""
         L1p, L2p = int(L1p), int(L2p)
         if not self.pads(L2p):
             per_card = max(1, min(self.WIDE_MAX_PROBLEMS,
@@ -609,8 +619,18 @@ class GpuEngine:
         (tpu/engine.py:409-423): each merge with its columns in bands over
         the mesh (parallel/mesh.py::long_merge).  kalign_tpu compares its
         padded batch with the device count; this counts the real
-        merges."""
+        merges.  On a mesh across processes it raises, naming the width,
+        before anything is queued: the column-sharded DP runs within one
+        process, as kalign_tpu's fails to fetch its decisions across
+        processes (parallel/mesh.py:487)."""
         from kalign_tpu_torch.parallel import mesh as M
+        if self.mesh.spans_processes:
+            raise ValueError(
+                f"a bucket of {merges} merges of {lhs.shape[1]} x "
+                f"{rhs.shape[1]} (lb up to {int(np.max(lb[:merges]))}) "
+                "takes the column-sharded route, which runs on a mesh "
+                f"within one process; this mesh spans "
+                f"{self.mesh.processes} processes")
         handles = []
         for k in range(merges):
             bk = None if bonus is None else \
@@ -636,7 +656,8 @@ class GpuEngine:
             return steps, np.concatenate(scores)
         if handle[0] == "sharded":
             from kalign_tpu_torch.parallel import mesh as M
-            self.stats["fetches"] += self.mesh.size
+            # one fetch on each of this process's shards that got problems
+            self.stats["fetches"] += len(handle[1])
             steps, scores = M.collect_bucket_step(self.mesh, handle[1])
             B = handle[2]
             return steps[:B], scores[:B]
@@ -756,7 +777,16 @@ class GpuEngine:
         REFINE_FULL on the merges whose probe paths disagreed and EPS
         alone elsewhere (stats["refine_flagged"] counts them).  Returns
         (gaps per sequence, per-merge scores indexed like the tasks sorted
-        by parent id: the DP score, or the chosen path's SP where K > 1)."""
+        by parent id: the DP score, or the chosen path's SP where K > 1).
+        On a mesh across processes every process must hold the same tasks
+        and maps before the first bucket (one gather of a digest)."""
+        if self.mesh is not None:
+            from kalign_tpu_torch.parallel import mesh as M
+            maps = () if ct is None else (np.asarray(ct.anchor_ids),
+                                          *ct.pos_maps)
+            M.same_on_every_process(self.mesh, "guide trees or consistency "
+                                    "maps", np.asarray(tasks, np.int64),
+                                    *maps)
         sd = None if seq_distances is None else np.asarray(seq_distances)
         sched = self.schedule(tasks, len(codes))
         if refine_mode == P.REFINE_CONFIDENT:

@@ -4,8 +4,10 @@ Counterpart of kalign_tpu/parallel/distributed.py:
 
   * ``init_distributed`` — a gloo process group over TCP (the
     counterpart of jax.distributed.initialize); after it ``make_mesh``
-    builds one mesh over every process's devices, and the sharded
-    distances and buckets gather their host results to every process;
+    builds one mesh over every process's devices, the sharded distances
+    and buckets gather their host results to every process, the engine
+    "gpu-mesh" aligns a family on that mesh, and engine "auto" counts
+    every process's cards (``cards_of_every_process``);
   * ``my_ensemble_runs`` — the static partition of ensemble runs over
     processes: each aligns its share (ensemble.ensemble_worker) and the
     POAR tables merge on one host (``merge_poar_tables``, poar.py).
@@ -44,6 +46,19 @@ def process_index() -> int:
 
 def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def cards_of_every_process() -> int:
+    """The CUDA cards visible to every process of the group (one gather
+    of the counts), this process's alone without a group."""
+    import torch
+    cards = torch.cuda.device_count()
+    if not (dist.is_available() and dist.is_initialized()) or \
+            dist.get_world_size() == 1:
+        return cards
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, cards)
+    return sum(every)
 
 
 def my_ensemble_runs(n_runs: int, process_id: Optional[int] = None,

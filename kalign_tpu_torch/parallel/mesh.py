@@ -23,11 +23,17 @@ on its stream (inputs copied from pinned host memory with
 Across processes (parallel/distributed.py): after ``init_distributed``
 ``make_mesh`` gathers every process's devices into one mesh; a process
 runs the shards it owns and the host results reach every process
-through gloo's ``all_gather_object``, as the reference's _from_global
-gathers to every host (the gathers are host-side there too).  The
-column-sharded DP and the engine take a mesh within one process.
+through gloo's ``all_gather_object`` (``gather``, timed in
+``Mesh.gathers``), as the reference's _from_global gathers to every host
+(the gathers are host-side there too).  The engine runs on such a mesh
+(every process builds the same tree and maps on its own first shard,
+``same_on_every_process`` checks it); the column-sharded DP takes a mesh
+within one process, as the reference's fetch of its decisions
+(mesh.py:487) does.
 """
 
+import hashlib
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -59,7 +65,8 @@ class Mesh:
     """Shards over a [data, model] array of devices.  ``ranks`` holds the
     process that owns each shard; ``shards`` the flattened mesh, each
     with its stream (None on the CPU and for another process's shards);
-    ``local`` the flat indices this process runs."""
+    ``local`` the flat indices this process runs; ``gathers`` the calls
+    and seconds of ``gather`` across processes."""
 
     def __init__(self, devices: np.ndarray, ranks: np.ndarray, rank: int):
         self.devices = devices
@@ -69,6 +76,7 @@ class Mesh:
         flat = list(devices.reshape(-1))
         owners = list(ranks.reshape(-1))
         self.local = [k for k, r in enumerate(owners) if r == rank]
+        self.gathers = {"calls": 0, "s": 0.0}
         self.shards = []
         for k, d in enumerate(flat):
             mine = owners[k] == rank and d.type == "cuda"
@@ -80,13 +88,25 @@ class Mesh:
         return self.devices.size
 
     @property
+    def processes(self) -> int:
+        return len(set(self.ranks.reshape(-1).tolist()))
+
+    @property
     def spans_processes(self) -> bool:
-        return len(set(self.ranks.reshape(-1).tolist())) > 1
+        return self.processes > 1
 
     @property
     def cards(self) -> int:
-        """Distinct devices of the mesh."""
-        return len({str(d) for d in self.devices.reshape(-1)})
+        """Distinct (process, device) pairs of the mesh: two processes'
+        ``cuda:0`` count as two cards (card_keys)."""
+        return len(set(card_keys(self)))
+
+
+def card_keys(mesh) -> list:
+    """Each shard's card as (owning process, device string), in flat
+    order."""
+    return list(zip(mesh.ranks.reshape(-1).tolist(),
+                    (str(d) for d in mesh.devices.reshape(-1))))
 
 
 def make_mesh(n_devices: Optional[int] = None, data: Optional[int] = None,
@@ -166,16 +186,41 @@ def fetch(mesh: Mesh, outs: dict) -> dict:
 
 
 def gather(mesh: Mesh, local: dict) -> dict:
-    """Host results keyed by shard, from every process of the mesh."""
+    """Host results keyed by shard (or process), from every process of
+    the mesh; each call and its seconds counted in mesh.gathers."""
     if not mesh.spans_processes:
         return local
     import torch.distributed as dist
+    t0 = time.perf_counter()
     every = [None] * _world()[1]
     dist.all_gather_object(every, local)
     merged = {}
     for part in every:
         merged.update(part)
+    mesh.gathers["calls"] += 1
+    mesh.gathers["s"] += time.perf_counter() - t0
     return merged
+
+
+def same_on_every_process(mesh: Mesh, what: str, *arrays) -> None:
+    """Raise where the processes of a mesh that spans them hold other
+    bytes in arrays (one small gather of a digest); names the processes
+    that differ from the first.  Nothing to check in one process."""
+    if not mesh.spans_processes:
+        return
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(str((a.dtype, a.shape)).encode())
+        h.update(a.tobytes())
+    every = gather(mesh, {mesh.rank: h.hexdigest()})
+    first = every[min(every)]
+    odd = sorted(r for r, d in every.items() if d != first)
+    if odd:
+        raise RuntimeError(
+            f"processes {odd} built other {what} than process {min(every)} "
+            "(digests " + ", ".join(f"{r}: {every[r][:12]}"
+                                    for r in sorted(every)) + ")")
 
 
 # ---------------------------------------------------------------------------
@@ -231,10 +276,11 @@ def anchor_distances(mesh: Mesh, codes, anchors) -> np.ndarray:
 
 def batch_counts(mesh: Mesh, B: int):
     """Problems per shard of a batch of B: spread evenly over the mesh's
-    cards (the first cards take one more), then over each card's shards
-    in shard order; a shard may get none.  A multiple of the shard count
-    on a mesh whose cards hold as many shards each splits evenly."""
-    flat = [str(d) for d in mesh.devices.reshape(-1)]
+    cards (card_keys: a card per process and device; the first cards
+    take one more), then over each card's shards in shard order; a shard
+    may get none.  A multiple of the shard count on a mesh whose cards
+    hold as many shards each splits evenly."""
+    flat = card_keys(mesh)
     cards = list(dict.fromkeys(flat))
     counts = [0] * len(flat)
     for c, card in enumerate(cards):

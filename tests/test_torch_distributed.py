@@ -1,8 +1,10 @@
 """kalign_tpu_torch/parallel/distributed.py in real processes: local gloo
 process groups (init_distributed), each process aligning its
-my_ensemble_runs share or running its shards of one mesh that spans the
-processes; the results must be the one-process run's, byte for byte
-(kalign_tpu's tests/test_distributed.py, on the port).
+my_ensemble_runs share, running its shards of one mesh that spans the
+processes, or aligning a whole family on the engine "gpu-mesh" over such
+a mesh; the results must be the one-process run's, byte for byte
+(kalign_tpu's tests/test_distributed.py, on the port; the family as
+kalign_tpu's "tpu-mesh" aligns it under jax.distributed).
 
 The coordinator's port is chosen by process 0 itself (_RENDEZVOUS): it
 binds port 0, keeps the socket (the rendezvous's store joins it) and
@@ -109,6 +111,57 @@ if pid == 0:
              **{f"steps{i}": s for i, s in enumerate(steps)})
 print("child", pid, "ok")
 """ + _FAREWELL
+
+_CHILD_ALIGN = _RENDEZVOUS + r"""
+import numpy as np
+import pytest
+pid, nproc, k, out = (int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                      sys.argv[5])
+from kalign_tpu_torch.parallel.distributed import init_distributed
+init_distributed(coordinator_address=coord, num_processes=nproc,
+                 process_id=pid)
+sys.path.insert(0, os.path.join(sys.argv[6], "tests"))
+from test_torch_distributed import DATA, _wide_bucket
+from kalign_tpu_torch import engine as TE
+from kalign_tpu_torch.core import io as tio
+from kalign_tpu_torch.parallel import mesh as TM
+mesh = TM.make_mesh(devices=["cpu"] * (4 // nproc))
+assert mesh.size == 4 and mesh.processes == nproc
+eng = TE.get_engine("gpu-mesh", mesh=mesh)
+m = tio.read_inputs([os.path.join(DATA, "BB11001.tfa")])
+m.quiet = True
+m = TE.align_msa(m, consistency_anchors=k, engine=eng)
+st = m.engine_stats
+assert st["engine"] == "gpu-mesh" and st["processes"] == nproc, st
+assert st["local_shards"] == mesh.local and st["long_merges"] == 0, st
+# one gather for the distances, one for the tree-and-maps check, one a
+# sharded bucket; a fetch on each local shard that got problems
+sharded = [b for b in st["batches"] if "shards" in b]
+assert st["gathers"]["calls"] == 2 + len(sharded), st
+assert st["fetches"] == sum(
+    sum(1 for j in mesh.local if b["shards"][j]) for b in sharded), st
+with open(out + f".{pid}", "w") as fh:
+    fh.write(tio.format_alignment(m, "fasta"))
+# the column-sharded DP and the engine's route to it stay in one process
+with pytest.raises(ValueError, match="one process"):
+    TM.sharded_long_gotoh(mesh, np.zeros((4, 4), np.float32),
+                          np.zeros((3, 5), np.float32),
+                          np.zeros((3, 5), np.float32), 4, 4)
+with pytest.raises(ValueError, match="7424"):
+    eng.dispatch_bucket(*_wide_bucket())
+print("child", pid, "aligned")
+""" + _FAREWELL
+
+
+def _wide_bucket(L1p=128, L2p=7424):
+    """One merge too wide for the register row kernel: it takes the
+    column-sharded route on a mesh of more than one shard."""
+    return (np.zeros((1, L1p, 23), np.float32),
+            np.zeros((1, L2p, 23), np.float32),
+            np.zeros((1, 3, L2p + 1), np.float32),
+            np.zeros((1, 3, L1p + 1), np.float32),
+            np.array([L1p], np.int32), np.array([L2p - 100], np.int32),
+            np.array([1e-3], np.float32))
 
 
 def mesh_case(mesh):
@@ -225,16 +278,81 @@ def test_one_process_needs_no_group():
         D.init_distributed(num_processes=2)
 
 
-def test_the_engine_and_the_column_sharded_dp_take_one_process(monkeypatch):
-    """A mesh that spans processes shards distances and buckets; the
-    column-sharded DP and the engine refuse it."""
+def _one_process_bytes(k):
+    """BB11001 on the port's gpu-mesh over 4 CPU shards in one process,
+    held against kalign_tpu's tpu-mesh (conftest's 8 virtual CPU
+    devices; the shard count moves no byte,
+    test_torch_mesh.py::test_shard_count_gives_the_same_bytes)."""
+    from kalign_tpu import engine as JE
+    from kalign_tpu.core import io as jio
+    from kalign_tpu_torch import engine as TE
+    path = os.path.join(DATA, "BB11001.tfa")
+    m = tio.read_inputs([path])
+    m.quiet = True
+    eng = TE.get_engine("gpu-mesh", mesh=TM.make_mesh(devices=["cpu"] * 4))
+    fasta = tio.format_alignment(TE.align_msa(m, consistency_anchors=k,
+                                              engine=eng), "fasta")
+    jm = jio.read_inputs([path])
+    jm.quiet = True
+    assert fasta == jio.write_fasta(JE.align_msa(
+        jm, consistency_anchors=k, engine="tpu-mesh"))
+    return fasta
+
+
+@pytest.mark.parametrize("k", [0, 5], ids=["fast", "default"])
+@pytest.mark.parametrize("nproc", [2, 4])
+def test_gpu_mesh_across_processes_aligns_the_one_process_bytes(nproc, k,
+                                                                tmp_path):
+    """nproc processes x 4 / nproc CPU shards form one 4-shard mesh; the
+    engine gpu-mesh aligns BB11001 on it (fast mode, or default mode with
+    K = 5) and every process writes the one-process 4-shard mesh's FASTA,
+    which is kalign_tpu's tpu-mesh's."""
+    out = str(tmp_path / "child.afa")
+    _run(_CHILD_ALIGN, nproc, k, out, ROOT)
+    want = _one_process_bytes(k)
+    for pid in range(nproc):
+        with open(f"{out}.{pid}") as fh:
+            assert fh.read() == want, f"process {pid}"
+
+
+def test_the_engine_and_the_column_sharded_dp_take_one_process():
+    """The column-sharded DP takes a mesh within one process; the engine
+    on a mesh that spans processes runs on this process's first shard
+    (its tree and maps there), and raises where it owns none."""
     from kalign_tpu_torch.gpu.engine import GpuEngine
     mesh = TM.make_mesh(devices=["cpu"] * 2)
     mesh.ranks = np.array([[0, 1]])
     assert mesh.spans_processes
     with pytest.raises(ValueError, match="one process"):
-        GpuEngine(mesh=mesh)
-    with pytest.raises(ValueError, match="one process"):
         TM.sharded_long_gotoh(mesh, np.zeros((4, 4), np.float32),
                               np.zeros((3, 5), np.float32),
                               np.zeros((3, 5), np.float32), 4, 4)
+    # process 1 of [cuda:0 (process 0), cpu (process 1)]: no stream is
+    # made for another process's card, and the engine takes the cpu shard
+    import torch
+    devs = np.array([torch.device("cuda", 0), torch.device("cpu")],
+                    dtype=object).reshape(1, 2)
+    mine = TM.Mesh(devs, np.array([[0, 1]]), rank=1)
+    assert mine.local == [1] and mine.shards[0].stream is None
+    eng = GpuEngine(mesh=mine)
+    assert eng.device == torch.device("cpu")
+    assert (eng.stats["processes"], eng.stats["local_shards"]) == (2, [1])
+    with pytest.raises(ValueError, match="first local shard"):
+        GpuEngine("cuda:0", mesh=mine)
+    with pytest.raises(ValueError, match="owns no shard"):
+        GpuEngine(mesh=TM.Mesh(devs, np.array([[0, 1]]), rank=2))
+
+
+def test_the_column_sharded_route_raises_across_processes():
+    """A bucket that would take the column-sharded route on a mesh that
+    spans processes raises before anything is queued, naming the width,
+    as kalign_tpu's sharded_long_gotoh cannot fetch its decisions across
+    processes (parallel/mesh.py:487)."""
+    from kalign_tpu_torch.gpu.engine import GpuEngine
+    mesh = TM.make_mesh(devices=["cpu"] * 2)
+    mesh.ranks = np.array([[0, 1]])
+    eng = GpuEngine(mesh=mesh)
+    assert not eng.row_feasible(1, 7424)
+    with pytest.raises(ValueError, match="128 x 7424"):
+        eng.dispatch_bucket(*_wide_bucket())
+    assert eng.stats["long_merges"] == 0 and not eng.stats["batches"]

@@ -76,6 +76,54 @@ def test_auto_picks_gpu_mesh_on_several_cards(monkeypatch):
     assert TE.resolve_auto_engine(device="cpu") == "host"
 
 
+def test_auto_picks_gpu_mesh_on_a_group_of_one_card_processes(monkeypatch):
+    """F7: after jax.distributed, len(jax.devices()) counts every
+    process's devices (kalign_tpu/engine.py:189-204); under a process
+    group "auto" counts every process's cards, so two processes with one
+    card each take "gpu-mesh"."""
+    import torch.distributed as dist
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert TE.resolve_auto_engine() == "gpu-fast"
+    gathered = []
+
+    def all_gather_object(out, obj):
+        gathered.append(obj)
+        out[:] = [obj] * len(out)
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(dist, "all_gather_object", all_gather_object)
+    assert TE.resolve_auto_engine() == "gpu-mesh"
+    assert gathered == [1]
+    assert TE.resolve_auto_engine(device="cpu") == "host"
+    monkeypatch.setattr(dist, "get_world_size", lambda: 1)
+    assert TE.resolve_auto_engine() == "gpu-fast"
+
+
+def test_mesh_cards_count_a_card_per_process_and_device(monkeypatch):
+    """Mesh.cards, batch_counts and wide launches count a card per
+    process and device: two processes' cuda:0 are two cards (each
+    process bounds its own launches by WIDE_LAUNCH_BYTES)."""
+    from kalign_tpu_torch.gpu import engine as TGE
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: None)
+
+    def mesh(devs, ranks, rank=0):
+        d = np.array([torch.device(x) for x in devs], dtype=object)
+        return TM.Mesh(d.reshape(1, -1), np.array([ranks]), rank)
+    assert mesh(["cuda:0"] * 4, [0, 0, 0, 0]).cards == 1
+    two = mesh(["cuda:0"] * 4, [0, 0, 1, 1])
+    assert (two.cards, two.processes, two.local) == (2, 2, [0, 1])
+    assert mesh(["cuda:0", "cuda:1"] * 2, [0, 0, 1, 1]).cards == 4
+    assert TM.batch_counts(two, 3) == [1, 1, 1, 0]
+    uneven = mesh(["cuda:0"] * 4, [0, 0, 0, 1])
+    assert TM.batch_counts(uneven, 4) == [1, 1, 0, 2]
+    L1p, L2p = 29952, 29952
+    per = GpuEngine.WIDE_LAUNCH_BYTES // TGE.problem_bytes(L1p, L2p)
+    eng = GpuEngine(mesh=two)
+    assert eng.max_launch(L1p, L2p, sharded=True) == 2 * per
+    assert eng.max_launch(L1p, L2p) == per
+
+
 class _FakeTensor:
     def __init__(self, device):
         self.device = torch.device(device)

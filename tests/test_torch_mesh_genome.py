@@ -165,7 +165,8 @@ def test_batch_counts_by_card():
 
     def mesh(devs):
         return SimpleNamespace(devices=np.array(
-            [torch.device(d) for d in devs], dtype=object))
+            [torch.device(d) for d in devs], dtype=object),
+            ranks=np.zeros(len(devs), np.int64))
     one = mesh(["cuda:0"] * 4)
     assert TM.batch_counts(one, 3) == [1, 1, 1, 0]
     assert TM.batch_counts(one, 8) == [2, 2, 2, 2]
