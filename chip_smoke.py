@@ -1476,6 +1476,7 @@ def phase_kmeans(dev, seqs):
     import torch
     from kalign_tpu_torch import native
     from kalign_tpu_torch.gpu import kmeans as K
+    from kalign_tpu_torch.utils.logging import recording
     codes, dm, na = tree_inputs(seqs, dev)
     n = len(codes)
     line = {"phase": "kmeans", "sequences": n, "anchors": na}
@@ -1484,8 +1485,10 @@ def phase_kmeans(dev, seqs):
     for entry, build in (("fused", K.build_tree_device_fused),
                          ("per_depth", K.build_tree_device)):
         launches0 = K.launches
-        got, ms = timed_once(lambda: build(codes, dm, na, dev))
-        split_s = {k: round(v, 4) for k, v in K.timings.items()}
+        with recording(fresh=True) as rec:
+            got, ms = timed_once(lambda: build(codes, dm, na, dev))
+        split_s = {k + "_s": round(v, 4)
+                   for k, v in rec.sums("tree.").items()}
         tr_k, tr_p = [], []
         again = build(codes, dm, na, dev, trace=tr_k)
         if got is None or again is None:

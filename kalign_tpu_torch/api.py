@@ -30,6 +30,7 @@ from kalign_tpu_torch import ensemble as _ensemble
 from kalign_tpu_torch.core import io as kio
 from kalign_tpu_torch.core import params as P
 from kalign_tpu_torch.core.msa import Msa
+from kalign_tpu_torch.utils.logging import recording
 # a confidence's posterior-probability character (kalign_tpu/api.py:185):
 # the Stockholm writer's rule
 from kalign_tpu_torch.io import _conf_to_pp_char as _conf_to_pp
@@ -142,37 +143,44 @@ def align_msa(sequences: Sequence[str],
     ``engine``, ``autoroute`` and ``autoroute_max`` as engine.align_msa
     takes them.  With ensemble > 0 (mode "precise": 3) the runs go
     through ensemble.ensemble_align (kalign_tpu/api.py:98-123), which
-    takes neither dist_scale nor adaptive_budget."""
-    consistency, ensemble, realign = _resolve_mode(mode, consistency,
-                                                   ensemble, realign)
-    if n_threads is None:
-        n_threads = get_num_threads()
-    type_ = _resolve_type(seq_type)
-    refine_ = _resolve_refine(refine)
-    _validate_sequences(sequences)
-    msa = Msa.from_sequences(list(sequences),
-                             list(names) if names else None)
-    msa.quiet = True
-    if ensemble > 0:
-        return _ensemble.ensemble_align(
-            msa, n_threads=n_threads, type_=type_, n_runs=ensemble,
-            gpo=gap_open, gpe=gap_extend, tgpe=terminal_gap_extend,
-            seed=ensemble_seed, min_support=min_support, refine=refine_,
-            vsm_amax=vsm_amax, realign=realign,
-            consistency_anchors=consistency,
-            consistency_weight=consistency_weight, engine=engine,
-            device=device, autoroute=autoroute)
-    return _engine.align_msa(msa, n_threads=n_threads, type_=type_,
-                             gpo=gap_open, gpe=gap_extend,
-                             tgpe=terminal_gap_extend, refine=refine_,
-                             adaptive_budget=int(adaptive_budget),
-                             realign=realign, vsm_amax=vsm_amax,
-                             dist_scale=dist_scale,
-                             consistency_anchors=consistency,
-                             consistency_weight=consistency_weight,
-                             engine=engine, device=device,
-                             autoroute=autoroute,
-                             autoroute_max=autoroute_max)
+    takes neither dist_scale nor adaptive_budget.  Each call is one
+    record of spans with an id of its own (utils/logging.py): the
+    arguments' checks and the Msa's construction are its first "input";
+    the returned Msa holds the spans (``spans``) and their seconds by
+    name (``phase_times``)."""
+    with recording(fresh=True) as rec:
+        with rec.span("input"):
+            consistency, ensemble, realign = _resolve_mode(
+                mode, consistency, ensemble, realign)
+            if n_threads is None:
+                n_threads = get_num_threads()
+            type_ = _resolve_type(seq_type)
+            refine_ = _resolve_refine(refine)
+            _validate_sequences(sequences)
+            msa = Msa.from_sequences(list(sequences),
+                                     list(names) if names else None)
+            msa.quiet = True
+        if ensemble > 0:
+            msa = _ensemble.ensemble_align(
+                msa, n_threads=n_threads, type_=type_, n_runs=ensemble,
+                gpo=gap_open, gpe=gap_extend, tgpe=terminal_gap_extend,
+                seed=ensemble_seed, min_support=min_support, refine=refine_,
+                vsm_amax=vsm_amax, realign=realign,
+                consistency_anchors=consistency,
+                consistency_weight=consistency_weight, engine=engine,
+                device=device, autoroute=autoroute)
+        else:
+            msa = _engine.align_msa(
+                msa, n_threads=n_threads, type_=type_, gpo=gap_open,
+                gpe=gap_extend, tgpe=terminal_gap_extend, refine=refine_,
+                adaptive_budget=int(adaptive_budget), realign=realign,
+                vsm_amax=vsm_amax, dist_scale=dist_scale,
+                consistency_anchors=consistency,
+                consistency_weight=consistency_weight, engine=engine,
+                device=device, autoroute=autoroute,
+                autoroute_max=autoroute_max)
+    rec.attach(msa)
+    return msa
 
 
 def align(sequences: Sequence[str], mode: Optional[str] = None,

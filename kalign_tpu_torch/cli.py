@@ -25,8 +25,11 @@ engine.resolve_auto_engine's choice),
 with --no-autoroute to keep a divergent family on gpu-fast.
 --adaptive-budget reaches the native runtime of "host" and "gpu";
 "gpu-fast" ignores it, as kalign_tpu's "tpu-fast" does.  --trace DIR
-writes a torch.profiler trace of the alignment into DIR
-(utils/devtime.py reads its device time).  --server[=SOCKET] sends the
+writes a torch.profiler trace of the alignment into DIR, in which the
+program's spans are ranges named "layer.<span>" or "progressive.<part>"
+(utils/logging.py); utils/devtime.py reads its device time
+(busy_seconds: the card's busy time, the union over its streams;
+device_seconds: per stream, kalign_tpu's sum).  --server[=SOCKET] sends the
 invocation to a warm server (serve.py) instead of running it here;
 --server-start spawns that server first when the socket does not answer.
 """
@@ -132,7 +135,9 @@ def build_parser():
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the alignment "
                         "into DIR (Chrome-trace JSON; open with "
-                        "TensorBoard or chrome://tracing)")
+                        "TensorBoard or chrome://tracing), the "
+                        "program's spans in it as layer.* and "
+                        "progressive.* ranges")
     p.add_argument("--server", default=None, metavar="SOCKET",
                    help="send this invocation to a running warm "
                         "alignment server (python -m kalign_tpu_torch.serve)"

@@ -60,7 +60,7 @@ from kalign_tpu_torch.gpu.engine import GpuEngine
 from kalign_tpu_torch.gpu.exact import ExactDpBackend
 from kalign_tpu_torch.parallel import mesh as mesh_mod
 from kalign_tpu_torch.parallel.distributed import cards_of_every_process
-from kalign_tpu_torch.utils.logging import PhaseTimes, log, timer
+from kalign_tpu_torch.utils.logging import log, recording, took
 from kalign_tpu_torch.utils.rng import XoshiroRng
 from kalign_tpu_torch.utils.sorting import glibc_msort
 
@@ -135,7 +135,7 @@ class HostEngine:
         return native.anchor_distances(codes, anchors, self.n_threads)
 
     def build_tree(self, codes, dm, n_anchors):
-        return native.build_tree(codes, dm, n_anchors)
+        return native.build_tree(codes, dm, n_anchors, counts=self.stats)
 
     def build_tree_pairwise(self, dm):
         return native.build_tree_pairwise(dm)
@@ -371,120 +371,140 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
     identity distances; the consistency maps stay those of the BPM
     distances, and refine ALL / CONFIDENT applies to the last pass only
     (inline to every pass).  engine="auto" resolves on this input
-    (resolve_auto_engine)."""
-    eng = get_engine(engine, device, n_threads, msa)
-    quiet = msa.quiet
+    (resolve_auto_engine).
 
-    msa.essential_input_check()
-    if msa.aligned != 1:  # ALN_STATUS_UNALIGNED
-        msa.dealign()
-    msa.sort_len_name()
-
-    if msa.biotype == BIOTYPE_DNA:
-        log("Detected DNA sequences.", quiet)
-        _encoded(msa, alpha.ALPHA_DEFAULT_DNA)
-    elif msa.biotype == BIOTYPE_PROTEIN:
-        log("Detected protein sequences.", quiet)
-        _encoded(msa, alpha.ALPHA_REDUCED_PROTEIN)
-    else:
-        raise ValueError("Unable to determine what alphabet to use.")
-
-    phases = PhaseTimes()
-    if resume_checkpoint is not None:
-        tasks = ckpt.read_tasks(os.path.join(resume_checkpoint, "tasks.txt"))
-        _, seq_dist, _ = ckpt.load_distances(
-            os.path.join(resume_checkpoint, "distances.npz"),
-            expect_fingerprint=ckpt.input_fingerprint(
-                [sq.seq for sq in msa.sequences]))
-        if len(tasks) != msa.numseq - 1 or len(seq_dist) != msa.numseq:
-            raise ValueError("checkpoint does not match the input (expected "
-                             f"{msa.numseq} sequences)")
-        log("Resumed distances + guide tree from checkpoint", quiet)
-    else:
-        log("Calculating pairwise distances", quiet)
-        with timer("Distances + guide tree", quiet):
-            anchors = pick_anchors(msa)
-            codes = [sq.s for sq in msa.sequences]
-            with phases.phase("distances"):
+    The stages are spans (utils/logging.py) of the record the thread has
+    open, or of a new one: "input" (the checks, dealigning, sorting, the
+    encodings, the anchors, the engine, the autoroute, the checkpoint
+    and the parameters), "distances", "tree", "consistency",
+    "progressive", "realign" per pass and "output" (finalise, the input
+    order); msa.spans holds them and msa.phase_times their seconds."""
+    with recording() as rec:
+        with rec.span("input"):
+            eng = get_engine(engine, device, n_threads, msa)
+            quiet = msa.quiet
+            msa.essential_input_check()
+            if msa.aligned != 1:  # ALN_STATUS_UNALIGNED
+                msa.dealign()
+            msa.sort_len_name()
+            if msa.biotype == BIOTYPE_DNA:
+                log("Detected DNA sequences.", quiet)
+                _encoded(msa, alpha.ALPHA_DEFAULT_DNA)
+            elif msa.biotype == BIOTYPE_PROTEIN:
+                log("Detected protein sequences.", quiet)
+                _encoded(msa, alpha.ALPHA_REDUCED_PROTEIN)
+            else:
+                raise ValueError("Unable to determine what alphabet to use.")
+            if resume_checkpoint is not None:
+                tasks = ckpt.read_tasks(os.path.join(resume_checkpoint,
+                                                     "tasks.txt"))
+                _, seq_dist, _ = ckpt.load_distances(
+                    os.path.join(resume_checkpoint, "distances.npz"),
+                    expect_fingerprint=ckpt.input_fingerprint(
+                        [sq.seq for sq in msa.sequences]))
+                if len(tasks) != msa.numseq - 1 \
+                        or len(seq_dist) != msa.numseq:
+                    raise ValueError("checkpoint does not match the input "
+                                     f"(expected {msa.numseq} sequences)")
+                log("Resumed distances + guide tree from checkpoint", quiet)
+            else:
+                anchors = pick_anchors(msa)
+                codes = [sq.s for sq in msa.sequences]
+        if resume_checkpoint is None:
+            log("Calculating pairwise distances", quiet)
+            with rec.span("distances") as d:
                 dm = eng.anchor_distances(codes, anchors)
                 if tree_seed != 0 and tree_noise > 0.0:
                     perturb_distances(dm, len(anchors),
                                       XoshiroRng(tree_seed), tree_noise)
-            with phases.phase("tree"):
+            with rec.span("tree") as t:
                 tasks, seq_dist = eng.build_tree(codes, dm, len(anchors))
-    msa.seq_distances = seq_dist
-    # Divergent-family autoroute (kalign_tpu/engine.py:345-364): the
-    # throughput engine's tie-breaking loses column accuracy where
-    # alignment is hardest (BB30014: TC 0.45 against the exact engine's
-    # 0.47), so such families take the bit-exact engine
-    if autoroute and isinstance(eng, GpuEngine) \
-            and msa.numseq <= autoroute_max:
-        mean_sd = float(np.mean(np.asarray(seq_dist, np.float64)))
-        if mean_sd > AUTOROUTE_DISTANCE:
-            log(f"Divergent family (mean distance {mean_sd:.2f}): using "
-                "the exact engine", quiet)
-            tree_stats = eng.stats
-            eng = GpuExactEngine(eng.device, n_threads)
-            eng.stats.update(tree=tree_stats["tree"],
-                             tree_s=tree_stats.get("tree_s"),
-                             routed_from=tree_stats["engine"],
-                             mean_seq_distance=mean_sd)
-    if save_checkpoint is not None:
-        os.makedirs(save_checkpoint, exist_ok=True)
-        ckpt.write_tasks(tasks, os.path.join(save_checkpoint, "tasks.txt"))
-        ckpt.save_distances(os.path.join(save_checkpoint, "distances.npz"),
-                            np.zeros((0, 0), np.float32), seq_dist,
-                            fingerprint=ckpt.input_fingerprint(
-                                [sq.seq for sq in msa.sequences]))
+            took("Distances + guide tree", d.seconds + t.seconds, quiet)
+        # the rest of the input's preparation: the autoroute, the
+        # checkpoint, the full alphabet and the scoring parameters
+        with rec.span("input"):
+            msa.seq_distances = seq_dist
+            # Divergent-family autoroute (kalign_tpu/engine.py:345-364):
+            # the throughput engine's tie-breaking loses column accuracy
+            # where alignment is hardest (BB30014: TC 0.45 against the
+            # exact engine's 0.47), so such families take the bit-exact
+            # engine
+            if autoroute and isinstance(eng, GpuEngine) \
+                    and msa.numseq <= autoroute_max:
+                mean_sd = float(np.mean(np.asarray(seq_dist, np.float64)))
+                if mean_sd > AUTOROUTE_DISTANCE:
+                    log(f"Divergent family (mean distance {mean_sd:.2f}): "
+                        "using the exact engine", quiet)
+                    tree_stats = eng.stats
+                    eng = GpuExactEngine(eng.device, n_threads)
+                    eng.stats.update(
+                        tree=tree_stats["tree"],
+                        tree_s=tree_stats.get("tree_s"),
+                        routed_from=tree_stats["engine"],
+                        mean_seq_distance=mean_sd,
+                        **{k: tree_stats[k] for k in native.TREE_COUNTS
+                           if k in tree_stats})
+            if save_checkpoint is not None:
+                os.makedirs(save_checkpoint, exist_ok=True)
+                ckpt.write_tasks(tasks, os.path.join(save_checkpoint,
+                                                     "tasks.txt"))
+                ckpt.save_distances(
+                    os.path.join(save_checkpoint, "distances.npz"),
+                    np.zeros((0, 0), np.float32), seq_dist,
+                    fingerprint=ckpt.input_fingerprint(
+                        [sq.seq for sq in msa.sequences]))
 
-    if msa.biotype == BIOTYPE_PROTEIN:
-        _encoded(msa, alpha.ALPHA_AMBIGUOUS_PROTEIN)
+            if msa.biotype == BIOTYPE_PROTEIN:
+                _encoded(msa, alpha.ALPHA_AMBIGUOUS_PROTEIN)
 
-    ap = resolve_params(msa, type_, gpo, gpe, tgpe, n_threads)
-    ap.adaptive_budget = adaptive_budget
-    if use_seq_weights >= 0.0:
-        ap.use_seq_weights = use_seq_weights
-    if dist_scale > 0.0:
-        ap.dist_scale = dist_scale
-    if vsm_amax >= 0.0:
-        ap.vsm_amax = vsm_amax
-    if consistency_anchors > 0:
-        ap.consistency_anchors = consistency_anchors
-        ap.consistency_weight = consistency_weight
+            ap = resolve_params(msa, type_, gpo, gpe, tgpe, n_threads)
+            ap.adaptive_budget = adaptive_budget
+            if use_seq_weights >= 0.0:
+                ap.use_seq_weights = use_seq_weights
+            if dist_scale > 0.0:
+                ap.dist_scale = dist_scale
+            if vsm_amax >= 0.0:
+                ap.vsm_amax = vsm_amax
+            if consistency_anchors > 0:
+                ap.consistency_anchors = consistency_anchors
+                ap.consistency_weight = consistency_weight
 
-    # the anchors of the consistency maps stay the BPM distances' in
-    # every pass (kalign_tpu/engine.py:403)
-    bpm_seq_dist = msa.seq_distances
-    codes = [sq.s for sq in msa.sequences]
-    ct = None
-    if isinstance(eng, GpuEngine) and ap.consistency_anchors > 0:
-        # kalign_tpu's TpuEngine.align builds this table in every pass
-        # from the same codes and distances; built once here, since a
-        # realign pass's codes are the first pass's
-        # (tests/test_torch_realign.py holds the two tables equal)
-        with phases.phase("consistency"):
-            eng.set_alphabet(codes, ap.subm)
-            ct = ConsistencyTable.build(eng, codes, ap, bpm_seq_dist,
-                                        ap.consistency_anchors,
-                                        ap.consistency_weight)
+            # the anchors of the consistency maps stay the BPM distances'
+            # in every pass (kalign_tpu/engine.py:403)
+            bpm_seq_dist = msa.seq_distances
+            codes = [sq.s for sq in msa.sequences]
+        ct = None
+        if isinstance(eng, GpuEngine) and ap.consistency_anchors > 0:
+            # kalign_tpu's TpuEngine.align builds this table in every pass
+            # from the same codes and distances; built once here, since a
+            # realign pass's codes are the first pass's
+            # (tests/test_torch_realign.py holds the two tables equal)
+            with rec.span("consistency"):
+                eng.set_alphabet(codes, ap.subm)
+                ct = ConsistencyTable.build(eng, codes, ap, bpm_seq_dist,
+                                            ap.consistency_anchors,
+                                            ap.consistency_weight)
 
-    log("Aligning", quiet)
-    # (on "host" and "gpu", "progressive" covers the native runtime's
-    # consistency table)
-    with timer("Alignment", quiet), phases.phase("progressive"):
-        conf = _align_pass(msa, eng, codes, tasks, ap, ct, bpm_seq_dist,
-                           _pass_refine(refine, realign == 0))
-    for it in range(realign):
-        with phases.phase("realign"):
-            codes, tasks = _realign_tree(msa, eng)
+        log("Aligning", quiet)
+        # (on "host" and "gpu", "progressive" covers the native runtime's
+        # consistency table)
+        with rec.span("progressive") as p:
             conf = _align_pass(msa, eng, codes, tasks, ap, ct, bpm_seq_dist,
-                               _pass_refine(refine, it == realign - 1))
+                               _pass_refine(refine, realign == 0))
+        took("Alignment", p.seconds, quiet)
+        for it in range(realign):
+            with rec.span("realign"):
+                codes, tasks = _realign_tree(msa, eng)
+                conf = _align_pass(msa, eng, codes, tasks, ap, ct,
+                                   bpm_seq_dist,
+                                   _pass_refine(refine, it == realign - 1))
 
-    msa.finalise()
-    msa.sort_rank()
-    msa.task_confidence = conf
-    msa.engine_stats = eng.stats
-    msa.phase_times = dict(phases)
+        with rec.span("output"):
+            msa.finalise()
+            msa.sort_rank()
+        msa.task_confidence = conf
+        msa.engine_stats = eng.stats
+    rec.attach(msa)
     return msa
 
 
@@ -501,7 +521,8 @@ def post_realign_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
     a progressive pass, with no anchor consistency.  The input must be
     aligned, its rows of one width; the rows are not sorted, and their
     input order comes back at the end.  ``engine`` and ``device`` as
-    align_msa takes them (no autoroute)."""
+    align_msa takes them (no autoroute); the spans "input", "realign" and
+    "output" as align_msa records them."""
     if realign_iterations < 1:
         raise ValueError("Need at least 1 realign iteration")
     if msa.aligned not in (2, 3):  # ALIGNED or FINAL
@@ -511,33 +532,35 @@ def post_realign_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
         raise ValueError(
             "post_realign requires equal-length aligned rows "
             f"(got widths {sorted(widths)})")
-    eng = get_engine(engine, device, n_threads, msa)
-    quiet = msa.quiet
+    with recording() as rec:
+        with rec.span("input"):
+            eng = get_engine(engine, device, n_threads, msa)
+            quiet = msa.quiet
+            if msa.biotype == 2:  # BIOTYPE_UNDEF
+                msa.detect_alphabet()
+            ap = resolve_params(msa, type_, gpo, gpe, tgpe, n_threads)
+            ap.adaptive_budget = adaptive_budget
+            if use_seq_weights >= 0.0:
+                ap.use_seq_weights = use_seq_weights
+            ap.dist_scale = dist_scale
+            if vsm_amax >= 0.0:
+                ap.vsm_amax = vsm_amax
 
-    if msa.biotype == 2:  # BIOTYPE_UNDEF
-        msa.detect_alphabet()
-    ap = resolve_params(msa, type_, gpo, gpe, tgpe, n_threads)
-    ap.adaptive_budget = adaptive_budget
-    if use_seq_weights >= 0.0:
-        ap.use_seq_weights = use_seq_weights
-    ap.dist_scale = dist_scale
-    if vsm_amax >= 0.0:
-        ap.vsm_amax = vsm_amax
+        log("Post-realign (%d iterations, vsm_amax=%.2f)"
+            % (realign_iterations, ap.vsm_amax), quiet)
+        conf = None
+        with rec.span("realign") as r:
+            for it in range(realign_iterations):
+                codes, tasks = _realign_tree(msa, eng)
+                conf = _align_pass(msa, eng, codes, tasks, ap, None,
+                                   msa.seq_distances, _pass_refine(
+                                       refine, it == realign_iterations - 1))
+        took("Post-realign", r.seconds, quiet)
 
-    log("Post-realign (%d iterations, vsm_amax=%.2f)"
-        % (realign_iterations, ap.vsm_amax), quiet)
-    phases = PhaseTimes()
-    conf = None
-    with timer("Post-realign", quiet), phases.phase("realign"):
-        for it in range(realign_iterations):
-            codes, tasks = _realign_tree(msa, eng)
-            conf = _align_pass(msa, eng, codes, tasks, ap, None,
-                               msa.seq_distances, _pass_refine(
-                                   refine, it == realign_iterations - 1))
-
-    msa.finalise()
-    msa.sort_rank()
-    msa.task_confidence = conf
-    msa.engine_stats = eng.stats
-    msa.phase_times = dict(phases)
+        with rec.span("output"):
+            msa.finalise()
+            msa.sort_rank()
+        msa.task_confidence = conf
+        msa.engine_stats = eng.stats
+    rec.attach(msa)
     return msa

@@ -10,7 +10,9 @@ KALIGN_TPU_NO_AUTOROUTE), so on the card each run's DPs take the card's
 kernels; the POAR tables and the consensus are host work, as in
 kalign_tpu.
 
-The finalised Msa carries ``phase_times``: "runs" (the alignments,
+The ensemble's stages are spans of the record under way
+(utils/logging.py), so the finalised Msa carries them in ``spans`` and
+``phase_times``: "runs" (the alignments, each a record of its own;
 "runs.realign" the realign passes among them), "poar_extract",
 "poar_score", "consensus", "post_selection" (the REFINE_CONFIDENT run)
 and "confidence"; and ``engine_stats["ensemble"]``: the runs' scores,
@@ -29,7 +31,7 @@ from kalign_tpu_torch.consensus import build_consensus, residue_confidence
 from kalign_tpu_torch.core import params as P
 from kalign_tpu_torch.core.msa import Msa
 from kalign_tpu_torch.poar import PoarTable, merge_poar_tables, pos_matrix
-from kalign_tpu_torch.utils.logging import PhaseTimes
+from kalign_tpu_torch.utils.logging import recording
 
 # per-run gap-penalty presets (ensemble.c:32-46):
 # (gpo_scale, gpe_scale, tgpe_scale, tree_noise_sigma)
@@ -63,7 +65,8 @@ def _align_one_run(msa: Msa, k: int, base, seed, n_threads, type_, refine,
                    dist_scale, vsm_amax, realign, use_seq_weights,
                    consistency_anchors, consistency_weight, engine,
                    device=None, autoroute=True) -> Msa:
-    """Run k: its penalties, and its tree noise unless it realigns."""
+    """Run k: its penalties, and its tree noise unless it realigns; an
+    alignment of its own record."""
     base_gpo, base_gpe, base_tgpe = base
     run_gpo, run_gpe, run_tgpe, run_seed, run_noise = resolve_run_params(
         base_gpo, base_gpe, base_tgpe, k, seed)
@@ -71,15 +74,18 @@ def _align_one_run(msa: Msa, k: int, base, seed, n_threads, type_, refine,
     copy.quiet = True
     if realign > 0:
         run_seed, run_noise = 0, 0.0
-    return E.align_msa(copy, n_threads=n_threads, type_=type_,
-                       gpo=run_gpo, gpe=run_gpe, tgpe=run_tgpe,
-                       refine=refine, tree_seed=run_seed,
-                       tree_noise=run_noise, dist_scale=dist_scale,
-                       vsm_amax=vsm_amax, realign=realign,
-                       use_seq_weights=use_seq_weights,
-                       consistency_anchors=consistency_anchors,
-                       consistency_weight=consistency_weight,
-                       engine=engine, device=device, autoroute=autoroute)
+    with recording(fresh=True) as rec:
+        out = E.align_msa(copy, n_threads=n_threads, type_=type_,
+                          gpo=run_gpo, gpe=run_gpe, tgpe=run_tgpe,
+                          refine=refine, tree_seed=run_seed,
+                          tree_noise=run_noise, dist_scale=dist_scale,
+                          vsm_amax=vsm_amax, realign=realign,
+                          use_seq_weights=use_seq_weights,
+                          consistency_anchors=consistency_anchors,
+                          consistency_weight=consistency_weight,
+                          engine=engine, device=device, autoroute=autoroute)
+    rec.attach(out)
+    return out
 
 
 def _base_penalties(msa: Msa, type_, gpo, gpe, tgpe, n_threads):
@@ -96,35 +102,36 @@ def ensemble_run_subset(msa: Msa, run_ids, n_threads=1, type_=0,
                         realign=0, use_seq_weights=0.0,
                         consistency_anchors=0, consistency_weight=2.0,
                         engine="gpu-fast", device=None, autoroute=True,
-                        phases: Optional[PhaseTimes] = None, runs=None):
+                        runs=None):
     """Align a subset of ensemble runs (the distributed unit of work).
 
     Runs are embarrassingly parallel: run k's parameters depend only on
     (k, seed) (resolve_run_params), so any partition of 0..n_runs-1
     across processes reproduces the sequential ensemble bit-exactly.
     Returns (partial PoarTable with each run's support bit set at its
-    GLOBAL index, {k: aligned row strings}).  ``phases`` collects the
-    seconds of the runs and of the POAR extraction, ``runs`` each run's
-    aligned Msa."""
-    phases = PhaseTimes() if phases is None else phases
+    GLOBAL index, {k: aligned row strings}).  The runs and the POAR
+    extraction are spans of the record under way, ``runs`` collects each
+    run's aligned Msa."""
     base = _base_penalties(msa, type_, gpo, gpe, tgpe, n_threads)
     poar = PoarTable(msa.numseq)
     rows_by_k = {}
-    for k in run_ids:
-        with phases.phase("runs"):
-            aligned = _align_one_run(msa, k, base, seed, n_threads, type_,
-                                     refine, dist_scale, vsm_amax, realign,
-                                     use_seq_weights, consistency_anchors,
-                                     consistency_weight, engine, device,
-                                     autoroute)
-        phases["runs.realign"] = phases.get("runs.realign", 0.0) + \
-            aligned.phase_times.get("realign", 0.0)
-        if runs is not None:
-            runs.append(aligned)
-        rows = aligned.aligned_rows()
-        with phases.phase("poar_extract"):
-            poar.extract(pos_matrix(rows), k)
-        rows_by_k[k] = rows
+    with recording() as rec:
+        for k in run_ids:
+            with rec.span("runs") as sp:
+                aligned = _align_one_run(msa, k, base, seed, n_threads,
+                                         type_, refine, dist_scale,
+                                         vsm_amax, realign, use_seq_weights,
+                                         consistency_anchors,
+                                         consistency_weight, engine, device,
+                                         autoroute)
+                rec.add("runs.realign", sp.start,
+                        aligned.phase_times.get("realign", 0.0))
+            if runs is not None:
+                runs.append(aligned)
+            rows = aligned.aligned_rows()
+            with rec.span("poar_extract"):
+                poar.extract(pos_matrix(rows), k)
+            rows_by_k[k] = rows
     return poar, rows_by_k
 
 
@@ -143,24 +150,28 @@ def ensemble_align(msa: Msa, n_threads: int = 1, type_: int = 0,
     if use_seq_weights < 0.0:
         use_seq_weights = 0.0
     base = _base_penalties(msa, type_, gpo, gpe, tgpe, n_threads)
-    phases, runs = PhaseTimes(), []
-    poar, rows_by_k = ensemble_run_subset(
-        msa, range(n_runs), n_threads=n_threads, type_=type_, gpo=gpo,
-        gpe=gpe, tgpe=tgpe, seed=seed, refine=refine, dist_scale=dist_scale,
-        vsm_amax=vsm_amax, realign=realign, use_seq_weights=use_seq_weights,
-        consistency_anchors=consistency_anchors,
-        consistency_weight=consistency_weight, engine=engine, device=device,
-        autoroute=autoroute, phases=phases, runs=runs)
+    runs = []
+    with recording() as rec:
+        poar, rows_by_k = ensemble_run_subset(
+            msa, range(n_runs), n_threads=n_threads, type_=type_, gpo=gpo,
+            gpe=gpe, tgpe=tgpe, seed=seed, refine=refine,
+            dist_scale=dist_scale, vsm_amax=vsm_amax, realign=realign,
+            use_seq_weights=use_seq_weights,
+            consistency_anchors=consistency_anchors,
+            consistency_weight=consistency_weight, engine=engine,
+            device=device, autoroute=autoroute, runs=runs)
 
-    # score each run: prefer run 0 unless >5% improvement (ensemble.c:116-124)
-    with phases.phase("poar_score"):
-        scores = [poar.score_alignment(pos_matrix(rows_by_k[k]))
-                  for k in range(n_runs)]
-    out = _ensemble_finalize(
-        msa, poar, rows_by_k, scores, base, seed, n_threads, type_,
-        min_support, save_poar, dist_scale, vsm_amax, use_seq_weights,
-        consistency_anchors, consistency_weight, engine, device, autoroute,
-        phases)
+        # score each run: prefer run 0 unless >5% improvement
+        # (ensemble.c:116-124)
+        with rec.span("poar_score"):
+            scores = [poar.score_alignment(pos_matrix(rows_by_k[k]))
+                      for k in range(n_runs)]
+        out = _ensemble_finalize(
+            msa, poar, rows_by_k, scores, base, seed, n_threads, type_,
+            min_support, save_poar, dist_scale, vsm_amax, use_seq_weights,
+            consistency_anchors, consistency_weight, engine, device,
+            autoroute, rec)
+    rec.attach(out)
     out.engine_stats["ensemble"]["run_engines"] = [
         r.engine_stats["engine"] for r in runs]
     return out
@@ -170,11 +181,10 @@ def _ensemble_finalize(msa: Msa, poar: PoarTable, rows_by_k, scores,
                        base, seed, n_threads, type_, min_support,
                        save_poar, dist_scale, vsm_amax, use_seq_weights,
                        consistency_anchors, consistency_weight,
-                       engine, device=None, autoroute=True,
-                       phases: Optional[PhaseTimes] = None) -> Msa:
+                       engine, device, autoroute, rec) -> Msa:
     """Selection / consensus / post-refinement over the merged POAR
-    table and the full set of run alignments (ensemble.c:84-466)."""
-    phases = PhaseTimes() if phases is None else phases
+    table and the full set of run alignments (ensemble.c:84-466); the
+    stages are spans of the record ``rec``."""
     n_runs = len(scores)
     best_k = 0
     baseline = scores[0]
@@ -191,14 +201,14 @@ def _ensemble_finalize(msa: Msa, poar: PoarTable, rows_by_k, scores,
     consensus_rows = None
     consensus_score = refined_score = None
     if min_support > 0:
-        with phases.phase("consensus"):
+        with rec.span("consensus"):
             consensus_rows = build_consensus(poar, ungapped, min_support)
         use_consensus = True
     else:
         min_sup = max(2, (n_runs + 2) // 3)
-        with phases.phase("consensus"):
+        with rec.span("consensus"):
             consensus_rows = build_consensus(poar, ungapped, min_sup)
-        with phases.phase("poar_score"):
+        with rec.span("poar_score"):
             consensus_score = poar.score_alignment(
                 pos_matrix(consensus_rows))
         if consensus_score > scores[best_k]:
@@ -209,14 +219,14 @@ def _ensemble_finalize(msa: Msa, poar: PoarTable, rows_by_k, scores,
     winner_rows = rows_by_k[best_k]
     if not use_consensus:
         # post-selection refinement with REFINE_CONFIDENT (ensemble.c:403-451)
-        with phases.phase("post_selection"):
+        with rec.span("post_selection"):
             refined = _align_one_run(msa, best_k, base, seed, n_threads,
                                      type_, P.REFINE_CONFIDENT, dist_scale,
                                      vsm_amax, 0, use_seq_weights,
                                      consistency_anchors,
                                      consistency_weight, engine, device,
                                      autoroute)
-        with phases.phase("poar_score"):
+        with rec.span("poar_score"):
             refined_score = poar.score_alignment(
                 pos_matrix(refined.aligned_rows()))
         if refined_score > scores[best_k]:
@@ -231,12 +241,11 @@ def _ensemble_finalize(msa: Msa, poar: PoarTable, rows_by_k, scores,
     msa.alnlen = len(winner_rows[0])
     msa.aligned = 3  # FINAL
 
-    with phases.phase("confidence"):
+    with rec.span("confidence"):
         conf, col_conf = residue_confidence(poar, winner_rows)
     for i, sq in enumerate(msa.sequences):
         sq.confidence = conf[i].tolist()
     msa.col_confidence = col_conf
-    msa.phase_times = dict(phases)
     msa.engine_stats = {"ensemble": dict(
         scores=[float(x) for x in scores], best_run=best_k,
         winner="consensus" if use_consensus else "selection",
@@ -292,10 +301,14 @@ def ensemble_merge(msa: Msa, scratch: str, n_runs: int = 3,
             rows_by_k[k] = f.read().splitlines()
     scores = [poar.score_alignment(pos_matrix(rows_by_k[k]))
               for k in range(n_runs)]
-    return _ensemble_finalize(
-        msa, poar, rows_by_k, scores, base, seed, n_threads, type_,
-        min_support, save_poar, dist_scale, vsm_amax, use_seq_weights,
-        consistency_anchors, consistency_weight, engine, device, autoroute)
+    with recording() as rec:
+        out = _ensemble_finalize(
+            msa, poar, rows_by_k, scores, base, seed, n_threads, type_,
+            min_support, save_poar, dist_scale, vsm_amax, use_seq_weights,
+            consistency_anchors, consistency_weight, engine, device,
+            autoroute, rec)
+    rec.attach(out)
+    return out
 
 
 def consensus_from_poar(msa: Msa, poar_path: str, min_support: int) -> Msa:

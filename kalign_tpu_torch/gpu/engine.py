@@ -35,8 +35,6 @@ Contract: the same pipeline semantics as the host engine; alignments are
 score-optimal per merge and may differ from other engines on near-ties.
 """
 
-import time
-from contextlib import contextmanager
 from typing import List, Optional
 
 import numpy as np
@@ -53,6 +51,7 @@ from kalign_tpu_torch.gpu.profile import (Profile, column_gap_counts,
                                           leaf_profile, merge_profiles,
                                           sp_score_from_profiles,
                                           weave_steps)
+from kalign_tpu_torch.utils.logging import recording, span
 
 
 def _bucket(n: int, q: int = 128) -> int:
@@ -348,8 +347,8 @@ class GpuEngine:
                               processes=mesh.processes,
                               local_shards=list(mesh.local), long_merges=0,
                               gathers=mesh.gathers)
-        # the progressive pass's host seconds by part (``split``) and its
-        # transfers to the host (``fetch``)
+        # the progressive pass's host seconds by part (``split``), summed
+        # over the passes, and its transfers to the host (``fetch``)
         self.stats["progressive_split_s"] = {}
         self.stats["fetches"] = 0
         # the guide tree that ran: native, device or device_fused
@@ -358,19 +357,15 @@ class GpuEngine:
         # candidate, the candidates' SP scores); "candidates" is the last
         self.stats["candidate_passes"] = []
 
-    @contextmanager
-    def split(self, part: str):
-        """Add the host seconds of the block to the pass's split (blocks do
-        not nest).  The block is also a torch.profiler range,
-        ``progressive.<part>``, under which a trace lists the device time
-        of the kernels it launched."""
-        t0 = time.perf_counter()
-        try:
-            with torch.profiler.record_function("progressive." + part):
-                yield
-        finally:
-            d = self.stats["progressive_split_s"]
-            d[part] = d.get(part, 0.0) + time.perf_counter() - t0
+    @staticmethod
+    def split(part: str):
+        """The block as the span ``progressive.<part>`` of the record under
+        way (utils/logging.py; blocks do not nest): its host seconds go to
+        msa.phase_times and, summed by progressive, to
+        stats["progressive_split_s"]; under torch.profiler it is a range
+        of that name, under which a trace lists the device time of the
+        kernels it launched."""
+        return span("progressive." + part)
 
     def fetch(self, x) -> np.ndarray:
         """One device-to-host transfer of the progressive pass, counted."""
@@ -400,21 +395,31 @@ class GpuEngine:
         return "device_fused" if n <= self.fused_tree_max else "device"
 
     def build_tree(self, codes, dm, n_anchors):
-        """The guide tree of tree_route; a device tree's host seconds by
-        part go to stats["tree_s"] (kmeans.timings)."""
+        """The guide tree of tree_route.  Its parts are spans of the
+        record under way ("tree.splits", "tree.upgma"; the native tree's
+        "tree.pairs" too) and its pair counts go to stats
+        (native.TREE_COUNTS); a device tree's host seconds by part also
+        to stats["tree_s"] ("splits_s", "upgma_s")."""
         route = self.tree_route(len(codes))
-        res = None
-        if route == "device_fused":
-            res = kmeans.build_tree_device_fused(codes, dm, n_anchors,
-                                                 self.device)
-            if res is None:
-                route = "device"      # the depth cap was hit
-        if route == "device":
-            res = kmeans.build_tree_device(codes, dm, n_anchors, self.device)
-        self.stats["tree"] = route
-        if res is None:
-            return native.build_tree(codes, dm, n_anchors)
-        self.stats["tree_s"] = dict(kmeans.timings)
+        if route == "native":
+            self.stats["tree"] = route
+            return native.build_tree(codes, dm, n_anchors, counts=self.stats)
+        with recording() as rec:
+            first = len(rec.spans)
+            res = None
+            if route == "device_fused":
+                res = kmeans.build_tree_device_fused(
+                    codes, dm, n_anchors, self.device, counts=self.stats)
+                if res is None:
+                    route = "device"      # the depth cap was hit
+            if route == "device":
+                res = kmeans.build_tree_device(codes, dm, n_anchors,
+                                               self.device,
+                                               counts=self.stats)
+            self.stats["tree"] = route
+            self.stats["tree_s"] = {
+                part + "_s": secs
+                for part, secs in rec.sums("tree.", first).items()}
         return res
 
     # realign's guide tree and identity distances stay on the host, as
@@ -808,17 +813,27 @@ class GpuEngine:
         """One bottom-up pass: device-resident, or host-assembled
         (``resident=False``).  cand_for(task index) is the merge's tuple of
         centering-bias candidates.  Returns (gaps, conf, disagree [n - 1]
-        bool: the merges whose candidates gave more than one path)."""
+        bool: the merges whose candidates gave more than one path).  The
+        seconds of the pass's ``split`` spans add to
+        stats["progressive_split_s"]."""
         order, task_index, levels = sched
         self.stats["candidates"] = {}
         self.stats["candidate_passes"].append(self.stats["candidates"])
-        if self.resident and not self.sharded:
-            # imported here: gpu/resident.py imports this module
-            from kalign_tpu_torch.gpu.resident import ResidentPass
-            return ResidentPass(self, codes, ap, sd, ct, cand_for).run(
-                order, task_index, levels)
-        return self.host_pass(codes, order, task_index, levels, ap, sd, ct,
-                              cand_for)
+        with recording() as rec:
+            first = len(rec.spans)
+            try:
+                if self.resident and not self.sharded:
+                    # imported here: gpu/resident.py imports this module
+                    from kalign_tpu_torch.gpu.resident import ResidentPass
+                    return ResidentPass(self, codes, ap, sd, ct,
+                                        cand_for).run(order, task_index,
+                                                      levels)
+                return self.host_pass(codes, order, task_index, levels, ap,
+                                      sd, ct, cand_for)
+            finally:
+                split = self.stats["progressive_split_s"]
+                for part, secs in rec.sums("progressive.", first).items():
+                    split[part] = split.get(part, 0.0) + secs
 
     def host_pass(self, codes, order, task_index, levels, ap: P.AlnParam,
                   sd, ct, cand_for):

@@ -32,7 +32,6 @@ tie: their best tries' SSE agree to float noise (``compare_traces``).
 
 import os
 import sys
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
@@ -41,6 +40,7 @@ import torch
 
 from kalign_tpu_torch import native
 from kalign_tpu_torch.gpu import _cuda
+from kalign_tpu_torch.utils.logging import span
 
 UPGMA_THRESHOLD = 50   # KALIGN_KMEANS_UPGMA_THRESHOLD (CMakeLists.txt:71)
 MAX_ITERS = 500
@@ -60,9 +60,6 @@ NO_SCORE = float(np.float32(3.4e38))
 S_BUCKETS = (256, 2048, 16384, 131072)
 
 launches = 0
-# the last tree build's host seconds: its splits, and the native UPGMA of
-# the clusters below the threshold with the tree's assembly
-timings = {}
 
 
 def _pow2_at_least(n: int) -> int:
@@ -434,7 +431,7 @@ def _embedding(dm, n_anchors):
 
 
 def build_tree_device(codes, dm: np.ndarray, n_anchors: int, device,
-                      plain: bool = False, trace=None):
+                      plain: bool = False, trace=None, counts=None):
     """kalign_tpu/tpu/kmeans.py::build_tree_device :141: the recursion one
     depth at a time; every cluster of 50 or more at a depth is split
     before any result is read, and each depth's assignments come back in
@@ -442,7 +439,9 @@ def build_tree_device(codes, dm: np.ndarray, n_anchors: int, device,
     lloyd_batch in the reference's launch shapes (clusters bucketed by
     size into S_BUCKETS, extended by 8x past them, C_tile = 2^18 // S
     slots per launch); on the card one kernel launch takes every cluster
-    of the depth, its members gathered back to back.  Returns (tasks
+    of the depth, its members gathered back to back.  The splits are the
+    span "tree.splits" of the record under way (utils/logging.py), the
+    rest _finish_tree's (``counts`` as it takes it).  Returns (tasks
     [n-1, 3], seq_dist [n])."""
     device = torch.device(device)
     kernel = device.type == "cuda" and not plain
@@ -454,35 +453,37 @@ def build_tree_device(codes, dm: np.ndarray, n_anchors: int, device,
     while s_buckets[-1] < n:
         s_buckets.append(s_buckets[-1] * 8)
 
-    t0 = time.perf_counter()
     root = _Node()
     work = [(root, np.arange(n, dtype=np.int64))]
     upgma_jobs = []
     depth = 0
-    while work:
-        big = [(node, s) for node, s in work if len(s) >= UPGMA_THRESHOLD]
-        upgma_jobs.extend((node, s) for node, s in work
-                          if len(s) < UPGMA_THRESHOLD)
-        work = []
-        if not big:
-            break
-        if kernel:
-            results = _depth_kernel(emb_dev, big, T)
-        else:
-            results = _depth_plain(emb_dev, big, T, s_buckets)
-        for (node, s), (right_mask, deg, sse) in zip(big, results):
-            ns = len(s)
-            if deg:
-                right_mask = np.arange(ns) >= ns // 2
-            if trace is not None:
-                _record(trace, depth, s, right_mask, sse)
-            node.left = _Node()
-            node.right = _Node()
-            work.append((node.left, s[~right_mask]))
-            work.append((node.right, s[right_mask]))
-        depth += 1
-    timings["splits_s"] = time.perf_counter() - t0
-    return _finish_tree(codes, dm, n_anchors, root, upgma_jobs, emb)
+    with span("tree.splits"):
+        while work:
+            big = [(node, s) for node, s in work
+                   if len(s) >= UPGMA_THRESHOLD]
+            upgma_jobs.extend((node, s) for node, s in work
+                              if len(s) < UPGMA_THRESHOLD)
+            work = []
+            if not big:
+                break
+            if kernel:
+                results = _depth_kernel(emb_dev, big, T)
+            else:
+                results = _depth_plain(emb_dev, big, T, s_buckets)
+            for (node, s), (right_mask, deg, sse) in zip(big, results):
+                ns = len(s)
+                if deg:
+                    right_mask = np.arange(ns) >= ns // 2
+                if trace is not None:
+                    _record(trace, depth, s, right_mask, sse)
+                node.left = _Node()
+                node.right = _Node()
+                work.append((node.left, s[~right_mask]))
+                work.append((node.right, s[right_mask]))
+            depth += 1
+    with span("tree.upgma"):
+        return _finish_tree(codes, dm, n_anchors, root, upgma_jobs, emb,
+                            counts)
 
 
 def _depth_plain(emb_dev, big, T, s_buckets):
@@ -555,31 +556,32 @@ def _depth_kernel(emb_dev, big, T):
 
 def build_tree_device_fused(codes, dm: np.ndarray, n_anchors: int, device,
                             plain: bool = False, depth_cap=None,
-                            trace=None):
+                            trace=None, counts=None):
     """kalign_tpu/tpu/kmeans.py::build_tree_device_fused :467: the
     recursion with membership on the device (fused_splits; the kernel on
     the card unless plain) and one fetch of the final path codes, from
     which the split tree is rebuilt.  Returns (tasks, seq_dist), or None
     when a cluster was still to split at depth_cap (default
-    _FUSED_DEPTH_CAP; the caller then runs build_tree_device)."""
+    _FUSED_DEPTH_CAP; the caller then runs build_tree_device).  The
+    splits up to the codes' fetch are the span "tree.splits", the rest
+    _finish_tree's."""
     if depth_cap is None:
         depth_cap = _FUSED_DEPTH_CAP
     device = torch.device(device)
     kernel = device.type == "cuda" and not plain
-    t0 = time.perf_counter()
     n = len(codes)
-    emb = _embedding(dm, n_anchors)
-    Np = _pow2_at_least(n)
-    emb_pad = np.zeros((Np, n_anchors), np.float32)
-    emb_pad[:n] = emb
-    Ca = Np // UPGMA_THRESHOLD + 1
-    cid_d, active_left = fused_splits(
-        torch.from_numpy(emb_pad).to(device), n, Np, MAX_TRIES, depth_cap,
-        Ca, kernel=kernel, trace=trace)
-    if active_left:
-        return None
-    cid_h = cid_d.cpu().numpy()[:n]          # the one fetch of the codes
-    timings["splits_s"] = time.perf_counter() - t0
+    with span("tree.splits"):
+        emb = _embedding(dm, n_anchors)
+        Np = _pow2_at_least(n)
+        emb_pad = np.zeros((Np, n_anchors), np.float32)
+        emb_pad[:n] = emb
+        Ca = Np // UPGMA_THRESHOLD + 1
+        cid_d, active_left = fused_splits(
+            torch.from_numpy(emb_pad).to(device), n, Np, MAX_TRIES,
+            depth_cap, Ca, kernel=kernel, trace=trace)
+        if active_left:
+            return None
+        cid_h = cid_d.cpu().numpy()[:n]      # the one fetch of the codes
 
     # the split trie from the path codes (child 2c = left, 2c + 1 =
     # right); a run's members in ascending original index
@@ -600,10 +602,12 @@ def build_tree_device_fused(codes, dm: np.ndarray, n_anchors: int, device,
                 node.right = _Node()
             node = node.left if (cc & 1) == 0 else node.right
         upgma_jobs.append((node, members.astype(np.int64)))
-    return _finish_tree(codes, dm, n_anchors, root, upgma_jobs, emb)
+    with span("tree.upgma"):
+        return _finish_tree(codes, dm, n_anchors, root, upgma_jobs, emb,
+                            counts)
 
 
-def _finish_tree(codes, dm, n_anchors, root, upgma_jobs, emb):
+def _finish_tree(codes, dm, n_anchors, root, upgma_jobs, emb, counts=None):
     """kalign_tpu/tpu/kmeans.py::_finish_tree :234: native UPGMA below
     the threshold (native.build_tree on the cluster's rows of dm),
     internal nodes labelled in postorder, tasks emitted in preorder, and
@@ -611,19 +615,26 @@ def _finish_tree(codes, dm, n_anchors, root, upgma_jobs, emb):
     float32 anchor by anchor.  The clusters' UPGMA runs on a thread per
     host core: the library keeps no state between calls and ctypes
     releases the interpreter lock while it runs, and each cluster's tree
-    is its own, so the threads change no result."""
-    t0 = time.perf_counter()
+    is its own, so the threads change no result.  ``counts`` takes the
+    native trees' pair counts (native.TREE_COUNTS), summed."""
     n = len(codes)
     lens = np.array([len(c) for c in codes], np.int64)
     jobs = [(node, s) for node, s in upgma_jobs if len(s) > 1]
 
     def upgma(s):
-        return native.build_tree([codes[int(i)] for i in s],
-                                 np.ascontiguousarray(dm[s]), n_anchors)[0]
+        part = {}
+        tasks_sub = native.build_tree([codes[int(i)] for i in s],
+                                      np.ascontiguousarray(dm[s]), n_anchors,
+                                      counts=part)[0]
+        return tasks_sub, part
     native.lib()                  # built and loaded before the threads
     with ThreadPoolExecutor(max(1, min(len(jobs), os.cpu_count() or 1))) \
             as pool:
-        subs = list(pool.map(upgma, [s for _, s in jobs]))
+        subs, parts = zip(*pool.map(upgma, [s for _, s in jobs])) \
+            if jobs else ((), ())
+    if counts is not None:
+        counts.update({key: sum(p[key] for p in parts)
+                       for key in native.TREE_COUNTS})
     for node, s in upgma_jobs:
         if len(s) == 1:
             node.id = int(s[0])
@@ -677,6 +688,5 @@ def _finish_tree(codes, dm, n_anchors, root, upgma_jobs, emb):
     mean = acc / np.float32(n_anchors)
     seq_dist = np.where(lens > 0, mean / lens.astype(np.float32),
                         0.0).astype(np.float32)
-    timings["upgma_s"] = time.perf_counter() - t0
     return tasks, seq_dist
 

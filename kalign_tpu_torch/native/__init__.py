@@ -14,11 +14,13 @@ utils/build.py for the locking.
 
 import ctypes
 import os
+import time
 from functools import lru_cache
 
 import numpy as np
 
 from kalign_tpu_torch.utils.build import build_library
+from kalign_tpu_torch.utils.logging import add as add_span
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 SOURCES = [os.path.join(_SRC, f) for f in
@@ -32,6 +34,7 @@ _i8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
 _f32p = np.ctypeslib.ndpointer(dtype=np.float32, flags="C_CONTIGUOUS")
+_f64p = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
 _vp = ctypes.c_void_p
 _i32 = ctypes.c_int32
 _f = ctypes.c_float
@@ -52,7 +55,7 @@ def lib() -> ctypes.CDLL:
     L = ctypes.CDLL(library_path())
     L.kt_build_tree.restype = _i32
     L.kt_build_tree.argtypes = [
-        _i8p, _i64p, _i32p, _i32, _f32p, _i32, _i32p, _f32p,
+        _i8p, _i64p, _i32p, _i32, _f32p, _i32, _i32p, _f32p, _f64p,
     ]
     L.kt_build_tree_pairwise.restype = _i32
     L.kt_build_tree_pairwise.argtypes = [_f32p, _i32, _i32p, _f32p]
@@ -206,19 +209,41 @@ def flatten_seqs(codes_list):
     return np.ascontiguousarray(flat), offsets, lens
 
 
-def build_tree(codes, dm: np.ndarray, n_anchors: int):
+# kt_build_tree's stats_out: the seconds of its parts, as spans under
+# "tree", then its counts, as engine_stats keys
+TREE_PARTS = ("tree.splits", "tree.pairs", "tree.upgma")
+TREE_COUNTS = ("tree_pairs_computed", "tree_pairs_needed")
+
+
+def build_tree(codes, dm: np.ndarray, n_anchors: int, counts=None):
     """Guide tree of encoded sequences from their [N, stride] anchor
-    distances: (tasks [N-1, 3] int32 in pre-order, seq_dist [N] f32)."""
+    distances: (tasks [N-1, 3] int32 in pre-order, seq_dist [N] f32).
+
+    The call's parts become summed spans of the record the thread has
+    open (utils/logging.py), children of the span open there: TREE_PARTS,
+    the k-means rounds, the pair distances of the leaf sets below 50
+    sequences and their UPGMA joins.  ``counts`` (a dict), when given,
+    takes TREE_COUNTS: the pair distances computed (ns * ns a leaf set)
+    and the distinct unordered pairs the UPGMA needed (ns (ns - 1) / 2
+    a leaf set)."""
     flat, off, lens = flatten_seqs(codes)
     n = len(codes)
     tasks = np.zeros(3 * (n - 1), dtype=np.int32)
     seq_dist = np.zeros(n, dtype=np.float32)
+    stats = np.zeros(len(TREE_PARTS) + len(TREE_COUNTS), np.float64)
+    t0 = time.perf_counter()
     cnt = lib().kt_build_tree(flat, off, lens, n,
                               np.ascontiguousarray(dm, np.float32).reshape(-1),
-                              n_anchors, tasks, seq_dist)
+                              n_anchors, tasks, seq_dist, stats)
     if cnt != n - 1:
         raise RuntimeError(f"kt_build_tree returned {cnt} tasks for {n} "
                            "sequences")
+    for name, secs in zip(TREE_PARTS, stats.tolist()):
+        add_span(name, t0, secs)
+        t0 += secs
+    if counts is not None:
+        counts.update(zip(TREE_COUNTS,
+                          (int(c) for c in stats[len(TREE_PARTS):])))
     return tasks.reshape(-1, 3), seq_dist
 
 

@@ -48,11 +48,16 @@ void kt_dist_to_anchors(const uint8_t* flat, const int64_t* off,
  *     may be perturbed by the caller for noisy ensemble trees.
  * tasks_out: 3*(numseq-1) ints (a,b,c) in pre-order; caller sorts by c.
  * seq_dist_out: per-sequence normalized mean anchor distance.
+ * stats_out (may be null): 5 doubles, the call's seconds in the k-means
+ *     rounds, in the UPGMA leaves' pair distances and in their joins, then
+ *     the pair distances computed (ns*ns a leaf set) and the distinct
+ *     unordered pairs the UPGMA needed (ns*(ns-1)/2 a leaf set).
  * Returns number of tasks or -1. (bisectingKmeans.c:177-271) */
 int32_t kt_build_tree(const uint8_t* flat, const int64_t* off,
                       const int32_t* len, int32_t numseq,
                       const float* dm, int32_t n_anchors,
-                      int32_t* tasks_out, float* seq_dist_out);
+                      int32_t* tasks_out, float* seq_dist_out,
+                      double* stats_out);
 
 /* UPGMA over a full pairwise matrix (modifies dm_copy in place).
  * Used for --realign tree rebuilds (bisectingKmeans.c:1150-1200). */

@@ -13,10 +13,16 @@
  * 8-lane SIMD kernel and a fixed horizontal-add tree
  * (euclidean_dist.c:159-206); kt::edist_lanes8 reproduces that exact
  * summation order in scalar code.
+ *
+ * kt_build_tree also measures itself (TreeStats): the steady-clock seconds
+ * of the k-means rounds, of the leaves' pair distances and of their UPGMA
+ * joins, and counts the pair distances computed and the distinct unordered
+ * pairs the UPGMA needs.  It counts per leaf set, outside the pair loop.
  */
 #include "kt_api.h"
 
 #include <cfloat>
+#include <chrono>
 #include <cmath>
 #include <cstring>
 #include <vector>
@@ -31,6 +37,21 @@ struct TreeNode {
   int id = -1;
 };
 
+/* kt_build_tree's stats_out, in this order */
+struct TreeStats {
+  double splits_s = 0.0;        /* the k-means split_once rounds */
+  double pairs_s = 0.0;         /* pair_distance_biased in the leaves */
+  double upgma_s = 0.0;         /* upgma_build's joins */
+  double pairs_computed = 0.0;  /* pair_distance_biased calls: ns * ns */
+  double pairs_needed = 0.0;    /* ns * (ns - 1) / 2 a leaf set */
+};
+
+using Clock = std::chrono::steady_clock;
+
+double seconds_since(Clock::time_point t0) {
+  return std::chrono::duration<double>(Clock::now() - t0).count();
+}
+
 struct TreeBuildCtx {
   const uint8_t* flat;
   const int64_t* off;
@@ -39,6 +60,7 @@ struct TreeBuildCtx {
   int stride;
   int n_anchors;
   int numseq;
+  TreeStats* stats;
 };
 
 /* L2 distance over `n` floats with AVX2 lane semantics: 8 parallel lane
@@ -229,6 +251,7 @@ TreeNode* bisect(const TreeBuildCtx& ctx, std::vector<int> samples) {
   if (ns < kUpgmaThreshold) {
     /* exact UPGMA over full pairwise BPM distances of the subset
        (d_estimation pair=1, sequence_distance.c:53-81) */
+    const Clock::time_point t0 = Clock::now();
     std::vector<float> dm((int64_t)ns * ns);
     for (int i = 0; i < ns; i++) {
       for (int j = 0; j < ns; j++) {
@@ -237,9 +260,16 @@ TreeNode* bisect(const TreeBuildCtx& ctx, std::vector<int> samples) {
         dm[(int64_t)j * ns + i] = d;
       }
     }
-    return upgma_build(dm, samples);
+    ctx.stats->pairs_s += seconds_since(t0);
+    ctx.stats->pairs_computed += (double)ns * (double)ns;
+    ctx.stats->pairs_needed += (double)ns * (double)(ns - 1) / 2.0;
+    const Clock::time_point t1 = Clock::now();
+    TreeNode* joined = upgma_build(dm, samples);
+    ctx.stats->upgma_s += seconds_since(t1);
+    return joined;
   }
 
+  const Clock::time_point t0 = Clock::now();
   int tries = 40 < ns ? 40 : ns;
   int step = ns / tries;
   SplitResult best;
@@ -262,6 +292,7 @@ TreeNode* bisect(const TreeBuildCtx& ctx, std::vector<int> samples) {
     }
     if (!change) break;
   }
+  ctx.stats->splits_s += seconds_since(t0);
 
   TreeNode* n = new TreeNode();
   samples.clear();
@@ -301,7 +332,9 @@ void free_tree(TreeNode* n) {
 extern "C" int32_t kt_build_tree(const uint8_t* flat, const int64_t* off,
                                  const int32_t* len, int32_t numseq,
                                  const float* dm, int32_t n_anchors,
-                                 int32_t* tasks_out, float* seq_dist_out) {
+                                 int32_t* tasks_out, float* seq_dist_out,
+                                 double* stats_out) {
+  TreeStats stats;
   TreeBuildCtx ctx;
   ctx.flat = flat;
   ctx.off = off;
@@ -310,6 +343,7 @@ extern "C" int32_t kt_build_tree(const uint8_t* flat, const int64_t* off,
   ctx.stride = ((n_anchors + 7) / 8) * 8;
   ctx.n_anchors = n_anchors;
   ctx.numseq = numseq;
+  ctx.stats = &stats;
 
   std::vector<int> samples(numseq);
   for (int i = 0; i < numseq; i++) samples[i] = i;
@@ -331,6 +365,11 @@ extern "C" int32_t kt_build_tree(const uint8_t* flat, const int64_t* off,
       float sl = (float)len[i];
       seq_dist_out[i] = sl > 0.0f ? mean / sl : 0.0f;
     }
+  }
+  if (stats_out) {
+    const double out[5] = {stats.splits_s, stats.pairs_s, stats.upgma_s,
+                           stats.pairs_computed, stats.pairs_needed};
+    std::memcpy(stats_out, out, sizeof out);
   }
   return count;
 }

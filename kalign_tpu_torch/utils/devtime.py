@@ -5,12 +5,14 @@ card may be idle most of the time.  The card's own busy time is the sum
 of the events the profiler attributes to the device's process in the
 exported Chrome-trace files.  Counterpart of kalign_tpu/utils/devtime.py:
 ``device_seconds`` is its parser (intervals merged per (pid, tid), so
-nested or overlapping events count once), ``device_timer`` traces with
+nested or overlapping events of one stream count once, and two streams
+at work at once twice); ``busy_seconds`` takes the union over a device
+process's streams, the card's busy time.  ``trace`` traces with
 ``torch.profiler`` (CPU and CUDA activities) in place of
 ``jax.profiler.trace``, writing through
 ``torch.profiler.tensorboard_trace_handler``, whose ``*.pt.trace.json``
-files ``_iter_trace_files`` finds.  The CLI's ``--trace`` writes such a
-trace.
+files ``_iter_trace_files`` finds; the CLI's ``--trace`` writes such a
+trace, in which the program's spans are ranges (utils/logging.py).
 
 Kineto gives a CUDA device's process the host process's name and the
 label "GPU <index>" (``process_labels``); jax.profiler names the device's
@@ -22,8 +24,6 @@ import glob
 import gzip
 import json
 import os
-import shutil
-import tempfile
 from contextlib import contextmanager
 
 DEVICE = "GPU"
@@ -46,19 +46,14 @@ def _iter_trace_files(trace_dir):
                 yield f
 
 
-def device_seconds(trace_dir, device_substr=DEVICE):
-    """Sum event durations (seconds) attributed to device processes in
-    every Chrome-trace file under `trace_dir`.
-
-    Device processes are those whose process_name or process_labels
-    metadata contains `device_substr`.  Events nested inside other events
-    on the same thread would double-count, so the complete events of
-    each (pid, tid) are merged into intervals before they are summed.
-    Kineto's gpu_user_annotation events (a record_function range drawn
-    on the device from its first kernel's start to its last one's end,
-    idle gaps included) are not device work and are left out.  A file
+def _device_intervals(trace_dir, device_substr):
+    """Per Chrome-trace file under trace_dir, the complete events of its
+    device processes (those whose process_name or process_labels
+    metadata holds device_substr) as {(pid, tid): [(start, end)]} in
+    microseconds, Kineto's gpu_user_annotation events (a record_function
+    range drawn on the device from its first kernel's start to its last
+    one's end, idle gaps included: not device work) left out.  A file
     that is not JSON is skipped."""
-    total = 0.0
     for path in _iter_trace_files(trace_dir):
         opener = gzip.open if path.endswith(".gz") else open
         try:
@@ -74,8 +69,6 @@ def device_seconds(trace_dir, device_substr=DEVICE):
                     _PROCESS_META[e["name"]], ""))
                 if device_substr in name:
                     dev_pids.add(e.get("pid"))
-        if not dev_pids:
-            continue
         by_thread = {}
         for e in events:
             if e.get("ph") == "X" and e.get("pid") in dev_pids \
@@ -86,19 +79,56 @@ def device_seconds(trace_dir, device_substr=DEVICE):
                     continue
                 by_thread.setdefault((e["pid"], e.get("tid")), []).append(
                     (float(ts), float(ts) + float(dur)))
-        for ivals in by_thread.values():
-            ivals.sort()
-            cur_s, cur_e = None, None
-            for s, t in ivals:
-                if cur_e is None or s > cur_e:
-                    if cur_e is not None:
-                        total += cur_e - cur_s
-                    cur_s, cur_e = s, t
-                else:
-                    cur_e = max(cur_e, t)
+        yield by_thread
+
+
+def _merged(ivals):
+    """The union of [(start, end)] intervals as disjoint intervals, in
+    order."""
+    cur_s, cur_e = None, None
+    for s, t in sorted(ivals):
+        if cur_e is None or s > cur_e:
             if cur_e is not None:
-                total += cur_e - cur_s
+                yield cur_s, cur_e
+            cur_s, cur_e = s, t
+        else:
+            cur_e = max(cur_e, t)
+    if cur_e is not None:
+        yield cur_s, cur_e
+
+
+def device_seconds(trace_dir, device_substr=DEVICE):
+    """Sum event durations (seconds) attributed to device processes in
+    every Chrome-trace file under `trace_dir` (kalign_tpu's measure).
+
+    Events nested inside other events on the same thread would
+    double-count, so the complete events of each (pid, tid) are merged
+    into intervals before they are summed; a stream is a thread of the
+    device's process, so two streams at work at once count twice (see
+    busy_seconds)."""
+    total = 0.0
+    for by_thread in _device_intervals(trace_dir, device_substr):
+        for ivals in by_thread.values():
+            for s, t in _merged(ivals):
+                total += t - s
     return total / 1e6  # trace timestamps are microseconds
+
+
+def busy_seconds(trace_dir, device_substr=DEVICE):
+    """Seconds in which a device process has work on any of its streams:
+    the union of its events over all its threads, summed over the device
+    processes of every file under `trace_dir`.  Two streams at work at
+    once count once, as msabench/tracing.py's Trace.busy takes a card's
+    busy time."""
+    total = 0.0
+    for by_thread in _device_intervals(trace_dir, device_substr):
+        by_pid = {}
+        for (pid, _), ivals in by_thread.items():
+            by_pid.setdefault(pid, []).extend(ivals)
+        for ivals in by_pid.values():
+            for s, t in _merged(ivals):
+                total += t - s
+    return total / 1e6
 
 
 @contextmanager
@@ -116,22 +146,3 @@ def trace(trace_dir):
         yield
         if cuda:
             torch.cuda.synchronize()
-
-
-@contextmanager
-def device_timer(result_box, device_substr=DEVICE, keep_dir=None):
-    """Context manager: traces the enclosed computation and stores the
-    summed device seconds into result_box["device_s"].
-
-    result_box also receives "trace_dir" when keep_dir is given (the
-    temporary directory is deleted otherwise)."""
-    d = keep_dir or tempfile.mkdtemp(prefix="ktrace_")
-    try:
-        with trace(d):
-            yield
-        result_box["device_s"] = device_seconds(d, device_substr)
-        if keep_dir:
-            result_box["trace_dir"] = d
-    finally:
-        if not keep_dir:
-            shutil.rmtree(d, ignore_errors=True)

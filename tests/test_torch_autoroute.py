@@ -60,14 +60,19 @@ def spy_route(monkeypatch):
 def test_divergent_family_routes_to_the_exact_engine():
     """BB30014 (mean anchor distance ~0.55), --fast, default arguments:
     the gpu engine aligns, and its FASTA is kalign_tpu's host engine's,
-    byte for byte; the guide tree is the one gpu-fast built."""
+    byte for byte; the guide tree is the one gpu-fast built, its spans
+    and pair counts carried over."""
     out = _port("BB30014.tfa", 0)
     st = out.engine_stats
     assert st["engine"] == "gpu" and st["routed_from"] == "gpu-fast"
     assert st["mean_seq_distance"] > 0.5 and st["tree"] == "native"
     assert st["sweep_launches"] > 0 and st["sweep_steps"] > 0
     assert st["canary"]["path_equal"]
-    assert set(out.phase_times) == {"distances", "tree", "progressive"}
+    assert set(out.phase_times) == {"input", "distances", "tree",
+                                    "tree.splits", "tree.pairs",
+                                    "tree.upgma", "progressive", "output",
+                                    "unspanned"}
+    assert st["tree_pairs_computed"] > st["tree_pairs_needed"] > 0
     assert tio.format_alignment(out, "fasta") == _jax_host("BB30014.tfa", 0)
 
 

@@ -3,7 +3,7 @@
 synthetic Chrome traces (nested and overlapping events, two streams, a
 host process, .gz, a file that is not JSON), reads Kineto's labelled
 device processes without their annotation spans, and on a CPU run's
-trace reads 0.0."""
+trace reads 0.0; busy_seconds takes the union over a card's streams."""
 
 import glob
 import gzip
@@ -103,7 +103,11 @@ def test_cli_trace_on_the_cpu(tmp_path, capsys, quiet):
     files = glob.glob(str(d / "*.pt.trace.json"))
     assert len(files) == 1
     with open(files[0]) as fh:
-        assert json.load(fh)["traceEvents"]
+        events = json.load(fh)["traceEvents"]
+    # the program's spans are ranges of the trace
+    assert {"layer.align", "layer.input", "layer.distances", "layer.tree",
+            "layer.progressive", "layer.output"} <= \
+        {e.get("name") for e in events}
     assert tdev.device_seconds(str(d)) == 0.0
     assert (f"device trace written to {d}" in err) != quiet
     plain = tmp_path / "p.afa"
@@ -112,14 +116,23 @@ def test_cli_trace_on_the_cpu(tmp_path, capsys, quiet):
     assert out.read_bytes() == plain.read_bytes()
 
 
-def test_device_timer_on_the_cpu(tmp_path):
-    box = {}
-    with tdev.device_timer(box):
-        sum(range(1000))
-    assert box == {"device_s": 0.0}
-    keep = str(tmp_path / "keep")
-    box = {}
-    with tdev.device_timer(box, keep_dir=keep):
-        sum(range(1000))
-    assert box == {"device_s": 0.0, "trace_dir": keep}
-    assert glob.glob(os.path.join(keep, "*.pt.trace.json"))
+@pytest.mark.parametrize("pids", [1, 2], ids=["one-card", "two-cards"])
+def test_busy_seconds_takes_the_union_over_streams(tmp_path, pids):
+    """Two overlapping streams of one card count once in busy_seconds and
+    twice in device_seconds; annotations and host events count in
+    neither; each device process is a card of its own."""
+    d = str(tmp_path / "b")
+    events = _meta(118, "python3", "CPU") + [
+        _x(118, 118, 0.0, 500.0, cat="cpu_op")]
+    for pid in range(pids):
+        events += _meta(pid, "python3", f"GPU {pid}") + [
+            _x(pid, 7, 0.0, 10.0, cat="kernel"),
+            _x(pid, 8, 4.0, 10.0, cat="kernel"),
+            _x(pid, 8, 30.0, 2.0, cat="gpu_memcpy"),
+            _x(pid, 7, 0.0, 100.0, cat="gpu_user_annotation")]
+    _write(os.path.join(d, "host_1.123.pt.trace.json"), events)
+    assert tdev.busy_seconds(d) == pytest.approx(pids * 16e-6, rel=0,
+                                                 abs=1e-12)
+    assert tdev.device_seconds(d) == pytest.approx(pids * 22e-6, rel=0,
+                                                   abs=1e-12)
+    assert tdev.busy_seconds(d, device_substr="TPU") == 0.0
