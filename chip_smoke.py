@@ -28,7 +28,9 @@ Phases (any failure raises and the script exits non-zero):
      not a tile's multiple, rows whose anchors are all -1, row0 / col0
      offsets, B = 1 and 8 (edge_cases_prepare); for BPM and its
      mask-table kernel: every instantiation, nblk 1..16, with m = 0, 1,
-     64, 65 and 64*nblk, texts past 1,024, P = 1; for the k-means Lloyd
+     64, 65 and 64*nblk, texts past 1,024, P = 1, and the guide tree's
+     leaf-set pairs of the SARS-CoV-2-length genomes against the native
+     tree's own loop (edge_cases_tree_pairs); for the k-means Lloyd
      kernel, in both of its forms: clusters of exactly 50, 51 and 2,048
      rows, D = 5 anchors, rows that tie within EPS and rows all alike,
      each launched twice for the same bits);
@@ -1087,6 +1089,7 @@ def phase_edge_cases(dev):
                    f"{tuple(v.shape)} of three sets in one launch")
 
     edge_cases_bpm(dev, rng)
+    edge_cases_tree_pairs(dev)
     emit({"phase": "edge_cases", "ok": True})
 
 
@@ -1315,10 +1318,53 @@ def edge_cases_bpm(dev, rng):
     N = 2048
     lens = rng.integers(60, 1101, size=N).astype(np.int32)
     anchors = list(range(0, N, N // 32))
-    pairs = distances.PairBatch(random_tokens(rng, lens), lens, anchors, dev)
+    pairs = distances.PairBatch(random_tokens(rng, lens), lens,
+                                *distances.anchor_pairs(N, anchors), dev)
     inp = pairs.inputs(0, pairs.n_pairs)
     hold_equal_later("bpm", bpm.bpm_batch(*inp), bpm.plain, inp,
                      "2048x32, lengths 60-1100")
+
+
+def edge_cases_tree_pairs(dev):
+    """The guide tree's leaf-set pair distances in one batch on the BPM
+    kernel (distances.leaf_distances) bitwise against the native tree's
+    own loop (native.leaf_distances) on the sars2_default path's family,
+    its tree's inputs made as align_msa makes them on the card; GpuEngine's
+    tree byte-equal to the native tree's alone.  Both timed once, the
+    kernels already built."""
+    from kalign_tpu_torch import engine as TE
+    from kalign_tpu_torch import native
+    from kalign_tpu_torch.core import alphabet as alpha
+    from kalign_tpu_torch.core.msa import Msa
+    from kalign_tpu_torch.gpu import distances
+    from kalign_tpu_torch.gpu.engine import GpuEngine
+    msa = Msa.from_sequences(sars2_genomes())
+    msa.quiet = True
+    msa.sort_len_name()
+    TE._encoded(msa, alpha.ALPHA_DEFAULT_DNA)
+    anchors = TE.pick_anchors(msa)
+    codes = [sq.s for sq in msa.sequences]
+    dm = distances.anchor_distances(codes, anchors, dev)
+    shape, members, _ = native.tree_leaf_sets(dm, len(anchors))
+    sets = native.leaf_sets(shape, members)
+    (got, pairs), batch_ms = timed_once(
+        lambda: distances.leaf_distances(codes, sets, dev))
+    t0 = time.perf_counter()
+    want = np.concatenate([native.leaf_distances(codes, s).reshape(-1)
+                           for s in sets])
+    native_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    hold("bpm", got.tobytes() == want.tobytes(), err,
+         f"leaf sets {[len(s) for s in sets]} of SARS2_N genomes")
+    tasks, sd = GpuEngine(dev).build_tree(codes, dm, len(anchors))
+    want_tasks, want_sd = native.build_tree(codes, dm, len(anchors))
+    if tasks.tobytes() != want_tasks.tobytes() \
+            or sd.tobytes() != want_sd.tobytes():
+        raise AssertionError("GpuEngine.build_tree: the batch route's tree "
+                             "differs from the native tree's")
+    emit({"phase": "tree_pairs", "ok": True,
+          "sets": [len(s) for s in sets], "pairs": pairs,
+          "batch_ms": round(batch_ms, 3), "native_ms": round(native_ms, 3)})
 
 
 # ---------------------------------------------------------------------------
@@ -2951,7 +2997,8 @@ def distance_stage(seqs, dev):
     tokens = np.zeros((len(codes), int(lens.max())), np.uint8)
     for i, c in enumerate(codes):
         tokens[i, :len(c)] = c
-    return distances.PairBatch(tokens, lens, anchors, dev), lens
+    pairs = distances.anchor_pairs(len(codes), anchors)
+    return distances.PairBatch(tokens, lens, *pairs, dev), lens
 
 
 def bpm_stage(dev, seqs):
@@ -4889,7 +4936,7 @@ def large_family():
 
 def run_only(dev, only, divergent_n=DIVERGENT_N):
     """The phases named in ``--only`` (comma-separated: edge, wave_edge,
-    prepare_edge, kmeans_edge, kmeans, exact_edge, path:NAME,
+    prepare_edge, tree_pairs, kmeans_edge, kmeans, exact_edge, path:NAME,
     profile:NAME, vs, goldens, mesh_edge, path:mesh_default,
     path:mesh_long, path:mesh_sars2, path:mesh_plastome, path:mesh_wide
     (and wide_merge on its widest merge), mesh_sweep, profile:mesh_long,
@@ -4919,6 +4966,8 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
                   **sweep_main_shape(dev, largest)})
             if what.startswith("profile"):
                 phase_profile("divergent", s, launches)
+        elif what == "tree_pairs":
+            edge_cases_tree_pairs(dev)
         elif what == "kmeans_edge":
             edge_cases_kmeans(dev, np.random.default_rng(7))
         elif what == "kmeans":

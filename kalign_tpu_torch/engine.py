@@ -442,7 +442,8 @@ def align_msa(msa: Msa, n_threads: int = 1, type_: int = 0,
                         tree_s=tree_stats.get("tree_s"),
                         routed_from=tree_stats["engine"],
                         mean_seq_distance=mean_sd,
-                        **{k: tree_stats[k] for k in native.TREE_COUNTS
+                        **{k: tree_stats[k] for k in (
+                            *native.TREE_COUNTS, "tree_pairs_batched")
                            if k in tree_stats})
             if save_checkpoint is not None:
                 os.makedirs(save_checkpoint, exist_ok=True)

@@ -5,8 +5,9 @@ form:
 
   * anchor distances: the BPM kernel (gpu/distances.py);
   * guide tree: the native builder (native/) below DEVICE_TREE_MIN_SEQS
-    sequences or on the CPU, else the device k-means tree
-    (gpu/kmeans.py, the Lloyd kernel);
+    sequences or on the CPU, its leaf sets' pair distances in one batch
+    on the BPM kernel (gpu/distances.py::leaf_distances), else the device
+    k-means tree (gpu/kmeans.py, the Lloyd kernel);
   * consistency maps (default mode): N x K leaf-against-anchor DPs whose
     operands are assembled on the card from a token table uploaded once
     (``dp_leaf_batch``); only index vectors travel per launch;
@@ -399,11 +400,20 @@ class GpuEngine:
         record under way ("tree.splits", "tree.upgma"; the native tree's
         "tree.pairs" too) and its pair counts go to stats
         (native.TREE_COUNTS); a device tree's host seconds by part also
-        to stats["tree_s"] ("splits_s", "upgma_s")."""
+        to stats["tree_s"] ("splits_s", "upgma_s").  The native tree takes
+        its leaf sets' pair distances from one batch on the engine's
+        device, each distinct pair once (stats["tree_pairs_batched"]); its
+        tree is the one the native code makes alone."""
         route = self.tree_route(len(codes))
         if route == "native":
             self.stats["tree"] = route
-            return native.build_tree(codes, dm, n_anchors, counts=self.stats)
+            res = native.build_tree(
+                codes, dm, n_anchors, counts=self.stats,
+                pair_distances=lambda sets: distances.leaf_distances(
+                    codes, sets, self.device))
+            self.stats["tree_pairs_batched"] = \
+                self.stats["tree_pairs_computed"]
+            return res
         with recording() as rec:
             first = len(rec.spans)
             res = None

@@ -21,6 +21,7 @@ import numpy as np
 
 from kalign_tpu_torch.utils.build import build_library
 from kalign_tpu_torch.utils.logging import add as add_span
+from kalign_tpu_torch.utils.logging import span
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 SOURCES = [os.path.join(_SRC, f) for f in
@@ -55,8 +56,14 @@ def lib() -> ctypes.CDLL:
     L = ctypes.CDLL(library_path())
     L.kt_build_tree.restype = _i32
     L.kt_build_tree.argtypes = [
-        _i8p, _i64p, _i32p, _i32, _f32p, _i32, _i32p, _f32p, _f64p,
+        _i8p, _i64p, _i32p, _i32, _f32p, _i32,
+        _vp, _vp, _vp,                          # shape, members, leaf_dm
+        _i32p, _f32p, _f64p,
     ]
+    L.kt_tree_leaf_sets.restype = _i32
+    L.kt_tree_leaf_sets.argtypes = [_f32p, _i32, _i32, _i32p, _i32p, _f64p]
+    L.kt_leaf_distances.restype = None
+    L.kt_leaf_distances.argtypes = [_i8p, _i64p, _i32p, _i32p, _i32, _f32p]
     L.kt_build_tree_pairwise.restype = _i32
     L.kt_build_tree_pairwise.argtypes = [_f32p, _i32, _i32p, _f32p]
     L.kt_aln_pairwise_dist.restype = None
@@ -215,32 +222,97 @@ TREE_PARTS = ("tree.splits", "tree.pairs", "tree.upgma")
 TREE_COUNTS = ("tree_pairs_computed", "tree_pairs_needed")
 
 
-def build_tree(codes, dm: np.ndarray, n_anchors: int, counts=None):
+def _ptr(x):
+    return None if x is None else x.ctypes.data
+
+
+def tree_leaf_sets(dm: np.ndarray, n_anchors: int):
+    """The guide tree's k-means splits alone (kt_tree_leaf_sets), from the
+    [N, stride] anchor distances: (shape, members, seconds), the splits in
+    pre-order (-1 a split, else the size of the next leaf set), the leaf
+    sets' members one set after another, each in the order its UPGMA
+    takes them, and the splits' seconds."""
+    dm = np.ascontiguousarray(dm, np.float32)
+    n = dm.shape[0]
+    shape = np.zeros(max(1, 2 * n - 1), np.int32)
+    members = np.zeros(n, np.int32)
+    stats = np.zeros(len(TREE_PARTS) + len(TREE_COUNTS), np.float64)
+    k = lib().kt_tree_leaf_sets(dm.reshape(-1), n_anchors, n, shape,
+                                members, stats)
+    return shape[:k], members, float(stats[0])
+
+
+def leaf_sets(shape: np.ndarray, members: np.ndarray):
+    """The leaf sets of tree_leaf_sets' output: one int32 array each."""
+    sizes = shape[shape >= 0]
+    return np.split(members, np.cumsum(sizes)[:-1])
+
+
+def leaf_distances(codes, members) -> np.ndarray:
+    """[ns, ns] float32 pair distances of one leaf set as the native tree
+    computes them (kt_leaf_distances): for members p < q, the biased BPM
+    distance of (members[q], members[p]) in both cells; the diagonal 0."""
+    flat, off, lens = flatten_seqs(codes)
+    members = np.ascontiguousarray(members, np.int32)
+    ns = len(members)
+    out = np.zeros((ns, ns), np.float32)
+    lib().kt_leaf_distances(flat, off, lens, members, ns, out.reshape(-1))
+    return out
+
+
+def build_tree(codes, dm: np.ndarray, n_anchors: int, counts=None,
+               pair_distances=None):
     """Guide tree of encoded sequences from their [N, stride] anchor
     distances: (tasks [N-1, 3] int32 in pre-order, seq_dist [N] f32).
 
-    The call's parts become summed spans of the record the thread has
-    open (utils/logging.py), children of the span open there: TREE_PARTS,
-    the k-means rounds, the pair distances of the leaf sets below 50
-    sequences and their UPGMA joins.  ``counts`` (a dict), when given,
-    takes TREE_COUNTS: the pair distances computed (ns * ns a leaf set)
-    and the distinct unordered pairs the UPGMA needed (ns (ns - 1) / 2
-    a leaf set)."""
+    ``pair_distances``, when given, computes the leaf sets' pair
+    distances in the native tree's place: called with the list of leaf
+    sets (tree_leaf_sets), it returns (the sets' ns x ns float32
+    matrices laid one after another, flat, with kt_leaf_distances'
+    values off the diagonal; the pair distances it computed).  The tree
+    is then the one built without it.
+
+    The call's parts become spans of the record the thread has open
+    (utils/logging.py), children of the span open there: TREE_PARTS, the
+    k-means rounds, the pair distances of the leaf sets below 50
+    sequences and their UPGMA joins; summed spans of the native code's
+    clock, but for "tree.pairs" around ``pair_distances``, a span of its
+    own.  ``counts`` (a dict), when given, takes TREE_COUNTS: the pair
+    distances computed (ns (ns - 1) / 2 a leaf set, natively or by
+    ``pair_distances``) and the distinct unordered pairs the UPGMA
+    needed (ns (ns - 1) / 2 a leaf set)."""
     flat, off, lens = flatten_seqs(codes)
     n = len(codes)
+    dm = np.ascontiguousarray(dm, np.float32)
     tasks = np.zeros(3 * (n - 1), dtype=np.int32)
     seq_dist = np.zeros(n, dtype=np.float32)
     stats = np.zeros(len(TREE_PARTS) + len(TREE_COUNTS), np.float64)
+    shape = members = leaf_dm = None
+    parts, computed = TREE_PARTS, 0
     t0 = time.perf_counter()
-    cnt = lib().kt_build_tree(flat, off, lens, n,
-                              np.ascontiguousarray(dm, np.float32).reshape(-1),
-                              n_anchors, tasks, seq_dist, stats)
+    if pair_distances is not None:
+        shape, members, secs = tree_leaf_sets(dm, n_anchors)
+        add_span("tree.splits", t0, secs)
+        with span("tree.pairs"):
+            leaf_dm, computed = pair_distances(leaf_sets(shape, members))
+        leaf_dm = np.ascontiguousarray(leaf_dm, np.float32)
+        sizes = shape[shape >= 0].astype(np.int64)
+        if leaf_dm.size != int(np.sum(sizes * sizes)):
+            raise ValueError(f"pair_distances gave {leaf_dm.size} cells for "
+                             f"leaf sets of sizes {sizes.tolist()}")
+        parts = TREE_PARTS[2:]
+        t0 = time.perf_counter()
+    cnt = lib().kt_build_tree(flat, off, lens, n, dm.reshape(-1), n_anchors,
+                              _ptr(shape), _ptr(members), _ptr(leaf_dm),
+                              tasks, seq_dist, stats)
     if cnt != n - 1:
         raise RuntimeError(f"kt_build_tree returned {cnt} tasks for {n} "
                            "sequences")
-    for name, secs in zip(TREE_PARTS, stats.tolist()):
-        add_span(name, t0, secs)
-        t0 += secs
+    secs = dict(zip(TREE_PARTS, stats.tolist()))
+    for name in parts:
+        add_span(name, t0, secs[name])
+        t0 += secs[name]
+    stats[len(TREE_PARTS)] += computed
     if counts is not None:
         counts.update(zip(TREE_COUNTS,
                           (int(c) for c in stats[len(TREE_PARTS):])))

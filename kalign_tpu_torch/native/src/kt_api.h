@@ -46,18 +46,44 @@ void kt_dist_to_anchors(const uint8_t* flat, const int64_t* off,
  * embedding with exact UPGMA below the 50-sequence threshold.
  * dm: [numseq][stride] anchor distances (stride = 8*ceil(n_anchors/8)),
  *     may be perturbed by the caller for noisy ensemble trees.
+ * shape, members (both null, or both kt_tree_leaf_sets' output on the same
+ *     dm): the splits already made; null runs them here.
+ * leaf_dm (null, or given with shape): each leaf set's ns*ns pair
+ *     distances, row-major, the sets one after another in the shape's
+ *     order; the UPGMA reads both triangles (kt_leaf_distances' values)
+ *     and never the diagonal.  Null computes them here.
  * tasks_out: 3*(numseq-1) ints (a,b,c) in pre-order; caller sorts by c.
  * seq_dist_out: per-sequence normalized mean anchor distance.
  * stats_out (may be null): 5 doubles, the call's seconds in the k-means
  *     rounds, in the UPGMA leaves' pair distances and in their joins, then
- *     the pair distances computed (ns*ns a leaf set) and the distinct
- *     unordered pairs the UPGMA needed (ns*(ns-1)/2 a leaf set).
+ *     the pair distances computed here (ns*(ns-1)/2 a leaf set, 0 with
+ *     leaf_dm) and the distinct unordered pairs the UPGMA needed
+ *     (ns*(ns-1)/2 a leaf set).
  * Returns number of tasks or -1. (bisectingKmeans.c:177-271) */
 int32_t kt_build_tree(const uint8_t* flat, const int64_t* off,
                       const int32_t* len, int32_t numseq,
                       const float* dm, int32_t n_anchors,
-                      int32_t* tasks_out, float* seq_dist_out,
-                      double* stats_out);
+                      const int32_t* shape, const int32_t* members,
+                      const float* leaf_dm, int32_t* tasks_out,
+                      float* seq_dist_out, double* stats_out);
+
+/* kt_build_tree's splits alone (they read only dm): the tree above the leaf
+ * sets in pre-order into shape_out (at most 2*numseq-1 ints: -1 a split,
+ * else the size of the next leaf set) and the sets' members into
+ * members_out (numseq ints, one set after another, each in the order its
+ * UPGMA takes them).  stats_out (may be null): kt_build_tree's 5, the
+ * splits' seconds first, the rest 0.  Returns the shape's length. */
+int32_t kt_tree_leaf_sets(const float* dm, int32_t n_anchors, int32_t numseq,
+                          int32_t* shape_out, int32_t* members_out,
+                          double* stats_out);
+
+/* The pair distances a leaf set's UPGMA reads, as kt_build_tree computes
+ * them: for members p < q, the biased BPM distance of (members[q],
+ * members[p]) (the longer the text, on equal lengths members[p]) in cells
+ * (p, q) and (q, p) of dm_out [ns][ns]; the diagonal 0. */
+void kt_leaf_distances(const uint8_t* flat, const int64_t* off,
+                       const int32_t* len, const int32_t* members,
+                       int32_t ns, float* dm_out);
 
 /* UPGMA over a full pairwise matrix (modifies dm_copy in place).
  * Used for --realign tree rebuilds (bisectingKmeans.c:1150-1200). */

@@ -14,13 +14,23 @@
  * (euclidean_dist.c:159-206); kt::edist_lanes8 reproduces that exact
  * summation order in scalar code.
  *
+ * The build has two halves.  The splits (split_down) read only the anchor
+ * embedding, so they fix the leaf sets before any pair distance exists:
+ * kt_tree_leaf_sets returns them, and a caller that computes the sets'
+ * pair distances elsewhere (on the card) hands them back to kt_build_tree,
+ * which then joins (join_up) without computing any.  Left to itself,
+ * kt_build_tree computes each distinct unordered pair of a leaf set once
+ * (leaf_distances).
+ *
  * kt_build_tree also measures itself (TreeStats): the steady-clock seconds
  * of the k-means rounds, of the leaves' pair distances and of their UPGMA
- * joins, and counts the pair distances computed and the distinct unordered
- * pairs the UPGMA needs.  It counts per leaf set, outside the pair loop.
+ * joins, and counts the pair distances it computed and the distinct
+ * unordered pairs the UPGMA needs.  It counts per leaf set, outside the
+ * pair loop.
  */
 #include "kt_api.h"
 
+#include <algorithm>
 #include <cfloat>
 #include <chrono>
 #include <cmath>
@@ -40,9 +50,9 @@ struct TreeNode {
 /* kt_build_tree's stats_out, in this order */
 struct TreeStats {
   double splits_s = 0.0;        /* the k-means split_once rounds */
-  double pairs_s = 0.0;         /* pair_distance_biased in the leaves */
+  double pairs_s = 0.0;         /* leaf_distances */
   double upgma_s = 0.0;         /* upgma_build's joins */
-  double pairs_computed = 0.0;  /* pair_distance_biased calls: ns * ns */
+  double pairs_computed = 0.0;  /* pair_distance_biased calls */
   double pairs_needed = 0.0;    /* ns * (ns - 1) / 2 a leaf set */
 };
 
@@ -246,27 +256,39 @@ float pair_distance_biased(const TreeBuildCtx& ctx, int a, int b) {
   return dist;
 }
 
-TreeNode* bisect(const TreeBuildCtx& ctx, std::vector<int> samples) {
+/* The pair distances the UPGMA of a leaf set s[0..ns) reads, each distinct
+   unordered pair once: for members p < q, pair_distance_biased(s[q], s[p])
+   into both cells, the value the reference's loop over every ordered pair
+   leaves there (its later write, i = q and j = p, wins).  The diagonal,
+   which upgma_build never reads, stays 0. */
+void leaf_distances(const TreeBuildCtx& ctx, const int32_t* s, int ns,
+                    float* dm) {
+  for (int q = 1; q < ns; q++) {
+    for (int p = 0; p < q; p++) {
+      const float d = pair_distance_biased(ctx, s[q], s[p]);
+      dm[(int64_t)p * ns + q] = d;
+      dm[(int64_t)q * ns + p] = d;
+    }
+  }
+}
+
+/* The splits' product: the tree above the leaf sets in pre-order (-1 a
+   split, else the size of the next leaf set), and the leaf sets' members,
+   one set after another, each in the order its UPGMA takes them. */
+struct LeafSets {
+  std::vector<int32_t> shape;
+  std::vector<int32_t> members;
+};
+
+/* Bisecting 2-means down to sets below the UPGMA threshold
+   (bisectingKmeans.c:177-241). */
+void split_down(const TreeBuildCtx& ctx, std::vector<int> samples,
+                LeafSets* out) {
   const int ns = (int)samples.size();
   if (ns < kUpgmaThreshold) {
-    /* exact UPGMA over full pairwise BPM distances of the subset
-       (d_estimation pair=1, sequence_distance.c:53-81) */
-    const Clock::time_point t0 = Clock::now();
-    std::vector<float> dm((int64_t)ns * ns);
-    for (int i = 0; i < ns; i++) {
-      for (int j = 0; j < ns; j++) {
-        float d = pair_distance_biased(ctx, samples[i], samples[j]);
-        dm[(int64_t)i * ns + j] = d;
-        dm[(int64_t)j * ns + i] = d;
-      }
-    }
-    ctx.stats->pairs_s += seconds_since(t0);
-    ctx.stats->pairs_computed += (double)ns * (double)ns;
-    ctx.stats->pairs_needed += (double)ns * (double)(ns - 1) / 2.0;
-    const Clock::time_point t1 = Clock::now();
-    TreeNode* joined = upgma_build(dm, samples);
-    ctx.stats->upgma_s += seconds_since(t1);
-    return joined;
+    out->shape.push_back(ns);
+    out->members.insert(out->members.end(), samples.begin(), samples.end());
+    return;
   }
 
   const Clock::time_point t0 = Clock::now();
@@ -294,12 +316,55 @@ TreeNode* bisect(const TreeBuildCtx& ctx, std::vector<int> samples) {
   }
   ctx.stats->splits_s += seconds_since(t0);
 
-  TreeNode* n = new TreeNode();
+  out->shape.push_back(-1);
   samples.clear();
   samples.shrink_to_fit();
-  n->left = bisect(ctx, std::move(best.left));
-  n->right = bisect(ctx, std::move(best.right));
-  return n;
+  split_down(ctx, std::move(best.left), out);
+  split_down(ctx, std::move(best.right), out);
+}
+
+/* Where join_up reads the splits' product, and the leaf sets' distance
+   matrices when the caller gives them (null: leaf_distances computes
+   them). */
+struct JoinCursor {
+  const int32_t* shape;
+  const int32_t* members;
+  const float* leaf_dm;
+  int at = 0;
+  int64_t member_at = 0;
+  int64_t dm_at = 0;
+};
+
+/* The tree of the splits, each leaf set an exact UPGMA over its pair
+   distances (d_estimation pair=1, sequence_distance.c:53-81). */
+TreeNode* join_up(const TreeBuildCtx& ctx, JoinCursor* c) {
+  const int ns = c->shape[c->at++];
+  if (ns < 0) {
+    TreeNode* n = new TreeNode();
+    n->left = join_up(ctx, c);
+    n->right = join_up(ctx, c);
+    return n;
+  }
+  const int32_t* s = c->members + c->member_at;
+  c->member_at += ns;
+  const int64_t cells = (int64_t)ns * ns;
+  std::vector<float> dm(cells, 0.0f);
+  const double pairs = (double)ns * (double)(ns - 1) / 2.0;
+  if (c->leaf_dm) {
+    std::copy(c->leaf_dm + c->dm_at, c->leaf_dm + c->dm_at + cells,
+              dm.begin());
+    c->dm_at += cells;
+  } else {
+    const Clock::time_point t0 = Clock::now();
+    leaf_distances(ctx, s, ns, dm.data());
+    ctx.stats->pairs_s += seconds_since(t0);
+    ctx.stats->pairs_computed += pairs;
+  }
+  ctx.stats->pairs_needed += pairs;
+  const Clock::time_point t1 = Clock::now();
+  TreeNode* joined = upgma_build(dm, std::vector<int>(s, s + ns));
+  ctx.stats->upgma_s += seconds_since(t1);
+  return joined;
 }
 
 int label_postorder(TreeNode* n, int label) {
@@ -327,14 +392,9 @@ void free_tree(TreeNode* n) {
   delete n;
 }
 
-}  // namespace
-
-extern "C" int32_t kt_build_tree(const uint8_t* flat, const int64_t* off,
-                                 const int32_t* len, int32_t numseq,
-                                 const float* dm, int32_t n_anchors,
-                                 int32_t* tasks_out, float* seq_dist_out,
-                                 double* stats_out) {
-  TreeStats stats;
+TreeBuildCtx make_ctx(const uint8_t* flat, const int64_t* off,
+                      const int32_t* len, int32_t numseq, const float* dm,
+                      int32_t n_anchors, TreeStats* stats) {
   TreeBuildCtx ctx;
   ctx.flat = flat;
   ctx.off = off;
@@ -343,12 +403,72 @@ extern "C" int32_t kt_build_tree(const uint8_t* flat, const int64_t* off,
   ctx.stride = ((n_anchors + 7) / 8) * 8;
   ctx.n_anchors = n_anchors;
   ctx.numseq = numseq;
-  ctx.stats = &stats;
+  ctx.stats = stats;
+  return ctx;
+}
 
-  std::vector<int> samples(numseq);
-  for (int i = 0; i < numseq; i++) samples[i] = i;
+LeafSets split_all(const TreeBuildCtx& ctx) {
+  std::vector<int> samples(ctx.numseq);
+  for (int i = 0; i < ctx.numseq; i++) samples[i] = i;
+  LeafSets sets;
+  split_down(ctx, std::move(samples), &sets);
+  return sets;
+}
 
-  TreeNode* root = bisect(ctx, std::move(samples));
+void write_stats(const TreeStats& stats, double* stats_out) {
+  if (stats_out) {
+    const double out[5] = {stats.splits_s, stats.pairs_s, stats.upgma_s,
+                           stats.pairs_computed, stats.pairs_needed};
+    std::memcpy(stats_out, out, sizeof out);
+  }
+}
+
+}  // namespace
+
+extern "C" int32_t kt_tree_leaf_sets(const float* dm, int32_t n_anchors,
+                                     int32_t numseq, int32_t* shape_out,
+                                     int32_t* members_out,
+                                     double* stats_out) {
+  TreeStats stats;
+  const LeafSets sets = split_all(
+      make_ctx(nullptr, nullptr, nullptr, numseq, dm, n_anchors, &stats));
+  std::copy(sets.shape.begin(), sets.shape.end(), shape_out);
+  std::copy(sets.members.begin(), sets.members.end(), members_out);
+  write_stats(stats, stats_out);
+  return (int32_t)sets.shape.size();
+}
+
+extern "C" void kt_leaf_distances(const uint8_t* flat, const int64_t* off,
+                                  const int32_t* len,
+                                  const int32_t* members, int32_t ns,
+                                  float* dm_out) {
+  TreeStats stats;
+  const TreeBuildCtx ctx =
+      make_ctx(flat, off, len, 0, nullptr, 0, &stats);
+  std::fill(dm_out, dm_out + (int64_t)ns * ns, 0.0f);
+  leaf_distances(ctx, members, ns, dm_out);
+}
+
+extern "C" int32_t kt_build_tree(const uint8_t* flat, const int64_t* off,
+                                 const int32_t* len, int32_t numseq,
+                                 const float* dm, int32_t n_anchors,
+                                 const int32_t* shape, const int32_t* members,
+                                 const float* leaf_dm, int32_t* tasks_out,
+                                 float* seq_dist_out, double* stats_out) {
+  TreeStats stats;
+  const TreeBuildCtx ctx =
+      make_ctx(flat, off, len, numseq, dm, n_anchors, &stats);
+  LeafSets sets;
+  if (!shape) {
+    sets = split_all(ctx);
+    shape = sets.shape.data();
+    members = sets.members.data();
+  }
+  JoinCursor cursor;
+  cursor.shape = shape;
+  cursor.members = members;
+  cursor.leaf_dm = leaf_dm;
+  TreeNode* root = join_up(ctx, &cursor);
   label_postorder(root, numseq);
   int count = 0;
   emit_tasks_preorder(root, tasks_out, &count);
@@ -366,11 +486,7 @@ extern "C" int32_t kt_build_tree(const uint8_t* flat, const int64_t* off,
       seq_dist_out[i] = sl > 0.0f ? mean / sl : 0.0f;
     }
   }
-  if (stats_out) {
-    const double out[5] = {stats.splits_s, stats.pairs_s, stats.upgma_s,
-                           stats.pairs_computed, stats.pairs_needed};
-    std::memcpy(stats_out, out, sizeof out);
-  }
+  write_stats(stats, stats_out);
   return count;
 }
 

@@ -172,7 +172,8 @@ def test_table_inputs_match_xla_bpm_batch():
     lens = rng.integers(1, 140, size=12).astype(np.int32)
     lens[[2, 7]] = (64, 65)
     tok = _tokens(lens, 12)
-    pairs = distances.PairBatch(tok, lens, [0, 2, 7], "cpu")
+    pairs = distances.PairBatch(
+        tok, lens, *distances.anchor_pairs(len(lens), [0, 2, 7]), "cpu")
     inp = pairs.inputs(0, pairs.n_pairs)
     got = bpm.bpm_batch(*inp).numpy()
     ti, pi = pairs.text_src, pairs.pat_src

@@ -182,7 +182,11 @@ def test_every_span_is_a_range_under_the_profiler():
     for k, s in enumerate(spans):
         want = None if s.parent is None else index[id(out.spans[s.parent])]
         assert _innermost(ranges, k) == want, (k, s)
-    assert {s.name for s in out.spans if s.summed} == set(native.TREE_PARTS)
+    # the native tree's k-means rounds and joins are summed spans; its leaf
+    # sets' pair distances, one batch on the engine's device, a range
+    assert {s.name for s in out.spans if s.summed} == {"tree.splits",
+                                                       "tree.upgma"}
+    assert [s.name for s in spans].count("tree.pairs") == 1
 
 
 def _codes(rng, n, lo=60, hi=120):
@@ -193,11 +197,11 @@ def _codes(rng, n, lo=60, hi=120):
 @pytest.mark.parametrize("groups", [(10,), (25, 35)],
                          ids=["one-upgma", "two-leaf-sets"])
 def test_native_tree_parts_and_pair_counts(groups):
-    """10 sequences: one UPGMA, 100 pair distances computed, 45 needed.
+    """10 sequences: one UPGMA, 45 pair distances computed and needed.
     60 sequences in two clusters of the anchor embedding, 25 and 35: one
-    k-means split, then a UPGMA each: sum n_i^2 computed, sum
-    n_i (n_i - 1) / 2 needed.  The tasks and distances are kalign_tpu's,
-    bit for bit."""
+    k-means split, then a UPGMA each: sum n_i (n_i - 1) / 2 computed
+    (each distinct pair once) and needed.  The tasks and distances are
+    kalign_tpu's, bit for bit."""
     rng = np.random.default_rng(len(groups))
     n, na = sum(groups), 5
     codes = _codes(rng, n)
@@ -212,7 +216,7 @@ def test_native_tree_parts_and_pair_counts(groups):
         with rec.span("tree"):
             tasks, sd = native.build_tree(codes, dm, na, counts=counts)
     assert counts == {
-        "tree_pairs_computed": sum(g * g for g in groups),
+        "tree_pairs_computed": sum(g * (g - 1) // 2 for g in groups),
         "tree_pairs_needed": sum(g * (g - 1) // 2 for g in groups)}
     parts = [s for s in rec.spans if s.summed]
     assert [s.name for s in parts] == list(native.TREE_PARTS)
@@ -246,8 +250,8 @@ def test_device_tree_spans_and_counts():
     assert st["tree_s"] == {
         "splits_s": rec.spans[2].end - rec.spans[2].start,
         "upgma_s": rec.spans[3].end - rec.spans[3].start}
-    assert 0 < 2 * st["tree_pairs_needed"] < st["tree_pairs_computed"] \
-        <= 49 * 120
+    assert 0 < st["tree_pairs_needed"] == st["tree_pairs_computed"] \
+        <= 49 * 120 // 2
     # outside any alignment the engine records the same keys
     eng = GpuEngine("cpu", device_tree=True)
     eng.build_tree(codes, dm, 6)
