@@ -131,7 +131,7 @@ Phases (any failure raises and the script exits non-zero):
      to 0 just before and read just after, FASTA equal to one shard's
      and to gpu-fast's (the protein_default / long_default /
      sars2_default / plastome_default paths', mesh_wide's aligned
-     here); mesh_wide's widest merge as long_merge runs it on its two
+     here); mesh_wide's widest merge as LongQueue runs it on its two
      shards, bitwise against the same merge on one card's wave route
      (wide_merge: rows, columns, launches, walls, peak memory); the
      mesh_long path's root
@@ -362,7 +362,15 @@ PATHS = {"fast": dict(mode="fast", launch=NARROW),
                                   + BONUS,
                                   forbid=["gotoh_row_cluster", "gotoh_row",
                                           "gotoh_lanewise", "gotoh_fused"],
-                                  host_pass=False, profile=False)}
+                                  host_pass=False, profile=False),
+         # 8 genomes of ~236 kb on one card (--only path:hcmv_default;
+         # ~60 GB a DP): mesh_hcmv's FASTA is held to it
+         "hcmv_default": dict(mode="default",
+                              launch=GENOME_BASE + ["gotoh_row_wave"]
+                              + BONUS,
+                              forbid=["gotoh_row_cluster", "gotoh_row",
+                                      "gotoh_lanewise", "gotoh_fused"],
+                              host_pass=False, profile=False)}
 # the precise path: mode "precise" (an ensemble of 3 runs, each with one
 # realign pass, consistency K = 5) on PRECISE_N proteins of the protein
 # family's kind; its POAR tables are host work over N (N - 1) / 2 pairs
@@ -401,6 +409,9 @@ PLASTOME_N, PLASTOME_LEN, PLASTOME_SUBS = 8, 155943, (0.03, 0.015)
 # wide, past two 114,688-column bands; the cut: one genome (two such
 # genomes' merge, ~236,000 squared, would not fit one card)
 WIDE_N, WIDE_LEN, WIDE_REGION, WIDE_SUBS = 8, 236000, 20000, (0.01, 0.02)
+# hcmv_genomes: 8 genomes of ~236 kb (the hcmv_default and mesh_hcmv
+# paths, mesh_pairs)
+HCMV_N, HCMV_LEN, HCMV_SUBS = 8, 236000, (0.01, 0.005)
 # fp32 operations per cluster member, iteration and try of the k-means
 # Lloyd kernel, at D anchors: two D-long dot products (2D multiplies,
 # 2D - 2 adds), the two squared distances (1 multiply, 2 adds each), the
@@ -758,6 +769,17 @@ def wide_family(n: int = WIDE_N, seed: int = 18):
     out = [mutate(root, WIDE_SUBS[0], 20)]
     out += [mutate(root[:WIDE_REGION], WIDE_SUBS[1], 4) for _ in range(n)]
     return [s.tobytes().decode() for s in out]
+
+
+def hcmv_genomes(n: int = HCMV_N, seed: int = 19):
+    """Genomes of a large DNA virus's length from a seed: a 236,000-nt root
+    (HCMV's ~236 kb), 4 clades at HCMV_SUBS[0] substitutions, members at
+    HCMV_SUBS[1] more, indels of 1-3 nt; lengths 232,000-240,000.  One
+    card holds a pairwise DP of them on the wave route (~60 GB), so
+    gpu-fast on one card and gpu-mesh over the cards align the same
+    family."""
+    return family(n, seed, root_len=HCMV_LEN, lo=232000, hi=240000,
+                  clades=4, letters=DNA, subs=HCMV_SUBS, max_indel=3)
 
 
 def v4_family(n: int, seed: int):
@@ -3352,11 +3374,12 @@ def wave_root(dev, seen):
     wave_out = wave()
     wave_ms = device_ms(wave, 2)
     mesh = mesh_of()
-    Wd = gotoh_mesh.band_width(L2p, mesh.size)
+    Wd = gotoh_mesh.band_width(L2p, mesh.size,
+                               gotoh_mesh.alone(mesh.shards))
     Wp = Wd * mesh.size
     mp = F.pad(mm, (0, Wp - L2p))
-    bands = [mp[:, d * Wd:(d + 1) * Wd].contiguous() for d in
-             range(mesh.size)]
+    bands = [mp[:, d * Wd:(d + 1) * Wd].to(sh.device).contiguous()
+             for d, sh in enumerate(mesh.shards)]
     del mp
     prep_m = gotoh_row.prepare(F.pad(pc, (0, Wp - L2p)), pr2, la2, lb, zero,
                                zero)
@@ -3368,7 +3391,7 @@ def wave_root(dev, seen):
               rows2, lb_i, "gotoh_row_wave")
     mesh_ms, mesh_enqueue = band_device_ms(mesh, (bands, prep_m, Wp), rows2,
                                            lb_i)
-    band_cfg = gotoh_mesh.band_config(Wd)
+    band_cfg = gotoh_mesh.band_config(Wd, gotoh_mesh.alone(mesh.shards))
     b2, by2 = bound(float(rows2) * lb_i * 5, float(rows2) * lb_i *
                     GOTOH_OPS_PER_CELL, FP32_OPS_PER_S)
     del bands, mm
@@ -3930,7 +3953,15 @@ MESH_PATHS = {
     # run: one shard is gpu-fast's resident pass, run here for the FASTA)
     "mesh_wide": dict(launch=GENOME_BASE + ["gotoh_mesh"] + BONUS,
                       forbid=["gotoh_lanewise", "gotoh_fused"],
-                      gpu_fast="wide_default", one_shard=False, shards=2)}
+                      gpu_fast="wide_default", one_shard=False, shards=2),
+    # hcmv_genomes over every card (run it with --chips 4): each merge's
+    # bands on cards of their own, the map DPs on the first card's wave
+    # route (one card holds them)
+    "mesh_hcmv": dict(launch=GENOME_BASE + ["gotoh_row_wave",
+                                            "gotoh_mesh"] + BONUS,
+                      forbid=["gotoh_lanewise", "gotoh_fused", "gotoh_row",
+                              "gotoh_row_cluster"],
+                      gpu_fast="hcmv_default", one_shard=False)}
 # the band kernel's edge cases: (shards, L1, W, la, lb, rows a block)
 MESH_EDGE = [(2, 600, 1536, 600, 1536, 256),   # L1 not a multiple of R;
                                                # clusters of 3
@@ -3999,7 +4030,7 @@ def band_operands(mesh, match, pc, pr, la, lb, eps=1e-3):
     from kalign_tpu_torch.parallel.mesh import put
     shards = mesh.shards
     L1, W = match.shape
-    Wd = gotoh_mesh.band_width(W, len(shards))
+    Wd = gotoh_mesh.band_width(W, len(shards), gotoh_mesh.alone(shards))
     Wp = Wd * len(shards)
     sh0 = shards[0]
     with gotoh_mesh.on(sh0):
@@ -4017,17 +4048,27 @@ def band_operands(mesh, match, pc, pr, la, lb, eps=1e-3):
     return bands, prep, Wp
 
 
+def gathered(mesh, bands):
+    """The bands' decisions side by side [L1p, n * Wd] on the first
+    shard's card, for the checks (the engine walks each band on its own
+    card), the card drained."""
+    import torch
+    torch.cuda.synchronize()
+    dev = mesh.shards[0].device
+    return torch.cat([b["dec"].to(dev) for b in bands], dim=1)
+
+
 def band_run(mesh, bands, prep, Wp, la, lb, rows=None, plain=False):
     """gotoh_mesh.forward (kernel, or plain on the card), the decisions
-    gathered: (dec [L1, Wp16], score [1], state [1]), the card drained."""
+    gathered: (dec [L1, Wp], score [1], state [1]), the card drained."""
     import torch
     from kalign_tpu_torch.gpu import gotoh_mesh
     bands, score, st = gotoh_mesh.forward(
         mesh.shards, bands, prep, la, lb,
         rows or gotoh_mesh.BLOCK_ROWS, use_plain=plain)
-    dec = gotoh_mesh.gather_dec(mesh.shards, bands, -(-Wp // 16) * 16)
+    dec = gathered(mesh, bands)
     torch.cuda.synchronize()
-    return dec[0], score, st
+    return dec, score, st
 
 
 def hold_band(what, got, want, la, lb, name="gotoh_mesh"):
@@ -4097,7 +4138,8 @@ def phase_mesh_edge(dev):
         mesh = mesh_of(n)
         eps = 0.0 if rows == 5 else 1e-3
         ops = band_operands(mesh, match, pc, pr, la, lb, eps)
-        cfg = gotoh_mesh.band_config(ops[2] // n)
+        cfg = gotoh_mesh.band_config(ops[2] // n,
+                                     gotoh_mesh.alone(mesh.shards))
         name = MESH_ROUTES[cfg.route]
         got = band_run(mesh, *ops, la, lb, rows)
         what = (f"{n} shards {L1}x{W} la={la} lb={lb} rows={rows} "
@@ -4143,7 +4185,7 @@ def sub_band_timing(mesh, problem, la, lb, rows, want):
     alt = SimpleNamespace(shards=shards)
     sub, prep, Wp = band_operands(alt, *problem, la, lb)
     Ws = Wp // len(shards)
-    cfg = gotoh_mesh.band_config(Ws)
+    cfg = gotoh_mesh.band_config(Ws, gotoh_mesh.alone(shards))
     if cfg.route != "cluster":
         raise AssertionError(f"sub-bands of {Ws} columns are not the "
                              "cluster route's")
@@ -4170,7 +4212,8 @@ def band_timing(mesh, ops, la, lb, rows, plain_ms):
         mesh.shards, bands, prep, la, lb, rows))
     t = lambda x: torch.tensor([x], dtype=torch.int32)
     b_ms, b_by = gotoh_bound(dict(la=t(la), lb=t(lb)), 1)
-    cfg = gotoh_mesh.band_config(Wp // mesh.size)
+    cfg = gotoh_mesh.band_config(Wp // mesh.size,
+                                 gotoh_mesh.alone(mesh.shards))
     with torch.cuda.device(mesh.shards[0].device):
         held = gotoh_mesh.max_active(cfg)
     return dict(ms=round(ms, 3), device_ms=round(dev_ms, 3),
@@ -4190,18 +4233,20 @@ def align_on_mesh(seqs, mode, mesh):
 
 @contextmanager
 def recorded_long_merges(seen):
-    """parallel/mesh.py::long_merge's arguments appended to seen."""
+    """The arguments of each merge queued on parallel/mesh.py::LongQueue
+    (its mesh first) appended to seen."""
     from kalign_tpu_torch.parallel import mesh as M
-    orig = M.long_merge
+    orig = M.LongQueue.submit
 
-    def rec(*args, **kw):
-        seen.append(args)
-        return orig(*args, **kw)
-    M.long_merge = rec
+    def rec(self, *args, **kw):
+        if kw.get("what", "merge") == "merge":
+            seen.append((self.mesh,) + args)
+        return orig(self, *args, **kw)
+    M.LongQueue.submit = rec
     try:
         yield
     finally:
-        M.long_merge = orig
+        M.LongQueue.submit = orig
 
 
 @contextmanager
@@ -4263,7 +4308,8 @@ def phase_mesh_path(name, seqs, mode="default"):
     mesh = mesh_of(cfg.get("shards"))
     seen, band_rows = [], []
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(d)
     reset_counts()
     with recorded_long_merges(seen), recorded_band_rows(band_rows):
         msa, wall = align_on_mesh(seqs, mode, mesh)
@@ -4284,6 +4330,10 @@ def phase_mesh_path(name, seqs, mode="default"):
             "engine": st["engine"], "shards": st["shards"],
             "cards": st["cards"], "tree": st["tree"],
             "long_merges": st["long_merges"], "row_merges": st["row_merges"],
+            "long_maps": st["long_maps"],
+            "walk_handoffs": st["walk_handoffs"],
+            "dec_moved_bytes": st["dec_moved_bytes"],
+            "card_peaks_gb": card_peaks_gb(),
             "map_pairs": st["map_pairs"],
             "one_shard_wall_s": None if one is None else round(one_wall, 3),
             "identical_fasta_one_shard": None if one is None else
@@ -4294,8 +4344,17 @@ def phase_mesh_path(name, seqs, mode="default"):
             "peak_memory_gb": round(peak / 1e9, 3),
             "launches": launches, **pass_summary(msa, wall)}
     emit(line)
-    missing = [k for k in cfg["launch"] if launches[k] == 0]
-    stray = [k for k in cfg["forbid"] if launches[k]]
+    launch, forbid = cfg["launch"], cfg["forbid"]
+    if gotoh_mesh.alone(mesh.shards):
+        # bands on cards of their own take band_config's plan for their
+        # width and card: either band kernel, not the shared cards' one
+        bands = set(MESH_ROUTES.values())
+        if bands & set(launch) and not any(launches[k] for k in bands):
+            raise AssertionError(f"{name}: no band kernel launched")
+        launch = [k for k in launch if k not in bands]
+        forbid = [k for k in forbid if k not in bands]
+    missing = [k for k in launch if launches[k] == 0]
+    stray = [k for k in forbid if launches[k]]
     if missing or stray:
         raise AssertionError(f"{name}: kernels not launched {missing}, "
                              f"launched {stray}")
@@ -4366,7 +4425,7 @@ def cluster_plan(blocks, ch):
     thread at any width they cover exactly (with the strip ring)."""
     from kalign_tpu_torch.gpu import gotoh_mesh, gotoh_row
 
-    def plan(Wd):
+    def plan(Wd, alone=False):
         return gotoh_mesh.with_ring(
             gotoh_row.band_config(blocks, Wd // blocks, ch))
     return plan
@@ -4374,9 +4433,9 @@ def cluster_plan(blocks, ch):
 
 def widest_merge(seen):
     """The mesh_long path's widest column-sharded merge (its root) rebuilt
-    from its recorded arguments as long_merge builds it: (the arguments,
+    from its recorded arguments as LongQueue builds it: (the arguments,
     (each band's whole match, prep, Wp), its shape's name, the band
-    sources long_merge feeds the band kernel).  The whole bands, each
+    sources LongQueue feeds the band kernel).  The whole bands, each
     made by its source in one block, let the kernel be timed alone."""
     from kalign_tpu_torch.parallel import mesh as M
     args = max(seen, key=lambda a: int(a[5]) * int(a[6]))
@@ -4408,7 +4467,7 @@ def mesh_root_merge(dev, seen):
     enqueue time (mesh_device_ms), the cluster row kernel's device time
     on that match (device_ms) and the bytes bound (a match read and a
     decision written per cell); the pipeline fed its band sources (each
-    band's match a block of rows at a time, as long_merge runs it) held
+    band's match a block of rows at a time, as LongQueue runs it) held
     against it fed the whole bands, and its device and enqueue times
     beside.  Returns the main_shape entry of the route taken."""
     import torch
@@ -4419,7 +4478,7 @@ def mesh_root_merge(dev, seen):
     mesh, _, rhs, pc, pr, la, lb, eps, bonus = args[:9]
     bands, prep, Wp = ops
     L2p = rhs.shape[0]
-    cfg = G.band_config(Wp // mesh.size)
+    cfg = G.band_config(Wp // mesh.size, G.alone(mesh.shards))
     name = MESH_ROUTES[cfg.route]
     got, ms = timed_once(lambda: band_run(mesh, *ops, la, lb))
     plain, plain_ms = timed_once(
@@ -4471,13 +4530,13 @@ def mesh_root_merge(dev, seen):
 
 def wide_merge(dev, seen):
     """The mesh_wide path's widest column-sharded merge (its recorded
-    long_merge arguments: the most columns, then rows) as long_merge runs
+    merge arguments: the most columns, then rows) as LongQueue runs
     it on the path's two shards of one card (the memory guard,
     long_operands' band sources, the band pipeline on the wave route, the
-    decisions gathered), against the same merge on one card through the
-    row kernel's wave route (gotoh_wave.forward_operands, itself bitwise
-    to the unsplit row DP): decisions in the valid region, score bits and
-    end state equal.  Its rows, columns, bands, launches of the band
+    decisions gathered for the check), against the same merge on one card
+    through the row kernel's wave route (gotoh_wave.forward_operands,
+    itself bitwise to the unsplit row DP): decisions in the valid region,
+    score bits and end state equal.  Its rows, columns, bands, launches of the band
     kernel's wave route, wall and peak device memory of each side."""
     import torch
     from kalign_tpu_torch.gpu import gotoh_wave
@@ -4493,8 +4552,7 @@ def wide_merge(dev, seen):
         sources, prep, Wp = M.long_operands(mesh, lhs, rhs, pc, pr, la, lb,
                                             eps, bonus)
         bands, score, st = G.forward(mesh.shards, sources, prep, la, lb)
-        dec = G.gather_dec(mesh.shards, bands, -(-Wp // 16) * 16)
-        return dec[0], score, st, Wp
+        return gathered(mesh, bands), score, st, Wp
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4521,7 +4579,7 @@ def wide_merge(dev, seen):
               (wd[0].cpu(), ws.cpu(), wst.cpu()), la, lb, "gotoh_mesh")
     del wd
     torch.cuda.empty_cache()
-    cfg = G.band_config(Wp // mesh.size)
+    cfg = G.band_config(Wp // mesh.size, G.alone(mesh.shards))
     out = dict(shape=shape, rows=L1p, columns=L2p, la=la, lb=lb,
                bonus=bonus is not None, bands=mesh.size,
                band=Wp // mesh.size, route=cfg.route,
@@ -4555,7 +4613,7 @@ def sweep_band(mesh, ops, la, lb, shape):
     plan held bitwise against band_config's."""
     from kalign_tpu_torch.gpu import gotoh_mesh
     Wd = ops[2] // mesh.size
-    cfg = gotoh_mesh.band_config(Wd)
+    cfg = gotoh_mesh.band_config(Wd, gotoh_mesh.alone(mesh.shards))
     got = band_run(mesh, *ops, la, lb)
     rows = {}
     for r in BLOCK_ROWS_SWEEP:
@@ -4579,7 +4637,7 @@ def sweep_band(mesh, ops, la, lb, shape):
 def sweep_wave_rows(seen):
     """Rows a launch on the band kernel's wave route (WAVE_ROWS_SWEEP): the
     mesh_wide path's widest merge (wide_merge's) fed its band sources as
-    long_merge feeds them, the band pipeline's device and enqueue ms at
+    LongQueue feeds them, the band pipeline's device and enqueue ms at
     each, each held bitwise against BLOCK_ROWS'."""
     from kalign_tpu_torch.parallel import mesh as M
     G = M.gotoh_mesh
@@ -4600,7 +4658,8 @@ def sweep_wave_rows(seen):
                        us_per_row=round(d_ms * 1e3 / la, 4),
                        launches_per_shard=-(-la // r))
     out = dict(shape=shape, band=ops[2] // mesh.size,
-               plan=G.band_config(ops[2] // mesh.size)._asdict(),
+               plan=G.band_config(ops[2] // mesh.size,
+                                  G.alone(mesh.shards))._asdict(),
                wave_rows_sweep=rows)
     emit({"phase": "mesh_sweep", **out})
     return out
@@ -4934,13 +4993,273 @@ def large_family():
     return family(16384, seed=4)
 
 
+def card_peaks_gb():
+    """torch.cuda.max_memory_allocated of every visible card, GB."""
+    import torch
+    return [round(torch.cuda.max_memory_allocated(d) / 1e9, 3)
+            for d in range(torch.cuda.device_count())]
+
+
+# the walk over a column-sharded DP's bands (walk_bands, each band's walk
+# on its card, csrc/traceback.cu from a cell to the band's left edge):
+# (bands, L1, band width, la, lb, p_diag, p_ext) of random decisions
+MESH_WALKS = [(2, 300, 256, 300, 512, 0.9, 0.3),
+              (3, 700, 512, 650, 1400, 0.7, 0.6),   # lb past the pads
+              (4, 1000, 1024, 999, 3800, 0.95, 0.2),
+              (4, 400, 128, 400, 300, 0.5, 0.8),    # lb in band 2
+              (4, 2000, 128, 10, 500, 0.9, 0.3),    # row 0 across bands
+              (2, 64, 4096, 60, 8000, 0.8, 0.5)]
+
+
+def phase_mesh_walk(dev):
+    """walk_bands on the mesh's shards (every card, or MESH_SHARDS on
+    cuda:0) against the walk over the bands gathered (traceback.walk_rows
+    on the first card, the walk kernel's whole-matrix form) and against
+    the plain walk whose fetch reads the band holding each column, bitwise
+    (steps and counts), from random end states: MESH_WALKS of random
+    decisions, and three column-sharded DPs from band_operands (bands of
+    their kernel, the walk starting past the pad columns)."""
+    import torch
+    from kalign_tpu_torch.gpu import gotoh_mesh
+    from kalign_tpu_torch.gpu import traceback as tb
+    from kalign_tpu_torch.parallel import mesh as M
+    rng = np.random.default_rng(29)
+    out = []
+
+    def hold_case(mesh, bands, la, lb, st, what):
+        Wd = bands[0]["dec"].shape[1]
+        n = len(bands)
+        ms = bands[0]["dec"].shape[0] + n * Wd + 2
+        got, crossed, _ = M.walk_bands(mesh, bands, la, lb,
+                                       torch.tensor([st], dtype=torch.int32),
+                                       ms)
+        full = gathered(mesh, bands)[None]
+        t = lambda x: torch.tensor([x], dtype=torch.int32, device=dev)
+        s, k = tb.walk_rows(full, t(la), t(lb), t(st), ms)
+        whole = s[0, :int(k[0])].cpu().numpy()
+        host = [b["dec"].cpu() for b in bands]
+
+        def fetch(r, c):
+            d = torch.clamp(c // Wd, max=n - 1)
+            return torch.stack([host[int(x)][int(rr), int(cc) - int(x) * Wd]
+                                for x, rr, cc in zip(d, r, c)]).to(
+                torch.int64) & 0xFF
+        ps, pk = tb.plain(fetch, torch.tensor([la]), torch.tensor([lb]),
+                          torch.tensor([st]), ms)
+        plain = ps[0, :int(pk[0])].numpy()
+        ok = np.array_equal(got, whole) and np.array_equal(got, plain)
+        hold("traceback", ok, 0.0 if ok else 1.0,
+             f"walk_bands {what} vs the gathered walk and the plain walk")
+        out.append(dict(case=what, steps=len(got), crossings=crossed))
+
+    mesh = mesh_of()
+    for n, L1, Wd, la, lb, p_diag, p_ext in MESH_WALKS:
+        m = mesh_of(n)
+        dec = walk_decisions(rng, 1, L1, n * Wd, p_diag, p_ext)[0]
+        bands = []
+        for d, sh in enumerate(m.shards):
+            with gotoh_mesh.on(sh):
+                bands.append({"dec": torch.from_numpy(np.ascontiguousarray(
+                    dec[:, d * Wd:(d + 1) * Wd])).to(sh.device)})
+        hold_case(m, bands, la, lb, int(rng.integers(0, 3)),
+                  f"{n} x {L1} x {Wd} la={la} lb={lb}")
+    for n, L1, W, la, lb in ((2, 700, 3000, 690, 2900),
+                             (4, 600, 9984, 580, 9890),
+                             (len(mesh.shards), 900, 20000, 900, 19000)):
+        m = mesh_of(n)
+        match, pc, pr = band_problem(rng, L1, W)
+        ops = band_operands(m, match, pc, pr, la, lb)
+        bands, score, st = gotoh_mesh.forward(m.shards, *ops[:2], la, lb)
+        torch.cuda.synchronize()
+        hold_case(m, bands, la, lb, int(st.cpu()[0]),
+                  f"a DP of {L1} x {W} over {n} bands, la={la} lb={lb}")
+    emit({"phase": "mesh_walk", "cases": out, "cards": mesh.cards})
+
+
+# the sweep that set gotoh_mesh.ALONE_WAVE_MIN (--only mesh_sweep or
+# mesh_sweep:alone): one band on a card of its own,
+# SWEEP_ALONE_ROWS rows, at each width the cluster plan (band_config's on
+# shared cards) and the wave plan over up to each of SWEEP_ALONE_BANDS
+# clusters, device time a row, each plan held bitwise against the plain
+# version
+SWEEP_ALONE_WIDTHS = (8192, 16384, 24576, 32768, 49152, 61440, 73856,
+                      98304, 114688)
+SWEEP_ALONE_BANDS = (7, 11, 15)
+SWEEP_ALONE_ROWS = 2048
+
+
+def sweep_alone():
+    from kalign_tpu_torch.gpu import gotoh_mesh, gotoh_row
+    from kalign_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(devices=["cuda:0"])
+    rng = np.random.default_rng(31)
+    R = SWEEP_ALONE_ROWS
+    rows = []
+    for W in SWEEP_ALONE_WIDTHS:
+        match, pc, pr = band_problem(rng, R, W)
+        shared = gotoh_mesh.band_config(W)
+        plans = {f"cluster {shared.blocks}x{shared.band}": shared}
+        for k in SWEEP_ALONE_BANDS:
+            cfg = gotoh_row.wave_config(W, k)
+            plans[f"wave {cfg.bands}x{cfg.blocks}x{cfg.band}"] = cfg
+        want = None
+        times = {}
+        for name, cfg in plans.items():
+            with forced_plan(lambda Wd, alone=False, c=cfg: c):
+                ops = band_operands(mesh, match, pc, pr, R, W)
+                got = band_run(mesh, *ops, R, W)
+                if want is None:
+                    want = band_run(mesh, *ops, R, W, plain=True)
+                    want = tuple(x.cpu() for x in want)
+                d_ms, _ = band_device_ms(mesh, ops, R, W)
+            hold_band(f"1 x {R} x {W} alone on its card, {name}",
+                      tuple(x.cpu() for x in got), want, R, W,
+                      MESH_ROUTES[cfg.route])
+            times[name] = round(d_ms * 1e3 / R, 4)
+        best = min(times, key=times.get)
+        chosen = gotoh_mesh.band_config(W, True)
+        rows.append(dict(width=W, us_per_row=times, fastest=best,
+                         band_config_alone=f"{chosen.route} "
+                         f"{getattr(chosen, 'bands', 1)}x{chosen.blocks}x"
+                         f"{chosen.band}"))
+        emit({"phase": "mesh_sweep", "alone": rows[-1]})
+    return rows
+
+
+# mesh_pairs: map DPs of MESH_PAIRS hcmv_genomes pairs
+MESH_PAIRS = 2
+
+
+def phase_mesh_pairs():
+    """Consistency-map DPs of MESH_PAIRS pairs of ~236 kb genomes
+    (hcmv_genomes) called directly through GpuEngine.dp_leaf_batch: on
+    one card's wave route (GpuEngine("cuda:0"); one card holds them) and
+    through the column-sharded route over every card (a mesh engine,
+    map_sharded forced): the step lists that reach the maps equal, pad
+    for pad; the maps equal; walls, the walk's band crossings, each
+    card's peak."""
+    import torch
+    from types import SimpleNamespace
+    from kalign_tpu_torch.gpu import engine as E
+    seqs = hcmv_genomes()
+    table = np.zeros(256, np.uint8)
+    for i, c in enumerate(DNA):
+        table[ord(c)] = i
+    codes = [table[np.frombuffer(x.encode(), np.uint8)] for x in seqs]
+    subm = np.full((23, 23), -4.0, np.float32)
+    np.fill_diagonal(subm, 5.0)
+    ap = SimpleNamespace(subm=subm, gpo=8.0, gpe=6.0, tgpe=0.0)
+    pairs = [(2 * k, 2 * k + 1) for k in range(MESH_PAIRS)]
+    spec = [(len(codes[a]), False) for a, _ in pairs]
+    seen = {}
+    orig = E.maps_from_steps
+
+    def rec(steps, swapped, Lmax):
+        seen.setdefault(rec.side, []).extend(
+            s[s != 3].copy() for s in np.asarray(steps))
+        return orig(steps, swapped, Lmax)
+    E.maps_from_steps = rec
+    line = {}
+    try:
+        for side in ("one_card", "mesh"):
+            rec.side = side
+            if side == "one_card":
+                eng = E.GpuEngine("cuda:0")
+            else:
+                eng = E.GpuEngine(mesh=mesh_of())
+                eng.map_sharded = lambda L1p, L2p: True
+            torch.cuda.empty_cache()
+            for d in range(torch.cuda.device_count()):
+                torch.cuda.reset_peak_memory_stats(d)
+            t0 = time.perf_counter()
+            maps = eng.dp_leaf_batch(codes, pairs, ap, spec)
+            torch.cuda.synchronize()
+            line[side] = dict(wall_s=round(time.perf_counter() - t0, 3),
+                              card_peaks_gb=card_peaks_gb(),
+                              routes=sorted({b["route"] for b in
+                                             eng.stats["batches"]}))
+            line[side + "_maps"] = maps
+            if side == "mesh":
+                line[side].update(long_maps=eng.stats["long_maps"],
+                                  walk_handoffs=eng.stats["walk_handoffs"],
+                                  dec_moved_bytes=eng.stats[
+                                      "dec_moved_bytes"])
+    finally:
+        E.maps_from_steps = orig
+    same = len(seen["one_card"]) == len(seen["mesh"]) == MESH_PAIRS and \
+        all(np.array_equal(a, b) for a, b in zip(seen["one_card"],
+                                                  seen["mesh"]))
+    same_maps = all(np.array_equal(a, b) for a, b in zip(
+        line.pop("one_card_maps"), line.pop("mesh_maps")))
+    hold("traceback", same and same_maps, 0.0 if same else 1.0,
+         f"{MESH_PAIRS} map DPs of ~236 kb pairs: the column-sharded route "
+         "over the cards vs one card's wave route (steps, maps)")
+    emit({"phase": "mesh_pairs", "pairs": MESH_PAIRS,
+          "lengths": [[len(codes[a]), len(codes[b])] for a, b in pairs],
+          "steps": [len(x) for x in seen["mesh"]], **line})
+
+
+def phase_mesh_rows():
+    """Rows a launch of bands alone on their cards (gotoh_mesh.ALONE_ROWS
+    against BLOCK_ROWS): one consistency-map DP of two ~295 kb genomes (a
+    random root and a copy at 0.4 % substitutions) column-sharded over
+    every card through a LongQueue, each rows value in turns, twice: the
+    host's queueing (submit, the span mesh.bands), the wall to the steps
+    on the host, equal steps and score."""
+    import torch
+    from kalign_tpu_torch.gpu import gotoh_mesh
+    from kalign_tpu_torch.gpu.engine import leaf_operands
+    from kalign_tpu_torch.parallel import mesh as M
+    rng = np.random.default_rng(37)
+    a = rng.integers(0, 4, 295146).astype(np.uint8)
+    b = a.copy()
+    hit = rng.random(len(b)) < 0.004
+    b[hit] = rng.integers(0, 4, int(hit.sum()))
+    b = np.delete(b, slice(1000, 1011))
+    L1p, L2p = (-(-len(x) // 128) * 128 for x in (b, a))
+    tok = torch.from_numpy(np.stack([np.pad(b, (0, len(a) - len(b))), a]))
+    subm = torch.full((23, 23), -4.0)
+    subm.fill_diagonal_(5.0)
+    penv = torch.tensor([-8.0, -6.0, 0.0])
+    one = lambda v: torch.tensor([v], dtype=torch.int32)
+    lhs, rhs, pc, pr = (x[0].numpy() for x in leaf_operands(
+        tok, subm, penv, one(0), one(1), one(len(b)), one(len(a)), L1p,
+        L2p))
+    mesh = mesh_of()
+    out, want = {}, None
+    for turn in range(2):
+        for rows in (gotoh_mesh.BLOCK_ROWS, gotoh_mesh.ALONE_ROWS):
+            q = M.LongQueue(mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dp = q.submit(lhs, rhs, pc, pr, len(b), len(a), 0.0, rows=rows)
+            t1 = time.perf_counter()
+            steps, score = q.walk(dp)
+            t2 = time.perf_counter()
+            if want is None:
+                want = (steps, score)
+            hold("gotoh_mesh", np.array_equal(steps, want[0])
+                 and score == want[1], 0.0,
+                 f"a 295 kb map DP at {rows} rows a launch")
+            out.setdefault(str(rows), []).append(
+                dict(queue_s=round(t1 - t0, 4), wall_s=round(t2 - t0, 4)))
+            del q, dp
+    emit({"phase": "mesh_rows", "L1p": L1p, "L2p": L2p, "cards": mesh.cards,
+          "band": gotoh_mesh.band_width(L2p, mesh.size,
+                                        gotoh_mesh.alone(mesh.shards)),
+          "rows": out, "steps": len(want[0])})
+
+
 def run_only(dev, only, divergent_n=DIVERGENT_N):
     """The phases named in ``--only`` (comma-separated: edge, wave_edge,
     prepare_edge, tree_pairs, kmeans_edge, kmeans, exact_edge, path:NAME,
     profile:NAME, vs, goldens, mesh_edge, path:mesh_default,
     path:mesh_long, path:mesh_sars2, path:mesh_plastome, path:mesh_wide
-    (and wide_merge on its widest merge), mesh_sweep, profile:mesh_long,
-    mesh_procs, launch_memory), for a short call; no result lines.  path:plastome_default also holds and times the wave
+    (and wide_merge on its widest merge), path:hcmv_default,
+    path:mesh_hcmv, mesh_walk, mesh_pairs, mesh_rows, mesh_sweep
+    (mesh_sweep:alone: its sweep of a band alone on its card only),
+    profile:mesh_long, mesh_procs, launch_memory), for a short call; no
+    result lines.  path:plastome_default also holds and times the wave
     route and the match preparation at its root merge (wave_main_shape,
     prepare_main_shape).  mesh_sweep runs
     phase_mesh_sweep on the merges of path:mesh_long and path:mesh_wide
@@ -4952,7 +5271,8 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
     seqs = {"default": lambda: v4_family(2000, seed=2),
             "large_default": large_family, "long_default": long_genomes,
             "sars2_default": sars2_genomes,
-            "plastome_default": plastome_genomes}
+            "plastome_default": plastome_genomes,
+            "hcmv_default": hcmv_genomes}
     seen = wide_seen = None
     for what in only.split(","):
         if what == "edge":
@@ -4986,13 +5306,23 @@ def run_only(dev, only, divergent_n=DIVERGENT_N):
         elif what == "path:mesh_long":
             _, _, seen = phase_mesh_path("mesh_long", long_genomes())
             mesh_root_merge(dev, seen)
-        elif what in ("path:mesh_sars2", "path:mesh_plastome"):
+        elif what in ("path:mesh_sars2", "path:mesh_plastome",
+                      "path:mesh_hcmv"):
             path = what.split("_")[1]
             phase_mesh_path(what[5:], seqs[f"{path}_default"]())
         elif what == "path:mesh_wide":
             _, _, wide_seen = phase_mesh_path("mesh_wide", wide_family())
             wide_merge(dev, wide_seen)
+        elif what == "mesh_walk":
+            phase_mesh_walk(dev)
+        elif what == "mesh_pairs":
+            phase_mesh_pairs()
+        elif what == "mesh_rows":
+            phase_mesh_rows()
+        elif what == "mesh_sweep:alone":
+            sweep_alone()
         elif what == "mesh_sweep":
+            sweep_alone()
             if wide_seen is None:
                 _, _, wide_seen = phase_mesh_path("mesh_wide", wide_family())
             if seen is None:

@@ -36,6 +36,14 @@
  * buffer, full buffers are flushed to the output in walk order and the
  * warp reverses the row in place at the end.  Warps per block, window and
  * buffer sizes come from the wrapper (gpu/traceback.py::launch_plan).
+ *
+ * One band of a column-sharded DP (parallel/mesh.py): the rows layout
+ * holds only the DP columns col0 + 1 .. col0 + L2p, and the walk starts
+ * at any cell and state (la, lb and st).  It stops where its column
+ * reaches col0 > 0, the band's left edge, and leaves there the cell and
+ * the state it would go on from (end: i, j, s a problem), which the
+ * band to the left starts at.  A straight run along row 0 stops there
+ * too.  With col0 0 the walk is the whole walk above.
  */
 #include "kt_cuda.h"
 
@@ -60,7 +68,8 @@ __global__ void walk_kernel(const void* __restrict__ dec,
                             int win_cols, int buf_bytes,
                             int8_t* __restrict__ steps_out,
                             int32_t* __restrict__ n_out,
-                            int32_t* __restrict__ win_out) {
+                            int32_t* __restrict__ win_out, int col0,
+                            int32_t* __restrict__ end_out) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -83,7 +92,7 @@ __global__ void walk_kernel(const void* __restrict__ dec,
   int n = 0;        // steps emitted
   int flushed = 0;  // steps already written out in walk order
   int windows = 0;  // windows staged
-  while (n < max_steps && (i > 0 || j > 0)) {
+  while (n < max_steps && (i > 0 || j > 0) && (col0 == 0 || j > col0)) {
     if (n - flushed == buf_bytes) {
       for (int k = lane; k < buf_bytes; k += 32) out[flushed + k] = buf[k];
       flushed += buf_bytes;
@@ -91,9 +100,10 @@ __global__ void walk_kernel(const void* __restrict__ dec,
       continue;
     }
     if (i == 0 || j == 0) {
+      // (j == 0 only where col0 is 0)
       const uint8_t v = i == 0 ? 1 : 2;
-      const int cnt =
-          min(min(i + j, max_steps - n), buf_bytes - (n - flushed));
+      const int cnt = min(min(i == 0 ? j - col0 : i, max_steps - n),
+                          buf_bytes - (n - flushed));
       for (int k = lane; k < cnt; k += 32) buf[n - flushed + k] = v;
       n += cnt;
       if (i == 0)
@@ -105,9 +115,10 @@ __global__ void walk_kernel(const void* __restrict__ dec,
     }
 
     // stage the window whose bottom row is decision row r = i - 1 and
-    // whose columns end at the chunk holding column c = j - 1
+    // whose columns end at the chunk holding column c = j - 1 (of the
+    // band's own, j - 1 - col0)
     const int r = i - 1;
-    const int c = j - 1;
+    const int c = j - 1 - col0;
     int r0, c0;
     if (kLanewise) {
       // rows in groups of 4 (one 16-byte load per word), the window's
@@ -185,7 +196,7 @@ __global__ void walk_kernel(const void* __restrict__ dec,
       }
       n = flushed + (int)(o - buf);
       i = rr + r0 + 1;
-      j = cc + c0 + 1;
+      j = cc + c0 + 1 + col0;
     }
     i = __shfl_sync(kFull, i, 0);
     j = __shfl_sync(kFull, j, 0);
@@ -212,6 +223,11 @@ __global__ void walk_kernel(const void* __restrict__ dec,
   if (lane == 0) {
     n_out[b] = n;
     if (win_out) win_out[b] = windows;
+    if (end_out) {
+      end_out[3 * b] = i;
+      end_out[3 * b + 1] = j;
+      end_out[3 * b + 2] = s;
+    }
   }
 }
 
@@ -219,8 +235,8 @@ template <bool kLanewise>
 int launch(const void* dec, const int32_t* la, const int32_t* lb,
            const int32_t* st, int B, int L1p, int L2p, int max_steps,
            int warps, int win_rows, int win_cols, int buf_bytes,
-           int8_t* steps, int32_t* n, int32_t* windows,
-           cudaStream_t stream) {
+           int8_t* steps, int32_t* n, int32_t* windows, int col0,
+           int32_t* end, cudaStream_t stream) {
   const size_t smem = (size_t)warps * (buf_bytes + win_rows * win_cols);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -231,7 +247,7 @@ int launch(const void* dec, const int32_t* la, const int32_t* lb,
   const int blocks = (B + warps - 1) / warps;
   walk_kernel<kLanewise><<<blocks, warps * 32, smem, stream>>>(
       dec, la, lb, st, B, L1p, L2p, max_steps, win_rows, win_cols,
-      buf_bytes, steps, n, windows);
+      buf_bytes, steps, n, windows, col0, end);
   return (int)cudaGetLastError();
 }
 
@@ -241,25 +257,28 @@ int launch(const void* dec, const int32_t* la, const int32_t* lb,
  * buf_bytes a multiple of 16 above win_cols; rows layout: L2p a multiple
  * of 16; lanewise: L1p (the decision rows) and win_rows multiples of 4.
  * windows: null, or [B] int32 that receives the windows each walk
- * staged. */
+ * staged.  col0: the DP column before the decisions' first (a band's; 0
+ * for a whole matrix, and always on the lanewise layout); end: null, or
+ * [B, 3] int32 that receives each walk's last cell and state. */
 KT_EXPORT int kt_traceback(int lanewise, const void* dec, const int32_t* la,
                            const int32_t* lb, const int32_t* st, int B,
                            int L1p, int L2p, int max_steps, int warps,
                            int win_rows, int win_cols, int buf_bytes,
                            int8_t* steps, int32_t* n, int32_t* windows,
-                           void* stream) {
+                           int col0, int32_t* end, void* stream) {
   const int chunk = lanewise ? 8 : 16;
   const int per_row = win_cols / chunk;
   if (warps < 1 || warps > 32 || win_rows < 1 || per_row < 1 ||
       per_row > 32 || (per_row & (per_row - 1)) || win_cols % chunk ||
       buf_bytes % 16 || buf_bytes <= win_cols || (!lanewise && L2p % 16) ||
-      L2p % 8 || (lanewise && (L1p % 4 || win_rows % 4)))
+      L2p % 8 || (lanewise && (L1p % 4 || win_rows % 4)) || col0 < 0 ||
+      (lanewise && col0))
     return (int)cudaErrorInvalidValue;
   if (lanewise)
     return launch<true>(dec, la, lb, st, B, L1p, L2p, max_steps, warps,
-                        win_rows, win_cols, buf_bytes, steps, n, windows,
-                        (cudaStream_t)stream);
+                        win_rows, win_cols, buf_bytes, steps, n, windows, 0,
+                        end, (cudaStream_t)stream);
   return launch<false>(dec, la, lb, st, B, L1p, L2p, max_steps, warps,
                        win_rows, win_cols, buf_bytes, steps, n, windows,
-                       (cudaStream_t)stream);
+                       col0, end, (cudaStream_t)stream);
 }

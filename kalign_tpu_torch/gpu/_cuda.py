@@ -102,7 +102,8 @@ def lib() -> ctypes.CDLL:
     L.kt_gotoh_fused_forward.argtypes = ([_p, _p, _i] + [_p] * 8 + [_i] * 4
                                          + [_p] * 4)
     L.kt_traceback.restype = _i
-    L.kt_traceback.argtypes = [_i] + [_p] * 4 + [_i] * 8 + [_p] * 4
+    L.kt_traceback.argtypes = ([_i] + [_p] * 4 + [_i] * 8 + [_p] * 3
+                               + [_i, _p, _p])
     L.kt_bpm_table.restype = _i
     L.kt_bpm_table.argtypes = [_p, _i, _p, _i, _i, _p, _p]
     L.kt_bpm_batch.restype = _i

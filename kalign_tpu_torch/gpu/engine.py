@@ -341,13 +341,18 @@ class GpuEngine:
                       "batches": []}
         if mesh is not None:
             # the mesh's shards, cards and processes, the shards this
-            # process runs, merges through the column-sharded DP
-            # (long_merge) and the gathers across processes (the mesh's
-            # own count: calls, seconds)
+            # process runs, merges and map DPs through the column-sharded
+            # DP (LongQueue), its walks' band crossings, the
+            # decision bytes copied from one card to another (none: each
+            # band's are walked on its card) and the gathers across
+            # processes (the mesh's own count: calls, seconds)
             self.stats.update(shards=mesh.size, cards=mesh.cards,
                               processes=mesh.processes,
                               local_shards=list(mesh.local), long_merges=0,
-                              gathers=mesh.gathers)
+                              long_maps=0, walk_handoffs=0,
+                              dec_moved_bytes=0, gathers=mesh.gathers)
+        # the column-sharded DPs queued ahead of their walks (long_queue)
+        self._long = None
         # the progressive pass's host seconds by part (``split``), summed
         # over the passes, and its transfers to the host (``fetch``)
         self.stats["progressive_split_s"] = {}
@@ -367,6 +372,25 @@ class GpuEngine:
         of that name, under which a trace lists the device time of the
         kernels it launched."""
         return span("progressive." + part)
+
+    def long_queue(self):
+        """The mesh's queue of column-sharded DPs (parallel/mesh.py::
+        LongQueue), made at first use; it counts into stats."""
+        if self._long is None:
+            from kalign_tpu_torch.parallel import mesh as M
+            self._long = M.LongQueue(self.mesh, self.stats)
+        return self._long
+
+    def map_sharded(self, L1p: int, L2p: int) -> bool:
+        """A consistency-map DP of L1p x L2p takes the column-sharded
+        route: on a mesh of more than one shard, where the card the
+        one-card route runs it on (the engine's, launch_bucket) cannot
+        hold the one problem (problem_bytes past its card_bytes; never
+        off the card)."""
+        if not self.sharded:
+            return False
+        have = card_bytes(self.device)
+        return have is not None and problem_bytes(L1p, L2p) > have
 
     def fetch(self, x) -> np.ndarray:
         """One device-to-host transfer of the progressive pass, counted."""
@@ -632,12 +656,14 @@ class GpuEngine:
         """A launch batch of at most as many merges as shards, too wide for
         the register row kernel (row_feasible), on the mesh
         (tpu/engine.py:409-423): each merge with its columns in bands over
-        the mesh (parallel/mesh.py::long_merge).  kalign_tpu compares its
-        padded batch with the device count; this counts the real
-        merges.  On a mesh across processes it raises, naming the width,
-        before anything is queued: the column-sharded DP runs within one
-        process, as kalign_tpu's fails to fetch its decisions across
-        processes (parallel/mesh.py:487)."""
+        the mesh (parallel/mesh.py::LongQueue.submit), queued on long_queue
+        (walked there when later DPs need its room, else by
+        collect_bucket).  kalign_tpu compares its padded batch with the
+        device count; this counts the real merges.  On a mesh across
+        processes it raises, naming the width, before anything is queued:
+        the column-sharded DP runs within one process, as kalign_tpu's
+        fails to fetch its decisions across processes (parallel/mesh.py:
+        487)."""
         from kalign_tpu_torch.parallel import mesh as M
         if self.mesh.spans_processes:
             raise ValueError(
@@ -650,9 +676,9 @@ class GpuEngine:
         for k in range(merges):
             bk = None if bonus is None else \
                 (bonus[0],) + tuple(a[k] for a in bonus[1:])
-            handles.append(M.long_merge(
-                self.mesh, lhs[k], rhs[k], pc[k], pr[k], int(la[k]),
-                int(lb[k]), float(eps[k]), bk))
+            handles.append(self.long_queue().submit(
+                lhs[k], rhs[k], pc[k], pr[k], int(la[k]), int(lb[k]),
+                float(eps[k]), bk))
         self.stats["long_merges"] += merges
         self.stats["batches"].append(
             {"route": "long", "maps": False, "L1p": lhs.shape[1],
@@ -677,14 +703,12 @@ class GpuEngine:
             B = handle[2]
             return steps[:B], scores[:B]
         if handle[0] == "long":
-            from kalign_tpu_torch.gpu.gotoh_mesh import on
             steps, scores = [], []
-            # queued on the first shard's stream: fetched there
-            with on(self.mesh.shards[0]):
-                for st, n, sc in handle[1]:
-                    st, n, sc = self.fetch(st), self.fetch(n), self.fetch(sc)
-                    steps.append(st[0, :n[0]])
-                    scores.append(float(sc[0]))
+            for dp in handle[1]:
+                st, sc = self.long_queue().walk(dp)
+                self.stats["fetches"] += dp.fetches
+                steps.append(st)
+                scores.append(sc)
             return steps, np.asarray(scores, np.float64)
         _, steps, n, score, B = handle
         steps = self.fetch(steps[:B])
@@ -722,7 +746,11 @@ class GpuEngine:
         self.stats["map_pairs"] += len(pairs)
 
         dispatched = []
+        long_items = []
         for (L1p, L2p), items in sorted(buckets.items()):
+            if self.map_sharded(L1p, L2p):
+                long_items.extend((L1p, L2p, it) for it in items)
+                continue
             cap = self.max_launch(L1p, L2p)
             for lo in range(0, len(items), cap):
                 chunk = items[lo:lo + cap]
@@ -746,15 +774,56 @@ class GpuEngine:
                                             eps, None, la, lb, maps=True)
                 dispatched.append((chunk, handle[1]))
 
+        if long_items:
+            dispatched.extend(self.long_maps(tok, subm, penv, lens,
+                                             long_items))
         out: List[Optional[np.ndarray]] = [None] * len(pairs)
         for chunk, steps in dispatched:
-            steps = steps[:len(chunk)].cpu().numpy()
+            if callable(steps):         # a LongQueue's walk
+                steps = steps()[0][None]
+            else:
+                steps = steps[:len(chunk)].cpu().numpy()
             li = np.array([maps_spec[idx][0] for idx, _, _ in chunk],
                           np.int64)
             sw = np.array([maps_spec[idx][1] for idx, _, _ in chunk], bool)
             maps = maps_from_steps(steps, sw, int(li.max()))
             for k, (idx, _, _) in enumerate(chunk):
                 out[idx] = maps[k, :li[k]]
+        return out
+
+    def long_maps(self, tok, subm, penv, lens, items):
+        """Map DPs that no card holds, each with its columns in bands over
+        the mesh (long_queue: queued as far as the cards hold their bands,
+        walked on the bands' cards), bonus-free at MAP_EPS as the one-card
+        route runs them; operands made on the engine's card as the
+        one-card route makes them (leaf_operands over dp_leaf_batch's
+        token table tok, subm and penv; the span mesh.bands).  items:
+        (L1p, L2p, (pair index, rows sequence, columns sequence)).
+        Returns [([pair], walk)], walk() giving the pair's (steps, score).
+        On a mesh across processes it raises, naming the width, before
+        anything is queued, as dispatch_long does."""
+        if self.mesh.spans_processes:
+            raise ValueError(
+                f"{len(items)} map DPs of up to {max(i[1] for i in items)} "
+                "columns take the column-sharded route, which runs on a mesh "
+                f"within one process; this mesh spans "
+                f"{self.mesh.processes} processes")
+        q = self.long_queue()
+        out = []
+        for L1p, L2p, (idx, ri, ci) in items:
+            la, lb = int(lens[ri]), int(lens[ci])
+            with span("mesh.bands"):
+                one = self.put(np.array([[ri], [ci], [la], [lb]],
+                                        np.int32))
+                lhs, rhs, pc, pr = (x[0] for x in leaf_operands(
+                    tok, subm, penv, *one, L1p, L2p))
+            dp = q.submit(lhs, rhs, pc, pr, la, lb, self.MAP_EPS,
+                          what="map DP")
+            out.append(([(idx, ri, ci)], lambda dp=dp: q.walk(dp)))
+            self.stats["long_maps"] += 1
+            self.stats["batches"].append(
+                {"route": "long", "maps": True, "L1p": L1p, "L2p": L2p,
+                 "la": np.array([la]), "lb": np.array([lb])})
         return out
 
     # ------------------------------------------------------------------

@@ -13,7 +13,11 @@ cluster row kernel's form); past that a wavefront of WAVE_BANDS clusters
 of gotoh_row.WAVE_CLUSTER blocks over the band (``gotoh_band_wave_kernel``,
 the row kernel's wave route, gpu/gotoh_wave.py, with the mesh's strips at
 the band's two ends), planned so that every cluster of the band launches
-that can run at once on a card is resident (``card_streams``).
+that can run at once on a card is resident (``card_streams``).  A band
+that has its card to itself (``alone``: one shard a card) takes the wave
+route from ALONE_WAVE_MIN columns on: one cluster of 16 blocks would
+leave most of the card's SMs idle and make each of its blocks' rows
+long.
 
 Shard d owns the columns [d * Wd, (d + 1) * Wd) of the padded width
 Wp = n * Wd, Wd = ``band_width`` (ceil(W / n) rounded up to
@@ -36,7 +40,8 @@ A band's match comes a block of rows at a time from its source
 place, or a callable source(r0, r1, out) that makes the match of the
 rows [r0, r1) in ``out``, a buffer of a ring of two on the band's shard
 (parallel/mesh.py::band_source: the rows' product and prepare_match).
-A buffer holds FILL_BLOCKS launches' rows, made on the shard's stream
+A buffer holds fill_rows' rows (FILL_BLOCKS launches' rows, or one
+launch's past BLOCK_ROWS), made on the shard's stream
 just before the first of them, so the buffer those launches read is
 written again only after them.
 
@@ -72,11 +77,17 @@ from kalign_tpu_torch.gpu.gotoh_row import NEG, RowLaunch
 # 1,024 lengthened the pipeline's fill (9.8 ms of device time); 512 took
 # 4.6 and 8.7 (PERF.md, chip_smoke.py --only mesh_sweep)
 BLOCK_ROWS = 512
-# a band source makes the match of this many launches' rows at a time:
-# each fill costs the host a product, the preparation and their small
-# operations (~0.4 ms), which at one launch's rows held the mesh_long
-# root merge's band pipeline behind the host (PERF.md, PR 16)
+# a band source makes the match of this many launches' rows at a time
+# (of one launch's where a launch takes more than BLOCK_ROWS): each fill
+# costs the host a product, the preparation and their small operations
+# (~0.4 ms), which at one launch's rows held the mesh_long root merge's
+# band pipeline behind the host (PERF.md)
 FILL_BLOCKS = 4
+# rows a launch of a band alone on its card on the wave route: at 512 the
+# host's queueing of KHV's 295k-row DPs (a launch, a strip copy and its
+# events a band, a fill every 4) took ~0.9 s a DP against ~0.47 s of
+# the card's (PERF.md)
+ALONE_ROWS = 2048
 STRIP = 5                  # floats per strip row: A, GA, GB, carry, u
 STRIP_SLOT = 8             # floats per slot of a block's strip ring
 # the plan (band_config): clusters of blocks of BLOCK_COLS columns or
@@ -90,6 +101,13 @@ BLOCK_COLS = 256
 # more where the band's blocks would pass gotoh_row.WAVE_MAX_THREADS
 # threads
 WAVE_BANDS = 7
+# a band alone on its card (alone) takes the wave route from this width
+# on: one band on an H100 80GB HBM3, 2,048 rows, a row on one cluster of
+# 16 blocks against the wave over 6-7 clusters of 8 blocks took 0.97 /
+# 1.28 us at 16,384 columns, 1.63 / 1.28 at 24,576, 2.68 / 1.58 at
+# 73,856; 11-15 clusters were slower than 7 at every width (chip_smoke.py
+# --only mesh_sweep, PERF.md)
+ALONE_WAVE_MIN = 24576
 
 # launches by route: "wave" (gotoh_band_wave_kernel), "cluster"
 # (gotoh_band_cluster_kernel)
@@ -125,10 +143,20 @@ def wait(shard, ev):
         shard.stream.wait_event(ev)
 
 
+def alone(shards) -> bool:
+    """Whether every shard's band has its card to itself: shards on
+    distinct cards (a list that repeats a card, or CPU shards, shares)."""
+    devs = [sh.device for sh in shards]
+    return all(d.type == "cuda" for d in devs) and len(set(devs)) == len(devs)
+
+
 @lru_cache(maxsize=None)
-def band_config(Wd: int):
+def band_config(Wd: int, alone: bool = False):
     """The route of a band of Wd columns (a multiple of
-    gotoh_row.COL_QUANTUM), by its width alone: "cluster", one cluster of
+    gotoh_row.COL_QUANTUM), by its width and whether it has its card to
+    itself: a band alone on its card takes the wave route below
+    gotoh_row.CLUSTER_MAX_WIDTH too, from ALONE_WAVE_MIN columns.
+    Otherwise by its width alone: "cluster", one cluster of
     S <= 16 blocks of w columns each, w the least multiple of 128 (256
     past 1,024, where a block takes 8 columns a thread) of at least
     BLOCK_COLS (or Wd, where that is less) that keeps S = ceil(Wd / w)
@@ -148,7 +176,7 @@ def band_config(Wd: int):
     if Wd <= 0 or Wd % q:
         raise ValueError(f"band Gotoh kernel: a band of {Wd} columns is not "
                          f"a multiple of {q}")
-    if Wd > gotoh_row.CLUSTER_MAX_WIDTH:
+    if Wd > gotoh_row.CLUSTER_MAX_WIDTH or (alone and Wd >= ALONE_WAVE_MIN):
         widest = gotoh_row.WAVE_CLUSTER * gotoh_row.WAVE_MAX_THREADS * 8
         return gotoh_row.wave_config(Wd, max(WAVE_BANDS, -(-Wd // widest)))
     most = gotoh_row.CLUSTER_SIZES[-1]
@@ -171,13 +199,27 @@ def covered(cfg) -> int:
     return getattr(cfg, "bands", 1) * cfg.blocks * cfg.band
 
 
-def band_width(W: int, n: int) -> int:
+def block_rows(Wd: int, alone: bool = False) -> int:
+    """Rows a launch of a band of Wd columns: ALONE_ROWS where it has its
+    card to itself on the wave route, else BLOCK_ROWS."""
+    if alone and band_config(Wd, True).route == "wave":
+        return ALONE_ROWS
+    return BLOCK_ROWS
+
+
+def fill_rows(rows: int, L1p: int) -> int:
+    """Rows a band source makes at a time: FILL_BLOCKS launches' rows, one
+    launch's past BLOCK_ROWS, at most L1p."""
+    return min(rows * (FILL_BLOCKS if rows <= BLOCK_ROWS else 1), L1p)
+
+
+def band_width(W: int, n: int, alone: bool = False) -> int:
     """Columns of each of n bands over a row of W columns: ceil(W / n)
     rounded up to gotoh_row.COL_QUANTUM, then to the columns band_config's
     blocks cover (W padded to n times it, as mesh.py:516 pads W to a
-    multiple of n)."""
+    multiple of n); ``alone``: each band on a card of its own."""
     q = gotoh_row.COL_QUANTUM
-    return covered(band_config(-(-(-(-W // n)) // q) * q))
+    return covered(band_config(-(-(-(-W // n)) // q) * q, alone))
 
 
 def band_inputs(prep, c0: int, c1: int, device):
@@ -337,14 +379,15 @@ _BAND_KEYS = ("colpen", "rowpen", "cols_eps", "row_term", "state")
 
 def band_plan(band) -> BandPlan:
     """One band's launch plan, checked once (call under
-    ``torch.cuda.device`` of its tensors): band_config's route, the entry
+    ``torch.cuda.device`` of its tensors): its route (band["cfg"], which
+    forward sets: band_config's for the width and the sharing), the entry
     point and the band's fixed arguments (those after the launch's slot);
     on the wave route also the band's strips between its clusters
     [bands, rows, gotoh_wave.STRIP] and their row counters (zero; never
     reset: they count rows from the problem's first), ``rows`` the most
     rows a launch of the band takes (band["rows"])."""
     Wd = band["dec"].shape[1]
-    cfg = band_config(Wd)
+    cfg = band["cfg"]
     _cuda.require_cuda("gotoh_mesh", *(band[k] for k in _BAND_KEYS),
                        band["dec"])
     if band["dec"].dtype != torch.int8:
@@ -488,6 +531,34 @@ def schedule(shards, bands, la: int, lb: int, rows: int = BLOCK_ROWS,
                         done[d].record(sh.stream)
 
 
+RING_ALIGN = 256
+
+
+def buffer_bytes(L1p: int, Wd: int, fill: int) -> int:
+    """Bytes of a band's decisions (int8 [L1p, Wd]) and its ring of two
+    match buffers (float32 [2, fill, Wd]) in one buffer (band_buffers)."""
+    dec = -(-L1p * Wd // RING_ALIGN) * RING_ALIGN
+    return dec + 2 * 4 * fill * Wd
+
+
+def band_buffers(L1p: int, Wd: int, fill: int, device, alloc=None):
+    """A band's decisions [L1p, Wd] int8, zero, and its ring [2, fill, Wd]
+    float32 (None where fill is 0): in alloc(buffer_bytes) where given,
+    a uint8 buffer that may be longer and may hold anything, else
+    allocated here."""
+    if alloc is None:
+        ring = None if not fill else torch.empty(
+            (2, fill, Wd), dtype=torch.float32, device=device)
+        return torch.zeros((L1p, Wd), dtype=torch.int8, device=device), ring
+    buf = alloc(buffer_bytes(L1p, Wd, fill))
+    off = buffer_bytes(L1p, Wd, 0)
+    dec = buf[:L1p * Wd].view(torch.int8).view(L1p, Wd)
+    dec.zero_()
+    ring = None if not fill else buf[off:off + 8 * fill * Wd].view(
+        torch.float32).view(2, fill, Wd)
+    return dec, ring
+
+
 def end_values(band, lb: int):
     """Score and end state at column lb of the band holding it, from its
     last row's state, row la's (gotoh_row.plain's pick): tensors [1]."""
@@ -501,22 +572,27 @@ def end_values(band, lb: int):
 
 
 def forward(shards, match_bands, prep, la: int, lb: int,
-            rows: int = BLOCK_ROWS, use_plain: bool = False):
+            rows: int = BLOCK_ROWS, use_plain: bool = False, alloc=None):
     """One problem's column-sharded DP.  match_bands[d], the match of
     band d on shards[d] (the centering bias not yet subtracted where prep
     carries it, as for the row kernel): a [L1p, Wd] tensor, or a source
     source(r0, r1, out) giving the rows [r0, r1) as a [r1 - r0, Wd]
     tensor (made in out, the first r1 - r0 rows of a buffer of a ring of
-    two of FILL_BLOCKS * ``rows`` rows on the shard, block); prep =
-    gotoh_row.prepare of the
-    problem over the padded width n * Wd, on shards[0]'s device, queued
-    there.  The bands run on card_streams' streams, joined back onto each
-    shard's own before this returns.  Returns (bands, score [1], state
+    two of fill_rows(rows) rows on the shard, block); prep =
+    gotoh_row.prepare of the problem over the padded width n * Wd, on
+    shards[0]'s device, queued there.  The bands take band_config's plan
+    for their width and whether each has its card to itself (alone;
+    band["cfg"]), and run on card_streams' streams, joined back onto
+    each shard's own before this returns.  alloc(d, nbytes), where given,
+    holds band d's decisions and ring (a uint8 tensor of at least nbytes
+    on its device, ``band_buffers``), else they are allocated here.
+    Returns (bands, score [1], state
     [1] int32 on shards[0]'s device); each band's decision rows < la are
     its dec (rows past la are 0)."""
     L1p = prep["rowpen"].shape[1]
     Wd = prep["cols_eps"].shape[1] // len(shards)
-    run = card_streams(shards, band_config(Wd))
+    cfg = band_config(Wd, alone(shards))
+    run = card_streams(shards, cfg)
     ready = event(shards[0])
     bands = []
     for d, sh in enumerate(run):
@@ -524,21 +600,20 @@ def forward(shards, match_bands, prep, la: int, lb: int,
             wait(sh, ready)
             band = band_inputs(prep, d * Wd, (d + 1) * Wd, sh.device)
             src = match_bands[d]
+            fill = fill_rows(rows, L1p) if callable(src) else 0
+            band["dec"], band["ring"] = band_buffers(
+                L1p, Wd, fill, sh.device,
+                None if alloc is None else lambda n, d=d: alloc(d, n))
             if callable(src):
                 band["source"] = src
-                band["fill"] = min(rows * FILL_BLOCKS, L1p)
+                band["fill"] = fill
                 band["filled"] = None
-                band["ring"] = torch.empty((2, band["fill"], Wd),
-                                           dtype=torch.float32,
-                                           device=sh.device)
             else:
                 band["source"] = lambda r0, r1, out, m=src: m[r0:r1]
-                band["ring"] = None
             band["state"] = init_state(band)
+            band["cfg"] = cfg
             band["slot"] = 0
             band["rows"] = rows
-            band["dec"] = torch.zeros((L1p, Wd), dtype=torch.int8,
-                                      device=sh.device)
             bands.append(band)
     if shards[0].stream is not None:
         for x in prep.values():
@@ -548,7 +623,7 @@ def forward(shards, match_bands, prep, la: int, lb: int,
     schedule(run, bands, la, lb, rows, use_plain)
     for sh, own, band in zip(run, shards, bands):
         if own.stream is not None and own.stream != sh.stream:
-            # gather_dec, end_values and the caller read the band on the
+            # end_values, the walk and the caller read the band on the
             # shard's own stream
             wait(own, event(sh))
             for t in (band["dec"], band["state"]):
@@ -571,24 +646,3 @@ def forward(shards, match_bands, prep, la: int, lb: int,
             score.record_stream(shards[0].stream)
             st.record_stream(shards[0].stream)
         return bands, score.to(shards[0].device), st.to(shards[0].device)
-
-
-def gather_dec(shards, bands, width: int):
-    """The bands' decisions side by side in one [1, L1p, width] int8
-    tensor on shards[0]'s device (width >= n * Wd; the walk takes widths
-    that are multiples of 16), queued on shards[0]'s stream."""
-    L1p, Wd = bands[0]["dec"].shape
-    with on(shards[0]):
-        full = torch.zeros((1, L1p, width), dtype=torch.int8,
-                           device=shards[0].device)
-        ready = event(shards[0])
-    done = []
-    for d, sh in enumerate(shards):
-        with on(sh):
-            wait(sh, ready)
-            full[0, :, d * Wd:(d + 1) * Wd].copy_(bands[d]["dec"],
-                                                 non_blocking=True)
-            done.append(event(sh))
-    for ev in done:
-        wait(shards[0], ev)
-    return full

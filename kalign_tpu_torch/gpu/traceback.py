@@ -10,6 +10,10 @@ lists come back.
 ``walk_lanewise`` the lanewise kernel's [B, L2p/8, L1p4] nibble words.
 Both return steps [B, max_steps] int8 in forward order padded with 3
 (0 = match, 1 = gap in the rows, 2 = gap in the columns) and n [B] int32.
+``walk_band`` walks one band of a column-sharded DP's decisions (the
+columns col0 + 1 .. col0 + Wd, on the band's card) from a cell and state
+to the band's left edge, and returns where it stopped: parallel/mesh.py
+chains the bands' walks right to left.
 CUDA tensors launch the kernel (one warp per walk over windows of the
 decisions staged in shared memory; ``launch_plan`` sizes them); CPU
 tensors run ``plain``, the same walk vectorised over the batch in
@@ -70,9 +74,13 @@ def _fetch_lanewise(dec):
     return fetch
 
 
-def plain(fetch, la, lb, st, max_steps: int):
+def plain(fetch, la, lb, st, max_steps: int, col0: int = 0,
+          end: bool = False):
     """_walk (kalign_tpu/tpu/traceback.py:32-110) vectorised over the
-    batch: the degenerate guards and the DP-column-0 rule included."""
+    batch: the degenerate guards and the DP-column-0 rule included.  From
+    (la, lb) in state st; with col0 > 0 each walk stops where its column
+    reaches col0 (fetch then reads only columns >= col0).  With end, also
+    returns each walk's last cell and state [B, 3] int32 (i, j, s)."""
     dev = la.device
     B = la.shape[0]
     i = la.to(torch.int64)
@@ -83,9 +91,11 @@ def plain(fetch, la, lb, st, max_steps: int):
     bidx = torch.arange(B, device=dev)
     for _ in range(max_steps):
         active = ((i > 0) | (j > 0)) & (n < max_steps)
+        if col0:
+            active &= j > col0
         if not bool(active.any()):
             break
-        d = fetch(torch.clamp(i - 1, min=0), torch.clamp(j - 1, min=0))
+        d = fetch(torch.clamp(i - 1, min=0), torch.clamp(j - 1, min=col0))
         d = torch.where(j > 0, d, torch.where(i > 1, DEC_GB_EXT, 0))
         s = torch.where((s == 0) & ((i == 0) | (j == 0)),
                         torch.where(j > 0, 1, 2), s)
@@ -108,19 +118,25 @@ def plain(fetch, la, lb, st, max_steps: int):
     idx = n[:, None] - 1 - torch.arange(max_steps, device=dev)[None, :]
     steps = torch.where(idx >= 0, rev.gather(1, idx.clamp(min=0)),
                         torch.full_like(rev, STEP_PAD))
-    return steps.to(torch.int8), n.to(torch.int32)
+    out = (steps.to(torch.int8), n.to(torch.int32))
+    if end:
+        out += (torch.stack([i, j, s], dim=1).to(torch.int32),)
+    return out
 
 
 def launch(lanewise: bool, dec, la, lb, st, max_steps: int, L1p: int,
-           L2p: int, count_windows: bool = False):
+           L2p: int, count_windows: bool = False, col0: int = 0,
+           end: bool = False):
     """Launch csrc/traceback.cu on CUDA tensors; with count_windows, also
-    return the windows each walk staged ([B] int32)."""
+    return the windows each walk staged ([B] int32); col0 and end as in
+    ``plain`` (end last)."""
     with torch.cuda.device(dec.device):
         return _launch(lanewise, dec, la, lb, st, max_steps, L1p, L2p,
-                       count_windows)
+                       count_windows, col0, end)
 
 
-def _launch(lanewise, dec, la, lb, st, max_steps, L1p, L2p, count_windows):
+def _launch(lanewise, dec, la, lb, st, max_steps, L1p, L2p, count_windows,
+            col0=0, end=False):
     global launches
     B = la.shape[0]
     _cuda.require_cuda("traceback", dec, la, lb, st)
@@ -133,7 +149,10 @@ def _launch(lanewise, dec, la, lb, st, max_steps, L1p, L2p, count_windows):
     steps = torch.empty((B, max_steps), dtype=torch.int8, device=la.device)
     n = torch.empty(B, dtype=torch.int32, device=la.device)
     win = torch.empty_like(n) if count_windows else None
-    out = (steps, n, win) if count_windows else (steps, n)
+    cell = torch.empty((B, 3), dtype=torch.int32, device=la.device) \
+        if end else None
+    out = (steps, n) + ((win,) if count_windows else ()) + \
+        ((cell,) if end else ())
     if B == 0:
         return out
     plan = launch_plan(B, max_steps)
@@ -141,8 +160,8 @@ def _launch(lanewise, dec, la, lb, st, max_steps, L1p, L2p, count_windows):
         int(lanewise), dec.data_ptr(), la.data_ptr(), lb.data_ptr(),
         st.data_ptr(), B, L1p, L2p, max_steps, plan.warps, plan.win_rows,
         plan.win_cols, plan.buf, steps.data_ptr(), n.data_ptr(),
-        win.data_ptr() if count_windows else None,
-        _cuda.stream(dec.device))
+        win.data_ptr() if count_windows else None, int(col0),
+        cell.data_ptr() if end else None, _cuda.stream(dec.device))
     _cuda.check(rc, "traceback")
     launches += 1
     return out
@@ -171,6 +190,36 @@ def walk_lanewise(dec, la, lb, st, max_steps: int):
     _, W8, L1p4 = dec.shape
     return _walk(True, dec, la, lb, st, max_steps, L1p4, W8 * PACK,
                  _fetch_lanewise(dec))
+
+
+def _fetch_band(dec, col0: int):
+    bidx = torch.arange(dec.shape[0], device=dec.device)
+
+    def fetch(r, c):
+        return dec[bidx, r, c - col0].to(torch.int64) & 0xFF
+    return fetch
+
+
+def walk_band(dec, cell, col0: int, max_steps: int):
+    """One walk over one band of a column-sharded DP: dec [1, L1p, Wd]
+    int8, the row kernel's layout of the DP columns col0 + 1 .. col0 + Wd
+    (Wd a multiple of 16); cell [3] int32 on dec's device, the cell (i, j)
+    and state to start at (j within the band, or, on row 0, anywhere right
+    of col0).  The walk stops where its column reaches col0 (never, with
+    col0 0).  Returns steps [1, max_steps] int8 (this band's part of the
+    path in forward order, padded with 3), n [1] int32 and the cell and
+    state where it stopped [1, 3] int32 (i, j, s: the band to the left
+    starts there).  The kernel on CUDA tensors, ``plain`` on CPU ones."""
+    _, L1p, Wd = dec.shape
+    la, lb, st = (cell[k:k + 1].to(torch.int32) for k in range(3))
+    if dec.is_cuda:
+        return launch(False, dec.contiguous(), la.contiguous(),
+                      lb.contiguous(), st.contiguous(), max_steps, L1p, Wd,
+                      col0=col0, end=True)
+    if dec.device.type == "cpu":
+        return plain(_fetch_band(dec, col0), la, lb, st, max_steps, col0,
+                     end=True)
+    raise ValueError(f"traceback: unsupported device {dec.device}")
 
 
 def plain_rows(dec, la, lb, st, max_steps: int):

@@ -7,10 +7,13 @@ reference's:
     sharded over every shard (``sharded_anchor_distances``);
   * guide-tree levels — a merge bucket's problems sharded on their batch
     axis (``sharded_bucket_step``);
-  * one merge too wide for the row kernel's registers — its columns in
-    bands over the shards (``long_merge``, ``sharded_long_gotoh``: the
-    band kernel of gpu/gotoh_mesh.py, csrc/gotoh_mesh.cu), each band's
-    match made a block of rows at a time (``band_source``).
+  * one DP too wide for the row kernel's registers, or (a consistency
+    map) too big for one card — its columns in bands over the shards
+    (``LongQueue``, ``sharded_long_gotoh``: the band
+    kernel of gpu/gotoh_mesh.py, csrc/gotoh_mesh.cu), each band's match
+    made a block of rows at a time (``band_source``), the path walked
+    band by band on the bands' own cards (``walk_bands``), DPs queued
+    ahead of their walks as far as the cards hold their bands.
 
 A mesh is a [data, model] array of torch devices (``make_mesh``, the
 reference's factorisation).  Every shard keeps its own CUDA stream on
@@ -41,7 +44,8 @@ import torch
 
 from kalign_tpu_torch.gpu import distances, gotoh_mesh, gotoh_row
 from kalign_tpu_torch.gpu import traceback as tb
-from kalign_tpu_torch.gpu.gotoh_mesh import Shard, on
+from kalign_tpu_torch.gpu.gotoh_mesh import Shard, event, on
+from kalign_tpu_torch.utils.logging import span
 
 
 def _world():
@@ -66,7 +70,8 @@ class Mesh:
     process that owns each shard; ``shards`` the flattened mesh, each
     with its stream (None on the CPU and for another process's shards);
     ``local`` the flat indices this process runs; ``gathers`` the calls
-    and seconds of ``gather`` across processes."""
+    and seconds of ``gather`` across processes; ``walkers`` each card's
+    walk stream (``walker``)."""
 
     def __init__(self, devices: np.ndarray, ranks: np.ndarray, rank: int):
         self.devices = devices
@@ -77,6 +82,7 @@ class Mesh:
         owners = list(ranks.reshape(-1))
         self.local = [k for k, r in enumerate(owners) if r == rank]
         self.gathers = {"calls": 0, "s": 0.0}
+        self.walkers = {}
         self.shards = []
         for k, d in enumerate(flat):
             mine = owners[k] == rank and d.type == "cuda"
@@ -165,12 +171,24 @@ def pad_rows(a: np.ndarray, to: int, fill=0) -> np.ndarray:
 
 
 def put(x, shard: Shard) -> torch.Tensor:
-    """A host array on the shard's device: pinned and asynchronous on its
-    stream (call inside ``on(shard)``)."""
-    t = torch.from_numpy(np.ascontiguousarray(x))
+    """A host array or a tensor on the shard's device, for its stream
+    (call inside ``on(shard)``): from the host pinned and asynchronous;
+    from another card copied after both cards' current streams; on the
+    shard's own card taken as it is, kept from the allocator until the
+    stream is done with it (the stream waits on its making: long_operands'
+    ``ready``)."""
+    t = x if isinstance(x, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(x))
     if shard.device.type != "cuda":
+        return t.to(shard.device)
+    if t.device.type == "cpu":
+        return t.contiguous().pin_memory().to(shard.device,
+                                              non_blocking=True)
+    if t.device == shard.device:
+        if shard.stream is not None:
+            t.record_stream(shard.stream)
         return t
-    return t.pin_memory().to(shard.device, non_blocking=True)
+    return t.to(shard.device, non_blocking=True)
 
 
 def fetch(mesh: Mesh, outs: dict) -> dict:
@@ -388,7 +406,7 @@ def sharded_long_gotoh(mesh: Mesh, match, pens_cols, pens_rows, la: int,
     n = len(shards)
     if W % n:
         raise ValueError(f"width {W} is not a multiple of {n} shards")
-    Wd = gotoh_mesh.band_width(W, n)
+    Wd = gotoh_mesh.band_width(W, n, gotoh_mesh.alone(shards))
     Wp = Wd * n
     pc = np.pad(np.asarray(pens_cols, np.float32), ((0, 0), (0, Wp - W)))
     mp = np.pad(np.asarray(match, np.float32), ((0, 0), (0, Wp - W)))
@@ -410,43 +428,68 @@ def sharded_long_gotoh(mesh: Mesh, match, pens_cols, pens_rows, la: int,
         return dec, float(score.cpu()[0]), int(st.cpu()[0])
 
 
-def band_bytes(L1p: int, Wd: int, rows: int) -> int:
-    """Device bytes of one band of a column-sharded merge on its shard:
-    its decisions (int8), the ring of two float32 match buffers of
-    gotoh_mesh.FILL_BLOCKS blocks of ``rows`` rows (L1p at most), the
-    state [2, 3, Wd], the strips (one of rows + 1 a block, and a copy for
-    the next shard) and the operands (the rows' lhs, the band's rhs)."""
+def band_parts(L1p: int, Wd: int, rows: int):
+    """Device bytes of one band of a column-sharded DP on its shard: (its
+    decisions and its ring of two float32 match buffers of fill_rows'
+    rows, gotoh_mesh.buffer_bytes: what LongQueue keeps in its buffers;
+    the rest: the state [2, 3, Wd], the strips (one of rows + 1 a block,
+    and a copy for the next shard) and the operands (the rows' lhs, the
+    band's rhs))."""
     blocks = -(-L1p // rows)
-    fill = min(rows * gotoh_mesh.FILL_BLOCKS, L1p)
-    return (L1p * Wd + 2 * 4 * fill * Wd + 4 * 6 * Wd
-            + 2 * 4 * blocks * (rows + 1) * gotoh_mesh.STRIP
+    return (gotoh_mesh.buffer_bytes(L1p, Wd, gotoh_mesh.fill_rows(rows, L1p)),
+            4 * 6 * Wd + 2 * 4 * blocks * (rows + 1) * gotoh_mesh.STRIP
             + 4 * 23 * (L1p + Wd))
 
 
-def check_long_fits(mesh: Mesh, L1p: int, W: int,
-                    rows: int = gotoh_mesh.BLOCK_ROWS) -> None:
-    """The column-sharded route's memory guard, before anything of the
-    merge is allocated: raises MemoryError, naming the width, where a
-    card cannot hold the bands of one L1p x W merge that its shards run
-    (band_bytes for each; on the first shard's card also the bands'
-    decisions gathered for the walk).  Off the card nothing is checked."""
+def band_bytes(L1p: int, Wd: int, rows: int) -> int:
+    """Device bytes of one band of a column-sharded DP on its shard (both
+    of band_parts)."""
+    return sum(band_parts(L1p, Wd, rows))
+
+
+def long_shortfall(mesh: Mesh, L1p: int, W: int,
+                   rows: int = gotoh_mesh.BLOCK_ROWS, held=None) -> list:
+    """The cards that cannot hold the bands of one more L1p x W
+    column-sharded DP that their shards run (band_bytes for each, against
+    card_bytes: what the DPs in flight hold is counted there already;
+    held(d, nbytes), where given, the bytes band d needs for its buffers
+    beyond those a LongQueue keeps for it): [(device, bytes needed, bytes
+    it has)].  Off the card nothing is short."""
     from kalign_tpu_torch.gpu.engine import card_bytes
     shards = _one_process(mesh)
     n = len(shards)
-    Wd = gotoh_mesh.band_width(W, n)
+    Wd = gotoh_mesh.band_width(W, n, gotoh_mesh.alone(shards))
+    bufs, rest = band_parts(L1p, Wd, rows)
     need = {}
-    for sh in shards:
-        need[sh.device] = need.get(sh.device, 0) + band_bytes(
-            L1p, Wd, rows)
-    need[shards[0].device] += L1p * (-(-Wd * n // 16) * 16)
+    for d, sh in enumerate(shards):
+        more = bufs if held is None else held(d, bufs)
+        need[sh.device] = need.get(sh.device, 0) + more + rest
+    out = []
     for dev, bytes_ in need.items():
         have = card_bytes(dev)
         if have is not None and bytes_ > have:
-            raise MemoryError(
-                f"a {L1p} x {W} merge in {n} bands of {Wd} columns needs "
-                f"{bytes_ / 2 ** 30:.1f} GiB of device memory on {dev} "
-                f"(decisions, match blocks, strips); it has "
-                f"{have / 2 ** 30:.1f} GiB free")
+            out.append((dev, bytes_, have))
+    return out
+
+
+def check_long_fits(mesh: Mesh, L1p: int, W: int,
+                    rows: int = gotoh_mesh.BLOCK_ROWS,
+                    what: str = "merge", held=None) -> None:
+    """The column-sharded route's memory guard, before anything of the
+    DP is allocated: raises MemoryError, naming the width, where a card
+    cannot hold the bands of one L1p x W DP (``what``: a merge or a map
+    DP) that its shards run (long_shortfall, held as there).  Each band's
+    decisions stay on its card: nothing is gathered for the walk."""
+    short = long_shortfall(mesh, L1p, W, rows, held)
+    if short:
+        dev, bytes_, have = short[0]
+        n = mesh.size
+        Wd = gotoh_mesh.band_width(W, n, gotoh_mesh.alone(mesh.shards))
+        raise MemoryError(
+            f"a {L1p} x {W} {what} in {n} bands of {Wd} columns needs "
+            f"{bytes_ / 2 ** 30:.1f} GiB of device memory on {dev} "
+            f"(decisions, match blocks, strips); it has "
+            f"{have / 2 ** 30:.1f} GiB free")
 
 
 def band_source(lhs, rhs_t, one, bonus, c0: int):
@@ -475,21 +518,40 @@ def band_source(lhs, rhs_t, one, bonus, c0: int):
 
 def long_operands(mesh: Mesh, lhs, rhs, pc, pr, la: int, lb: int,
                   eps: float, bonus=None):
-    """The column-sharded route's inputs of one merge, queued: W padded
-    to n bands of gotoh_mesh.band_width (pc with zeros, as tpu/engine.py:
+    """The column-sharded route's inputs of one DP, queued: W padded to n
+    bands of gotoh_mesh.band_width (pc with zeros, as tpu/engine.py:
     516-521 pads it to a multiple of the shard count), the row-invariant
     vectors over the padded width on the first shard (gotoh_row.prepare),
     and on each shard its band's source (band_source: the operands of
     its rows and columns on its card, the match made a block of rows at
-    a time; no band's whole match is made).  Without a bonus the kernel
-    subtracts the bias.  Returns (band sources, prep, Wp)."""
+    a time; no band's whole match is made).  lhs [L1p, 23], rhs [L2p,
+    23], pc [3, L2p + 1], pr [3, L1p + 1]: host arrays (a merge's) or
+    tensors on one card (a map DP's, made there on its current stream);
+    bonus None or the compact tuple of host arrays.  Without a bonus the
+    kernel subtracts the bias.  Returns (band sources, prep, Wp)."""
     shards = _one_process(mesh)
     n = len(shards)
+    lhs, rhs, pc, pr = (torch.as_tensor(x) for x in (lhs, rhs, pc, pr))
     L2p = rhs.shape[0]
-    Wd = gotoh_mesh.band_width(L2p, n)
+    Wd = gotoh_mesh.band_width(L2p, n, gotoh_mesh.alone(shards))
     Wp = Wd * n
+    pad = torch.nn.functional.pad
+    pc_p = pad(pc, (0, Wp - L2p))
+    rhs_p = pad(rhs, (0, 0, 0, Wp - L2p))
+    ready = None
+    if lhs.device.type == "cuda":
+        # the operands' making on their card's current stream: the shard
+        # of that card reads them on its own stream (put)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(lhs.device))
+
+    def made(sh):
+        if ready is not None and sh.stream is not None and \
+                sh.device == lhs.device:
+            sh.stream.wait_event(ready)
     sh0 = shards[0]
     with on(sh0):
+        made(sh0)
         la_d = put(np.array([la], np.int32), sh0)
         lb_d = put(np.array([lb], np.int32), sh0)
         slope = lb_d.to(torch.float32) / torch.clamp(
@@ -498,10 +560,8 @@ def long_operands(mesh: Mesh, lhs, rhs, pc, pr, la: int, lb: int,
         if bonus is not None:
             # bias and bonus are in the match: the kernel adds none
             slope, eps_k = torch.zeros_like(slope), torch.zeros_like(eps_k)
-        prep = gotoh_row.prepare(
-            put(np.pad(pc, ((0, 0), (0, Wp - L2p)))[None], sh0),
-            put(pr[None], sh0), la_d, lb_d, slope, eps_k)
-    rhs_p = pad_rows(np.ascontiguousarray(rhs), Wp)
+        prep = gotoh_row.prepare(put(pc_p[None], sh0), put(pr[None], sh0),
+                                 la_d, lb_d, slope, eps_k)
     if bonus is not None:
         per_w, apr, cfr, apc, cfc = bonus
         apc = np.pad(apc, ((0, 0), (0, Wp - L2p)), constant_values=-1)
@@ -510,6 +570,7 @@ def long_operands(mesh: Mesh, lhs, rhs, pc, pr, la: int, lb: int,
     for d, sh in enumerate(shards):
         c0, c1 = d * Wd, (d + 1) * Wd
         with on(sh):
+            made(sh)
             one = b = None
             if bonus is not None:
                 one = [put(np.array([x], dt), sh) for x, dt in (
@@ -524,26 +585,185 @@ def long_operands(mesh: Mesh, lhs, rhs, pc, pr, la: int, lb: int,
     return sources, prep, Wp
 
 
-def long_merge(mesh: Mesh, lhs, rhs, pc, pr, la: int, lb: int, eps: float,
-               bonus=None, rows: int = gotoh_mesh.BLOCK_ROWS):
-    """Queue one merge whose width the register row kernel cannot hold
-    with its columns in bands over the mesh (tpu/engine.py:409-423,
-    _long_seq_mesh :509-532): the memory guard (check_long_fits),
-    long_operands, the band kernel's pipeline (each band's match a block
-    of rows at a time), the decision bands gathered onto the first
-    shard's card and walked there (max_steps = L1p + Wp + 2).  lhs
-    [L1p, 23], rhs [L2p, 23], pc [3, L2p + 1], pr [3, L1p + 1] host
-    numpy; bonus None or the compact (per_w, apos_r [K, L1p], conf_r,
-    apos_c [K, L2p], conf_c).  Returns (steps [1, S], n [1], score [1])
-    on the first shard's device."""
-    shards = _one_process(mesh)
-    check_long_fits(mesh, lhs.shape[0], rhs.shape[0], rows)
-    sources, prep, Wp = long_operands(mesh, lhs, rhs, pc, pr, la, lb, eps,
-                                      bonus)
-    bands, score, st = gotoh_mesh.forward(shards, sources, prep, la, lb,
-                                          rows)
-    dec = gotoh_mesh.gather_dec(shards, bands, -(-Wp // 16) * 16)
-    with on(shards[0]):
-        t = [put(np.array([x], np.int32), shards[0]) for x in (la, lb)]
-        steps, nst = tb.walk_rows(dec, *t, st, lhs.shape[0] + Wp + 2)
-    return steps, nst, score
+def walker(mesh: Mesh, d: int) -> Shard:
+    """Shard d's card with the mesh's walk stream there (one a card, of
+    high priority, made at first use): the walks run beside the next
+    DP's bands, which run on the shards' own streams."""
+    sh = mesh.shards[d]
+    if sh.stream is None:
+        return sh
+    if sh.device not in mesh.walkers:
+        mesh.walkers[sh.device] = torch.cuda.Stream(device=sh.device,
+                                                    priority=-1)
+    return Shard(sh.device, mesh.walkers[sh.device])
+
+
+def walk_bands(mesh: Mesh, bands, la: int, lb: int, st, max_steps: int):
+    """The path of a column-sharded DP whose forward has finished, walked
+    on the bands' own cards (bands[d] on mesh.shards[d], each its
+    decisions [L1p, Wd] of the columns d Wd + 1 .. (d + 1) Wd): from
+    (la, lb) in the end state st ([1] int32) on the band that holds
+    column lb, right to left, each band's walk (traceback.walk_band, on
+    its card's walk stream) stopping where its column reaches the band's
+    first and handing the cell and the state (three int32) to the band
+    on its left, on that band's card.  No decision leaves its card.
+    Returns (steps int8 in forward order: the bands' parts concatenated
+    from band 0 on, band crossings, transfers to the host)."""
+    Wd = bands[0]["dec"].shape[1]
+    o = (lb - 1) // Wd if lb > 0 else 0
+    parts = {}
+    cell = None
+    for d in range(o, -1, -1):
+        w = walker(mesh, d)
+        # a copy between cards waits on both cards' current streams: the
+        # walk streams of both, never a card's default stream, which the
+        # next DP's strip copies hold (gotoh_mesh.schedule)
+        if d == o:
+            with on(walker(mesh, 0)), on(w):
+                cell = torch.cat([
+                    torch.tensor([la, lb], dtype=torch.int32).to(w.device),
+                    st.to(w.device, torch.int32)])
+        with on(w):
+            steps, n, end = tb.walk_band(bands[d]["dec"][None], cell,
+                                         d * Wd, max_steps)
+            parts[d] = (steps, n)
+        if d:
+            nxt = walker(mesh, d - 1)
+            with on(nxt), on(w):
+                cell = end[0].to(nxt.device, non_blocking=True)
+    out = []
+    for d in range(o + 1):
+        steps, n = parts[d]
+        with on(walker(mesh, d)):
+            k = int(n.cpu()[0])
+            out.append(steps[0, :k].cpu().numpy())
+    return np.concatenate(out), o, 2 * (o + 1)
+
+
+class LongDP:
+    """One column-sharded DP queued on a mesh (LongQueue.submit): its
+    bands, score and end state until it is walked, then ``result``: its
+    steps on the host (int8, forward order) and its score, fetched in
+    ``fetches`` transfers; ``slot`` the queue's buffers it holds."""
+
+    def __init__(self, shards, bands, score, st, la, lb, max_steps, slot):
+        self.bands, self.score, self.st = bands, score, st
+        self.la, self.lb, self.max_steps = la, lb, max_steps
+        self.slot = slot
+        # the bands' last work on each shard's own stream
+        self.done = [event(sh) for sh in shards]
+        self.result = None
+        self.fetches = 0
+
+
+class LongQueue:
+    """Column-sharded DPs queued ahead of their walks, in waves that the
+    cards hold: before a DP's bands are queued, the oldest queued DPs are
+    walked (walk_bands; their bands freed) while INFLIGHT are queued or
+    while a card cannot hold the new DP's bands beside what it holds
+    (long_shortfall); where none is queued and a card still cannot,
+    check_long_fits raises the named MemoryError.  The walks run on the
+    cards' walk streams, beside the bands of the DPs queued after them.
+    Each DP's decisions and match rings lie in buffers the queue keeps
+    from DP to DP, one a band and slot (INFLIGHT slots), grown by at
+    least an eighth at a time (``buffer``): DPs of unequal sizes
+    allocated and freed in turn left a card's allocator with its large
+    segments split, tens of GB free and none of them one DP's decisions
+    (torch.OutOfMemoryError at KHV's ~295 kb, PERF.md).  Spans:
+    ``mesh.bands`` the host's queueing of a DP's operands, sources and
+    launches, ``mesh.walk`` a walk from its first band's launch to its
+    steps on the host (after the DP's forward has finished).  stats (the
+    engine's, or a dict) counts ``walk_handoffs`` (band crossings)."""
+
+    # DPs whose bands are held at once: one walked while the next one's
+    # bands run
+    INFLIGHT = 2
+
+    def __init__(self, mesh: Mesh, stats: Optional[dict] = None):
+        self.mesh = mesh
+        self.stats = {} if stats is None else stats
+        self.queued = []
+        self.buffers = {}           # (slot, band) -> uint8 tensor
+        if any(sh.stream is not None for sh in mesh.shards):
+            # an earlier queue's buffers, freed with it, back to the
+            # cards whole before this one's are made
+            torch.cuda.empty_cache()
+
+    def buffer(self, slot: int, d: int, nbytes: int):
+        """Band d's buffer of the slot, of at least nbytes on its card:
+        the one kept, or a new one an eighth (rounded to a power of two)
+        larger than asked where that is short."""
+        buf = self.buffers.get((slot, d))
+        if buf is None or buf.numel() < nbytes:
+            self.buffers.pop((slot, d), None)
+            del buf
+            step = 1 << max(0, nbytes.bit_length() - 4)
+            with on(self.mesh.shards[d]):
+                buf = torch.empty(-(-nbytes // step) * step + step,
+                                  dtype=torch.uint8,
+                                  device=self.mesh.shards[d].device)
+            self.buffers[(slot, d)] = buf
+        return buf
+
+    def _more(self, slot: int):
+        """held(d, nbytes) of long_shortfall for the slot's buffers."""
+        def more(d, nbytes):
+            buf = self.buffers.get((slot, d))
+            have = 0 if buf is None else buf.numel()
+            if have >= nbytes:
+                return 0
+            step = 1 << max(0, nbytes.bit_length() - 4)
+            return -(-nbytes // step) * step + step - have
+        return more
+
+    def submit(self, lhs, rhs, pc, pr, la: int, lb: int, eps: float,
+               bonus=None, rows: Optional[int] = None,
+               what: str = "merge") -> LongDP:
+        """Queue one DP (long_operands' inputs) after walking
+        what must go first; returns its LongDP.  rows: a launch's, by
+        default gotoh_mesh.block_rows of the DP's bands."""
+        shards = _one_process(self.mesh)
+        L1p, W = lhs.shape[0], rhs.shape[0]
+        if rows is None:
+            alone = gotoh_mesh.alone(shards)
+            rows = gotoh_mesh.block_rows(
+                gotoh_mesh.band_width(W, len(shards), alone), alone)
+
+        def slot():
+            used = {dp.slot for dp in self.queued}
+            return min(set(range(self.INFLIGHT)) - used)
+        while self.queued and (
+                len(self.queued) >= self.INFLIGHT or long_shortfall(
+                    self.mesh, L1p, W, rows, self._more(slot()))):
+            self.walk(self.queued[0])
+        k = slot()
+        check_long_fits(self.mesh, L1p, W, rows, what, self._more(k))
+        with span("mesh.bands"):
+            sources, prep, Wp = long_operands(self.mesh, lhs, rhs, pc, pr,
+                                              la, lb, eps, bonus)
+            bands, score, st = gotoh_mesh.forward(
+                shards, sources, prep, la, lb, rows,
+                alloc=lambda d, n: self.buffer(k, d, n))
+            dp = LongDP(shards, bands, score, st, la, lb, L1p + Wp + 2, k)
+        self.queued.append(dp)
+        return dp
+
+    def walk(self, dp: LongDP):
+        """dp's (steps, score) on the host, walked where it is not yet."""
+        if dp.result is None:
+            for ev in dp.done:
+                if ev is not None:
+                    ev.synchronize()
+            with span("mesh.walk"):
+                steps, crossed, fetches = walk_bands(
+                    self.mesh, dp.bands, dp.la, dp.lb, dp.st, dp.max_steps)
+                # on the walk stream: the first shard's own holds the next
+                # DP's bands
+                with on(walker(self.mesh, 0)):
+                    score = float(dp.score.cpu()[0])
+            dp.result, dp.fetches = (steps, score), fetches + 1
+            dp.bands = dp.score = dp.st = None
+            self.queued.remove(dp)
+            self.stats["walk_handoffs"] = \
+                self.stats.get("walk_handoffs", 0) + crossed
+        return dp.result

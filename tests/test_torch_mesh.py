@@ -362,9 +362,10 @@ def test_column_sharded_dp_leading_gap_run_boundary(n):
 
 @pytest.mark.parametrize("n", [3, 8])
 def test_long_merge_pads_a_width_that_is_not_a_multiple(n):
-    """long_merge (the engine's column-sharded route: match bands built on
-    each shard, W padded to a multiple of n, the decisions walked on the
-    first shard) against kalign_tpu's _long_seq_mesh on the same match."""
+    """A merge on the column-sharded route as the engine queues it
+    (LongQueue: match bands built on each shard, W padded to a multiple
+    of n, the path walked band by band) against kalign_tpu's
+    _long_seq_mesh on the same match."""
     rng = np.random.default_rng(7)
     L1p, L2p = 128, 128
     lhs = rng.normal(size=(L1p, 23)).astype(np.float32)
@@ -374,15 +375,15 @@ def test_long_merge_pads_a_width_that_is_not_a_multiple(n):
     pc[1] *= 0.2
     pr[1] *= 0.2
     la, lb = 101, 117
-    steps, nst, score = TM.long_merge(_cpu_mesh(n), lhs, rhs, pc, pr, la, lb,
-                                      0.0, rows=32)
+    q = TM.LongQueue(_cpu_mesh(n))
+    steps, score = q.walk(q.submit(lhs, rhs, pc, pr, la, lb, 0.0, rows=32))
     match = torch.mm(torch.from_numpy(lhs),
                      torch.from_numpy(rhs).T).numpy()[None]
     eng = JTE.TpuEngine(use_pallas=False, mesh=JM.make_mesh(n_devices=n))
     want, wscores = eng._long_seq_mesh(match, pc[None], pr[None],
                                        np.array([la]), np.array([lb]))
-    assert steps[0, :int(nst[0])].tolist() == want[0].tolist()
-    assert float(score[0]) == pytest.approx(wscores[0], rel=1e-5)
+    assert steps.tolist() == want[0].tolist()
+    assert score == pytest.approx(wscores[0], rel=1e-5)
 
 
 # ---------------------------------------------------------------------------

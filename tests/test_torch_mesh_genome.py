@@ -76,12 +76,12 @@ def test_long_family_on_the_mesh_is_gpu_fast_and_tpu_fast(monkeypatch):
         return cached["dm"]
     monkeypatch.setattr(GpuEngine, "anchor_distances", distances)
     calls = []
-    orig = TM.long_merge
+    orig = TM.LongQueue.submit
 
-    def spy(*a, **kw):
-        calls.append(a[1].shape[0])
-        return orig(*a, **kw)
-    monkeypatch.setattr(TM, "long_merge", spy)
+    def spy(self, *a, **kw):
+        calls.append(a[0].shape[0])
+        return orig(self, *a, **kw)
+    monkeypatch.setattr(TM.LongQueue, "submit", spy)
     out = {}
     for name, engine in (("gpu-fast", "gpu-fast"),
                          ("gpu-mesh", TE.get_engine("gpu-mesh",
@@ -284,19 +284,21 @@ def test_forward_fed_blocks_is_fed_whole_bands(n, rows, la, lb):
 
 
 def test_mesh_guard_names_the_width(monkeypatch):
-    """long_merge's memory guard (check_long_fits) raises MemoryError,
+    """The column-sharded route's memory guard (check_long_fits, in
+    LongQueue.submit) raises MemoryError,
     naming the merge's width and the bands', before any operand is made,
-    where card_bytes says the card is too small; it passes at the
-    card's size."""
+    where card_bytes says the card is too small for the bands (each
+    band's decisions stay on its card: nothing is gathered for the
+    walk); it passes at the card's size."""
     lhs, rhs, pc, pr, la, lb, eps, b = _merge(2, 300, 2000, 300, 2000)
     mesh = _cpu_mesh(4)
     made = []
     monkeypatch.setattr(TM, "long_operands", lambda *a: made.append(a))
-    need = 4 * TM.band_bytes(300, 512, gotoh_mesh.BLOCK_ROWS) + 300 * 2048
+    need = 4 * TM.band_bytes(300, 512, gotoh_mesh.BLOCK_ROWS)
     monkeypatch.setattr(TGE, "card_bytes", lambda dev: need - 1)
     with pytest.raises(MemoryError, match=r"300 x 2000 merge in 4 bands "
                                           r"of 512 columns"):
-        TM.long_merge(mesh, lhs, rhs, pc, pr, la, lb, eps, b)
+        TM.LongQueue(mesh).submit(lhs, rhs, pc, pr, la, lb, eps, b)
     assert not made
     monkeypatch.setattr(TGE, "card_bytes", lambda dev: need)
     TM.check_long_fits(mesh, 300, 2000)
